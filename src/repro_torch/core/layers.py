@@ -1,0 +1,61 @@
+"""Normalization, rotary embeddings, activations, embedding and LM head.
+
+Port of the JAX package's ``core/layers.py`` at tp=1 (every ``psum`` there
+is the identity on one device).  ``rmsnorm`` and the LM head go through
+``kernels.ops``, so on the card they run the Hopper kernels.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """RMSNorm over the last axis, ``(1 + scale)`` convention, computed in
+    float32 and cast back."""
+    E = x.shape[-1]
+    y = ops.rmsnorm(x.reshape(-1, E).contiguous(), scale, eps)
+    return y.reshape(x.shape)
+
+
+def apply_norm(x, p, cfg):
+    return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+def activation(x, kind: str):
+    if kind != "silu":
+        raise NotImplementedError(f"activation '{kind}' is not ported yet")
+    return F.silu(x)
+
+
+def rope_freqs(head_dim: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """Split-half rotary embedding in float32.  x: (..., S, D) with
+    positions (..., S) or (S,)."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)
+    ang = positions[..., None].to(torch.float32) * freqs          # (..., S, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed(tokens, table):
+    """tokens: (B, S) int; table: (V, E) -> (B, S, E)."""
+    return F.embedding(tokens, table)
+
+
+def logits(x, head):
+    """x: (B, S, E); head: (V, E), read as stored -> (B, S, V)."""
+    B, S, E = x.shape
+    out = ops.matmul(x.reshape(B * S, E).contiguous(), head, trans_b=True)
+    return out.reshape(B, S, head.shape[0])

@@ -1,0 +1,227 @@
+"""Decoder parameters and forward passes over the paged cache.
+
+Port of the JAX package's ``core/model.py`` for attention-only dense
+decoders at tp=1.  The parameter tree has the JAX tree's paths, with the tp
+axis stripped (what the JAX package's ``blocks._lo`` returns) and the
+stacked ``reps`` axis kept:
+
+    {"embed": {"table": (V, E)},
+     "stacks": [[layer tree per pattern entry] per layer group],
+     "final_norm": {"scale": (E,)}}
+
+with, per layer, ``ln1``/``ln2`` ``{"scale": (reps, E)}``, ``attn``
+``{"wq": (reps, E, H, D), "wk"/"wv": (reps, E, n_kv_loc, D), "wo": (reps, H,
+D, E)}`` and ``ffn`` ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F,
+E)}``.  ``_run_stack`` loops over ``reps`` in Python where JAX scans.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import FFN_DENSE, MIX_ATTN, ModelConfig
+from repro_torch.core.blocks import layer_forward
+from repro_torch.core.device import resolve_device
+from repro_torch.core.layers import apply_norm, embed, logits
+from repro_torch.core.partition import ShardingPlan, model_layout, torch_dtype
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    full: tuple                # canonical shape (JAX's ``ParamSpec.full``)
+    init: str = "normal"       # normal | zeros
+    scale: float = 0.02
+    kv_heads: bool = False     # gathered through the head layout's kv_map
+
+
+def check_supported(cfg: ModelConfig):
+    """The port serves dense attention-only decoders with RMSNorm, a gated
+    or plain dense FFN and tied embeddings; the rest waits for its slice."""
+    missing = [name for name, bad in (
+        ("qk_norm", cfg.qk_norm), ("sandwich_norm", cfg.sandwich_norm),
+        ("scale_embed", cfg.scale_embed), ("layernorm", cfg.norm != "rmsnorm"),
+        ("untied LM head", not cfg.tie_embeddings),
+        ("a plain (ungated) or non-silu FFN",
+         not cfg.gated_ffn or cfg.act != "silu"),
+        ("encoder-decoder", cfg.is_encdec), ("frontend", cfg.frontend),
+        ("non-attention or MoE layers",
+         any(s.mixer != MIX_ATTN or s.ffn != FFN_DENSE
+             for s in cfg.layer_specs()))) if bad]
+    if missing:
+        raise NotImplementedError(
+            f"arch '{cfg.name}' needs {', '.join(missing)}, which the PyTorch "
+            f"port does not serve yet (ROADMAP Queue 1)")
+
+
+def layer_template(cfg, spec, n_layers_total):
+    E, d = cfg.d_model, cfg.head_dim_
+    out_scale = 0.02 / math.sqrt(2 * n_layers_total)
+    return {
+        "ln1": {"scale": ParamSpec((E,), "zeros")},
+        "attn": {"wq": ParamSpec((E, cfg.n_heads, d)),
+                 "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+                 "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+                 "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)},
+        "ln2": {"scale": ParamSpec((E,), "zeros")},
+        "ffn": {"w_up": ParamSpec((E, spec.d_ff)),
+                "w_down": ParamSpec((spec.d_ff, E), scale=out_scale),
+                "w_gate": ParamSpec((E, spec.d_ff))},
+    }
+
+
+def model_template(cfg: ModelConfig):
+    """The parameter tree of ``ParamSpec`` leaves, in the JAX package's
+    leaf order (which fixes the order of random draws)."""
+    check_supported(cfg)
+    return {
+        "embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model))},
+        "stacks": [[layer_template(cfg, s, cfg.n_layers) for s in g.pattern]
+                   for g in cfg.layer_groups()],
+        "final_norm": {"scale": ParamSpec((cfg.d_model,), "zeros")},
+    }
+
+
+def map_template(cfg, fn):
+    """Map ``fn(spec, reps)`` over the template; ``reps`` is the group's
+    repetition count inside ``stacks`` and 0 elsewhere."""
+    def walk(node, reps):
+        if isinstance(node, ParamSpec):
+            return fn(node, reps)
+        return {k: walk(v, reps) for k, v in node.items()}
+
+    tmpl = model_template(cfg)
+    out = {}
+    for key, val in tmpl.items():
+        if key == "stacks":
+            out[key] = [[walk(pt, g.n_reps) for pt in sub]
+                        for g, sub in zip(cfg.layer_groups(), val, strict=True)]
+        else:
+            out[key] = walk(val, 0)
+    return out
+
+
+def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
+                dtype=None):
+    """Scaled-normal init with the JAX package's scheme (``model.py``:
+    ``scale * normal`` per leaf, zeros for norm scales, wo/w_down scaled by
+    ``0.02 / sqrt(2 * n_layers)``), one draw per leaf and repetition from
+    ``generator`` (a CPU ``torch.Generator``; seed 0 when None).  The draws
+    are made on the CPU, so one seed gives the same weights on every
+    device.  The numbers differ from JAX's (another generator): tests that
+    compare with JAX load JAX's weights through ``bridge.params_from_jax``."""
+    dev = resolve_device(device)
+    dt = torch_dtype(dtype or plan.weight_dtype or cfg.dtype)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    kv_map = torch.tensor(model_layout(cfg, plan).attn.kv_map)
+
+    def one(spec):
+        if spec.init == "zeros":
+            full = torch.zeros(spec.full)
+        else:
+            full = spec.scale * torch.randn(spec.full, generator=generator)
+        if spec.kv_heads:
+            full = full.index_select(1, kv_map)
+        return full
+
+    def mk(spec, reps):
+        t = torch.stack([one(spec) for _ in range(reps)]) if reps else one(spec)
+        return t.to(device=dev, dtype=dt)
+
+    return map_template(cfg, mk)
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_paths(tree, prefix=""):
+    """(path, leaf) pairs; path segments joined by '.' ("stacks.0.0.attn.wq")."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix, tree)]
+    return [pl for k, v in items
+            for pl in tree_paths(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+class Decoder(nn.Module):
+    """The model as a module: each leaf is a frozen ``nn.Parameter``
+    registered under its tree path ('.' -> '__'), so ``state_dict``,
+    ``parameters()`` and ``.to()`` work on the model as a module.  The
+    forward functions take the plain tree, ``Decoder.tree()``, whose leaves
+    are these same parameters."""
+
+    def __init__(self, params):
+        super().__init__()
+        self._tree = tree_map(lambda t: nn.Parameter(t, requires_grad=False),
+                              params)
+        for path, leaf in tree_paths(self._tree):
+            self.register_parameter(path.replace(".", "__"), leaf)
+
+    def tree(self):
+        return self._tree
+
+
+def _run_stack(x, stack_params, groups, cfg, plan, lay, mode, positions,
+               pos=None, cache=None, pages=None):
+    """Every layer group, each repetition in turn; the pools in ``cache``
+    (aligned with ``groups``) are updated in place."""
+    for group, gparams, gcache in zip(groups, stack_params, cache, strict=True):
+        for r in range(group.n_reps):
+            for pi, spec in enumerate(group.pattern):
+                p_rep = tree_map(lambda a, r=r: a[r], gparams[pi])
+                c_rep = tree_map(lambda a, r=r: a[r], gcache[pi])
+                x, _ = layer_forward(x, p_rep, c_rep, cfg, plan, lay, spec,
+                                     mode, positions, pos, pages)
+    return x, cache
+
+
+def embed_tokens(params, tokens):
+    return embed(tokens, params["embed"]["table"])
+
+
+def final_logits(params, x):
+    """Tied LM head: x @ table^T, reading the table as stored."""
+    return logits(x, params["embed"]["table"])
+
+
+def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages):
+    """One decode step.  tokens: (B, 1); pos: (B,) -> (logits (B, V), cache)."""
+    positions = pos[:, None]
+    x = embed_tokens(params, tokens)
+    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
+                          lay, "decode", positions, pos=pos, cache=cache,
+                          pages=pages)
+    x = apply_norm(x, params["final_norm"], cfg)
+    return final_logits(params, x)[:, 0], cache
+
+
+def forward_prefill_chunk(params, cache, tokens, chunk_start: int,
+                          last_idx: int, cfg, plan, lay, pages):
+    """One fixed-size prefill chunk against the paged cache.
+
+    tokens: (B, C) chunk of the prompt (zero-padded past its end);
+    chunk_start: absolute position of the chunk's first token; last_idx:
+    in-chunk index of the prompt's final token (callers use the logits
+    only on the chunk that holds it).  -> (logits (B, V), cache).  Prompt
+    lengths reach this function only as data, never as shapes."""
+    B, C = tokens.shape
+    positions = chunk_start + torch.arange(C, device=tokens.device,
+                                           dtype=torch.int32).expand(B, C)
+    pages = {**pages, "chunk_start": int(chunk_start)}
+    x = embed_tokens(params, tokens)
+    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
+                          lay, "prefill", positions, cache=cache, pages=pages)
+    x = x[:, last_idx:last_idx + 1]
+    x = apply_norm(x, params["final_norm"], cfg)
+    return final_logits(params, x)[:, 0], cache

@@ -1,0 +1,67 @@
+"""Layout of the model on one device: the tp=1 part of the JAX package's
+``core/partition.py``.
+
+``ShardingPlan`` keeps the two storage choices the paged-serving slice
+reads (pool dtype, weight dtype); ``head_layout`` keeps the grouped-query
+head layout that ``blocks._group_q`` uses, computed for tp=1.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """Config dtype name -> torch dtype (float pools and weights only)."""
+    if name not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype '{name}' is not ported yet (the int8 pools and weights "
+            f"come with a later slice); have {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class ShardingPlan:
+    """Storage choices of a one-device deployment."""
+    kv_cache_dtype: str = "bfloat16"  # page-pool dtype
+    weight_dtype: str = ""            # "" -> cfg.dtype
+
+
+@dataclass(frozen=True)
+class HeadLayout:
+    n_q: int                 # q heads
+    n_kv: int                # kv heads
+    hq_loc: int              # q heads on this device (all of them at tp=1)
+    r: int                   # q heads per kv slot
+    n_kv_loc: int            # kv slots on this device
+    kv_map: tuple            # kv head held by each slot
+
+
+def head_layout(n_q: int, n_kv: int) -> HeadLayout:
+    """Grouped-query layout at tp=1, by the JAX package's rule: the largest
+    r in n_q, n_q // 2, n_q // 4, ... such that every run of r consecutive
+    q heads shares one kv head; each of the n_q // r slots holds that kv
+    head (a kv head is repeated when r comes out below the group size)."""
+    assert n_q % n_kv == 0, (n_q, n_kv)
+    group = n_q // n_kv
+    r = n_q
+    while r > 1 and not all(len({(s * r + j) // group for j in range(r)}) == 1
+                            for s in range(n_q // r)):
+        r //= 2
+    n_kv_loc = n_q // r
+    return HeadLayout(n_q=n_q, n_kv=n_kv, hq_loc=n_q, r=r, n_kv_loc=n_kv_loc,
+                      kv_map=tuple(s * r // group for s in range(n_kv_loc)))
+
+
+@dataclass(frozen=True)
+class ModelLayout:
+    attn: HeadLayout
+
+
+def model_layout(cfg: ModelConfig, plan: ShardingPlan) -> ModelLayout:
+    return ModelLayout(attn=head_layout(cfg.n_heads, cfg.n_kv_heads))

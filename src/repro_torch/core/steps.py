@@ -1,0 +1,64 @@
+"""The paged serving steps: one decode step and one prefill-chunk step.
+
+Port of the JAX package's ``make_paged_decode_step`` and
+``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch runs
+eagerly; nothing is compiled).  Each step's shapes are fixed when it is
+made — (batch, n_max_pages) for decode, (chunk, n_max_pages) for a prefill
+chunk — and every request length reaches them only as data (block tables,
+positions), never as a shape, as in the JAX engine.
+"""
+from __future__ import annotations
+
+from repro_torch.core import model
+from repro_torch.core.kvcache import paged_cache_template, zero_paged_cache
+from repro_torch.core.partition import model_layout
+
+
+def _expect(name, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != step shape "
+                         f"{tuple(shape)}")
+
+
+def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int):
+    """-> decode_fn(params, cache, tokens (B, 1), pos (B,), block_table
+    (B, n_max)) -> (logits (B, V), cache updated in place).  ``pos`` is the
+    inclusive position of each row's token; idle rows point their block
+    table at the scratch page with pos 0."""
+    lay = model_layout(cfg, plan)
+
+    def decode_fn(params, cache, tokens, pos, block_table):
+        _expect("tokens", tokens, (batch, 1))
+        _expect("pos", pos, (batch,))
+        _expect("block_table", block_table, (batch, n_max_pages))
+        pages = {"block_table": block_table}
+        return model.forward_decode(params, cache, tokens, pos, cfg, plan,
+                                    lay, pages)
+
+    return decode_fn
+
+
+def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
+    """-> chunk_fn(params, cache, tokens (1, C), chunk_start, last_idx,
+    block_table (1, n_max)) -> (logits (1, V), cache updated in place).
+    ``chunk_start`` and ``last_idx`` are host integers: the chunk's first
+    absolute position and the in-chunk index of the prompt's last token."""
+    lay = model_layout(cfg, plan)
+
+    def chunk_fn(params, cache, tokens, chunk_start: int, last_idx: int,
+                 block_table):
+        _expect("tokens", tokens, (1, chunk))
+        _expect("block_table", block_table, (1, n_max_pages))
+        if not 0 <= last_idx < chunk:
+            raise ValueError(f"last_idx {last_idx} outside the chunk {chunk}")
+        pages = {"block_table": block_table}
+        return model.forward_prefill_chunk(params, cache, tokens, chunk_start,
+                                           last_idx, cfg, plan, lay, pages)
+
+    return chunk_fn
+
+
+def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda"):
+    lay = model_layout(cfg, plan)
+    return zero_paged_cache(
+        paged_cache_template(cfg, plan, lay, n_pages, page_size), device)

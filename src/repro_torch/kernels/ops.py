@@ -1,0 +1,77 @@
+"""Dispatch over the four kernels of the paged-serving path.
+
+On a CPU tensor each wrapper runs its kernel's plain PyTorch version
+(``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
+raises.  Nothing falls back: a kernel that does not build or launch is an
+error, never a silent detour through the plain version.
+
+Each wrapper keeps a plain integer ``launches``, raised by one exactly
+where it launches its kernel, so a run can show that it went through the
+kernels (``launch_counts`` / ``reset_launch_counts``).
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import matmul as _matmul
+from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rmsnorm
+
+
+def rmsnorm(x, scale, eps: float = 1e-6):
+    """x: (T, E); scale: (E,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale)."""
+    if x.device.type == "cpu":
+        return ref.ref_rmsnorm(x, scale, eps)
+    out = _rmsnorm.rmsnorm(x, scale, eps)
+    rmsnorm.launches += 1
+    return out
+
+
+def matmul(a, b, *, trans_b: bool = False):
+    """a: (M, K) @ b: (K, N), or b: (N, K) when ``trans_b`` -> (M, N) in
+    a.dtype with a float32 accumulator."""
+    if a.device.type == "cpu":
+        return ref.ref_matmul(a, b, trans_b)
+    out = _matmul.matmul(a, b, trans_b=trans_b)
+    matmul.launches += 1
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None, q_offset=None):
+    """q: (H, Sq, D); k/v: (H, Skv, D) -> (H, Sq, D); query i at position
+    ``q_offset + i`` (default ``Skv - Sq``: queries are the kv suffix)."""
+    if q.device.type == "cpu":
+        return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale, q_offset=q_offset)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 scale=scale, q_offset=q_offset)
+    flash_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
+                           scale=None):
+    """q: (B, H, D) over pools (n_pages, H, psz, D) through block_table
+    (B, n_max); ``length`` (B,) counts valid tokens -> (B, H, D)."""
+    if q.device.type == "cpu":
+        return ref.ref_paged_decode_attention(q, k_pages, v_pages,
+                                              block_table, length, scale)
+    out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
+                                         length, scale=scale)
+    paged_decode_attention.launches += 1
+    return out
+
+
+WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention)
+for _w in WRAPPERS:
+    _w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def reset_launch_counts():
+    for w in WRAPPERS:
+        w.launches = 0

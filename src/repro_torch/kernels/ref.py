@@ -1,0 +1,84 @@
+"""Plain PyTorch versions of the four kernels on the paged-serving path.
+
+Each ``ref_*`` is the function its Hopper kernel computes, with the Pallas
+kernel's contract and shapes, and no tiling.  ``kernels.ops`` runs these on
+CPU tensors; ``chip_smoke.py`` holds every kernel against them on the card.
+All arithmetic is float32, cast back to the input dtype at the end.  A row
+with no valid key (fully masked) yields zeros, as the kernels do.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def ref_matmul(a, b, trans_b: bool = False):
+    """a: (M, K) @ b: (K, N), or b: (N, K) when ``trans_b`` -> (M, N) in
+    a.dtype, with a float32 accumulator."""
+    bf = b.float().t() if trans_b else b.float()
+    return torch.matmul(a.float(), bf).to(a.dtype)
+
+
+def ref_rmsnorm(x, scale, eps: float = 1e-6):
+    """x: (T, E); scale: (E,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale)."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def _masked_softmax_av(s, mask, v):
+    """softmax over the last axis restricted to ``mask``, times v; rows with
+    no valid entry give zeros."""
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    den = p.sum(dim=-1, keepdim=True)
+    return torch.matmul(p, v.float()) / den.clamp_min(1e-20)
+
+
+def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                        scale=None, q_offset=None):
+    """q: (H, Sq, D), k/v: (H, Skv, D) -> (H, Sq, D).
+
+    Query row i sits at position ``q_offset + i`` and key j at position j.
+    ``q_offset`` defaults to ``Skv - Sq``: the Pallas contract, where the
+    queries are the suffix of the key stream."""
+    H, Sq, D = q.shape
+    Skv = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    q_offset = Skv - Sq if q_offset is None else q_offset
+    s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None] + q_offset
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    return _masked_softmax_av(s, mask[None], v).to(q.dtype)
+
+
+def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
+                               scale=None):
+    """One query per (slot, head) over the slot's block-table pages.
+
+    q: (B, H, D); k_pages/v_pages: (n_pages, H, psz, D); block_table:
+    (B, n_max) int32 page ids; length: (B,) int32 count of valid tokens
+    (positions < length attend) -> (B, H, D)."""
+    B, H, D = q.shape
+    psz = k_pages.shape[2]
+    n_max = block_table.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    ids = block_table.reshape(-1).long()
+
+    def gather(pool):                                 # -> (B, H, n_max*psz, D)
+        g = pool[ids].reshape(B, n_max, H, psz, D)
+        return g.permute(0, 2, 1, 3, 4).reshape(B, H, n_max * psz, D)
+
+    k, v = gather(k_pages), gather(v_pages)
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float()) * scale
+    kpos = torch.arange(n_max * psz, device=q.device)
+    mask = (kpos[None, :] < length.to(q.device)[:, None].long())[:, None, :]
+    out = _masked_softmax_av(s[:, :, None, :], mask[:, :, None, :], v)
+    return out[:, :, 0].to(q.dtype)

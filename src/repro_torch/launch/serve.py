@@ -1,0 +1,131 @@
+"""Serving launcher of the PyTorch port: batched requests through the paged
+engine, on the card unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-42m \\
+        --requests 16 --slots 8 --seq-budget 256 --max-new 32
+
+Takes the flags of ``python -m repro.launch.serve`` that the paged greedy
+path supports; the port is always paged, dp=1, FCFS, greedy and serial.
+Any other flag of that launcher is refused with the slice it waits for.
+Weights are random, drawn from ``--seed``; prompts are random token ids.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+# flags of the JAX launcher -> the later slice of the port that brings them
+LATER = {
+    "--tp": "tensor parallelism (ROADMAP Queue 1 item 14)",
+    "--dp": "data-parallel replicas (ROADMAP Queue 1 item 13)",
+    "--disagg": "disaggregated prefill/decode (ROADMAP Queue 1 item 13)",
+    "--scale-events": "elastic replicas (ROADMAP Queue 1 item 13)",
+    "--overlap": "the overlap pipeline (ROADMAP Queue 1 item 6)",
+    "--no-overlap": "the overlap pipeline (ROADMAP Queue 1 item 6); the "
+                    "port's loop is already the serial one",
+    "--temperature": "sampled decoding (the port decodes greedily)",
+    "--paged": "nothing: the port is always paged, drop the flag",
+    "--prefix-cache": "the prefix cache (ROADMAP Queue 1 item 9)",
+    "--shared-prefix": "the prefix cache (ROADMAP Queue 1 item 9)",
+    "--speculative": "speculative verify (ROADMAP Queue 1 item 7)",
+    "--frame-groups": "encoder-decoder serving (ROADMAP Queue 1 item 11)",
+    "--policy": "priority and fair policies (ROADMAP Queue 1 item 9)",
+    "--preemption": "preemption (ROADMAP Queue 1 item 9)",
+    "--high-priority-every": "priority policies (ROADMAP Queue 1 item 9)",
+    "--clients": "the fair policy (ROADMAP Queue 1 item 9)",
+}
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(
+        description="paged greedy serving on the PyTorch port")
+    ap.add_argument("--arch", required=True,
+                    help="registered config id (repro_torch.configs)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced same-family config (CPU-sized)")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--seq-budget", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-dtype", default="fp16",
+                    help="page-pool dtype: fp32, or fp16 (bfloat16 pools, as "
+                         "in the JAX launcher); int8 comes later")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="page pool size (0 = full occupancy + scratch)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the Hopper kernels) or cpu (plain PyTorch)")
+    args, rest = ap.parse_known_args(argv)
+    for tok in rest:
+        flag = tok.split("=", 1)[0]
+        if flag in LATER:
+            ap.error(f"{flag} is not supported by the PyTorch port yet: it "
+                     f"waits for {LATER[flag]}")
+    if rest:
+        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    if args.kv_dtype not in ("fp32", "fp16"):
+        ap.error(f"--kv-dtype {args.kv_dtype}: the port has fp32 and fp16 "
+                 f"(bfloat16) pools; int8 pools wait for ROADMAP Queue 1 "
+                 f"item 8")
+    if args.prompt_len + args.max_new > args.seq_budget:
+        ap.error("--prompt-len + --max-new must fit --seq-budget")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    kvd = {"fp32": "float32", "fp16": "bfloat16"}[args.kv_dtype]
+    plan = ShardingPlan(kv_cache_dtype=kvd)
+    params = model.init_params(cfg, plan,
+                               torch.Generator().manual_seed(args.seed),
+                               device=args.device)
+    engine = ServingEngine.build_paged(
+        cfg, plan, args.slots, args.seq_budget, params,
+        page_size=args.page_size, n_pages=args.n_pages,
+        prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
+        device=args.device)
+    rng = np.random.RandomState(args.seed)
+    t0 = time.time()
+    for rid in range(args.requests):
+        prompt = rng.randint(2, cfg.vocab_size,
+                             rng.randint(4, args.prompt_len + 1)
+                             ).astype(np.int32)
+        engine.submit(Request(rid=rid, prompt=prompt,
+                              max_new_tokens=args.max_new))
+    stats = engine.run()
+    dt = time.time() - t0
+    where = (torch.cuda.get_device_name(engine.device)
+             if engine.device.type == "cuda" else "cpu")
+    print(f"device={where} arch={cfg.name} requests={args.requests} "
+          f"ticks={stats.ticks} prefills={stats.prefills} "
+          f"tokens={stats.decoded_tokens}")
+    if stats.ttft_s:
+        print(f"throughput={stats.decoded_tokens / dt:.1f} tok/s "
+              f"ttft_p50={np.median(stats.ttft_s) * 1e3:.1f}ms "
+              f"ttft_p99={np.percentile(stats.ttft_s, 99) * 1e3:.1f}ms "
+              f"tpot_p50={np.median(stats.tpot_s) * 1e3:.1f}ms")
+    else:
+        print("no tokens emitted")
+    print(f"pages_free={engine.allocator.n_free}/"
+          f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

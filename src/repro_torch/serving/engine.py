@@ -1,0 +1,268 @@
+"""Paged serving engine: continuous batching over the prefill-chunk and
+decode steps.
+
+Port of the JAX package's ``serving/engine.py`` for one replica (dp=1),
+FCFS admission, greedy sampling and the serial loop (the JAX engine's
+``overlap=False``).  The engine is mechanism: it owns the page pools, block
+tables and positions and runs the steps; admission and page budgeting
+live in ``serving.scheduler``.
+
+A fixed decode batch of ``batch_slots`` slots: every tick admits what the
+pool can hold (each admission gets its whole page run up front — prompt +
+max_new_tokens — or waits), advances every prefilling slot by one chunk,
+runs ONE decode step over all slots (idle and prefilling lanes point at the
+scratch page with pos 0), then collects: prefill completions first (their
+first token is sampled from the chunk's logits), then decode emissions.
+Finished slots return their pages and are refilled from the queue.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import resolve_device
+from repro_torch.core.kvcache import SCRATCH_PAGE, PageAllocator
+from repro_torch.core.model import Decoder, check_supported, tree_map
+from repro_torch.core.steps import (make_paged_decode_step,
+                                    make_prefill_chunk_step,
+                                    zero_paged_cache_for)
+from repro_torch.serving.sampler import SamplerConfig, sample_from_logits
+from repro_torch.serving.scheduler import (Admission, FCFSScheduler,
+                                           effective_prompt)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 32
+    seed: Optional[int] = None         # sampling stream seed (default: rid)
+    rng: Optional[np.random.RandomState] = None   # set at submit
+    out_tokens: list = field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+
+@dataclass
+class EngineStats:
+    ticks: int = 0
+    prefills: int = 0
+    decoded_tokens: int = 0
+    tick_wall_s: float = 0.0           # total wall time inside tick()
+    tpot_s: list = field(default_factory=list)
+    request_ttft: dict = field(default_factory=dict)   # rid -> seconds
+
+    @property
+    def ttft_s(self) -> list:
+        """TTFT samples in first-token order."""
+        return list(self.request_ttft.values())
+
+
+class ServingEngine:
+    def __init__(self, cfg, plan, batch_slots: int, seq_budget: int, params,
+                 *, page_size: int, n_pages: int, prefill_chunk: int,
+                 eos_id: int = 1, rng_seed: int = 0, device="cuda"):
+        self.device = resolve_device(device)
+        check_supported(cfg)
+        if seq_budget % page_size or seq_budget % prefill_chunk:
+            raise ValueError(f"seq_budget {seq_budget} must be a multiple of "
+                             f"page_size {page_size} and prefill_chunk "
+                             f"{prefill_chunk}")
+        self.cfg, self.plan = cfg, plan
+        self.B = batch_slots
+        self.S = seq_budget
+        self.page_size = page_size
+        self.chunk = prefill_chunk
+        self.n_max_pages = seq_budget // page_size
+        self.eos = eos_id
+        self.sampler = SamplerConfig()          # greedy
+        self.rng_seed = rng_seed
+        self.model = Decoder(tree_map(lambda t: t.to(self.device), params))
+        self.params = self.model.tree()
+        self.allocator = PageAllocator(n_pages)
+        self.sched = FCFSScheduler(seq_budget=seq_budget,
+                                   allocator=self.allocator,
+                                   page_size=page_size)
+        self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
+                                          self.device)
+        self.prefill_fn = make_prefill_chunk_step(cfg, plan, prefill_chunk,
+                                                  self.n_max_pages)
+        self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
+                                                self.n_max_pages)
+        self.admissions: List[Optional[Admission]] = [None] * self.B
+        self.slot_state: List[Optional[str]] = [None] * self.B
+        self.pos = np.zeros(self.B, np.int32)
+        self.last_token = np.zeros(self.B, np.int32)
+        self.prefill_done = np.zeros(self.B, np.int32)
+        self.stats = EngineStats()
+        self._rids: set = set()
+
+    @classmethod
+    def build_paged(cls, cfg, plan, batch_slots: int, seq_budget: int,
+                    params, *, page_size: int = 16, n_pages: int = 0,
+                    prefill_chunk: int = 16, eos_id: int = 1,
+                    rng_seed: int = 0, device="cuda"):
+        """A paged engine.  ``n_pages`` defaults to full occupancy (every
+        slot at budget) plus the scratch page; pass something smaller to
+        exercise admission control under memory pressure."""
+        n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
+        return cls(cfg, plan, batch_slots, seq_budget, params,
+                   page_size=page_size, n_pages=n_pages,
+                   prefill_chunk=prefill_chunk, eos_id=eos_id,
+                   rng_seed=rng_seed, device=device)
+
+    # ------------------------------------------------------------------ API
+    def has_pending(self) -> bool:
+        return self.sched.has_pending()
+
+    def submit(self, req: Request):
+        if req.rid in self._rids:     # rids key the per-request stats
+            raise RuntimeError(f"duplicate request id {req.rid}")
+        self.sched.submit(req)        # raises on infeasible requests
+        self._rids.add(req.rid)
+        if req.rng is None:
+            seed = req.seed if req.seed is not None else req.rid
+            req.rng = np.random.RandomState([self.rng_seed, seed])
+        req.t_submit = time.monotonic()
+
+    def run(self, max_ticks: int = 10_000):
+        while (self.has_pending() or
+               any(a is not None for a in self.admissions)) and \
+                self.stats.ticks < max_ticks:
+            self.tick()
+        return self.stats
+
+    def drain(self) -> int:
+        """Abort every in-flight admission, returning its pages to the
+        pool.  Aborted requests keep ``done=False``; queued requests stay
+        queued.  -> number of slots drained."""
+        n = 0
+        for b in range(self.B):
+            if self.admissions[b] is not None:
+                self.sched.on_finish(self.admissions[b])
+                self._clear_slot(b)
+                n += 1
+        return n
+
+    # ----------------------------------------------------------------- tick
+    def tick(self):
+        t0 = time.monotonic()
+        for adm in self.sched.plan([b for b in range(self.B)
+                                    if self.admissions[b] is None]):
+            b = adm.slot
+            self.admissions[b] = adm
+            self.slot_state[b] = "prefill"
+            self.prefill_done[b] = 0
+            self.pos[b] = 0
+            self.last_token[b] = 0
+        rounds = [self._prefill_chunk(b) for b in range(self.B)
+                  if self.slot_state[b] == "prefill"]
+        step = self._decode_step()
+        self._collect(rounds, step)
+        self.stats.ticks += 1
+        self.stats.tick_wall_s += time.monotonic() - t0
+
+    def _to_device(self, x: np.ndarray, dtype=torch.int32):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
+                                                            dtype)
+
+    def _bt_row(self, b: int) -> np.ndarray:
+        row = np.full(self.n_max_pages, SCRATCH_PAGE, np.int32)
+        adm = self.admissions[b]
+        if adm is not None:
+            row[:len(adm.pages)] = adm.pages
+        return row
+
+    def _prefill_chunk(self, b: int):
+        """Advance slot b by one chunk.  -> (b, logits (1, V) on the
+        device, the prompt length if this chunk completes the prompt else
+        None)."""
+        C = self.chunk
+        prompt = effective_prompt(self.admissions[b].req)
+        L, c0 = len(prompt), int(self.prefill_done[b])
+        n = min(C, L - c0)
+        toks = np.zeros((1, C), np.int64)
+        toks[0, :n] = prompt[c0:c0 + n]
+        logits, self.cache = self.prefill_fn(
+            self.params, self.cache, self._to_device(toks, torch.int64), c0,
+            min(L - 1 - c0, C - 1), self._to_device(self._bt_row(b)[None]))
+        self.prefill_done[b] = c0 + C
+        return b, logits, (L if c0 + C >= L else None)
+
+    def _decode_step(self):
+        """One decode step over every decode-state slot; idle and
+        prefilling lanes ride along on the scratch page with pos 0.
+        -> (logits (B, V) on the device, active slots) or None."""
+        active = [b for b in range(self.B) if self.slot_state[b] == "decode"]
+        if not active:
+            return None
+        bt = np.stack([self._bt_row(b) if b in active else
+                       np.full(self.n_max_pages, SCRATCH_PAGE, np.int32)
+                       for b in range(self.B)])
+        pos = np.where(np.isin(np.arange(self.B), active), self.pos, 0)
+        logits, self.cache = self.decode_fn(
+            self.params, self.cache,
+            self._to_device(self.last_token[:, None], torch.int64),
+            self._to_device(pos), self._to_device(bt))
+        return logits, active
+
+    def _collect(self, rounds, step):
+        """The tick's barrier: logits come to the host, prefill
+        completions emit their first token (and flip to decode), then the
+        decode step's slots emit theirs."""
+        for b, logits, L in rounds:
+            if L is None:
+                continue
+            adm = self.admissions[b]
+            self.stats.prefills += 1
+            self.sched.on_prefill_complete(adm)
+            self.pos[b] = L
+            self._emit(b, adm.req,
+                       self._sample(logits.float().cpu().numpy(), 0, adm.req),
+                       time.monotonic())
+            if self.admissions[b] is not None:
+                self.slot_state[b] = "decode"
+        if step is None:
+            return
+        logits = step[0].float().cpu().numpy()
+        now = time.monotonic()
+        for b in step[1]:
+            self.pos[b] += 1        # the decode step wrote last_token's KV
+            self._emit(b, self.admissions[b].req,
+                       self._sample(logits, b, self.admissions[b].req), now)
+
+    def _sample(self, logits: np.ndarray, row: int, req: Request) -> int:
+        return int(sample_from_logits(logits[row:row + 1], self.sampler,
+                                      self.cfg.vocab_size, req.rng)[0])
+
+    def _emit(self, b: int, req: Request, tok: int, now: float):
+        """Record one generated token for slot b; retire the slot when done.
+        Decode ticks advance ``pos`` past the KV they wrote before emitting;
+        prefill completion leaves it at the prompt length."""
+        if not req.out_tokens:
+            req.t_first_token = now
+            self.stats.request_ttft[req.rid] = now - req.t_submit
+        req.out_tokens.append(tok)
+        self.last_token[b] = tok
+        self.stats.decoded_tokens += 1
+        if tok == self.eos or len(req.out_tokens) >= req.max_new_tokens \
+                or self.pos[b] >= self.S - 1:
+            req.done = True
+            req.t_done = now
+            self.stats.tpot_s.append(
+                (now - req.t_first_token) / max(len(req.out_tokens) - 1, 1))
+            self.sched.on_finish(self.admissions[b])
+            self._clear_slot(b)
+
+    def _clear_slot(self, b: int):
+        self.admissions[b] = None
+        self.slot_state[b] = None
+        self.pos[b] = 0
+        self.last_token[b] = 0
+        self.prefill_done[b] = 0

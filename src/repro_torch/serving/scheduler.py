@@ -1,0 +1,118 @@
+"""Scheduling policy for the serving engine (policy/mechanism split).
+
+A copy of the part of the JAX package's ``serving/scheduler.py`` that FCFS
+paged serving without a prefix cache needs: the ``Scheduler`` interface,
+``Admission`` records and ``FCFSScheduler``'s all-or-nothing page
+budgeting.  The engine executes admissions and reports lifecycle events
+back (``on_prefill_complete``, ``on_finish``).
+
+Invariant: leak freedom — every page is free after ``run()``/``drain()``
+    retire all admissions.
+"""
+from __future__ import annotations
+
+import collections
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from repro_torch.core.kvcache import pages_needed
+
+
+def effective_prompt(req) -> np.ndarray:
+    """Tokens an admission must make resident: the original prompt plus
+    everything the request already generated (non-empty only for a request
+    that re-enters after preemption, which a later slice ports)."""
+    out = getattr(req, "out_tokens", None)
+    if not out:
+        return np.asarray(req.prompt, np.int32)
+    return np.concatenate([np.asarray(req.prompt, np.int32),
+                           np.asarray(out, np.int32)])
+
+
+def remaining_new_tokens(req) -> int:
+    """Decode budget still owed to ``req``."""
+    out = getattr(req, "out_tokens", None)
+    return req.max_new_tokens - (len(out) if out else 0)
+
+
+@dataclass
+class Admission:
+    """One scheduler decision: place ``req`` into engine slot ``slot`` with
+    the block-table page run ``pages`` (prompt + max_new_tokens worth)."""
+    slot: int
+    req: object
+    pages: Optional[List[int]] = None
+
+
+class Scheduler:
+    """Policy interface the engine drives.  Implementations own the wait
+    queue and all allocator traffic."""
+
+    def submit(self, req) -> None:
+        raise NotImplementedError
+
+    def has_pending(self) -> bool:
+        raise NotImplementedError
+
+    def plan(self, free_slots: List[int]) -> List[Admission]:
+        """Admissions for this tick; at most one per free slot."""
+        raise NotImplementedError
+
+    def on_prefill_complete(self, adm: Admission) -> None:
+        """adm's prompt is fully resident."""
+
+    def on_finish(self, adm: Admission) -> None:
+        """adm's request retired — release its resources."""
+
+
+class FCFSScheduler(Scheduler):
+    """First-come-first-served admission with all-or-nothing page
+    budgeting: the head request either gets its full budget (prompt +
+    max_new_tokens) or the whole queue waits (no mid-flight OOM, no
+    starvation by overtaking)."""
+
+    def __init__(self, *, seq_budget: int, allocator, page_size: int):
+        self.queue: collections.deque = collections.deque()
+        self.seq_budget = seq_budget
+        self.allocator = allocator
+        self.psz = page_size
+
+    def submit(self, req) -> None:
+        if len(req.prompt) == 0:
+            raise RuntimeError(f"request {req.rid} has an empty prompt")
+        if len(req.prompt) + req.max_new_tokens > self.seq_budget:
+            raise RuntimeError(
+                f"request {req.rid} needs {len(req.prompt)} prompt + "
+                f"{req.max_new_tokens} new tokens; the sequence budget "
+                f"is {self.seq_budget}")
+        need = self._req_pages(req)
+        usable = self.allocator.n_pages - self.allocator.n_reserved
+        if need > usable:       # reject now, not mid-run at admission
+            raise RuntimeError(f"request {req.rid} needs {need} pages; the "
+                               f"pool only has {usable} usable")
+        self.queue.append(req)
+
+    def has_pending(self) -> bool:
+        return bool(self.queue)
+
+    def _req_pages(self, req) -> int:
+        return pages_needed(len(effective_prompt(req)) +
+                            remaining_new_tokens(req), self.psz)
+
+    def plan(self, free_slots: List[int]) -> List[Admission]:
+        out = []
+        for slot in free_slots:
+            if not self.queue:
+                break
+            req = self.queue[0]
+            pages = self.allocator.alloc(self._req_pages(req))
+            if pages is None:           # blocked: the head waits for pages
+                break
+            self.queue.popleft()
+            out.append(Admission(slot=slot, req=req, pages=pages))
+        return out
+
+    def on_finish(self, adm: Admission) -> None:
+        self.allocator.decref(adm.pages)

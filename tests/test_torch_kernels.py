@@ -1,0 +1,168 @@
+"""The port's plain kernel versions (``repro_torch.kernels.ref`` through
+``kernels.ops`` on CPU tensors) against the JAX package's Pallas kernels
+run in interpret mode, and against its ``kernels/ref.py`` oracles, on the
+same numpy inputs.  Tolerances are ``tests/test_kernels.py``'s: fp32 1e-4,
+bf16 2e-2.  The Hopper kernels themselves run only on the card, where
+``chip_smoke.py`` holds each against these plain versions."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import attention as jattn
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import paged_decode_attention as pl_paged
+from repro.kernels.flash_attention import flash_attention as pl_flash
+from repro.kernels.matmul import matmul as pl_matmul
+from repro.kernels.rmsnorm import rmsnorm as pl_rmsnorm
+from repro_torch.kernels import decode_attention as k_decode
+from repro_torch.kernels import flash_attention as k_flash
+from repro_torch.kernels import matmul as k_matmul
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as k_rmsnorm
+
+DTYPES = [("float32", jnp.float32, torch.float32),
+          ("bfloat16", jnp.bfloat16, torch.bfloat16)]
+
+
+def _tol(name):
+    return dict(rtol=2e-2, atol=2e-2) if name == "bfloat16" else \
+        dict(rtol=1e-4, atol=1e-4)
+
+
+def _both(x, jdt, tdt):
+    x = np.asarray(x, np.float32)
+    return jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+
+
+def _close(got_torch, want_jax, name):
+    np.testing.assert_allclose(got_torch.float().numpy(),
+                               np.asarray(want_jax, np.float32), **_tol(name))
+
+
+@pytest.mark.parametrize("t,e", [(64, 128), (100, 256), (33, 512)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_rmsnorm_matches_pallas(t, e, name, jdt, tdt):
+    rng = np.random.RandomState(t + e)
+    xj, xt = _both(rng.randn(t, e), jdt, tdt)
+    sj, st = _both(rng.randn(e) * 0.1, jdt, tdt)
+    got = ops.rmsnorm(xt, st)
+    _close(got, pl_rmsnorm(xj, sj, bs=32, interpret=True), name)
+    _close(got, jref.ref_rmsnorm(xj, sj), name)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 256, 128)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_matmul_matches_pallas(m, k, n, name, jdt, tdt):
+    rng = np.random.RandomState(m + k + n)
+    aj, at = _both(rng.randn(m, k), jdt, tdt)
+    bj, bt = _both(rng.randn(k, n), jdt, tdt)
+    got = ops.matmul(at, bt)
+    _close(got, pl_matmul(aj, bj, bm=128, bk=128, bn=128, interpret=True), name)
+    _close(got, jref.ref_matmul(aj, bj), name)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 512, 96), (33, 72, 200), (1, 40, 7)])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_matmul_ragged_and_transposed_match_ref(m, k, n, trans_b, name, jdt,
+                                                tdt):
+    """Shapes the Pallas kernel cannot take (it needs dividing blocks):
+    decode's M = 8, odd N, and the tied head's (N, K) operand."""
+    rng = np.random.RandomState(m * k + n)
+    aj, at = _both(rng.randn(m, k), jdt, tdt)
+    b = rng.randn(n, k) if trans_b else rng.randn(k, n)
+    bj, bt = _both(b, jdt, tdt)
+    want = jref.ref_matmul(aj, bj.T if trans_b else bj)
+    _close(ops.matmul(at, bt, trans_b=trans_b), want, name)
+
+
+@pytest.mark.parametrize("sq,skv,causal,win", [
+    (64, 64, True, 0), (32, 96, True, 0), (64, 64, True, 16),
+    (32, 32, False, 0)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_flash_attention_matches_pallas(sq, skv, causal, win, name, jdt, tdt):
+    """The Pallas contract: queries are the suffix of the key stream."""
+    rng = np.random.RandomState(sq + skv + win)
+    qj, qt = _both(rng.randn(2, sq, 32), jdt, tdt)
+    kj, kt = _both(rng.randn(2, skv, 32), jdt, tdt)
+    vj, vt = _both(rng.randn(2, skv, 32), jdt, tdt)
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=win)
+    _close(got, pl_flash(qj, kj, vj, causal=causal, window=win, bq=32,
+                         bkv=32, interpret=True), name)
+    _close(got, jref.ref_flash_attention(qj, kj, vj, causal=causal,
+                                         window=win), name)
+
+
+@pytest.mark.parametrize("q_offset,win", [(0, 0), (40, 0), (96, 0), (40, 24)])
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_flash_attention_q_offset_matches_core(q_offset, win, name, jdt, tdt):
+    """The prefill chunk's placement: queries at ``q_offset`` inside a longer
+    gathered stream whose tail past the chunk must be masked causally — the
+    JAX package's ``core.attention.flash_attention`` computes it."""
+    rng = np.random.RandomState(q_offset + win)
+    H, Sq, Skv, D = 4, 32, 128, 32
+    qj, qt = _both(rng.randn(H, Sq, D), jdt, tdt)
+    kj, kt = _both(rng.randn(H, Skv, D), jdt, tdt)
+    vj, vt = _both(rng.randn(H, Skv, D), jdt, tdt)
+    want = jattn.flash_attention(qj[None, :, None], kj[None], vj[None],
+                                 causal=True, window=win,
+                                 q_offset=q_offset)[0, :, 0]
+    _close(ops.flash_attention(qt, kt, vt, window=win, q_offset=q_offset),
+           want, name)
+
+
+def _paged_case(rng, B, H, D, psz, n_max, lengths):
+    n_pages = B * n_max + 1
+    bt = (rng.permutation(n_pages - 1)[:B * n_max] + 1).reshape(B, n_max)
+    bt[-1] = 0                                   # idle lane: scratch page
+    return (rng.randn(B, H, D), rng.randn(n_pages, H, psz, D),
+            rng.randn(n_pages, H, psz, D), bt.astype(np.int32),
+            np.asarray(lengths, np.int32))
+
+
+@pytest.mark.parametrize("name,jdt,tdt", DTYPES)
+def test_paged_decode_matches_pallas(name, jdt, tdt):
+    """Lengths crossing page boundaries, a shuffled block table and an idle
+    lane on the scratch page; ``length`` counts valid tokens (pos + 1)."""
+    rng = np.random.RandomState(3)
+    q, kp, vp, bt, length = _paged_case(rng, 5, 4, 32, 8, 4,
+                                        [1, 8, 9, 32, 1])
+    qj, qt = _both(q, jdt, tdt)
+    kj, kt = _both(kp, jdt, tdt)
+    vj, vt = _both(vp, jdt, tdt)
+    got = ops.paged_decode_attention(qt, kt, vt, torch.from_numpy(bt),
+                                     torch.from_numpy(length))
+    _close(got, pl_paged(qj, kj, vj, jnp.asarray(bt), jnp.asarray(length),
+                         interpret=True), name)
+
+
+def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
+    ops.reset_launch_counts()
+    ops.rmsnorm(x, torch.zeros(64))
+    ops.matmul(x, x.t().contiguous())
+    ops.flash_attention(x[None], x[None], x[None])
+    q, kp, vp, bt, length = _paged_case(rng, 2, 2, 32, 4, 2, [3, 1])
+    ops.paged_decode_attention(*(torch.from_numpy(a.astype(np.float32))
+                                 for a in (q, kp, vp)),
+                               torch.from_numpy(bt), torch.from_numpy(length))
+    assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
+                                   "flash_attention": 0,
+                                   "paged_decode_attention": 0}
+
+
+@pytest.mark.parametrize("launch", [
+    lambda x: k_rmsnorm.rmsnorm(x, x[0]),
+    lambda x: k_matmul.matmul(x, x),
+    lambda x: k_flash.flash_attention(x[None], x[None], x[None]),
+    lambda x: k_decode.paged_decode_attention(
+        x[None], x[None, None], x[None, None],
+        torch.zeros((1, 1), dtype=torch.int32),
+        torch.ones(1, dtype=torch.int32)),
+])
+def test_kernel_launchers_refuse_cpu_tensors(launch):
+    """A launcher takes CUDA tensors only; it never computes on the CPU."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        launch(torch.zeros(32, 32))

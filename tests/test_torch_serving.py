@@ -1,0 +1,130 @@
+"""The port's serving engine against the JAX package's paged engine in its
+serial loop (``overlap=False``), on the same weights and requests: greedy
+tokens must be identical.  Prompt lengths cross chunk and page boundaries
+and a tight pool forces requests to queue; the pool must be leak-free
+after ``drain()``.  Also the launcher's CPU run and its refusals."""
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.core import model as jmodel
+from repro.core.partition import ShardingPlan as JaxPlan
+from repro.serving import Request as JaxRequest
+from repro.serving import ServingEngine as JaxEngine
+from repro_torch.bridge import params_from_jax
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.partition import ShardingPlan
+from repro_torch.launch import serve
+from repro_torch.serving import Request, ServingEngine
+
+SB, SLOTS, PSZ, CHUNK = 64, 3, 8, 16
+N_PAGES = 12        # 11 usable pages: at most ~2 requests in flight, so some queue
+# (prompt length, max_new_tokens): lengths on both sides of the 8-token page
+# and the 16-token chunk, a 1-token prompt and a budget-filling request
+REQS = [(5, 9), (8, 7), (9, 12), (16, 5), (17, 10), (33, 8), (40, 20), (1, 6),
+        (24, 16)]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """JAX's init for reduced tinyllama in fp32, scaled x25 so greedy
+    decoding does not collapse onto repeating the prompt's last token."""
+    jcfg = jax_reduced(jax_get_config("tinyllama-42m"), dtype="float32")
+    jplan = JaxPlan(tp=1, kv_cache_dtype="float32")
+    jp = jax.tree_util.tree_map(lambda a: a * 25,
+                                jmodel.init_params(jcfg, jplan))
+    cfg = reduced(get_config("tinyllama-42m"), dtype="float32")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    return jcfg, jplan, jp, cfg, plan, params_from_jax(
+        cfg, plan, jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+
+
+def _prompts(vocab):
+    rng = np.random.RandomState(0)
+    return [(rid, rng.randint(2, vocab, L).astype(np.int32), m)
+            for rid, (L, m) in enumerate(REQS)]
+
+
+def test_greedy_tokens_identical_to_jax_paged_engine(weights, mesh1):
+    jcfg, jplan, jp, cfg, plan, params = weights
+    reqs = _prompts(cfg.vocab_size)
+    jeng = JaxEngine.build_paged(jcfg, jplan, mesh1, SLOTS, SB, jp,
+                                 page_size=PSZ, prefill_chunk=CHUNK,
+                                 n_pages=N_PAGES, overlap=False)
+    jreqs = [JaxRequest(rid=r, prompt=p, max_new_tokens=m) for r, p, m in reqs]
+    for r in jreqs:
+        jeng.submit(r)
+    jeng.run(max_ticks=2000)
+
+    eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
+                                    page_size=PSZ, prefill_chunk=CHUNK,
+                                    n_pages=N_PAGES, device="cpu")
+    treqs = [Request(rid=r, prompt=p, max_new_tokens=m) for r, p, m in reqs]
+    for r in treqs:
+        eng.submit(r)
+    stats = eng.run(max_ticks=2000)
+
+    assert all(r.done for r in treqs)
+    for a, b in zip(jreqs, treqs, strict=True):
+        assert b.out_tokens == a.out_tokens, a.rid
+    assert len({t for r in treqs for t in r.out_tokens}) > 20   # not degenerate
+    assert stats.ticks == jeng.stats.ticks          # same admission schedule
+    assert stats.prefills == len(REQS)
+    assert eng.drain() == 0
+    assert eng.allocator.n_free == N_PAGES - 1      # every page reclaimed
+
+
+def test_drain_mid_run_releases_every_page(weights):
+    *_, cfg, plan, params = weights
+    eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
+                                    page_size=PSZ, prefill_chunk=CHUNK,
+                                    n_pages=N_PAGES, device="cpu")
+    reqs = [Request(rid=r, prompt=p, max_new_tokens=m)
+            for r, p, m in _prompts(cfg.vocab_size)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_ticks=4)
+    assert any(a is not None for a in eng.admissions)
+    assert eng.drain() > 0
+    assert eng.allocator.n_free == N_PAGES - 1
+    assert eng.has_pending()                 # queued requests stay queued
+
+
+def test_submit_rejects_infeasible_requests(weights):
+    *_, cfg, plan, params = weights
+    eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
+                                    page_size=PSZ, prefill_chunk=CHUNK,
+                                    n_pages=4, device="cpu")
+    long_prompt = np.arange(2, 30, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="pages"):
+        eng.submit(Request(rid=0, prompt=long_prompt, max_new_tokens=4))
+    with pytest.raises(RuntimeError, match="sequence budget"):
+        eng.submit(Request(rid=1, prompt=long_prompt, max_new_tokens=60))
+    eng.submit(Request(rid=2, prompt=long_prompt[:4], max_new_tokens=2))
+    with pytest.raises(RuntimeError, match="duplicate"):
+        eng.submit(Request(rid=2, prompt=long_prompt[:4], max_new_tokens=2))
+
+
+def test_launcher_serves_on_cpu(capsys):
+    assert serve.main(["--arch", "tinyllama-42m", "--smoke", "--requests", "4",
+                       "--slots", "2", "--seq-budget", "64", "--prompt-len",
+                       "20", "--max-new", "4", "--page-size", "8",
+                       "--prefill-chunk", "16", "--kv-dtype", "fp32",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "device=cpu" in out and "tokens=16" in out and "pages_free=16/16" in out
+
+
+@pytest.mark.parametrize("argv,slice_", [
+    (["--tp", "2"], "tensor parallelism"),
+    (["--speculative", "4"], "speculative"),
+    (["--kv-dtype", "int8"], "int8 pools"),
+    (["--no-overlap"], "overlap pipeline"),
+])
+def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.parse_args(["--arch", "tinyllama-42m", *argv])
+    assert e.value.code == 2
+    assert slice_ in capsys.readouterr().err
