@@ -10,22 +10,36 @@ each (and a few detail lines):
 
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
             versions, and the time to build every kernel from ``src/``.
-2. kernels  each of the four kernels against its plain PyTorch version on
-            the card, at the main path's shapes plus ragged cases, with the
-            stated tolerance; median times (CUDA graphs of back-to-back
-            calls, CUDA events) of the kernel, the plain version and the one
-            PyTorch call that computes the same function (a yardstick only;
-            the port never calls it).
-3. parity   full-width tinyllama-42m in float32: 4 requests through the
-            engine on the card (kernels) and on the CPU (plain versions):
-            the logits of every prefill chunk (first tokens included)
-            within tolerance, greedy tokens identical.
-4. serve    full-width tinyllama-42m, bfloat16 weights and pools, 8 slots,
-            16 requests: every request completes, the pool is leak-free
-            after drain(), and each kernel's launch count moved in the
-            phases it belongs to.  Prints tok/s and TTFT.
-5. profile  the serve workload again under torch.profiler: device time by
-            kernel, and the device's busy share of the serve phase.
+2. kernels  each of the seven kernel variants (rmsnorm, matmul, flash
+            attention, paged decode and paged verify over float and int8
+            pools) against its plain PyTorch version on the card, at the
+            main path's shapes plus ragged cases (page-crossing lengths, a
+            shuffled block table, an idle lane on scratch page 0, Q in
+            {2, 5}, zero-scale rows), with the stated tolerance; median
+            times (CUDA graphs of back-to-back calls, CUDA events) of the
+            kernel, the plain version and the one PyTorch call that
+            computes the same function where there is one (a yardstick
+            only; the port never calls it).
+3. parity   full-width tinyllama-42m in float32, engines on the card
+            (kernels) against engines on the CPU (plain versions): the
+            one-token engine, the speculative engine (k=4), the int8-pool
+            engine and the speculative int8-pool engine each give identical
+            greedy tokens and the live logits of every step within
+            tolerance, leak-free after drain(); each speculative engine's
+            tokens equal its one-token engine's on the card, with drafts
+            accepted; the int8 pools' logit drift against float pools is
+            printed.
+4. serve    full-width tinyllama-42m, bfloat16 weights, 8 slots, 16
+            requests, in four phases: serve (bfloat16 pools, random
+            prompts), serve-spec (k=4, repetitive prompts), serve-int8 (int8
+            pools, random prompts) and serve-spec-int8.  Every request
+            completes, the pool is leak-free after drain(), and each kernel
+            launched in the steps it belongs to (launch counts set to 0 just
+            before each phase and read just after).  Prints tok/s, TTFT,
+            TPOT, acceptance and launches per step.
+5. profile  each serve phase's workload again under torch.profiler:
+            device time by kernel, the host-blocking CUDA runtime calls,
+            and the device's busy share of the phase.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -46,10 +60,16 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (NVIDIA data sheet, dense): the least time the
 # card could take is max(bytes / HBM rate, operations / peak rate).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}   # bf16 tensor, fp32 CUDA-core
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,   # bf16 tensor, fp32 CUDA-core
+            "int8": 1979e12}                         # int8 tensor
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),       # tests/test_kernels.py:16-18
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 PARITY_TOL = dict(rtol=1e-3, atol=1e-3)   # float32 logits after 8 layers, x10 weights
+# int8 pools (weights x1.75, |logit| up to about 4): a K/V value on a rounding
+# boundary may quantize one step apart on the card and on the CPU.  H100 runs
+# read 5.6e-3; atol is about 4x that, well under the 0.07 that int8 pools
+# themselves move these logits from float pools
+INT8_PARITY_TOL = dict(rtol=1e-3, atol=2e-2)
 
 
 class SmokeFailure(RuntimeError):
@@ -270,13 +290,123 @@ def phase_kernels(torch, F):
                                                                 length), torch),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
+    # ---- int8 pools and speculative verify, the same 8 slots.  Each slot's
+    # page run covers what its deepest query sees and the block table holds
+    # scratch page 0 past it, as the engine builds it; the last slot is an
+    # idle lane (length 1 on the scratch page).
+    def block_table(lengths, nq):
+        out = bt.clone()
+        for b, L in enumerate(lengths):
+            out[b, min(-(-(L + nq - 1) // psz), n_max):] = 0
+        return out
+
+    def int8_pool():
+        pool = torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        scale = 0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+        return pool, scale
+
+    def zero_rows(scale, table):         # a recycled page's reset rows
+        scale[int(table[4, 0]), psz // 2:] = 0.0   # read by slot 4 (len 100)
+        return scale
+
+    def decode_i8(qd, kq, vq, ks, vs, table):
+        return (ops.paged_decode_attention(qd, kq, vq, table, length,
+                                           k_scale=ks, v_scale=vs),
+                ref.ref_paged_decode_attention(qd, kq, vq, table, length,
+                                               k_scale=ks, v_scale=vs))
+
+    bt_dec = block_table(lengths, 1)
+    for dt in (torch.float32, torch.bfloat16):
+        (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+        zero_rows(ks, bt_dec), zero_rows(vs, bt_dec)
+        qd = randn(B, H, D, dtype=dt)
+        note("paged_decode_attention_i8", f"lengths={lengths} q "
+                                          f"{dtype_name(dt)}, zero-scale rows",
+             compare("paged_decode_attention_i8",
+                     *decode_i8(qd, kq, vq, ks, vs, bt_dec), dt, torch))
+    (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+    zero_rows(ks, bt_dec), zero_rows(vs, bt_dec)
+    qd = randn(B, H, D, dtype=torch.bfloat16)
+    err = compare("paged_decode_attention_i8",
+                  *decode_i8(qd, kq, vq, ks, vs, bt_dec), torch.bfloat16, torch)
+    b_ms, b_by = bound(2 * qd.numel() * 2 + 2 * H * toks * D + 2 * toks * 4
+                       + bt.numel() * 4 + B * 4, 6 * D * H * toks, torch.int8)
+    rows["paged_decode_attention_i8"] = dict(
+        shape=f"B={B} H={H} D={D} psz={psz} n_max={n_max} lengths={lengths} "
+              f"q bf16, int8 pools",
+        max_abs_err=err,
+        ms=time_ms(lambda: ops.paged_decode_attention(
+            qd, kq, vq, bt_dec, length, k_scale=ks, v_scale=vs), torch),
+        plain_ms=time_ms(lambda: ref.ref_paged_decode_attention(
+            qd, kq, vq, bt_dec, length, k_scale=ks, v_scale=vs), torch),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    # verify: query i of a slot sees positions < length + i; the longest
+    # slot's deepest query passes n_max * psz (the kernel clamps the pages)
+    v_lengths = [1, 12, 16, 17, 100, 250, 254, 1]
+    v_length = torch.tensor(v_lengths, dtype=torch.int32, device="cuda")
+
+    def verify(qv, kp_, vp_, table, **sc):
+        return (ops.paged_verify_attention(qv, kp_, vp_, table, v_length, **sc),
+                ref.ref_paged_verify_attention(qv, kp_, vp_, table, v_length,
+                                               **sc))
+
+    for nq in (2, 5):
+        bt_v = block_table(v_lengths, nq)
+        for dt in (torch.float32, torch.bfloat16):
+            qv = randn(B, H, nq, D, dtype=dt)
+            kp_, vp_ = (randn(n_pages, H, psz, D, dtype=dt) for _ in range(2))
+            note("paged_verify_attention", f"Q={nq} lengths={v_lengths} "
+                                           f"{dtype_name(dt)}",
+                 compare("paged_verify_attention",
+                         *verify(qv, kp_, vp_, bt_v), dt, torch))
+            (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+            zero_rows(ks, bt_v), zero_rows(vs, bt_v)
+            note("paged_verify_attention_i8",
+                 f"Q={nq} lengths={v_lengths} q {dtype_name(dt)}, "
+                 f"zero-scale rows",
+                 compare("paged_verify_attention_i8",
+                         *verify(qv, kq, vq, bt_v, k_scale=ks, v_scale=vs),
+                         dt, torch))
+    nq = 5
+    bt_v = block_table(v_lengths, nq)
+    n_kv = [min(L + nq - 1, n_max * psz) for L in v_lengths]   # keys read
+    pairs = sum(min(L + i, n_max * psz) for L in v_lengths for i in range(nq))
+    qv = randn(B, H, nq, D, dtype=torch.bfloat16)
+    kp_, vp_ = (randn(n_pages, H, psz, D, dtype=torch.bfloat16)
+                for _ in range(2))
+    (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+    zero_rows(ks, bt_v), zero_rows(vs, bt_v)
+    io_bytes = 2 * qv.numel() * 2 + bt.numel() * 4 + B * 4
+    for name, pools, sc, elt, ops_dt, extra in (
+            ("paged_verify_attention", (kp_, vp_), {}, 2, torch.bfloat16, 0),
+            ("paged_verify_attention_i8", (kq, vq),
+             dict(k_scale=ks, v_scale=vs), 1, torch.int8, 2 * sum(n_kv) * 4)):
+        err = compare(name, *verify(qv, *pools, bt_v, **sc), torch.bfloat16,
+                      torch)
+        b_ms, b_by = bound(io_bytes + 2 * H * sum(n_kv) * D * elt + extra,
+                           4 * D * H * pairs + (2 * D * H * sum(n_kv)
+                                                if sc else 0), ops_dt)
+        rows[name] = dict(
+            shape=f"B={B} H={H} Q={nq} D={D} psz={psz} n_max={n_max} "
+                  f"lengths={v_lengths} q bf16, "
+                  f"{'int8' if sc else 'bf16'} pools",
+            max_abs_err=err,
+            ms=time_ms(lambda p=pools, s_=sc: ops.paged_verify_attention(
+                qv, *p, bt_v, v_length, **s_), torch),
+            plain_ms=time_ms(lambda p=pools, s_=sc:
+                             ref.ref_paged_verify_attention(
+                                 qv, *p, bt_v, v_length, **s_), torch),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
     for name, r in rows.items():
-        r["max_abs_err_all_cases"] = worst[name]
+        r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"kernels: {name} [{r['shape']}] ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"max_abs_err={worst[name]:.3e}")
+              f"max_abs_err={r['max_abs_err_all_cases']:.3e}")
     return rows
 
 
@@ -287,103 +417,273 @@ def _requests(Request, rng, n, lo, hi, max_new, vocab):
             for i, L in enumerate(rng.randint(lo, hi + 1, n))]
 
 
+def _motif_requests(Request, rng, n, lo, hi, max_new, vocab):
+    """Repetitive prompts, the traffic prompt-lookup drafting serves: a
+    shared 8-token prefix, then a 3- or 4-token motif tiled to a length in
+    [lo, hi] (``tests/test_spec_decode.py``'s shape at serving lengths)."""
+    import numpy as np
+    shared = rng.randint(2, vocab, 8)
+    out = []
+    for i, L in enumerate(rng.randint(lo, hi + 1, n)):
+        motif = rng.randint(2, vocab, 3 + i % 2)
+        body = np.tile(motif, -(-int(L) // len(motif)))[:int(L) - 8]
+        out.append(Request(rid=i, prompt=np.concatenate([shared, body]).astype(
+            np.int32), max_new_tokens=max_new))
+    return out
+
+
+def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
+    """Serve ``reqs`` on a fresh engine.  -> (engine, tokens per request,
+    live logits of every step in call order (prefill chunks; decode rows
+    and verify columns of live slots), logits row behind each emitted token
+    of the one-token path per rid)."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine.build_paged(cfg, plan, slots, 256, params, page_size=16,
+                                    prefill_chunk=32, device=device, **kw)
+    steps, emitted = [], {}
+    prefill, decode, verify, sample = (eng.prefill_fn, eng.decode_fn,
+                                       eng.verify_fn, eng._sample)
+
+    def rec_prefill(*args):
+        logits, cache = prefill(*args)
+        steps.append(logits.float().cpu().reshape(-1))
+        return logits, cache
+
+    def rec_decode(params_, cache, tokens, pos, bt):
+        logits, cache = decode(params_, cache, tokens, pos, bt)
+        steps.append(logits.float().cpu()[(bt[:, 0] != 0).cpu()].reshape(-1))
+        return logits, cache
+
+    def rec_verify(params_, cache, tokens, pos, qlen, bt):
+        logits, cache = verify(params_, cache, tokens, pos, qlen, bt)
+        lg, live, ql = logits.float().cpu(), (bt[:, 0] != 0).cpu(), qlen.cpu()
+        steps.append(torch.cat([lg[b, :ql[b]].reshape(-1)
+                                for b in range(len(live)) if live[b]]))
+        return logits, cache
+
+    def rec_sample(logits, row, req):
+        emitted.setdefault(req.rid, []).append(logits[row].copy())
+        return sample(logits, row, req)
+
+    eng.prefill_fn, eng.decode_fn, eng._sample = rec_prefill, rec_decode, rec_sample
+    if verify is not None:
+        eng.verify_fn = rec_verify
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    check(all(r.done for r in reqs), f"parity: unfinished requests on {device}")
+    check(eng.drain() == 0 and eng.allocator.n_free ==
+          eng.allocator.n_pages - eng.allocator.n_reserved,
+          f"parity: pool not leak-free after drain() on {device}")
+    return eng, [r.out_tokens for r in reqs], torch.cat(steps), emitted
+
+
+def _same(name, a, b, tol):
+    """Tokens identical, then live logits of every step within ``tol``."""
+    (ta, la), (tb, lb) = a, b
+    check(ta == tb, f"{name}: greedy tokens differ\n  {ta}\n  {tb}")
+    check(la.shape == lb.shape, f"{name}: step schedules differ")
+    err = (la - lb).abs()
+    check(bool((err <= tol["atol"] + tol["rtol"] * lb.abs()).all()),
+          f"{name}: logits differ by {err.max().item():.3e} beyond {tol}")
+    return err.max().item(), lb.abs().max().item()
+
+
 def phase_parity(torch):
+    """fp32 at full width: the card (kernels) against the CPU (plain
+    versions) for the one-token engine, the speculative engine and the int8
+    pool engine; the speculative engine against the one-token engine on
+    the card; the int8 pools' logit drift against float pools."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request
     cfg = get_config("tinyllama-42m")
     plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu", dtype="float32")
     # weights x10 so greedy decoding does not collapse onto repeating the
     # prompt's last token (which the 0.02-scale init does at this width)
-    params = model.tree_map(lambda t: t * 10, model.init_params(
-        cfg, plan, torch.Generator().manual_seed(0), device="cpu",
-        dtype="float32"))
+    params = model.tree_map(lambda t: t * 10, base)
     prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
                for i, L in enumerate((23, 40, 77, 130))]
 
-    def serve(device):
-        """-> (greedy tokens per request, logits of every prefill chunk in
-        call order; the last chunk of each prompt gives its first token)."""
-        eng = ServingEngine.build_paged(cfg, plan, 4, 256, params, page_size=16,
-                                        prefill_chunk=32, device=device)
-        chunk_logits = []
-        step = eng.prefill_fn
-
-        def recording(*args):
-            logits, cache = step(*args)
-            chunk_logits.append(logits.float().cpu())
-            return logits, cache
-
-        eng.prefill_fn = recording
-        reqs = [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
                 for i, pr in enumerate(prompts)]
-        for r in reqs:
-            eng.submit(r)
-        eng.run()
-        check(all(r.done for r in reqs), f"parity: unfinished requests on {device}")
-        return [r.out_tokens for r in reqs], torch.cat(chunk_logits)
 
-    (t_gpu, lg_gpu), (t_cpu, lg_cpu) = serve("cuda"), serve("cpu")
-    check(lg_gpu.shape == lg_cpu.shape, "parity: prefill schedules differ")
-    err = (lg_gpu - lg_cpu).abs()
-    check(bool((err <= PARITY_TOL["atol"] + PARITY_TOL["rtol"] * lg_cpu.abs()).all()),
-          f"parity: prefill logits differ by {err.max().item():.3e}")
-    check(t_gpu == t_cpu, f"parity: greedy tokens differ\n  cuda={t_gpu}\n  cpu={t_cpu}")
-    distinct = len({t for toks in t_gpu for t in toks})
-    print(f"parity: tinyllama-42m float32 engine on cuda vs cpu: logits of "
-          f"{lg_gpu.shape[0]} prefill chunks (incl. every first token) max_abs_err="
-          f"{err.max().item():.3e} (|logit| max {lg_cpu.abs().max().item():.2f}, "
-          f"tol rtol={PARITY_TOL['rtol']} atol={PARITY_TOL['atol']}); greedy "
-          f"tokens identical: 4 requests x 16 tokens, {distinct} distinct")
+    runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity", runs["cuda"][1:3], runs["cpu"][1:3], PARITY_TOL)
+    toks = runs["cuda"][1]
+    print(f"parity: tinyllama-42m float32 engine on cuda vs cpu: live logits "
+          f"of every step ({runs['cuda'][2].numel()} values) max_abs_err="
+          f"{err:.3e} (|logit| max {mx:.2f}, tol rtol={PARITY_TOL['rtol']} "
+          f"atol={PARITY_TOL['atol']}); greedy tokens identical: 4 requests x "
+          f"16 tokens, {len({t for r in toks for t in r})} distinct")
+
+    # weights x1.75: greedy decoding repeats motifs often enough for drafts
+    # to be accepted and rejected, without collapsing onto one token; and
+    # int8 pools stay clear of the x10 weights' sensitivity, where one
+    # quantization step flipped by float rounding (card against CPU) can
+    # change later tokens
+    mid = model.tree_map(lambda t: t * 1.75, base)
+
+    def spec_reqs():
+        return _motif_requests(Request, np.random.RandomState(11), 4, 24, 48,
+                               16, cfg.vocab_size)
+
+    spec = {dev: _run_engine(torch, cfg, plan, mid, spec_reqs(), dev,
+                             speculative=4) for dev in ("cuda", "cpu")}
+    one = _run_engine(torch, cfg, plan, mid, spec_reqs(), "cuda")
+    err, mx = _same("parity-spec", spec["cuda"][1:3], spec["cpu"][1:3],
+                    PARITY_TOL)
+    check(spec["cuda"][1] == one[1], f"parity-spec: speculative and one-token "
+          f"engines differ on cuda\n  {spec['cuda'][1]}\n  {one[1]}")
+    st = spec["cuda"][0].stats
+    check(st.spec_accepted > 0, f"parity-spec: no draft accepted {st}")
+    print(f"parity-spec: speculative=4 engine on cuda vs cpu: live logits "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy tokens "
+          f"identical to cpu and to the one-token engine on cuda (4 requests x "
+          f"16 tokens, {len({t for r in one[1] for t in r})} distinct); "
+          f"verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
+          f"accepted={st.spec_accepted} ticks={st.ticks} vs one-token "
+          f"{one[0].stats.ticks}")
+
+    i8 = {dev: _run_engine(torch, cfg, plan_i8, mid, reqs(), dev)
+          for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-int8", i8["cuda"][1:3], i8["cpu"][1:3],
+                    INT8_PARITY_TOL)
+    def drift(fp_run, i8_run):
+        """Max |logit| difference between float and int8 pools behind each
+        emitted token, up to each request's first differing token (the
+        contexts are equal until then)."""
+        out, n_pos = 0.0, 0
+        for rid, rows in fp_run[3].items():
+            diff = [i for i, (a, b) in enumerate(zip(fp_run[1][rid],
+                                                     i8_run[1][rid])) if a != b]
+            n = diff[0] + 1 if diff else len(rows)
+            for a, b in zip(rows[:n], i8_run[3][rid][:n]):
+                out = max(out, float(np.abs(a - b).max()))
+                n_pos += 1
+        return ("identical" if fp_run[1] == i8_run[1] else "differ"), out, n_pos
+
+    fp_mid = _run_engine(torch, cfg, plan, mid, reqs(), "cuda")
+    init = {kvd: _run_engine(torch, cfg, ShardingPlan(kv_cache_dtype=kvd), base,
+                             reqs(), "cuda") for kvd in ("float32", "int8")}
+    print(f"parity-int8: int8-pool engine on cuda vs cpu: live logits "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); greedy "
+          f"tokens identical.  int8 vs float pools on cuda (tokens, max logit "
+          f"drift over emitted positions; scripts/check_quant_accuracy.py "
+          f"DRIFT_BOUND 0.05 at init-scale weights): init-scale weights "
+          f"%s %.4f over %d; x1.75 weights %s %.4f over %d"
+          % (*drift(init["float32"], init["int8"]), *drift(fp_mid, i8["cuda"])))
+
+    # both together: the int8 verify kernel inside the engine
+    spec_i8 = {dev: _run_engine(torch, cfg, plan_i8, mid, spec_reqs(), dev,
+                                speculative=4) for dev in ("cuda", "cpu")}
+    one_i8 = _run_engine(torch, cfg, plan_i8, mid, spec_reqs(), "cuda")
+    err, mx = _same("parity-spec-int8", spec_i8["cuda"][1:3],
+                    spec_i8["cpu"][1:3], INT8_PARITY_TOL)
+    check(spec_i8["cuda"][1] == one_i8[1], f"parity-spec-int8: speculative "
+          f"and one-token int8-pool engines differ on cuda\n  "
+          f"{spec_i8['cuda'][1]}\n  {one_i8[1]}")
+    st = spec_i8["cuda"][0].stats
+    check(st.spec_accepted > 0, f"parity-spec-int8: no draft accepted {st}")
+    print(f"parity-spec-int8: speculative=4 int8-pool engine on cuda vs cpu: "
+          f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); greedy "
+          f"tokens identical to cpu and to the one-token int8-pool engine on "
+          f"cuda; verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
+          f"accepted={st.spec_accepted}")
 
 
-def phase_serve(torch):
+SERVE_PHASES = {
+    # name: (pool dtype, speculative k, prompts)
+    "serve": ("bfloat16", 0, "random"),
+    "serve-spec": ("bfloat16", 4, "motif"),
+    "serve-int8": ("int8", 0, "random"),
+    "serve-spec-int8": ("int8", 4, "motif"),
+}
+# the attention kernel each serving phase must launch in its decode or
+# verify ticks
+PHASE_ATTN = {"serve": "paged_decode_attention",
+              "serve-spec": "paged_verify_attention",
+              "serve-int8": "paged_decode_attention_i8",
+              "serve-spec-int8": "paged_verify_attention_i8"}
+
+
+SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
+
+
+def _serve_setup(torch, name):
+    """Serve phase ``name``'s model, an engine factory and its 16 requests:
+    full-width tinyllama-42m, bfloat16 weights, 8 slots, prompts 16-160
+    tokens, 32 new (PR 11's random prompts, or repetitive motifs where
+    speculation runs)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
-    from repro_torch.kernels import ops
     from repro_torch.serving import Request, ServingEngine
+    kvd, k, kind = SERVE_PHASES[name]
     cfg = get_config("tinyllama-42m")
-    plan = ShardingPlan(kv_cache_dtype="bfloat16")
+    plan = ShardingPlan(kv_cache_dtype=kvd)
     params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
                                device="cuda")
-    SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
+    make = _requests if kind == "random" else _motif_requests
 
     def engine():
         return ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                          page_size=PSZ, prefill_chunk=CH,
-                                         device="cuda")
+                                         speculative=k, device="cuda")
 
+    def requests(seed=0, n=16, new=NEW):
+        return make(Request, np.random.RandomState(seed), n, 16, 160, new,
+                    cfg.vocab_size)
+
+    return cfg, engine, requests
+
+
+def phase_serve(torch, name):
+    """One serve phase (``SERVE_PHASES``) after a warm-up run.  The launch
+    counts are set to 0 just before the requests are submitted and read
+    just after the last token."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    kvd, k, kind = SERVE_PHASES[name]
+    cfg, engine, requests = _serve_setup(torch, name)
     warm = engine()                                    # first-call costs
-    for r in _requests(Request, np.random.RandomState(1), 2, 16, 160, 4,
-                       cfg.vocab_size):
+    for r in requests(seed=1, n=2, new=4):
         warm.submit(r)
     warm.run()
 
     eng = engine()
-    per_phase = {"prefill": dict.fromkeys(ops.launch_counts(), 0),
-                 "decode": dict.fromkeys(ops.launch_counts(), 0)}
-    calls = {"prefill": 0, "decode": 0}
+    kinds = ("prefill", "decode", "verify")
+    per_phase = {kd: dict.fromkeys(ops.launch_counts(), 0) for kd in kinds}
+    calls = dict.fromkeys(kinds, 0)
 
-    def counted(phase, fn):
+    def counted(kd, fn):
         def wrapped(*args, **kw):
             before = ops.launch_counts()
             out = fn(*args, **kw)
-            for k, v in ops.launch_counts().items():
-                per_phase[phase][k] += v - before[k]
-            calls[phase] += 1
+            for kn, v in ops.launch_counts().items():
+                per_phase[kd][kn] += v - before[kn]
+            calls[kd] += 1
             return out
         return wrapped
 
     eng.prefill_fn = counted("prefill", eng.prefill_fn)
     eng.decode_fn = counted("decode", eng.decode_fn)
-    reqs = _requests(Request, np.random.RandomState(0), 16, 16, 160, NEW,
-                     cfg.vocab_size)
+    if k:
+        eng.verify_fn = counted("verify", eng.verify_fn)
+    reqs = requests()
     torch.cuda.synchronize()
     ops.reset_launch_counts()                 # main path starts here
     t0 = time.perf_counter()
@@ -393,80 +693,87 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()            # main path ends here
-    check(all(r.done for r in reqs), "serve: not every request completed")
-    check(all(0 < len(r.out_tokens) <= NEW for r in reqs), "serve: token counts")
+    check(all(r.done for r in reqs), f"{name}: not every request completed")
+    check(all(0 < len(r.out_tokens) <= NEW for r in reqs), f"{name}: token counts")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
-          "serve: token ids out of range")
-    check(eng.drain() == 0, "serve: slots still admitted after run()")
+          f"{name}: token ids out of range")
+    check(eng.drain() == 0, f"{name}: slots still admitted after run()")
     n_usable = eng.allocator.n_pages - eng.allocator.n_reserved
     check(eng.allocator.n_free == n_usable,
-          f"serve: pool leaked {n_usable - eng.allocator.n_free} pages")
-    for k in ("rmsnorm", "matmul"):
-        check(per_phase["prefill"][k] > 0 and per_phase["decode"][k] > 0,
-              f"serve: {k} not launched in both prefill and decode {per_phase}")
+          f"{name}: pool leaked {n_usable - eng.allocator.n_free} pages")
+    steps = [kd for kd in ("decode", "verify") if calls[kd]]
+    for kn in ("rmsnorm", "matmul"):
+        check(all(per_phase[kd][kn] > 0 for kd in ["prefill"] + steps),
+              f"{name}: {kn} not launched in every step kind {per_phase}")
     check(per_phase["prefill"]["flash_attention"] > 0,
-          f"serve: flash_attention not launched in prefill {per_phase}")
-    check(per_phase["decode"]["paged_decode_attention"] > 0,
-          f"serve: paged_decode_attention not launched in decode {per_phase}")
-    for k, v in launches.items():
-        check(v > 0, f"serve: kernel {k} never launched on the main path")
+          f"{name}: flash_attention not launched in prefill {per_phase}")
+    attn = PHASE_ATTN[name]
+    check(per_phase["verify" if k else "decode"][attn] > 0,
+          f"{name}: {attn} not launched {per_phase}")
+    if k:
+        check(stats.spec_accepted > 0, f"{name}: no draft accepted")
+    for kn in ("rmsnorm", "matmul", "flash_attention", attn):
+        check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
     ttft = np.asarray(stats.ttft_s) * 1e3
-    per_call = {ph: {k: v / max(calls[ph], 1) for k, v in c.items()}
-                for ph, c in per_phase.items()}
-    print(f"serve: tinyllama-42m bf16 slots={SLOTS} seq_budget={SB} page={PSZ} "
-          f"chunk={CH} requests={len(reqs)} tokens={stats.decoded_tokens} "
+    per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
+                for kd, c in per_phase.items()}
+    spec = (f"acceptance_rate={stats.spec_accepted / max(stats.spec_drafted, 1):.3f} "
+            f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
+            f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
+            if k else "")
+    print(f"{name}: tinyllama-42m bf16 weights, {kvd} pools, speculative={k}, "
+          f"{kind} prompts, slots={SLOTS} seq_budget={SB} page={PSZ} chunk={CH} "
+          f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
           f"tok_per_s={stats.decoded_tokens / wall:.1f} "
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
-          f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} "
-          f"launches={launches} prefill_chunks={calls['prefill']} "
-          f"decode_ticks={calls['decode']} per_prefill_chunk="
-          f"{per_call['prefill']} per_decode_tick={per_call['decode']}")
+          f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}"
+          f"launches={ {kn: v for kn, v in launches.items() if v} } "
+          f"prefill_chunks={calls['prefill']} decode_ticks={calls['decode']} "
+          f"per_prefill_chunk={per_call['prefill']} "
+          f"per_decode_tick={per_call['decode']}")
     return launches, per_call, wall
 
 
-def phase_profile(torch, serve_wall_s):
-    """Device time by kernel over the serve phase's workload, traced with
-    torch.profiler (CUDA activity only).  The busy share divides the traced
-    device time by the untraced serve phase's wall time: the same work, so
-    what is left is time the device waited on the host."""
-    import numpy as np
-
-    from repro_torch.configs import get_config
-    from repro_torch.core import model
-    from repro_torch.core.partition import ShardingPlan
-    from repro_torch.serving import Request, ServingEngine
+def phase_profile(torch, name, serve_wall_s):
+    """Device time by kernel over serve phase ``name``'s workload, traced
+    with torch.profiler (CUDA activity only), and the CUDA runtime calls
+    that block the host (synchronizations and copies).  The busy share
+    divides the traced device time by the untraced phase's wall time: the
+    same work, so what is left is time the device waited on the host."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config("tinyllama-42m")
-    plan = ShardingPlan(kv_cache_dtype="bfloat16")
-    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
-                               device="cuda")
-    eng = ServingEngine.build_paged(cfg, plan, 8, 256, params, page_size=16,
-                                    prefill_chunk=32, device="cuda")
-    for r in _requests(Request, np.random.RandomState(0), 16, 16, 160, 32,
-                       cfg.vocab_size):
+    _, engine, requests = _serve_setup(torch, name)
+    eng = engine()
+    for r in requests():
         eng.submit(r)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
-    rows = []
+    rows, host = [], []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
-    check(rows, "profile: the trace holds no device time")
+        elif ev.key.startswith(("cudaStreamSynchronize", "cudaMemcpy",
+                                "cudaDeviceSynchronize", "cudaEventSynchronize")):
+            host.append(f"{ev.key} {ev.count} calls "
+                        f"{getattr(ev, 'self_cpu_time_total', 0) / 1e3:.1f} ms")
+    check(rows, f"profile[{name}]: the trace holds no device time")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile: serve workload device_ms={total:.2f} serve_wall_ms="
+    print(f"profile[{name}]: device_ms={total:.2f} wall_ms="
           f"{serve_wall_s * 1e3:.1f} device_busy_share="
-          f"{total / (serve_wall_s * 1e3):.3f}")
-    for ms, n, key in rows[:12]:
+          f"{total / (serve_wall_s * 1e3):.3f} blocking runtime calls: "
+          f"{'; '.join(host) or 'none recorded'}")
+    for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:6d} calls {100 * ms / total:5.1f}%  {key[:100]}")
 
 
+# name: (route, source, the TPU kernel it replaces)
+_PAGED = "src/repro_torch/kernels/csrc/paged_decode.cu"
 KERNELS = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                 "src/repro/kernels/rmsnorm.py:25"),
@@ -474,8 +781,14 @@ KERNELS = {
                "src/repro/kernels/matmul.py:36"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
-    "paged_decode_attention": ("cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+    "paged_decode_attention": ("cuda", _PAGED,
                                "src/repro/kernels/decode_attention.py:179"),
+    "paged_decode_attention_i8": ("cuda", _PAGED,
+                                  "src/repro/kernels/decode_attention.py:134"),
+    "paged_verify_attention": ("cuda", _PAGED,
+                               "src/repro/kernels/decode_attention.py:249"),
+    "paged_verify_attention_i8": ("cuda", _PAGED,
+                                  "src/repro/kernels/decode_attention.py:289"),
 }
 
 
@@ -500,22 +813,25 @@ def main() -> int:
         smi_line = phase_env(torch, build)
         rows = phase_kernels(torch, F)
         phase_parity(torch)
-        launches, per_call, serve_wall_s = phase_serve(torch)
-        phase_profile(torch, serve_wall_s)
+        served = {name: phase_serve(torch, name) for name in SERVE_PHASES}
+        for name, out in served.items():
+            phase_profile(torch, name, out[2])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = rows[name]
+        by_phase = {ph: out[0][name] for ph, out in served.items()}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": sum(by_phase.values()), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "max_abs_err_all_cases": r["max_abs_err_all_cases"],
-            "per_prefill_chunk": per_call["prefill"][name],
-            "per_decode_tick": per_call["decode"][name]})
+            "launches_by_phase": by_phase,
+            "per_step": {ph: {kd: c[name] for kd, c in out[1].items() if name in c}
+                         for ph, out in served.items()}})
     print(f"total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

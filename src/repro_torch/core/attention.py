@@ -1,4 +1,5 @@
-"""Attention: prefill-chunk flash attention and paged single-token decode.
+"""Attention: prefill-chunk flash attention, paged single-token decode and
+paged speculative verify (Q queries per slot), over float or int8 pools.
 
 Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
 
@@ -6,10 +7,17 @@ Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
     k/v: (B, G, Skv, D)
 
 On CPU tensors these are plain PyTorch (the oracle the tests hold against
-JAX).  On CUDA tensors ``flash_attention`` and ``paged_decode_attention``
-launch the Hopper kernels through ``kernels.ops``; the kernels take one kv
-head per q head (R == 1) and no sliding window in decode, and anything
-else raises until the slice that ports GQA and windows.
+JAX).  On CUDA tensors ``flash_attention``, ``paged_decode_attention`` and
+``paged_verify_attention`` launch the Hopper kernels through
+``kernels.ops``; the kernels take one kv head per q head (R == 1) and no
+sliding window in decode or verify, and anything else raises until the
+slice that ports GQA and windows.
+
+Convention: these functions take the INCLUSIVE position ``cur_pos`` of the
+current token (query i of verify sits at ``cur_pos + i`` and sees
+``kv_pos <= cur_pos + i``); the paged kernels take the count of valid
+tokens ``length = cur_pos + 1``.  The conversion happens here and nowhere
+else.
 """
 from __future__ import annotations
 
@@ -88,26 +96,81 @@ def gather_pages(pool, block_table):
     return g.permute(0, 2, 1, 3, 4).reshape(B, G, n_max * psz, D)
 
 
+def gather_pages_dequant(pool, scales, block_table, dtype):
+    """``gather_pages`` for an int8 pool with per-(page, row) scales.
+    pool: (n_pages, G, psz, D) int8; scales: (n_pages, psz) float32
+    -> (B, G, n_max * psz, D) in ``dtype``."""
+    B, n_max = block_table.shape
+    psz = pool.shape[2]
+    g = gather_pages(pool, block_table).float()
+    s = scales[block_table.reshape(-1).long()].reshape(B, 1, n_max * psz, 1)
+    return (g * s).to(dtype)
+
+
+def gather_kv(k_pool, v_pool, block_table, dtype, k_scale=None, v_scale=None):
+    """Both pools' logical streams, (B, G, n_max * psz, D) each: int8 pools
+    (``k_scale`` given) are dequantized to ``dtype``, float pools are
+    gathered as stored."""
+    if k_scale is not None:
+        return (gather_pages_dequant(k_pool, k_scale, block_table, dtype),
+                gather_pages_dequant(v_pool, v_scale, block_table, dtype))
+    return gather_pages(k_pool, block_table), gather_pages(v_pool, block_table)
+
+
+def _card_layout(kind, R, window):
+    if R != 1 or window > 0:
+        raise NotImplementedError(
+            f"the paged-{kind} kernel takes one kv head per q head and no "
+            f"window (got R={R}, window={window}); GQA and windows come "
+            f"with a later slice")
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, cur_pos, *,
-                           window=0, scale=None):
+                           window=0, scale=None, k_scale=None, v_scale=None):
     """Decode attention through a block table.  q: (B, G, R, D); pools:
     (n_pages, G, psz, D); block_table: (B, n_max); cur_pos: (B,) the
-    INCLUSIVE position of the current token (the kernel takes the count
-    ``cur_pos + 1``)."""
+    INCLUSIVE position of the current token.  ``k_scale``/``v_scale``
+    ((n_pages, psz) float32): int8 pools, dequantized on read."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        if R != 1 or window > 0:
-            raise NotImplementedError(
-                f"the paged-decode kernel takes one kv head per q head and "
-                f"no window (got R={R}, window={window}); GQA and windows "
-                f"come with a later slice")
-        length = (cur_pos + 1).to(torch.int32)
-        out = ops.paged_decode_attention(q[:, :, 0].contiguous(), k_pool,
-                                         v_pool, block_table, length,
-                                         scale=scale)
+        _card_layout("decode", R, window)
+        out = ops.paged_decode_attention(
+            q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
+            (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
         return out[:, :, None]
     L = block_table.shape[1] * k_pool.shape[2]
     kv_pos = torch.arange(L, dtype=torch.int32, device=q.device).expand(B, L)
-    return decode_attention(q, gather_pages(k_pool, block_table),
-                            gather_pages(v_pool, block_table), kv_pos,
-                            cur_pos, window=window, scale=scale)
+    kf, vf = gather_kv(k_pool, v_pool, block_table, q.dtype, k_scale, v_scale)
+    return decode_attention(q, kf, vf, kv_pos, cur_pos, window=window,
+                            scale=scale)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_table, cur_pos, *,
+                           window=0, scale=None, k_scale=None, v_scale=None):
+    """Q-query decode attention for speculative verify.  q: (B, G, R, Q, D)
+    — query i of a slot sits at ``cur_pos + i`` (query 0 is the last
+    accepted token, the rest are drafts whose KV is already written) and
+    sees ``kv_pos <= cur_pos + i``.  Pools, block_table and scales as in
+    ``paged_decode_attention``; cur_pos: (B,) -> (B, G, R, Q, D)."""
+    B, G, R, Q, D = q.shape
+    if q.is_cuda:
+        _card_layout("verify", R, window)
+        out = ops.paged_verify_attention(
+            q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
+            (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
+            v_scale=v_scale)
+        return out[:, :, None]
+    scale = scale if scale is not None else D ** -0.5
+    L = block_table.shape[1] * k_pool.shape[2]
+    kf, vf = gather_kv(k_pool, v_pool, block_table, q.dtype, k_scale, v_scale)
+    s = torch.einsum("bgrqd,bgsd->bgrqs", q.float(), kf.float()) * scale
+    kv_pos = torch.arange(L, device=q.device)[None, None, :]            # (1,1,L)
+    q_pos = cur_pos.long()[:, None, None] + \
+        torch.arange(Q, device=q.device)[None, :, None]                  # (B,Q,1)
+    valid = kv_pos <= q_pos                                             # (B,Q,L)
+    if window > 0:
+        valid &= kv_pos > q_pos - window
+    p, den = _masked_exp(s, valid[:, None, None])
+    acc = torch.einsum("bgrqs,bgsd->bgrqd", p.to(vf.dtype).float(), vf.float())
+    return (acc / den.clamp_min(1e-20)[..., None]).to(q.dtype)

@@ -2,8 +2,9 @@
 
 Port of the parts of the JAX package's ``core/blocks.py`` that paged
 serving of attention-only decoders runs: the paged branch of
-``attn_mixer`` (decode and prefill-chunk modes), ``_page_write``,
-``dense_ffn`` and ``layer_forward``.  On one device every ``psum`` of the
+``attn_mixer`` (decode, speculative-verify and prefill-chunk modes, over
+float or int8 pools), ``_row_quant``, ``_page_write``, ``dense_ffn`` and
+``layer_forward``.  On one device every ``psum`` of the
 two-sync contract is the identity.  Every matrix product goes through
 ``kernels.ops.matmul``.
 
@@ -14,10 +15,28 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.attention import (flash_attention, gather_pages,
-                                        paged_decode_attention)
+from repro_torch.core.attention import (flash_attention, gather_kv,
+                                        paged_decode_attention,
+                                        paged_verify_attention)
 from repro_torch.core.layers import activation, apply_norm, apply_rope
 from repro_torch.kernels import ops
+
+
+def _row_quant(x):
+    """Per-token-row int8 quantization for the paged pools.
+
+    x: (..., G, D), one token row per leading index.  Each row gets its own
+    scale ``amax / 127`` over its (G, D) values, so the stored bytes are a
+    function of the row's values alone (write order, speculation and
+    chunking cannot change them); a zero row gets scale 0 and dequantizes
+    to exact zeros.  ``torch.round`` rounds half to even, as ``jnp.round``
+    does.  -> (int8 like x, scale (...,) float32)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=(-2, -1))
+    inv = torch.where(amax > 0, 127.0 / amax.clamp_min(1e-30),
+                      torch.zeros_like(amax))
+    q = torch.round(xf * inv[..., None, None]).clamp(-127, 127)
+    return q.to(torch.int8), amax * (1.0 / 127.0)
 
 
 def _mm(x, w):
@@ -63,12 +82,12 @@ def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
                pages):
     """Paged attention sublayer -> (output (B, S, E), kv_cache updated in
     place)."""
-    if mode not in ("decode", "prefill") or kv_cache is None \
+    if mode not in ("decode", "verify", "prefill") or kv_cache is None \
             or "kp" not in kv_cache:
         raise NotImplementedError(
-            f"attn_mixer mode '{mode}': the port runs paged decode and "
-            f"prefill chunks; the contiguous cache and speculative verify "
-            f"come with later slices")
+            f"attn_mixer mode '{mode}': the port runs paged decode, verify "
+            f"and prefill chunks; the contiguous cache comes with a later "
+            f"slice")
     window = cfg.window_for(spec)
     q, k, v = _project_qkv(xn, pa)
     q, k = _rope_qk(q, k, positions, cfg)
@@ -82,26 +101,42 @@ def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
 
 
 def _paged_attn(qg, kg, vg, kv, pages, mode, positions, pos, window, cfg):
-    """Paged-cache attention (decode token or prefill chunk).
+    """Paged-cache attention (decode token, verify block or prefill chunk).
 
-    kv: {"kp", "vp"} page pools (n_pages, G, psz, D); pages: {"block_table",
+    kv: {"kp", "vp"} page pools (n_pages, G, psz, D), plus {"ksp", "vsp"}
+    (n_pages, psz) scales when the pools are int8; pages: {"block_table",
     "chunk_start"}.  Token t of a slot lives at page block_table[t // psz],
     offset t % psz, so the gathered stream holds absolute position s at
-    slot s and validity is s <= cur_pos (decode) / causal masking (chunk).
-    Garbage between a prompt's end and its chunk boundary is never read:
-    every later position is decode-written before it first becomes visible."""
+    slot s and validity is s <= cur_pos (decode), s <= cur_pos + i (verify
+    query i) / causal masking (chunk).  Garbage between a prompt's end and
+    its chunk boundary is never read: every later position is written
+    before it first becomes visible.  int8 pools are read through their
+    scales: in the decode and verify kernels, and by a dequantizing gather
+    before the prefill chunk's flash attention."""
     bt = pages["block_table"]
-    psz = kv["kp"].shape[2]
+    # decode writes its one token at pos (positions == pos[:, None]); verify
+    # writes its block at pos + i, padded columns at -1 (the scratch page);
+    # a chunk writes its tokens — always before attending
+    kv = _page_write(kv, kg, vg, positions, bt, kv["kp"].shape[2])
+    if "ksp" in kv:
+        kp, vp = kv["kp"], kv["vp"]
+        scales = dict(k_scale=kv["ksp"], v_scale=kv["vsp"])
+    else:
+        kp, vp = kv["kp"].to(qg.dtype), kv["vp"].to(qg.dtype)
+        scales = {}
     if mode == "decode":
-        kv = _page_write(kv, kg, vg, pos[:, None], bt, psz)
-        out = paged_decode_attention(
-            qg[:, :, :, 0], kv["kp"].to(qg.dtype), kv["vp"].to(qg.dtype), bt,
-            pos, window=window, scale=cfg.attn_scale)
+        out = paged_decode_attention(qg[:, :, :, 0], kp, vp, bt, pos,
+                                     window=window, scale=cfg.attn_scale,
+                                     **scales)
         return out[:, :, :, None, :], kv
-    # prefill chunk: write the chunk, then attend to the gathered prefix
-    kv = _page_write(kv, kg, vg, positions, bt, psz)
-    k_all = gather_pages(kv["kp"].to(qg.dtype), bt)     # (B, G, L, D)
-    v_all = gather_pages(kv["vp"].to(qg.dtype), bt)
+    if mode == "verify":
+        # query i sits at pos + i; rejected drafts' KV needs no rollback:
+        # validity masks it until the next step overwrites it
+        out = paged_verify_attention(qg, kp, vp, bt, pos, window=window,
+                                     scale=cfg.attn_scale, **scales)
+        return out, kv
+    # prefill chunk: attend to the gathered prefix
+    k_all, v_all = gather_kv(kp, vp, bt, qg.dtype, **scales)  # (B,G,L,D)
     out = flash_attention(qg, k_all, v_all, causal=True, window=window,
                           scale=cfg.attn_scale, q_offset=pages["chunk_start"])
     return out, kv
@@ -110,18 +145,23 @@ def _paged_attn(qg, kg, vg, kv, pages, mode, positions, pos, window, cfg):
 def _page_write(kv, kg, vg, positions, bt, psz):
     """Scatter new K/V into the page pools, in place (JAX's donated
     ``.at[].set``).  kg/vg: (B, G, C, D); positions: (B, C) absolute token
-    positions (C = 1 for decode).  Negative positions route to the scratch
-    page 0, whose contents no live slot reads."""
+    positions (C = 1 for decode).  Negative positions (padded verify
+    columns) route to the scratch page 0, whose contents no live slot
+    reads.  int8 pools: each token row is quantized with its own scale
+    (``_row_quant``), and payload and scale are written in the same step."""
     B, G, C, D = kg.shape
     safe = positions.clamp_min(0)
     pid = torch.gather(bt, 1, (safe // psz).long())              # (B, C)
     pid = torch.where(positions >= 0, pid, torch.zeros_like(pid))
     flat_pid = pid.reshape(-1).long()
     flat_off = (safe % psz).reshape(-1).long()
-    for name, x in (("kp", kg), ("vp", vg)):
-        pool = kv[name]
-        rows = x.to(pool.dtype).permute(0, 2, 1, 3).reshape(B * C, G, D)
-        pool[flat_pid, :, flat_off] = rows
+    for name, x in (("k", kg), ("v", vg)):
+        pool = kv[name + "p"]
+        rows = x.permute(0, 2, 1, 3)                             # (B, C, G, D)
+        if name + "sp" in kv:
+            rows, row_scale = _row_quant(rows)
+            kv[name + "sp"][flat_pid, flat_off] = row_scale.reshape(B * C)
+        pool[flat_pid, :, flat_off] = rows.to(pool.dtype).reshape(B * C, G, D)
     return kv
 
 

@@ -114,6 +114,10 @@ def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
     compare with JAX load JAX's weights through ``bridge.params_from_jax``."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or plan.weight_dtype or cfg.dtype)
+    if not dt.is_floating_point:
+        raise NotImplementedError(
+            f"{dt} weights (the JAX package's W8_SCALE int8 weights) are not "
+            f"ported yet: the port stores float weights")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     kv_map = torch.tensor(model_layout(cfg, plan).attn.kv_map)
@@ -204,6 +208,29 @@ def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages):
                           pages=pages)
     x = apply_norm(x, params["final_norm"], cfg)
     return final_logits(params, x)[:, 0], cache
+
+
+def forward_verify(params, cache, tokens, pos, qlen, cfg, plan, lay, pages):
+    """Speculative verify: score Q consecutive positions per slot at once.
+
+    tokens: (B, Q) — column 0 is the slot's last accepted token, columns
+    1..Q-1 are drafted continuations; pos: (B,) absolute position of
+    column 0; qlen: (B,) live columns per row (columns at or past qlen are
+    padding: their position is -1, so their KV lands on the scratch page
+    and their logits are garbage the caller ignores).  -> (logits (B, Q,
+    V), cache): row i is the next-token distribution after tokens[:, :i+1],
+    as feeding them to ``forward_decode`` one at a time would give."""
+    B, Q = tokens.shape
+    cols = torch.arange(Q, device=tokens.device, dtype=torch.int32)
+    positions = torch.where(cols[None, :] < qlen[:, None],
+                            pos[:, None] + cols[None, :],
+                            torch.full_like(cols, -1)[None, :])
+    x = embed_tokens(params, tokens)
+    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
+                          lay, "verify", positions, pos=pos, cache=cache,
+                          pages=pages)
+    x = apply_norm(x, params["final_norm"], cfg)
+    return final_logits(params, x), cache
 
 
 def forward_prefill_chunk(params, cache, tokens, chunk_start: int,

@@ -1,9 +1,10 @@
 """Layout of the model on one device: the tp=1 part of the JAX package's
 ``core/partition.py``.
 
-``ShardingPlan`` keeps the two storage choices the paged-serving slice
-reads (pool dtype, weight dtype); ``head_layout`` keeps the grouped-query
-head layout that ``blocks._group_q`` uses, computed for tp=1.
+``ShardingPlan`` keeps the two storage choices the paged-serving slices
+read (pool dtype: float, or int8 with per-row scales; weight dtype: float
+only); ``head_layout`` keeps the grouped-query head layout that
+``blocks._group_q`` uses, computed for tp=1.
 """
 from __future__ import annotations
 
@@ -13,22 +14,28 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """Config dtype name -> torch dtype (float pools and weights only)."""
+    """Config dtype name -> torch dtype."""
     if name not in _DTYPES:
         raise NotImplementedError(
-            f"dtype '{name}' is not ported yet (the int8 pools and weights "
-            f"come with a later slice); have {sorted(_DTYPES)}")
+            f"dtype '{name}' is not ported; have {sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+def kv_pool_is_quantized(plan) -> bool:
+    """True when the paged KV pools store int8 payloads with per-(page,
+    row) float32 scales (``plan.kv_cache_dtype == "int8"``)."""
+    return torch_dtype(plan.kv_cache_dtype) == torch.int8
 
 
 @dataclass(frozen=True)
 class ShardingPlan:
     """Storage choices of a one-device deployment."""
-    kv_cache_dtype: str = "bfloat16"  # page-pool dtype
+    kv_cache_dtype: str = "bfloat16"  # page-pool dtype ("int8": quantized)
     weight_dtype: str = ""            # "" -> cfg.dtype
 
 

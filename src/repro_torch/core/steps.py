@@ -1,11 +1,12 @@
-"""The paged serving steps: one decode step and one prefill-chunk step.
+"""The paged serving steps: decode, speculative verify and prefill chunk.
 
-Port of the JAX package's ``make_paged_decode_step`` and
-``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch runs
-eagerly; nothing is compiled).  Each step's shapes are fixed when it is
-made — (batch, n_max_pages) for decode, (chunk, n_max_pages) for a prefill
-chunk — and every request length reaches them only as data (block tables,
-positions), never as a shape, as in the JAX engine.
+Port of the JAX package's ``make_paged_decode_step``, ``make_verify_step``
+and ``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch
+runs eagerly; nothing is compiled).  Each step's shapes are fixed when it
+is made — (batch, n_max_pages) for decode, (batch, q_len, n_max_pages) for
+verify, (chunk, n_max_pages) for a prefill chunk — and every request
+length reaches them only as data (block tables, positions, live-column
+counts), never as a shape, as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -36,6 +37,29 @@ def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int):
                                     lay, pages)
 
     return decode_fn
+
+
+def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
+    """-> verify_fn(params, cache, tokens (B, Q), pos (B,), qlen (B,),
+    block_table (B, n_max)) -> (logits (B, Q, V), cache updated in place).
+
+    The speculative companion of the decode step: one call scores Q = k+1
+    positions per slot (the last accepted token plus k drafts), writing
+    all Q tokens' KV through the block table and reading the cache once.
+    ``qlen`` marks each row's live columns; idle rows point their block
+    table at the scratch page with pos 0 and qlen 1."""
+    lay = model_layout(cfg, plan)
+
+    def verify_fn(params, cache, tokens, pos, qlen, block_table):
+        _expect("tokens", tokens, (batch, q_len))
+        _expect("pos", pos, (batch,))
+        _expect("qlen", qlen, (batch,))
+        _expect("block_table", block_table, (batch, n_max_pages))
+        pages = {"block_table": block_table}
+        return model.forward_verify(params, cache, tokens, pos, qlen, cfg,
+                                    plan, lay, pages)
+
+    return verify_fn
 
 
 def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):

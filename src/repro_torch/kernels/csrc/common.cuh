@@ -1,6 +1,9 @@
-// Shared helpers of the port's CUDA kernels: float32/bfloat16 loads and
-// stores through float, and warp reductions.
+// Shared helpers of the port's CUDA kernels: float32/bfloat16 (and int8
+// payload) loads and float32/bfloat16 stores through float, and warp
+// reductions.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -9,6 +12,7 @@ namespace repro {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

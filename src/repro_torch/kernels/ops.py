@@ -1,13 +1,17 @@
-"""Dispatch over the four kernels of the paged-serving path.
+"""Dispatch over the kernels of the paged-serving path: rmsnorm, matmul,
+flash attention, and paged decode and verify attention over float or int8
+pools (seven kernel variants in all).
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version
 (``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
 raises.  Nothing falls back: a kernel that does not build or launch is an
 error, never a silent detour through the plain version.
 
-Each wrapper keeps a plain integer ``launches``, raised by one exactly
-where it launches its kernel, so a run can show that it went through the
-kernels (``launch_counts`` / ``reset_launch_counts``).
+Each kernel variant has its own wrapper with a plain integer ``launches``,
+raised by one exactly where it launches its kernel, so a run can show that
+it went through every kernel (``launch_counts`` / ``reset_launch_counts``).
+``paged_decode_attention`` and ``paged_verify_attention`` hand int8 pools
+(``k_scale``/``v_scale`` given) to their ``_i8`` twins.
 """
 from __future__ import annotations
 
@@ -51,9 +55,14 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
-                           scale=None):
+                           scale=None, k_scale=None, v_scale=None):
     """q: (B, H, D) over pools (n_pages, H, psz, D) through block_table
-    (B, n_max); ``length`` (B,) counts valid tokens -> (B, H, D)."""
+    (B, n_max); ``length`` (B,) counts valid tokens -> (B, H, D).  Pools
+    in q's dtype, or int8 with ``k_scale``/``v_scale`` (n_pages, psz)."""
+    if k_scale is not None:
+        return paged_decode_attention_i8(q, k_pages, v_pages, block_table,
+                                         length, k_scale, v_scale,
+                                         scale=scale)
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pages, v_pages,
                                               block_table, length, scale)
@@ -63,7 +72,55 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
     return out
 
 
-WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention)
+def paged_decode_attention_i8(q, k_pages, v_pages, block_table, length,
+                              k_scale, v_scale, *, scale=None):
+    """``paged_decode_attention`` over int8 pools, dequantised on read."""
+    if q.device.type == "cpu":
+        return ref.ref_paged_decode_attention(q, k_pages, v_pages,
+                                              block_table, length, scale,
+                                              k_scale, v_scale)
+    out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
+                                         length, scale=scale,
+                                         k_scale=k_scale, v_scale=v_scale)
+    paged_decode_attention_i8.launches += 1
+    return out
+
+
+def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
+                           scale=None, k_scale=None, v_scale=None):
+    """q: (B, H, Q, D), query i at ``length - 1 + i`` seeing positions
+    ``< length + i``; pools, scales, block_table and length as in
+    ``paged_decode_attention`` -> (B, H, Q, D)."""
+    if k_scale is not None:
+        return paged_verify_attention_i8(q, k_pages, v_pages, block_table,
+                                         length, k_scale, v_scale,
+                                         scale=scale)
+    if q.device.type == "cpu":
+        return ref.ref_paged_verify_attention(q, k_pages, v_pages,
+                                              block_table, length, scale)
+    out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
+                                         length, scale=scale)
+    paged_verify_attention.launches += 1
+    return out
+
+
+def paged_verify_attention_i8(q, k_pages, v_pages, block_table, length,
+                              k_scale, v_scale, *, scale=None):
+    """``paged_verify_attention`` over int8 pools, dequantised on read."""
+    if q.device.type == "cpu":
+        return ref.ref_paged_verify_attention(q, k_pages, v_pages,
+                                              block_table, length, scale,
+                                              k_scale, v_scale)
+    out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
+                                         length, scale=scale,
+                                         k_scale=k_scale, v_scale=v_scale)
+    paged_verify_attention_i8.launches += 1
+    return out
+
+
+WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention,
+            paged_decode_attention_i8, paged_verify_attention,
+            paged_verify_attention_i8)
 for _w in WRAPPERS:
     _w.launches = 0
 

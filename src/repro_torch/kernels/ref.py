@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels on the paged-serving path.
+"""Plain PyTorch versions of the kernels on the paged-serving path.
 
 Each ``ref_*`` is the function its Hopper kernel computes, with the Pallas
 kernel's contract and shapes, and no tiling.  ``kernels.ops`` runs these on
@@ -59,26 +59,47 @@ def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0,
     return _masked_softmax_av(s, mask[None], v).to(q.dtype)
 
 
-def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
-                               scale=None):
-    """One query per (slot, head) over the slot's block-table pages.
+def ref_dequant_pool(pool, scales):
+    """An int8 page pool through its per-(page, row) scales, in float32.
+    pool: (n_pages, H, psz, D) int8; scales: (n_pages, psz) float32."""
+    return pool.float() * scales[:, None, :, None]
 
-    q: (B, H, D); k_pages/v_pages: (n_pages, H, psz, D); block_table:
-    (B, n_max) int32 page ids; length: (B,) int32 count of valid tokens
-    (positions < length attend) -> (B, H, D)."""
-    B, H, D = q.shape
+
+def ref_paged_verify_attention(q, k_pages, v_pages, block_table, length,
+                               scale=None, k_scale=None, v_scale=None):
+    """Q queries per (slot, head) over the slot's block-table pages.
+
+    q: (B, H, Q, D); k_pages/v_pages: (n_pages, H, psz, D), float or int8
+    with ``k_scale``/``v_scale`` (n_pages, psz) float32 (dequantised in
+    float32, as the Pallas i8 kernels do); block_table: (B, n_max) int32
+    page ids; length: (B,) int32 count of valid tokens ahead of query 0.
+    Query i sees positions < length + i -> (B, H, Q, D) in q's dtype."""
+    B, H, Q, D = q.shape
     psz = k_pages.shape[2]
     n_max = block_table.shape[1]
     scale = scale if scale is not None else D ** -0.5
     ids = block_table.reshape(-1).long()
+    if k_scale is not None:
+        k_pages = ref_dequant_pool(k_pages, k_scale)
+        v_pages = ref_dequant_pool(v_pages, v_scale)
 
     def gather(pool):                                 # -> (B, H, n_max*psz, D)
         g = pool[ids].reshape(B, n_max, H, psz, D)
         return g.permute(0, 2, 1, 3, 4).reshape(B, H, n_max * psz, D)
 
     k, v = gather(k_pages), gather(v_pages)
-    s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float()) * scale
+    s = torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) * scale
     kpos = torch.arange(n_max * psz, device=q.device)
-    mask = (kpos[None, :] < length.to(q.device)[:, None].long())[:, None, :]
-    out = _masked_softmax_av(s[:, :, None, :], mask[:, :, None, :], v)
-    return out[:, :, 0].to(q.dtype)
+    see = length.to(q.device).long()[:, None] + \
+        torch.arange(Q, device=q.device)[None, :]               # (B, Q)
+    mask = (kpos[None, None, :] < see[:, :, None])[:, None]     # (B, 1, Q, L)
+    return _masked_softmax_av(s, mask, v).to(q.dtype)
+
+
+def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
+                               scale=None, k_scale=None, v_scale=None):
+    """One query per (slot, head): ``ref_paged_verify_attention`` with
+    Q = 1.  q: (B, H, D) -> (B, H, D); positions < length attend."""
+    return ref_paged_verify_attention(q[:, :, None], k_pages, v_pages,
+                                      block_table, length, scale, k_scale,
+                                      v_scale)[:, :, 0]

@@ -5,8 +5,10 @@ engine, on the card unless ``--device cpu``.
         --requests 16 --slots 8 --seq-budget 256 --max-new 32
 
 Takes the flags of ``python -m repro.launch.serve`` that the paged greedy
-path supports; the port is always paged, dp=1, FCFS, greedy and serial.
-Any other flag of that launcher is refused with the slice it waits for.
+path supports, ``--speculative K`` (prompt-lookup drafts verified in one
+step) and ``--kv-dtype int8`` (int8 page pools) among them; the port is
+always paged, dp=1, FCFS, greedy and serial.  Any other flag of that
+launcher is refused with the slice it waits for.
 Weights are random, drawn from ``--seed``; prompts are random token ids.
 """
 from __future__ import annotations
@@ -30,7 +32,6 @@ LATER = {
     "--paged": "nothing: the port is always paged, drop the flag",
     "--prefix-cache": "the prefix cache (ROADMAP Queue 1 item 9)",
     "--shared-prefix": "the prefix cache (ROADMAP Queue 1 item 9)",
-    "--speculative": "speculative verify (ROADMAP Queue 1 item 7)",
     "--frame-groups": "encoder-decoder serving (ROADMAP Queue 1 item 11)",
     "--policy": "priority and fair policies (ROADMAP Queue 1 item 9)",
     "--preemption": "preemption (ROADMAP Queue 1 item 9)",
@@ -52,13 +53,19 @@ def parse_args(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kv-dtype", default="fp16",
-                    help="page-pool dtype: fp32, or fp16 (bfloat16 pools, as "
-                         "in the JAX launcher); int8 comes later")
+    ap.add_argument("--kv-dtype", choices=("fp32", "fp16", "int8"),
+                    default="fp16",
+                    help="page-pool dtype: fp32, fp16 (bfloat16 pools, as in "
+                         "the JAX launcher) or int8 (per-row scales, "
+                         "dequantized on read)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--n-pages", type=int, default=0,
                     help="page pool size (0 = full occupancy + scratch)")
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="speculative decoding: prompt-lookup self-drafts "
+                         "of up to K tokens verified in one step (outputs "
+                         "stay token-identical)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the Hopper kernels) or cpu (plain PyTorch)")
     args, rest = ap.parse_known_args(argv)
@@ -69,10 +76,8 @@ def parse_args(argv=None):
                      f"waits for {LATER[flag]}")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.kv_dtype not in ("fp32", "fp16"):
-        ap.error(f"--kv-dtype {args.kv_dtype}: the port has fp32 and fp16 "
-                 f"(bfloat16) pools; int8 pools wait for ROADMAP Queue 1 "
-                 f"item 8")
+    if args.speculative < 0:
+        ap.error("--speculative must be >= 0")
     if args.prompt_len + args.max_new > args.seq_budget:
         ap.error("--prompt-len + --max-new must fit --seq-budget")
     return args
@@ -90,7 +95,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
-    kvd = {"fp32": "float32", "fp16": "bfloat16"}[args.kv_dtype]
+    kvd = {"fp32": "float32", "fp16": "bfloat16", "int8": "int8"}[
+        args.kv_dtype]
     plan = ShardingPlan(kv_cache_dtype=kvd)
     params = model.init_params(cfg, plan,
                                torch.Generator().manual_seed(args.seed),
@@ -99,7 +105,7 @@ def main(argv=None):
         cfg, plan, args.slots, args.seq_budget, params,
         page_size=args.page_size, n_pages=args.n_pages,
         prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
-        device=args.device)
+        speculative=args.speculative, device=args.device)
     rng = np.random.RandomState(args.seed)
     t0 = time.time()
     for rid in range(args.requests):
@@ -122,6 +128,13 @@ def main(argv=None):
               f"tpot_p50={np.median(stats.tpot_s) * 1e3:.1f}ms")
     else:
         print("no tokens emitted")
+    if args.speculative:
+        print(f"speculative(k={args.speculative}): accepted_tokens_per_tick="
+              f"{stats.accepted_tokens_per_tick:.2f} draft_hit_rate="
+              f"{stats.draft_hit_rate:.2f} ({stats.spec_draft_hits}/"
+              f"{stats.spec_draft_lookups} lookups) accepted="
+              f"{stats.spec_accepted}/{stats.spec_drafted} drafted "
+              f"spec_denied={stats.spec_denied}")
     print(f"pages_free={engine.allocator.n_free}/"
           f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
     return 0

@@ -14,6 +14,25 @@ runs ONE decode step over all slots (idle and prefilling lanes point at the
 scratch page with pos 0), then collects: prefill completions first (their
 first token is sampled from the chunk's logits), then decode emissions.
 Finished slots return their pages and are refilled from the queue.
+
+**Speculative decoding** (``speculative=k``): each tick a self-drafting
+source (``serving.prefix_cache.PromptLookupDraft``: n-gram lookup over the
+slot's own context, no second model) proposes up to k tokens per slot, and
+ONE verify step (``core.steps.make_verify_step``) scores all k+1 positions,
+writing their KV through the block table.  ``speculative_sample`` emits
+1..k+1 tokens per slot, token-identical to the one-token path.  Rejected
+drafts need no device rollback: ``pos`` advances only past emitted tokens
+and validity masks the rest until it is overwritten.  Admission budgets +k
+tokens of page headroom all or nothing (``Admission.spec``); a slot whose
+drafts miss ``SPEC_DISABLE_AFTER`` times in a row stops drafting and
+returns the headroom (``Scheduler.on_spec_trim``).  A tick where no slot
+drafts runs the plain decode step.
+
+**int8 page pools** (``plan.kv_cache_dtype == "int8"``): every token row is
+quantized with its own scale as it is written; after each tick's
+admissions the engine zeroes, in place, the scale rows of the pages freed
+since the last tick (``PageAllocator.take_scale_dirty``), so a recycled
+page never pairs a fresh payload with a stale scale.
 """
 from __future__ import annotations
 
@@ -25,14 +44,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.kvcache import SCRATCH_PAGE, PageAllocator
+from repro_torch.core.kvcache import SCRATCH_PAGE, PageAllocator, pages_needed
 from repro_torch.core.model import Decoder, check_supported, tree_map
+from repro_torch.core.partition import kv_pool_is_quantized
 from repro_torch.core.steps import (make_paged_decode_step,
-                                    make_prefill_chunk_step,
+                                    make_prefill_chunk_step, make_verify_step,
                                     zero_paged_cache_for)
-from repro_torch.serving.sampler import SamplerConfig, sample_from_logits
+from repro_torch.serving.prefix_cache import PromptLookupDraft
+from repro_torch.serving.sampler import (SamplerConfig, sample_from_logits,
+                                         speculative_sample)
 from repro_torch.serving.scheduler import (Admission, FCFSScheduler,
                                            effective_prompt)
+
+# consecutive zero-accept verify steps after which a slot stops drafting
+# and returns its draft-headroom pages (the speculation is clearly not
+# paying for its pages and compute on this request)
+SPEC_DISABLE_AFTER = 4
 
 
 @dataclass
@@ -57,23 +84,45 @@ class EngineStats:
     tick_wall_s: float = 0.0           # total wall time inside tick()
     tpot_s: list = field(default_factory=list)
     request_ttft: dict = field(default_factory=dict)   # rid -> seconds
+    spec_steps: int = 0                # verify slot-steps with a draft
+    spec_drafted: int = 0              # draft tokens proposed to the verifier
+    spec_accepted: int = 0             # draft tokens accepted
+    spec_emitted: int = 0              # tokens emitted by drafted slot-steps
+    spec_draft_lookups: int = 0        # draft-source queries
+    spec_draft_hits: int = 0           # ... that produced a usable draft
+    spec_denied: int = 0               # admissions denied draft headroom
 
     @property
     def ttft_s(self) -> list:
         """TTFT samples in first-token order."""
         return list(self.request_ttft.values())
 
+    @property
+    def accepted_tokens_per_tick(self) -> float:
+        """Tokens emitted per drafted verify slot-step (> 1.0 means the
+        speculation beats the one-token path)."""
+        return self.spec_emitted / self.spec_steps if self.spec_steps \
+            else 0.0
+
+    @property
+    def draft_hit_rate(self) -> float:
+        return self.spec_draft_hits / self.spec_draft_lookups \
+            if self.spec_draft_lookups else 0.0
+
 
 class ServingEngine:
     def __init__(self, cfg, plan, batch_slots: int, seq_budget: int, params,
                  *, page_size: int, n_pages: int, prefill_chunk: int,
-                 eos_id: int = 1, rng_seed: int = 0, device="cuda"):
+                 eos_id: int = 1, rng_seed: int = 0, speculative: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
         if seq_budget % page_size or seq_budget % prefill_chunk:
             raise ValueError(f"seq_budget {seq_budget} must be a multiple of "
                              f"page_size {page_size} and prefill_chunk "
                              f"{prefill_chunk}")
+        if speculative < 0:
+            raise ValueError(f"speculative must be >= 0, got {speculative}")
         self.cfg, self.plan = cfg, plan
         self.B = batch_slots
         self.S = seq_budget
@@ -85,37 +134,49 @@ class ServingEngine:
         self.rng_seed = rng_seed
         self.model = Decoder(tree_map(lambda t: t.to(self.device), params))
         self.params = self.model.tree()
+        self.stats = EngineStats()
+        self.speculative = int(speculative)
+        self.quant_pools = kv_pool_is_quantized(plan)
         self.allocator = PageAllocator(n_pages)
         self.sched = FCFSScheduler(seq_budget=seq_budget,
                                    allocator=self.allocator,
-                                   page_size=page_size)
+                                   page_size=page_size,
+                                   spec_tokens=self.speculative,
+                                   stats=self.stats)
         self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
                                           self.device)
         self.prefill_fn = make_prefill_chunk_step(cfg, plan, prefill_chunk,
                                                   self.n_max_pages)
         self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
                                                 self.n_max_pages)
+        self.verify_fn = (make_verify_step(cfg, plan, batch_slots,
+                                           self.speculative + 1,
+                                           self.n_max_pages)
+                          if self.speculative else None)
+        self.draft_source = PromptLookupDraft() if self.speculative else None
         self.admissions: List[Optional[Admission]] = [None] * self.B
         self.slot_state: List[Optional[str]] = [None] * self.B
         self.pos = np.zeros(self.B, np.int32)
         self.last_token = np.zeros(self.B, np.int32)
         self.prefill_done = np.zeros(self.B, np.int32)
-        self.stats = EngineStats()
+        self.spec_miss = np.zeros(self.B, np.int32)
         self._rids: set = set()
 
     @classmethod
     def build_paged(cls, cfg, plan, batch_slots: int, seq_budget: int,
                     params, *, page_size: int = 16, n_pages: int = 0,
                     prefill_chunk: int = 16, eos_id: int = 1,
-                    rng_seed: int = 0, device="cuda"):
+                    rng_seed: int = 0, speculative: int = 0, device="cuda"):
         """A paged engine.  ``n_pages`` defaults to full occupancy (every
         slot at budget) plus the scratch page; pass something smaller to
-        exercise admission control under memory pressure."""
+        exercise admission control under memory pressure.
+        ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
+        in one step."""
         n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
         return cls(cfg, plan, batch_slots, seq_budget, params,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
-                   rng_seed=rng_seed, device=device)
+                   rng_seed=rng_seed, speculative=speculative, device=device)
 
     # ------------------------------------------------------------------ API
     def has_pending(self) -> bool:
@@ -161,12 +222,26 @@ class ServingEngine:
             self.prefill_done[b] = 0
             self.pos[b] = 0
             self.last_token[b] = 0
+        if self.quant_pools:
+            dirty = self.allocator.take_scale_dirty()
+            if dirty:
+                self._reset_scale_rows(dirty)
         rounds = [self._prefill_chunk(b) for b in range(self.B)
                   if self.slot_state[b] == "prefill"]
         step = self._decode_step()
         self._collect(rounds, step)
         self.stats.ticks += 1
         self.stats.tick_wall_s += time.monotonic() - t0
+
+    def _reset_scale_rows(self, pids):
+        """Zero, in place, the scale rows of recycled pages: scale 0
+        dequantizes to exact zeros, so rows past a new occupant's length
+        can never pair its payload with the previous owner's scales."""
+        idx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        for group in self.cache:
+            for entry in group:
+                entry["kv"]["ksp"][:, idx] = 0.0
+                entry["kv"]["vsp"][:, idx] = 0.0
 
     def _to_device(self, x: np.ndarray, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
@@ -196,12 +271,19 @@ class ServingEngine:
         return b, logits, (L if c0 + C >= L else None)
 
     def _decode_step(self):
-        """One decode step over every decode-state slot; idle and
+        """One decode-or-verify step over every decode-state slot; idle and
         prefilling lanes ride along on the scratch page with pos 0.
-        -> (logits (B, V) on the device, active slots) or None."""
+        -> ("decode", logits (B, V) on the device, active slots), ("verify",
+        logits (B, Q, V), active slots, drafts) or None."""
         active = [b for b in range(self.B) if self.slot_state[b] == "decode"]
         if not active:
             return None
+        if self.speculative:
+            drafts = self._plan_drafts(active)
+            if drafts is not None:
+                return self._dispatch_verify(active, drafts)
+            # no slot drafted: the plain one-token step, as with speculation
+            # off
         bt = np.stack([self._bt_row(b) if b in active else
                        np.full(self.n_max_pages, SCRATCH_PAGE, np.int32)
                        for b in range(self.B)])
@@ -210,7 +292,59 @@ class ServingEngine:
             self.params, self.cache,
             self._to_device(self.last_token[:, None], torch.int64),
             self._to_device(pos), self._to_device(bt))
-        return logits, active
+        return "decode", logits, active
+
+    def _plan_drafts(self, active: List[int]):
+        """Draft up to k tokens per speculation-capable active slot.
+        -> {slot: draft tokens} holding only non-empty drafts, or None when
+        nothing drafted.  A slot whose drafts missed ``SPEC_DISABLE_AFTER``
+        times in a row stops drafting and returns its headroom pages."""
+        k = self.speculative
+        drafts = {}
+        for b in active:
+            adm = self.admissions[b]
+            if not adm.spec:
+                continue
+            req = adm.req
+            if self.spec_miss[b] >= SPEC_DISABLE_AFTER:
+                keep = pages_needed(len(req.prompt) + req.max_new_tokens,
+                                    self.page_size)
+                self.sched.on_spec_trim(adm, keep)
+                continue
+            self.stats.spec_draft_lookups += 1
+            draft = self.draft_source.draft(effective_prompt(req), k)
+            # verify writes KV at pos..pos+kd, which must stay inside the
+            # slot's pages and the sequence budget
+            cov = len(adm.pages) * self.page_size
+            kd = min(len(draft), cov - 1 - int(self.pos[b]),
+                     self.S - 1 - int(self.pos[b]))
+            if kd <= 0:
+                self.spec_miss[b] += 1
+                continue
+            self.stats.spec_draft_hits += 1
+            drafts[b] = [int(t) for t in draft[:kd]]
+        return drafts or None
+
+    def _dispatch_verify(self, active: List[int], drafts: dict):
+        """One verify step scores k+1 positions for every active slot
+        (draftless slots ride along as qlen=1 rows, idle lanes on the
+        scratch page with pos 0 and qlen 1)."""
+        Q = self.speculative + 1
+        toks = np.zeros((self.B, Q), np.int64)
+        qlen = np.ones(self.B, np.int32)
+        pos = np.zeros(self.B, np.int32)
+        bt = np.full((self.B, self.n_max_pages), SCRATCH_PAGE, np.int32)
+        for b in active:
+            d = drafts.get(b, [])
+            toks[b, 0] = self.last_token[b]
+            toks[b, 1:1 + len(d)] = d
+            qlen[b] = len(d) + 1
+            pos[b] = self.pos[b]
+            bt[b] = self._bt_row(b)
+        logits, self.cache = self.verify_fn(
+            self.params, self.cache, self._to_device(toks, torch.int64),
+            self._to_device(pos), self._to_device(qlen), self._to_device(bt))
+        return "verify", logits, active, drafts
 
     def _collect(self, rounds, step):
         """The tick's barrier: logits come to the host, prefill
@@ -230,12 +364,37 @@ class ServingEngine:
                 self.slot_state[b] = "decode"
         if step is None:
             return
-        logits = step[0].float().cpu().numpy()
+        kind, logits, active = step[:3]
+        logits = logits.float().cpu().numpy()
         now = time.monotonic()
-        for b in step[1]:
-            self.pos[b] += 1        # the decode step wrote last_token's KV
-            self._emit(b, self.admissions[b].req,
-                       self._sample(logits, b, self.admissions[b].req), now)
+        if kind == "decode":
+            for b in active:
+                self.pos[b] += 1    # the decode step wrote last_token's KV
+                self._emit(b, self.admissions[b].req,
+                           self._sample(logits, b, self.admissions[b].req),
+                           now)
+            return
+        drafts = step[3]
+        for b in active:
+            req = self.admissions[b].req
+            d = drafts.get(b, [])
+            out = speculative_sample(logits[b, :len(d) + 1], d, self.sampler,
+                                     self.cfg.vocab_size, req.rng)
+            emitted = 0
+            for tok in out:
+                self.pos[b] += 1    # verify wrote this position's KV
+                self._emit(b, req, tok, now)
+                emitted += 1
+                if self.admissions[b] is None:
+                    break           # retired mid-accept: drop the tail
+            if d:
+                self.stats.spec_steps += 1
+                self.stats.spec_drafted += len(d)
+                self.stats.spec_accepted += emitted - 1
+                self.stats.spec_emitted += emitted
+                if self.admissions[b] is not None:   # retired slots reset
+                    self.spec_miss[b] = 0 if emitted > 1 \
+                        else self.spec_miss[b] + 1
 
     def _sample(self, logits: np.ndarray, row: int, req: Request) -> int:
         return int(sample_from_logits(logits[row:row + 1], self.sampler,
@@ -266,3 +425,4 @@ class ServingEngine:
         self.pos[b] = 0
         self.last_token[b] = 0
         self.prefill_done[b] = 0
+        self.spec_miss[b] = 0

@@ -1,5 +1,6 @@
-"""Token sampler over (possibly vocab-padded) logits: a copy of the JAX
-package's ``serving/sampler.py::sample_from_logits`` (host-side numpy)."""
+"""Token samplers over (possibly vocab-padded) logits: copies of the JAX
+package's ``serving/sampler.py::sample_from_logits`` and
+``speculative_sample`` (host-side numpy)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -39,3 +40,26 @@ def sample_from_logits(logits: np.ndarray, cfg: SamplerConfig,
         return out
     return np.array([rng.choice(lg.shape[1], p=p[b])
                      for b in range(lg.shape[0])], np.int32)
+
+
+def speculative_sample(logits: np.ndarray, draft, cfg: SamplerConfig,
+                       vocab_size: int, rng: np.random.RandomState):
+    """Accept/emit loop over verify-step logits: the deterministic-draft
+    case of rejection sampling, token-identical to the one-token path.
+
+    ``logits``: (Q, V_pad), row i the next-token distribution after the
+    last accepted token plus draft[:i]; ``draft``: the kd <= Q-1 proposed
+    tokens.  Row i is sampled exactly as ``sample_from_logits`` would on the
+    one-token path, the sample is emitted, and drafting continues past row
+    i only while the sample agrees with draft[i] (the draft is a point
+    mass, so that agreement IS the rejection test, and the first
+    disagreeing row already holds the corrected sample).  -> emitted
+    tokens (1 <= len <= len(draft) + 1)."""
+    out = []
+    for i in range(len(draft) + 1):
+        tok = int(sample_from_logits(logits[i:i + 1], cfg, vocab_size,
+                                     rng)[0])
+        out.append(tok)
+        if i < len(draft) and tok != int(draft[i]):
+            break
+    return out

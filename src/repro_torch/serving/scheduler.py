@@ -2,9 +2,10 @@
 
 A copy of the part of the JAX package's ``serving/scheduler.py`` that FCFS
 paged serving without a prefix cache needs: the ``Scheduler`` interface,
-``Admission`` records and ``FCFSScheduler``'s all-or-nothing page
-budgeting.  The engine executes admissions and reports lifecycle events
-back (``on_prefill_complete``, ``on_finish``).
+``Admission`` records, ``FCFSScheduler``'s all-or-nothing page budgeting
+and its speculative draft headroom.  The engine executes admissions and
+reports lifecycle events back (``on_prefill_complete``, ``on_finish``,
+``on_spec_trim``).
 
 Invariant: leak freedom — every page is free after ``run()``/``drain()``
     retire all admissions.
@@ -40,10 +41,15 @@ def remaining_new_tokens(req) -> int:
 @dataclass
 class Admission:
     """One scheduler decision: place ``req`` into engine slot ``slot`` with
-    the block-table page run ``pages`` (prompt + max_new_tokens worth)."""
+    the block-table page run ``pages`` (prompt + max_new_tokens worth).
+    spec: the run includes draft headroom (+spec_tokens of coverage), so the
+    engine may run the verify step on the slot; False means speculation was
+    denied at admission (pool pressure) and the slot decodes one token per
+    tick."""
     slot: int
     req: object
     pages: Optional[List[int]] = None
+    spec: bool = False
 
 
 class Scheduler:
@@ -66,18 +72,29 @@ class Scheduler:
     def on_finish(self, adm: Admission) -> None:
         """adm's request retired — release its resources."""
 
+    def on_spec_trim(self, adm: Admission, keep: int) -> None:
+        """The engine stopped speculating on adm's slot — return the draft
+        headroom pages past block-table index ``keep``."""
+
 
 class FCFSScheduler(Scheduler):
     """First-come-first-served admission with all-or-nothing page
     budgeting: the head request either gets its full budget (prompt +
     max_new_tokens) or the whole queue waits (no mid-flight OOM, no
-    starvation by overtaking)."""
+    starvation by overtaking).  With ``spec_tokens`` > 0 an admission also
+    tries for +spec_tokens of page coverage, so the verify step can write
+    drafted positions past prompt + max_new_tokens: all or nothing, and a
+    request denied it (``stats.spec_denied``) is still admitted, with
+    ``spec=False``."""
 
-    def __init__(self, *, seq_budget: int, allocator, page_size: int):
+    def __init__(self, *, seq_budget: int, allocator, page_size: int,
+                 spec_tokens: int = 0, stats=None):
         self.queue: collections.deque = collections.deque()
         self.seq_budget = seq_budget
         self.allocator = allocator
         self.psz = page_size
+        self.spec_tokens = spec_tokens
+        self.stats = stats
 
     def submit(self, req) -> None:
         if len(req.prompt) == 0:
@@ -107,12 +124,39 @@ class FCFSScheduler(Scheduler):
             if not self.queue:
                 break
             req = self.queue[0]
-            pages = self.allocator.alloc(self._req_pages(req))
+            total = self._req_pages(req)
+            pages = self.allocator.alloc(total)
             if pages is None:           # blocked: the head waits for pages
                 break
             self.queue.popleft()
-            out.append(Admission(slot=slot, req=req, pages=pages))
+            out.append(Admission(slot=slot, req=req, pages=pages,
+                                 spec=self._draft_headroom(req, total, pages)))
         return out
+
+    def _draft_headroom(self, req, total: int, pages: List[int]) -> bool:
+        """Append the speculative headroom to ``pages`` if the pool covers
+        it; never evicts.  -> whether it was granted."""
+        if self.spec_tokens <= 0:
+            return False
+        n_max = self.seq_budget // self.psz
+        extra = min(pages_needed(len(effective_prompt(req)) +
+                                 remaining_new_tokens(req) + self.spec_tokens,
+                                 self.psz), n_max) - total
+        more = self.allocator.alloc(extra)
+        if more is None:
+            if self.stats is not None:
+                self.stats.spec_denied += 1
+            return False
+        pages.extend(more)
+        return True
 
     def on_finish(self, adm: Admission) -> None:
         self.allocator.decref(adm.pages)
+
+    def on_spec_trim(self, adm: Admission, keep: int) -> None:
+        """Return the headroom pages past block-table index ``keep``: drop
+        the slot's reference to each (``allocator.trim``), never assume it
+        was the only one."""
+        self.allocator.trim(adm.pages[keep:])
+        del adm.pages[keep:]
+        adm.spec = False

@@ -148,9 +148,15 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
     ops.paged_decode_attention(*(torch.from_numpy(a.astype(np.float32))
                                  for a in (q, kp, vp)),
                                torch.from_numpy(bt), torch.from_numpy(length))
+    ops.paged_verify_attention(*(torch.from_numpy(a.astype(np.float32))
+                                 for a in (q[:, :, None], kp, vp)),
+                               torch.from_numpy(bt), torch.from_numpy(length))
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
                                    "flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0,
+                                   "paged_decode_attention_i8": 0,
+                                   "paged_verify_attention": 0,
+                                   "paged_verify_attention_i8": 0}
 
 
 @pytest.mark.parametrize("launch", [
@@ -161,6 +167,14 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
         x[None], x[None, None], x[None, None],
         torch.zeros((1, 1), dtype=torch.int32),
         torch.ones(1, dtype=torch.int32)),
+    lambda x: k_decode.paged_verify_attention(
+        x[None, None, :2], x[None, None], x[None, None],
+        torch.zeros((1, 1), dtype=torch.int32),
+        torch.ones(1, dtype=torch.int32)),
+    lambda x: k_decode.paged_decode_attention(
+        x[None], x[None, None].to(torch.int8), x[None, None].to(torch.int8),
+        torch.zeros((1, 1), dtype=torch.int32),
+        torch.ones(1, dtype=torch.int32), k_scale=x[:1], v_scale=x[:1]),
 ])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only; it never computes on the CPU."""

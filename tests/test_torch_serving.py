@@ -119,8 +119,8 @@ def test_launcher_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,slice_", [
     (["--tp", "2"], "tensor parallelism"),
-    (["--speculative", "4"], "speculative"),
-    (["--kv-dtype", "int8"], "int8 pools"),
+    (["--prefix-cache"], "prefix cache"),
+    (["--frame-groups", "2"], "encoder-decoder"),
     (["--no-overlap"], "overlap pipeline"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
