@@ -10,12 +10,15 @@ each (and a few detail lines):
 
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
             versions, and the time to build every kernel from ``src/``.
-2. kernels  each of the seven kernel variants (rmsnorm, matmul, flash
+2. kernels  each of the nine kernel variants (rmsnorm, matmul, flash
             attention, paged decode and paged verify over float and int8
-            pools) against its plain PyTorch version on the card, at the
-            main path's shapes plus ragged cases (page-crossing lengths, a
-            shuffled block table, an idle lane on scratch page 0, Q in
-            {2, 5}, zero-scale rows), with the stated tolerance; median
+            pools, the SSD scan from a float or an int8 state) against its
+            plain PyTorch version on the card, at the main paths' shapes
+            plus ragged cases (page-crossing lengths, a shuffled block
+            table, an idle lane on scratch page 0, Q in {2, 5}, zero-scale
+            rows; for the SSD scan the serve chunk, several chunks with a
+            partial tail, trailing dt = 0 rows, two batch rows, y and the
+            final state), with the stated tolerance; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (a yardstick
@@ -28,15 +31,21 @@ each (and a few detail lines):
             tolerance, leak-free after drain(); each speculative engine's
             tokens equal its one-token engine's on the card, with drafts
             accepted; the int8 pools' logit drift against float pools is
-            printed.
-4. serve    full-width tinyllama-42m, bfloat16 weights, 8 slots, 16
-            requests, in four phases: serve (bfloat16 pools, random
-            prompts), serve-spec (k=4, repetitive prompts), serve-int8 (int8
-            pools, random prompts) and serve-spec-int8.  Every request
-            completes, the pool is leak-free after drain(), and each kernel
-            launched in the steps it belongs to (launch counts set to 0 just
-            before each phase and read just after).  Prints tok/s, TTFT,
-            TPOT, acceptance and launches per step.
+            printed.  parity-ssm: full-width mamba2-370m in float32, card
+            against CPU, from float32 and from int8 state slabs: identical
+            greedy tokens (more than one distinct), live logits within
+            tolerance, slabs leak-free after drain().
+4. serve    bfloat16 weights, 8 slots, 16 requests, in six phases:
+            full-width tinyllama-42m in serve (bfloat16 pools, random
+            prompts), serve-spec (k=4, repetitive prompts), serve-int8
+            (int8 pools, random prompts) and serve-spec-int8, and
+            full-width mamba2-370m (48 layers) in serve-ssm (float32 state
+            slabs) and serve-ssm-int8 (int8 slabs).  Every request
+            completes, pools and slabs are leak-free after drain(), and
+            each kernel launched in the steps it belongs to (launch counts
+            set to 0 just before each phase and read just after; the SSD
+            scan 48 times per prefill chunk, never in a decode tick).
+            Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
             and the device's busy share of the phase.
@@ -70,6 +79,16 @@ PARITY_TOL = dict(rtol=1e-3, atol=1e-3)   # float32 logits after 8 layers, x10 w
 # read 5.6e-3; atol is about 4x that, well under the 0.07 that int8 pools
 # themselves move these logits from float pools
 INT8_PARITY_TOL = dict(rtol=1e-3, atol=2e-2)
+# the SSD scan (tests/test_kernels.py: chunked and sequential forms sum in
+# other orders): float32 1e-3, and bf16 outputs at the bf16 tolerance
+SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+           "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# full-width mamba2-370m in float32, card against CPU, 48 layers, |logit| up
+# to about 3.2: the first H100 run read 3.6e-5 from float32 slabs and 1.7e-4
+# from int8 slabs (a state value on a rounding boundary may quantize one
+# step apart); atol is about 5x each reading (PERF.md)
+SSM_PARITY_TOL = dict(rtol=1e-4, atol=2e-4)
+SSM_INT8_PARITY_TOL = dict(rtol=1e-4, atol=1e-3)
 
 
 class SmokeFailure(RuntimeError):
@@ -121,12 +140,12 @@ def time_ms(fn, torch, reps=10, iters=20):
     return statistics.median(samples)
 
 
-def compare(name, got, want, dtype, torch):
+def compare(name, got, want, dtype, torch, tol=None):
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
     check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
     err = (got - want).abs()
-    tol = TOL[dtype_name(dtype)]
+    tol = tol or TOL[dtype_name(dtype)]
     ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
     check(ok, f"{name}: max |kernel - plain| = {err.max().item():.3e} beyond "
               f"rtol={tol['rtol']} atol={tol['atol']}")
@@ -400,6 +419,77 @@ def phase_kernels(torch, F):
                                  qv, *p, bt_v, v_length, **s_), torch),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
+    # ---- SSD scan at full width (H 32, P 64, N 128): the serve chunk (Bt 1,
+    # S 32) and three kernel chunks and a partial one (S 200), with and
+    # without trailing dt = 0 rows (padding past a prompt), one and two
+    # batch rows, from a zero, a float32 and an int8 state (one head's
+    # scale 0); y and the final state against the plain version
+    Hs, Ps, Ns = 32, 64, 128
+
+    def ssd_inputs(Bt, S, dt_, pad=0):
+        x = randn(Bt, S, Hs, Ps, dtype=dt_)
+        dtv = 0.1 * randn(Bt, S, Hs).abs()
+        if pad:
+            dtv[:, -pad:] = 0.0
+        A = -(randn(Hs).abs() + 0.5)
+        return x, dtv, randn(Bt, S, Ns, dtype=dt_), randn(Bt, S, Ns, dtype=dt_), A
+
+    def int8_state(Bt):
+        q = torch.randint(-127, 128, (Bt, Hs, Ps, Ns), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        scale = 0.02 * torch.rand(Bt, Hs, generator=gen, device="cuda")
+        scale[0, 1] = 0.0                       # a head reset to zeros
+        return q, scale
+
+    def ssd_call(name, inputs, s0):
+        if name == "ssd_scan":
+            return ops.ssd_scan(*inputs, s0)
+        return ops.ssd_scan_i8(*inputs, *s0)
+
+    def ssd_plain(name, inputs, s0):
+        if name == "ssd_scan":
+            return ref.ref_ssd_scan(*inputs, s0)
+        return ref.ref_ssd_scan(*inputs, ref.ref_dequant_state(*s0))
+
+    def ssd_check(name, case, inputs, s0):
+        dt_ = inputs[0].dtype
+        (y, st), (wy, wst) = ssd_call(name, inputs, s0), ssd_plain(name, inputs, s0)
+        err = max(compare(name, y, wy, dt_, torch, SSD_TOL[dtype_name(dt_)]),
+                  compare(f"{name} final state", st, wst, torch.float32, torch,
+                          SSD_TOL["float32"]))
+        note(name, case, err)
+        return err
+
+    for dt_ in (torch.float32, torch.bfloat16):
+        for Bt, S, pad in ((1, 32, 0), (1, 32, 9), (2, 200, 0), (2, 200, 17)):
+            inputs = ssd_inputs(Bt, S, dt_, pad)
+            case = f"Bt={Bt} S={S} trailing dt=0 rows={pad} {dtype_name(dt_)}"
+            ssd_check("ssd_scan", case + ", zero state", inputs, None)
+            ssd_check("ssd_scan", case + ", float32 state", inputs,
+                      randn(Bt, Hs, Ps, Ns))
+            ssd_check("ssd_scan_i8", case + ", int8 state", inputs,
+                      int8_state(Bt))
+    S = 32
+    inputs = ssd_inputs(1, S, torch.bfloat16)
+    io_bytes = (2 * S * Hs * Ps + 2 * S * Ns) * 2 + S * Hs * 4 + Hs * 4
+    state_elems = Hs * Ps * Ns
+    for name, s0, s0_bytes in (
+            ("ssd_scan", randn(1, Hs, Ps, Ns), 4 * state_elems),
+            ("ssd_scan_i8", int8_state(1), state_elems + 4 * Hs)):
+        err = ssd_check(name, "serve chunk, timed", inputs, s0)
+        # per token and state element: decay, update and read-out (5 ops);
+        # the final state is written once in float32
+        b_ms, b_by = bound(io_bytes + s0_bytes + 4 * state_elems,
+                           5 * S * state_elems, torch.float32)
+        rows[name] = dict(
+            shape=f"Bt=1 S={S} H={Hs} P={Ps} N={Ns} x/B/C bf16, "
+                  f"{'int8' if name.endswith('i8') else 'float32'} state0",
+            max_abs_err=err,
+            ms=time_ms(lambda n=name, st=s0: ssd_call(n, inputs, st), torch),
+            plain_ms=time_ms(lambda n=name, st=s0: ssd_plain(n, inputs, st),
+                             torch),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -449,9 +539,11 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
         steps.append(logits.float().cpu().reshape(-1))
         return logits, cache
 
-    def rec_decode(params_, cache, tokens, pos, bt):
-        logits, cache = decode(params_, cache, tokens, pos, bt)
-        steps.append(logits.float().cpu()[(bt[:, 0] != 0).cpu()].reshape(-1))
+    def rec_decode(params_, cache, tokens, pos, bt, *slab_ids):
+        logits, cache = decode(params_, cache, tokens, pos, bt, *slab_ids)
+        # live lanes: a page of their own, or (SSM archs) a slab of their own
+        live = (slab_ids[0] if slab_ids else bt[:, 0]) != 0
+        steps.append(logits.float().cpu()[live.cpu()].reshape(-1))
         return logits, cache
 
     def rec_verify(params_, cache, tokens, pos, qlen, bt):
@@ -475,6 +567,8 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
     check(eng.drain() == 0 and eng.allocator.n_free ==
           eng.allocator.n_pages - eng.allocator.n_reserved,
           f"parity: pool not leak-free after drain() on {device}")
+    check(not eng.has_ssm or eng.slab_allocator.n_free == eng.n_slabs - 1,
+          f"parity: slabs not leak-free after drain() on {device}")
     return eng, [r.out_tokens for r in reqs], torch.cat(steps), emitted
 
 
@@ -602,19 +696,76 @@ def phase_parity(torch):
           f"accepted={st.spec_accepted}")
 
 
+def phase_parity_ssm(torch):
+    """Full-width mamba2-370m (48 layers) in float32 at the port's init
+    scale, engines on the card (kernels) against engines on the CPU (plain
+    versions), from float32 and from int8 state slabs: identical greedy
+    tokens, more than one distinct, live logits within tolerance, slabs
+    leak-free after drain()."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    # float32 conv-tail slabs too (they follow cfg.dtype)
+    cfg = dataclasses.replace(get_config("mamba2-370m"), dtype="float32")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu")
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    out = {}
+    for slabs, tol in (("float32", SSM_PARITY_TOL), ("int8", SSM_INT8_PARITY_TOL)):
+        plan_s = ShardingPlan(kv_cache_dtype="float32",
+                              ssm_cache_dtype="int8" if slabs == "int8" else "")
+        runs = {dev: _run_engine(torch, cfg, plan_s, params, reqs(), dev)
+                for dev in ("cuda", "cpu")}
+        err, mx = _same(f"parity-ssm[{slabs}]", runs["cuda"][1:3],
+                        runs["cpu"][1:3], tol)
+        toks = runs["cuda"][1]
+        n_distinct = len({t for r in toks for t in r})
+        check(n_distinct > 1, f"parity-ssm[{slabs}]: greedy decoding emitted "
+                              f"one token only {toks}")
+        print(f"parity-ssm: mamba2-370m float32, {slabs} slabs, engine on cuda "
+              f"vs cpu: live logits of every step "
+              f"({runs['cuda'][2].numel()} values) max_abs_err={err:.3e} "
+              f"(|logit| max {mx:.2f}, tol rtol={tol['rtol']} "
+              f"atol={tol['atol']}); greedy tokens identical: 4 requests x 16 "
+              f"tokens, {n_distinct} distinct; slabs leak-free")
+        out[slabs] = toks
+    same = sum(a == b for ra, rb in zip(out["float32"], out["int8"])
+               for a, b in zip(ra, rb))
+    print(f"parity-ssm: int8 against float32 slabs on cuda: {same} of "
+          f"{sum(len(r) for r in out['float32'])} tokens equal position by "
+          f"position")
+
+
 SERVE_PHASES = {
-    # name: (pool dtype, speculative k, prompts)
-    "serve": ("bfloat16", 0, "random"),
-    "serve-spec": ("bfloat16", 4, "motif"),
-    "serve-int8": ("int8", 0, "random"),
-    "serve-spec-int8": ("int8", 4, "motif"),
+    # name: (arch, pool dtype, slab dtype, speculative k, prompts)
+    "serve": ("tinyllama-42m", "bfloat16", "", 0, "random"),
+    "serve-spec": ("tinyllama-42m", "bfloat16", "", 4, "motif"),
+    "serve-int8": ("tinyllama-42m", "int8", "", 0, "random"),
+    "serve-spec-int8": ("tinyllama-42m", "int8", "", 4, "motif"),
+    "serve-ssm": ("mamba2-370m", "bfloat16", "", 0, "random"),
+    "serve-ssm-int8": ("mamba2-370m", "bfloat16", "int8", 0, "random"),
 }
-# the attention kernel each serving phase must launch in its decode or
-# verify ticks
-PHASE_ATTN = {"serve": "paged_decode_attention",
-              "serve-spec": "paged_verify_attention",
-              "serve-int8": "paged_decode_attention_i8",
-              "serve-spec-int8": "paged_verify_attention_i8"}
+# the mixer kernel each serving phase must launch: attention in its decode or
+# verify ticks; the SSD scan in its prefill chunks, once per layer, and never
+# in a decode tick
+PHASE_MIXER = {"serve": "paged_decode_attention",
+               "serve-spec": "paged_verify_attention",
+               "serve-int8": "paged_decode_attention_i8",
+               "serve-spec-int8": "paged_verify_attention_i8",
+               "serve-ssm": "ssd_scan",
+               "serve-ssm-int8": "ssd_scan_i8"}
 
 
 SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
@@ -622,18 +773,17 @@ SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
 
 def _serve_setup(torch, name):
     """Serve phase ``name``'s model, an engine factory and its 16 requests:
-    full-width tinyllama-42m, bfloat16 weights, 8 slots, prompts 16-160
-    tokens, 32 new (PR 11's random prompts, or repetitive motifs where
-    speculation runs)."""
+    the full-width arch, bfloat16 weights, 8 slots, prompts 16-160 tokens,
+    32 new (random prompts, or repetitive motifs where speculation runs)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
     from repro_torch.serving import Request, ServingEngine
-    kvd, k, kind = SERVE_PHASES[name]
-    cfg = get_config("tinyllama-42m")
-    plan = ShardingPlan(kv_cache_dtype=kvd)
+    arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
+    cfg = get_config(arch)
+    plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
     params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
                                device="cuda")
     make = _requests if kind == "random" else _motif_requests
@@ -657,7 +807,7 @@ def phase_serve(torch, name):
     import numpy as np
 
     from repro_torch.kernels import ops
-    kvd, k, kind = SERVE_PHASES[name]
+    arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     cfg, engine, requests = _serve_setup(torch, name)
     warm = engine()                                    # first-call costs
     for r in requests(seed=1, n=2, new=4):
@@ -701,18 +851,33 @@ def phase_serve(torch, name):
     n_usable = eng.allocator.n_pages - eng.allocator.n_reserved
     check(eng.allocator.n_free == n_usable,
           f"{name}: pool leaked {n_usable - eng.allocator.n_free} pages")
+    if eng.has_ssm:
+        check(eng.slab_allocator.n_free == eng.n_slabs - 1,
+              f"{name}: slabs leaked")
     steps = [kd for kd in ("decode", "verify") if calls[kd]]
     for kn in ("rmsnorm", "matmul"):
         check(all(per_phase[kd][kn] > 0 for kd in ["prefill"] + steps),
               f"{name}: {kn} not launched in every step kind {per_phase}")
-    check(per_phase["prefill"]["flash_attention"] > 0,
-          f"{name}: flash_attention not launched in prefill {per_phase}")
-    attn = PHASE_ATTN[name]
-    check(per_phase["verify" if k else "decode"][attn] > 0,
-          f"{name}: {attn} not launched {per_phase}")
+    mixer = PHASE_MIXER[name]
+    if eng.has_ssm:
+        n_ssm = cfg.n_layers
+        check(per_phase["prefill"][mixer] == n_ssm * calls["prefill"] > 0 and
+              per_phase["decode"][mixer] == 0,
+              f"{name}: {mixer} not launched {n_ssm} times per prefill chunk "
+              f"and never in a decode tick {per_phase}")
+        others = [kn for kn, v in launches.items()
+                  if v and kn not in ("rmsnorm", "matmul", mixer)]
+        check(not others, f"{name}: unexpected kernels launched {others}")
+    else:
+        check(per_phase["prefill"]["flash_attention"] > 0,
+              f"{name}: flash_attention not launched in prefill {per_phase}")
+        check(per_phase["verify" if k else "decode"][mixer] > 0,
+              f"{name}: {mixer} not launched {per_phase}")
+        check(launches["flash_attention"] > 0,
+              f"{name}: kernel flash_attention never launched")
     if k:
         check(stats.spec_accepted > 0, f"{name}: no draft accepted")
-    for kn in ("rmsnorm", "matmul", "flash_attention", attn):
+    for kn in ("rmsnorm", "matmul", mixer):
         check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
     ttft = np.asarray(stats.ttft_s) * 1e3
     per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
@@ -721,7 +886,8 @@ def phase_serve(torch, name):
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
             if k else "")
-    print(f"{name}: tinyllama-42m bf16 weights, {kvd} pools, speculative={k}, "
+    store = (f"{ssmd or 'float32'} slabs" if eng.has_ssm else f"{kvd} pools")
+    print(f"{name}: {arch} bf16 weights, {store}, speculative={k}, "
           f"{kind} prompts, slots={SLOTS} seq_budget={SB} page={PSZ} chunk={CH} "
           f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
@@ -789,6 +955,10 @@ KERNELS = {
                                "src/repro/kernels/decode_attention.py:249"),
     "paged_verify_attention_i8": ("cuda", _PAGED,
                                   "src/repro/kernels/decode_attention.py:289"),
+    "ssd_scan": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:84"),
+    "ssd_scan_i8": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:67"),
 }
 
 
@@ -809,13 +979,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     try:
-        smi_line = phase_env(torch, build)
-        rows = phase_kernels(torch, F)
-        phase_parity(torch)
-        served = {name: phase_serve(torch, name) for name in SERVE_PHASES}
+        smi_line = timed("env", phase_env, torch, build)
+        rows = timed("kernels", phase_kernels, torch, F)
+        timed("parity", phase_parity, torch)
+        timed("parity-ssm", phase_parity_ssm, torch)
+        served = {name: timed(name, phase_serve, torch, name)
+                  for name in SERVE_PHASES}
         for name, out in served.items():
-            phase_profile(torch, name, out[2])
+            timed(f"profile[{name}]", phase_profile, torch, name, out[2])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -832,7 +1012,7 @@ def main() -> int:
             "launches_by_phase": by_phase,
             "per_step": {ph: {kd: c[name] for kd, c in out[1].items() if name in c}
                          for ph, out in served.items()}})
-    print(f"total_s={time.perf_counter() - t_start:.1f}")
+    print(f"total_s={time.perf_counter() - t_start:.1f} phase_s={phase_s}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,11 @@ port's parameter tree: same paths, the stacked ``reps`` axis kept, and the
 tp-local axis of size 1 stripped as the JAX package's ``blocks._lo`` does.
 For tinyllama-42m, JAX's ``wq`` (8, 1, 512, 8, 64) becomes (8, 512, 8, 64)
 and ``embed.table`` (1, 32000, 512) becomes (32000, 512).  Norm scales are
-replicated in JAX and carry no tp axis.
+replicated in JAX and carry no tp axis.  The SSM leaves cross the same way:
+``in_z``/``in_x``/``in_dt``/``conv_x``/``A_log``/``D``/``dt_bias``/``out``
+lose their tp axis, ``norm_scale`` arrives flat, (reps, 1, H*P) ->
+(reps, H*P), and the replicated ``in_B``/``in_C``/``conv_B``/``conv_C``
+carry none; ``A_log`` and ``dt_bias`` stay float32.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Model configuration: ``ModelConfig``, its layer plan and the registry.
 
 A copy of the parts of the JAX package's ``configs/base.py`` that the
-paged-serving slice needs; field names and defaults are unchanged so a
+paged-serving slices need; field names and defaults are unchanged so a
 config means the same thing on both sides.
 """
 from __future__ import annotations
@@ -31,6 +31,16 @@ class LayerSpec:
     ffn: str = FFN_DENSE                  # dense | moe | none
     cross_attn: bool = False              # decoder cross-attention (enc-dec)
     d_ff: int = 0                         # dense FFN width for THIS layer
+
+    def cache_kinds(self):
+        kinds = []
+        if self.mixer in (MIX_ATTN, MIX_HYBRID) and self.attn != ATTN_NONE:
+            kinds.append("kv")
+        if self.mixer in (MIX_SSM, MIX_HYBRID):
+            kinds.append("ssm")
+        if self.cross_attn:
+            kinds.append("cross_kv")
+        return kinds
 
 
 @dataclass(frozen=True)
@@ -182,7 +192,7 @@ def get_config(name: str) -> ModelConfig:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import paper_models  # noqa: F401
+    from repro_torch.configs import mamba2_370m, paper_models  # noqa: F401
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -1,6 +1,6 @@
 """The paper's own decoder, TinyLlama-42M [llama2.c / paper V-A]: E=512,
-intermediate 2048, 8 layers, 8 heads, vocab 32000.  The only config the
-paged-serving slice of the port serves."""
+intermediate 2048, 8 layers, 8 heads, vocab 32000.  The attention
+decoder the paged-serving slices of the port serve."""
 from repro_torch.configs.base import ModelConfig, register
 
 register(ModelConfig(

@@ -1,12 +1,13 @@
 """One transformer layer over the paged cache, at tp=1.
 
 Port of the parts of the JAX package's ``core/blocks.py`` that paged
-serving of attention-only decoders runs: the paged branch of
+serving of attention-only and pure-SSM decoders runs: the paged branch of
 ``attn_mixer`` (decode, speculative-verify and prefill-chunk modes, over
-float or int8 pools), ``_row_quant``, ``_page_write``, ``dense_ffn`` and
-``layer_forward``.  On one device every ``psum`` of the
-two-sync contract is the identity.  Every matrix product goes through
-``kernels.ops.matmul``.
+float or int8 pools), ``_row_quant``, ``_page_write``, ``dense_ffn``, the
+decode and chunked-prefill branches of ``ssm_mixer`` with ``_paged_ssm``
+(float32 or int8 state slabs), and ``layer_forward``.  On one device every
+``psum`` of the two-sync contract is the identity.  Every matrix product
+goes through ``kernels.ops.matmul``.
 
 Parameters arrive with the tp axis already stripped (``bridge`` and
 ``model.init_params`` store what the JAX package's ``_lo`` returns).
@@ -14,11 +15,15 @@ Parameters arrive with the tp axis already stripped (``bridge`` and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.configs.base import FFN_NONE, MIX_ATTN, MIX_SSM
+from repro_torch.core import ssm as ssd
 from repro_torch.core.attention import (flash_attention, gather_kv,
                                         paged_decode_attention,
                                         paged_verify_attention)
-from repro_torch.core.layers import activation, apply_norm, apply_rope
+from repro_torch.core.layers import activation, apply_norm, apply_rope, \
+    rmsnorm
 from repro_torch.kernels import ops
 
 
@@ -171,13 +176,115 @@ def dense_ffn(xn, pf, cfg):
     return _mm(h, pf["w_down"])
 
 
+def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
+    """The SSD mixer for one decode token (``mode == "decode"``) or one
+    prefill chunk carried on from ``ssm_cache`` (``chunk_last_idx`` given:
+    rows past it are padding beyond the prompt's end; their dt is zeroed,
+    so they leave the state untouched, and the conv tails are cut at it).
+    ssm_cache: {"state" (B, H, P, N) float32, or int8 with "state_scale"
+    (B, H), "conv_x" (B, K-1, H*P), "conv_B"/"conv_C" (B, K-1, N)}.
+    -> (out (B, S, E), new cache with a float32 state).  The gated norm
+    over d_inner runs through ``layers.rmsnorm`` (the rmsnorm kernel with
+    n = H*P), which at tp=1 is JAX's ``rmsnorm_from_sumsq``."""
+    if mode != "decode" and chunk_last_idx is None:
+        raise NotImplementedError(
+            f"ssm_mixer mode '{mode}': the port runs decode and chunked "
+            f"prefill over state slabs; whole-sequence prefill and context "
+            f"parallelism come with later slices")
+    B, S, E = xn.shape
+    H, Pd = lay.ssm.hq_loc, cfg.ssm_head_dim
+    z = _mm(xn, ps["in_z"])                                     # (B,S,H,P)
+    xi = _mm(xn, ps["in_x"])
+    dt_raw = _mm(xn, ps["in_dt"])                               # (B,S,H)
+    Bm = _mm(xn, ps["in_B"])                                    # (B,S,N)
+    Cm = _mm(xn, ps["in_C"])
+    tail = None if mode == "decode" else chunk_last_idx
+    xi_f, cs_x = ssd.causal_conv(xi.reshape(B, S, H * Pd),
+                                 ps["conv_x"].reshape(H * Pd, -1),
+                                 ssm_cache["conv_x"], tail)
+    Bm, cs_B = ssd.causal_conv(Bm, ps["conv_B"], ssm_cache["conv_B"], tail)
+    Cm, cs_C = ssd.causal_conv(Cm, ps["conv_C"], ssm_cache["conv_C"], tail)
+    xi = F.silu(xi_f).reshape(B, S, H, Pd)
+    Bm, Cm = F.silu(Bm), F.silu(Cm)
+    dt = F.softplus(dt_raw.float() + ps["dt_bias"].float())
+    A = -torch.exp(ps["A_log"].float())
+    if mode == "decode":
+        y, state = ssd.ssd_decode_step(xi[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0],
+                                       A, ps["D"], ssm_cache["state"])
+        y = y[:, None]                                          # (B,1,H,P)
+    else:
+        # padding past the prompt must not advance the recurrence: dt = 0
+        # makes a padded position's decay exp(0) = 1 and contribution 0
+        keep = torch.arange(S, device=dt.device)[None, :, None] <= \
+            chunk_last_idx
+        dt = torch.where(keep, dt, torch.zeros_like(dt))
+        y, state = ssd.ssd_chunked(xi, dt, Bm, Cm, A, ps["D"],
+                                   state0=ssm_cache["state"],
+                                   state0_scale=ssm_cache.get("state_scale"))
+    g = (y * F.silu(z.float())).reshape(B, S, H * Pd)
+    g = rmsnorm(g, ps["norm_scale"], cfg.norm_eps)
+    out = _mm(g.to(xn.dtype), ps["out"].reshape(H * Pd, E))
+    return out, {"state": state, "conv_x": cs_x, "conv_B": cs_B,
+                 "conv_C": cs_C}
+
+
+def _paged_ssm(xn, ps, cfg, lay, mode, slab_pool, pages):
+    """The SSM mixer against the slab pools, updated in place.
+
+    slab_pool: {"statep", "conv_xp", "conv_Bp", "conv_Cp"} with a leading
+    ``n_slabs`` dim, plus "sscalep" (n_slabs, H) when the state slabs are
+    int8; pages["slab_ids"]: (B,) slab id per batch row.  Each row gathers
+    its slab, runs one decode token or one prefill chunk and scatters the
+    new state back.  Idle decode lanes all point at scratch slab 0: their
+    scatter to it races, harmlessly, since no live slot reads slab 0.
+    int8 slabs: a decode step dequantizes the state on gather (as JAX
+    does); a prefill chunk hands the int8 state and its scales to the SSD
+    kernel, which dequantizes in registers (the same float32 product); the
+    whole new state is re-quantized per (slot, head) on scatter
+    (``_row_quant`` over (P, N))."""
+    sid = pages["slab_ids"].long()
+    quant = "sscalep" in slab_pool
+    view = {k: slab_pool[k + "p"][sid] for k in ("conv_x", "conv_B", "conv_C")}
+    state = slab_pool["statep"][sid]
+    if quant and mode == "decode":
+        state = state.float() * slab_pool["sscalep"][sid][:, :, None, None]
+    elif quant:
+        view["state_scale"] = slab_pool["sscalep"][sid]
+    view["state"] = state
+    out, new = ssm_mixer(xn, ps, cfg, lay, mode, view,
+                         chunk_last_idx=(pages.get("last_idx")
+                                         if mode != "decode" else None))
+    for k in ("conv_x", "conv_B", "conv_C"):
+        pool = slab_pool[k + "p"]
+        pool[sid] = new[k].to(pool.dtype)
+    if quant:
+        q, scale = _row_quant(new["state"])                 # (B,H,P,N), (B,H)
+        slab_pool["statep"][sid] = q
+        slab_pool["sscalep"][sid] = scale
+    else:
+        slab_pool["statep"][sid] = new["state"]
+    return out, slab_pool
+
+
 def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
                   pos=None, pages=None):
-    """One attention + dense-FFN layer.  -> (x, cache updated in place)."""
+    """One layer: an attention or SSM mixer, then a dense FFN unless the
+    layer has none.  -> (x, cache updated in place)."""
     h = apply_norm(x, p["ln1"], cfg)
-    partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
-                             cache["kv"], positions, pos, pages)
+    if spec.mixer == MIX_ATTN:
+        partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
+                                 cache["kv"], positions, pos, pages)
+        cache = {**cache, "kv": kv}
+    elif spec.mixer == MIX_SSM:
+        partial, slabs = _paged_ssm(h, p["ssm"], cfg, lay, mode,
+                                    cache["ssm"], pages)
+        cache = {**cache, "ssm": slabs}
+    else:
+        raise NotImplementedError(
+            f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "
+            f"comes with hymba-1.5b, ROADMAP Queue 1 item 10)")
     x = x + partial
-    h = apply_norm(x, p["ln2"], cfg)
-    x = x + dense_ffn(h, p["ffn"], cfg)
-    return x, {**cache, "kv": kv}
+    if spec.ffn != FFN_NONE:
+        h = apply_norm(x, p["ln2"], cfg)
+        x = x + dense_ffn(h, p["ffn"], cfg)
+    return x, cache

@@ -1,8 +1,10 @@
-"""Paged KV cache: the page pools and the host-side page allocator.
+"""Paged cache: the page pools and SSM state slabs, and the host-side page
+and slab allocators.
 
-Port of the JAX package's ``core/kvcache.py`` for attention-only decoders
-on one device (dp=1, so the pools carry no replica axis).  Per layer group
-and pattern entry the cache holds
+Port of the JAX package's ``core/kvcache.py`` for attention-only and
+pure-SSM decoders on one device (dp=1, so the pools carry no replica
+axis).  Per layer group and pattern entry the cache holds, for an
+attention layer,
 
     {"kv": {"kp": (reps, n_pages, n_kv_loc, page_size, D),
             "vp": (reps, n_pages, n_kv_loc, page_size, D)}}
@@ -10,16 +12,25 @@ and pattern entry the cache holds
 and, for int8 pools, ``"ksp"``/``"vsp"`` float32 scales of shape (reps,
 n_pages, page_size): one scale per (page, token row), written with the
 row's payload, so every row is quantized on its own.  A zero scale
-dequantizes to exact zeros.
+dequantizes to exact zeros.  For an SSM layer it holds
+
+    {"ssm": {"statep": (reps, n_slabs, H, P, N) float32 or int8,
+             "conv_xp": (reps, n_slabs, K-1, H*P),
+             "conv_Bp"/"conv_Cp": (reps, n_slabs, K-1, N)}}
+
+with conv tails in ``cfg.dtype`` and, for int8 slabs, ``"sscalep"``
+(reps, n_slabs, H) float32: one scale per (slab, head), rewritten with the
+whole state on every scatter.  A pure-SSM model has no KV pools at all.
 
 Token t of a slot lives at page block_table[t // page_size], offset
-t % page_size.  The pools are one static allocation, updated in place;
-request lengths appear only as data (block tables, positions), never as
-shapes.
+t % page_size; a request's recurrent state lives in its one slab.  The
+pools are one static allocation, updated in place; request lengths appear
+only as data (block tables, positions), never as shapes.
 
-Invariant: page 0 is scratch — idle decode lanes point their block tables
-    at it so the decode step always runs full-batch; its contents are
-    garbage by convention and never read back by a live slot.
+Invariants: page 0 and slab 0 are scratch — idle decode lanes point their
+    block tables and slab ids at them so the decode step always runs
+    full-batch; their contents are garbage by convention and never read
+    back by a live slot.
 """
 from __future__ import annotations
 
@@ -27,27 +38,66 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.model import check_supported
-from repro_torch.core.partition import kv_pool_is_quantized, torch_dtype
+from repro_torch.core.partition import (kv_pool_is_quantized,
+                                        ssm_pool_is_quantized, torch_dtype)
 
 SCRATCH_PAGE = 0
+SCRATCH_SLAB = 0
 
 
-def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int):
+def cache_profile(cfg) -> set:
+    """Union of decode-cache kinds across the decoder stack: a subset of
+    {"kv", "ssm", "cross_kv"}."""
+    kinds = set()
+    for spec in cfg.layer_specs():
+        kinds.update(spec.cache_kinds())
+    return kinds
+
+
+def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
+                         n_slabs: int = 0):
     """-> list (per layer group) of lists (per pattern entry) of
-    ``{"kv": {"kp": (shape, dtype), "vp": (shape, dtype)}}``, plus
-    ``"ksp"``/``"vsp"`` scale pools when the pool is int8."""
+    ``{"kv": {"kp": (shape, dtype), "vp": (shape, dtype)}}`` (plus
+    ``"ksp"``/``"vsp"`` scale pools when the pool is int8) for attention
+    layers and ``{"ssm": {"statep", "conv_xp", "conv_Bp", "conv_Cp"}}``
+    (plus ``"sscalep"`` for int8 slabs) for SSM layers, with ``n_slabs``
+    slabs including the scratch slab."""
     check_supported(cfg)
-    shape = (n_pages, lay.attn.n_kv_loc, page_size, cfg.head_dim_)
-    dtype = torch_dtype(plan.kv_cache_dtype)
-    quant = kv_pool_is_quantized(plan)
+    kv_shape = (n_pages, lay.attn.n_kv_loc, page_size, cfg.head_dim_)
+    kv_dtype = torch_dtype(plan.kv_cache_dtype)
+    slab = None
+    if "ssm" in cache_profile(cfg):
+        if n_slabs < 2:
+            raise ValueError(f"SSM layers need n_slabs > 1 (scratch + one "
+                             f"per slot), got {n_slabs}")
+        H, Pd, N = lay.ssm.hq_loc, cfg.ssm_head_dim, cfg.ssm_state
+        K, conv_dt = cfg.ssm_conv, torch_dtype(cfg.dtype)
+        quant = ssm_pool_is_quantized(plan)
+        slab = {"statep": ((n_slabs, H, Pd, N),
+                           torch.int8 if quant else torch.float32),
+                "conv_xp": ((n_slabs, K - 1, H * Pd), conv_dt),
+                "conv_Bp": ((n_slabs, K - 1, N), conv_dt),
+                "conv_Cp": ((n_slabs, K - 1, N), conv_dt)}
+        if quant:
+            slab["sscalep"] = ((n_slabs, H), torch.float32)
     out = []
     for g in cfg.layer_groups():
-        kv = {"kp": ((g.n_reps,) + shape, dtype),
-              "vp": ((g.n_reps,) + shape, dtype)}
-        if quant:
-            scale = ((g.n_reps, n_pages, page_size), torch.float32)
-            kv.update(ksp=scale, vsp=scale)
-        out.append([{"kv": dict(kv)} for _ in g.pattern])
+        per_pattern = []
+        for spec in g.pattern:
+            entry = {}
+            if "kv" in spec.cache_kinds():
+                kv = {"kp": (kv_shape, kv_dtype), "vp": (kv_shape, kv_dtype)}
+                if kv_pool_is_quantized(plan):
+                    scale = ((n_pages, page_size), torch.float32)
+                    kv.update(ksp=scale, vsp=scale)
+                entry["kv"] = kv
+            if "ssm" in spec.cache_kinds():
+                entry["ssm"] = slab
+            per_pattern.append(
+                {kind: {name: ((g.n_reps,) + shape, dtype)
+                        for name, (shape, dtype) in pools.items()}
+                 for kind, pools in entry.items()})
+        out.append(per_pattern)
     return out
 
 
@@ -126,6 +176,39 @@ class PageAllocator:
         out = sorted(self._scale_dirty & self._free_set)
         self._scale_dirty.difference_update(out)
         return out
+
+
+class SlabAllocator:
+    """Host-side free-list allocator for SSM state slabs (slab 0 scratch).
+
+    A slab holds one request's recurrent state (SSD state plus conv tails)
+    across every SSM layer.  Slabs are never shared — recurrent state has
+    exactly one owner — so there are no refcounts: ``alloc`` hands out one
+    slab id (or None when exhausted, for all-or-nothing admission) and
+    ``free`` returns it.  The engine zeroes a slab at admission."""
+
+    def __init__(self, n_slabs: int, n_reserved: int = 1):
+        assert n_slabs > n_reserved, (n_slabs, n_reserved)
+        self.n_slabs = n_slabs
+        self.n_reserved = n_reserved
+        self._free = list(range(n_slabs - 1, n_reserved - 1, -1))
+        self.total_allocated = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def alloc(self):
+        """-> one slab id, or None when the pool is exhausted."""
+        if not self._free:
+            return None
+        self.total_allocated += 1
+        return self._free.pop()
+
+    def free(self, slab: int):
+        assert slab >= self.n_reserved, f"freeing reserved slab {slab}"
+        assert slab not in self._free, f"double free of slab {slab}"
+        self._free.append(slab)
 
 
 def pages_needed(n_tokens: int, page_size: int) -> int:

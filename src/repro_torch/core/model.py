@@ -1,28 +1,38 @@
 """Decoder parameters and forward passes over the paged cache.
 
-Port of the JAX package's ``core/model.py`` for attention-only dense
-decoders at tp=1.  The parameter tree has the JAX tree's paths, with the tp
-axis stripped (what the JAX package's ``blocks._lo`` returns) and the
-stacked ``reps`` axis kept:
+Port of the JAX package's ``core/model.py`` for dense attention-only
+decoders and pure-SSM (mamba2) decoders at tp=1.  The parameter tree has
+the JAX tree's paths, with the tp axis stripped (what the JAX package's
+``blocks._lo`` returns) and the stacked ``reps`` axis kept:
 
     {"embed": {"table": (V, E)},
      "stacks": [[layer tree per pattern entry] per layer group],
      "final_norm": {"scale": (E,)}}
 
-with, per layer, ``ln1``/``ln2`` ``{"scale": (reps, E)}``, ``attn``
-``{"wq": (reps, E, H, D), "wk"/"wv": (reps, E, n_kv_loc, D), "wo": (reps, H,
-D, E)}`` and ``ffn`` ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F,
-E)}``.  ``_run_stack`` loops over ``reps`` in Python where JAX scans.
+with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
+
+- attention layers: ``attn`` ``{"wq": (reps, E, H, D), "wk"/"wv": (reps,
+  E, n_kv_loc, D), "wo": (reps, H, D, E)}``, ``ln2`` and ``ffn``
+  ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F, E)}``, or
+- SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
+  H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
+  "conv_B"/"conv_C": (reps, N, K), "A_log"/"D"/"dt_bias": (reps, H),
+  "norm_scale": (reps, H * P), "out": (reps, H, P, E)}`` (no FFN).
+
+``A_log`` and ``dt_bias`` stay float32 whatever the weight dtype, as in
+JAX.  ``_run_stack`` loops over ``reps`` in Python where JAX scans.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from repro_torch.configs.base import FFN_DENSE, MIX_ATTN, ModelConfig
+from repro_torch.configs.base import (FFN_DENSE, FFN_MOE, MIX_ATTN,
+                                     MIX_HYBRID, MIX_SSM, ModelConfig)
 from repro_torch.core.blocks import layer_forward
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layers import apply_norm, embed, logits
@@ -32,44 +42,73 @@ from repro_torch.core.partition import ShardingPlan, model_layout, torch_dtype
 @dataclass(frozen=True)
 class ParamSpec:
     full: tuple                # canonical shape (JAX's ``ParamSpec.full``)
-    init: str = "normal"       # normal | zeros
+    init: str = "normal"       # normal | zeros | ones | a_log | dt_bias
     scale: float = 0.02
     kv_heads: bool = False     # gathered through the head layout's kv_map
 
 
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders with RMSNorm, a gated
-    or plain dense FFN and tied embeddings; the rest waits for its slice."""
+    SiLU FFN and tied embeddings, and pure-SSM (mamba2) decoders; the rest
+    waits for its slice."""
+    specs = cfg.layer_specs()
     missing = [name for name, bad in (
         ("qk_norm", cfg.qk_norm), ("sandwich_norm", cfg.sandwich_norm),
         ("scale_embed", cfg.scale_embed), ("layernorm", cfg.norm != "rmsnorm"),
         ("untied LM head", not cfg.tie_embeddings),
         ("a plain (ungated) or non-silu FFN",
          not cfg.gated_ffn or cfg.act != "silu"),
-        ("encoder-decoder", cfg.is_encdec), ("frontend", cfg.frontend),
-        ("non-attention or MoE layers",
-         any(s.mixer != MIX_ATTN or s.ffn != FFN_DENSE
-             for s in cfg.layer_specs()))) if bad]
+        ("encoder-decoder (ROADMAP Queue 1 item 11)", cfg.is_encdec),
+        ("frontend", cfg.frontend),
+        ("hybrid attention + SSM layers (hymba-1.5b, ROADMAP Queue 1 item "
+         "10)", any(s.mixer == MIX_HYBRID for s in specs)),
+        ("MoE layers (ROADMAP Queue 1 item 12)",
+         any(s.ffn == FFN_MOE for s in specs))) if bad]
     if missing:
         raise NotImplementedError(
             f"arch '{cfg.name}' needs {', '.join(missing)}, which the PyTorch "
             f"port does not serve yet (ROADMAP Queue 1)")
 
 
+def _ssm_template(cfg, out_scale):
+    """JAX's ``_ssm_t`` at tp=1: ``norm_scale`` is stored flat, (H * P,), as
+    the JAX package's ``ssm_flat_heads`` sharding leaves it."""
+    E, Pd, N, K = cfg.d_model, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_conv
+    H = cfg.ssm_expand * E // Pd
+    return {
+        "in_z": ParamSpec((E, H, Pd)),
+        "in_x": ParamSpec((E, H, Pd)),
+        "in_dt": ParamSpec((E, H)),
+        "in_B": ParamSpec((E, N)),
+        "in_C": ParamSpec((E, N)),
+        "conv_x": ParamSpec((H, Pd, K), scale=0.2),
+        "conv_B": ParamSpec((N, K), scale=0.2),
+        "conv_C": ParamSpec((N, K), scale=0.2),
+        "A_log": ParamSpec((H,), "a_log"),
+        "D": ParamSpec((H,), "ones"),
+        "dt_bias": ParamSpec((H,), "dt_bias"),
+        "norm_scale": ParamSpec((H * Pd,), "zeros"),
+        "out": ParamSpec((H, Pd, E), scale=out_scale),
+    }
+
+
 def layer_template(cfg, spec, n_layers_total):
     E, d = cfg.d_model, cfg.head_dim_
     out_scale = 0.02 / math.sqrt(2 * n_layers_total)
-    return {
-        "ln1": {"scale": ParamSpec((E,), "zeros")},
-        "attn": {"wq": ParamSpec((E, cfg.n_heads, d)),
-                 "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
-                 "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
-                 "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)},
-        "ln2": {"scale": ParamSpec((E,), "zeros")},
-        "ffn": {"w_up": ParamSpec((E, spec.d_ff)),
-                "w_down": ParamSpec((spec.d_ff, E), scale=out_scale),
-                "w_gate": ParamSpec((E, spec.d_ff))},
-    }
+    t = {"ln1": {"scale": ParamSpec((E,), "zeros")}}
+    if spec.mixer == MIX_ATTN:
+        t["attn"] = {"wq": ParamSpec((E, cfg.n_heads, d)),
+                     "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+                     "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+                     "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)}
+    elif spec.mixer == MIX_SSM:
+        t["ssm"] = _ssm_template(cfg, out_scale)
+    if spec.ffn == FFN_DENSE:
+        t["ln2"] = {"scale": ParamSpec((E,), "zeros")}
+        t["ffn"] = {"w_up": ParamSpec((E, spec.d_ff)),
+                    "w_down": ParamSpec((spec.d_ff, E), scale=out_scale),
+                    "w_gate": ParamSpec((E, spec.d_ff))}
+    return t
 
 
 def model_template(cfg: ModelConfig):
@@ -103,13 +142,32 @@ def map_template(cfg, fn):
     return out
 
 
+def _deterministic_init(spec):
+    """JAX's ``_init_full`` for the leaves that draw nothing: ``ones``, and
+    the SSD heads' decay and step-size grids (``A_log = log(linspace(1,
+    16))``; ``dt_bias`` the inverse softplus of dt log-spaced over [1e-3,
+    0.1]).  Computed in float64 and rounded once to float32, which is
+    within float32 rounding of JAX's values (XLA's fused ``linspace`` and
+    its own exp/log round differently from every other implementation)."""
+    n = spec.full[0]
+    if spec.init == "ones":
+        return torch.ones(spec.full)
+    if spec.init == "a_log":
+        v = np.log(np.linspace(1.0, 16.0, n))
+    else:
+        dts = np.exp(np.linspace(math.log(1e-3), math.log(0.1), n))
+        v = np.log(np.expm1(dts))
+    return torch.from_numpy(v.astype(np.float32))
+
+
 def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
                 dtype=None):
     """Scaled-normal init with the JAX package's scheme (``model.py``:
-    ``scale * normal`` per leaf, zeros for norm scales, wo/w_down scaled by
-    ``0.02 / sqrt(2 * n_layers)``), one draw per leaf and repetition from
-    ``generator`` (a CPU ``torch.Generator``; seed 0 when None).  The draws
-    are made on the CPU, so one seed gives the same weights on every
+    ``scale * normal`` per leaf, zeros for norm scales, wo/w_down/out scaled
+    by ``0.02 / sqrt(2 * n_layers)``, the SSD heads' ``A_log``/``D``/
+    ``dt_bias`` deterministic), one draw per random leaf and repetition
+    from ``generator`` (a CPU ``torch.Generator``; seed 0 when None).  The
+    draws are made on the CPU, so one seed gives the same weights on every
     device.  The numbers differ from JAX's (another generator): tests that
     compare with JAX load JAX's weights through ``bridge.params_from_jax``."""
     dev = resolve_device(device)
@@ -125,15 +183,18 @@ def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
     def one(spec):
         if spec.init == "zeros":
             full = torch.zeros(spec.full)
-        else:
+        elif spec.init == "normal":
             full = spec.scale * torch.randn(spec.full, generator=generator)
+        else:
+            full = _deterministic_init(spec)
         if spec.kv_heads:
             full = full.index_select(1, kv_map)
         return full
 
     def mk(spec, reps):
         t = torch.stack([one(spec) for _ in range(reps)]) if reps else one(spec)
-        return t.to(device=dev, dtype=dt)
+        keep_f32 = spec.init in ("a_log", "dt_bias")
+        return t.to(device=dev, dtype=torch.float32 if keep_f32 else dt)
 
     return map_template(cfg, mk)
 
@@ -240,12 +301,14 @@ def forward_prefill_chunk(params, cache, tokens, chunk_start: int,
     tokens: (B, C) chunk of the prompt (zero-padded past its end);
     chunk_start: absolute position of the chunk's first token; last_idx:
     in-chunk index of the prompt's final token (callers use the logits
-    only on the chunk that holds it).  -> (logits (B, V), cache).  Prompt
-    lengths reach this function only as data, never as shapes."""
+    only on the chunk that holds it; SSM layers also mask the recurrence
+    past it and cut their conv tails there).  -> (logits (B, V), cache).
+    Prompt lengths reach this function only as data, never as shapes."""
     B, C = tokens.shape
     positions = chunk_start + torch.arange(C, device=tokens.device,
                                            dtype=torch.int32).expand(B, C)
-    pages = {**pages, "chunk_start": int(chunk_start)}
+    pages = {**pages, "chunk_start": int(chunk_start),
+             "last_idx": int(last_idx)}
     x = embed_tokens(params, tokens)
     x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
                           lay, "prefill", positions, cache=cache, pages=pages)

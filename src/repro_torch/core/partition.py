@@ -1,14 +1,17 @@
 """Layout of the model on one device: the tp=1 part of the JAX package's
 ``core/partition.py``.
 
-``ShardingPlan`` keeps the two storage choices the paged-serving slices
-read (pool dtype: float, or int8 with per-row scales; weight dtype: float
-only); ``head_layout`` keeps the grouped-query head layout that
-``blocks._group_q`` uses, computed for tp=1.
+``ShardingPlan`` keeps the storage choices the paged-serving slices read
+(KV pool dtype: float, or int8 with per-row scales; SSM slab dtype: float32,
+or int8 with per-(slab, head) scales; weight dtype: float only);
+``head_layout`` keeps the grouped-query head layout that
+``blocks._group_q`` uses, computed for tp=1, and ``ModelLayout.ssm`` the
+SSD heads' (one state per head, no grouping).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -32,10 +35,18 @@ def kv_pool_is_quantized(plan) -> bool:
     return torch_dtype(plan.kv_cache_dtype) == torch.int8
 
 
+def ssm_pool_is_quantized(plan) -> bool:
+    """True when the SSM state slabs store int8 payloads with per-(slab,
+    head) float32 scales (``plan.ssm_cache_dtype == "int8"``)."""
+    return bool(plan.ssm_cache_dtype) and \
+        torch_dtype(plan.ssm_cache_dtype) == torch.int8
+
+
 @dataclass(frozen=True)
 class ShardingPlan:
     """Storage choices of a one-device deployment."""
     kv_cache_dtype: str = "bfloat16"  # page-pool dtype ("int8": quantized)
+    ssm_cache_dtype: str = ""         # "" -> float32 slabs; "int8": quantized
     weight_dtype: str = ""            # "" -> cfg.dtype
 
 
@@ -68,7 +79,12 @@ def head_layout(n_q: int, n_kv: int) -> HeadLayout:
 @dataclass(frozen=True)
 class ModelLayout:
     attn: HeadLayout
+    ssm: Optional[HeadLayout]        # SSD heads (configs with ssm_state)
 
 
 def model_layout(cfg: ModelConfig, plan: ShardingPlan) -> ModelLayout:
-    return ModelLayout(attn=head_layout(cfg.n_heads, cfg.n_kv_heads))
+    ssm = None
+    if cfg.ssm_state:
+        n_ssm_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+        ssm = head_layout(n_ssm_heads, n_ssm_heads)
+    return ModelLayout(attn=head_layout(cfg.n_heads, cfg.n_kv_heads), ssm=ssm)

@@ -6,12 +6,15 @@ runs eagerly; nothing is compiled).  Each step's shapes are fixed when it
 is made — (batch, n_max_pages) for decode, (batch, q_len, n_max_pages) for
 verify, (chunk, n_max_pages) for a prefill chunk — and every request
 length reaches them only as data (block tables, positions, live-column
-counts), never as a shape, as in the JAX engine.
+counts), never as a shape, as in the JAX engine.  Models with SSM layers
+take one more input, ``slab_ids``: each row's state slab (scratch slab 0
+for idle lanes).
 """
 from __future__ import annotations
 
 from repro_torch.core import model
-from repro_torch.core.kvcache import paged_cache_template, zero_paged_cache
+from repro_torch.core.kvcache import (cache_profile, paged_cache_template,
+                                      zero_paged_cache)
 from repro_torch.core.partition import model_layout
 
 
@@ -21,18 +24,34 @@ def _expect(name, t, shape):
                          f"{tuple(shape)}")
 
 
+def _pages(cfg, block_table, slab_ids, rows):
+    """The step's paging inputs; ``slab_ids`` exactly when the model has
+    SSM layers."""
+    pages = {"block_table": block_table}
+    if "ssm" in cache_profile(cfg):
+        if slab_ids is None:
+            raise ValueError(f"arch '{cfg.name}' has SSM layers: the step "
+                             f"needs slab_ids")
+        _expect("slab_ids", slab_ids, (rows,))
+        pages["slab_ids"] = slab_ids
+    elif slab_ids is not None:
+        raise ValueError(f"arch '{cfg.name}' has no SSM layers: no slab_ids")
+    return pages
+
+
 def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int):
     """-> decode_fn(params, cache, tokens (B, 1), pos (B,), block_table
-    (B, n_max)) -> (logits (B, V), cache updated in place).  ``pos`` is the
-    inclusive position of each row's token; idle rows point their block
-    table at the scratch page with pos 0."""
+    (B, n_max)[, slab_ids (B,)]) -> (logits (B, V), cache updated in
+    place).  ``pos`` is the inclusive position of each row's token; idle
+    rows point their block table at the scratch page with pos 0, and their
+    slab id at the scratch slab."""
     lay = model_layout(cfg, plan)
 
-    def decode_fn(params, cache, tokens, pos, block_table):
+    def decode_fn(params, cache, tokens, pos, block_table, slab_ids=None):
         _expect("tokens", tokens, (batch, 1))
         _expect("pos", pos, (batch,))
         _expect("block_table", block_table, (batch, n_max_pages))
-        pages = {"block_table": block_table}
+        pages = _pages(cfg, block_table, slab_ids, batch)
         return model.forward_decode(params, cache, tokens, pos, cfg, plan,
                                     lay, pages)
 
@@ -47,7 +66,12 @@ def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
     positions per slot (the last accepted token plus k drafts), writing
     all Q tokens' KV through the block table and reading the cache once.
     ``qlen`` marks each row's live columns; idle rows point their block
-    table at the scratch page with pos 0 and qlen 1."""
+    table at the scratch page with pos 0 and qlen 1.  Attention-only
+    models only: an SSM recurrence advances one token per step."""
+    if "ssm" in cache_profile(cfg):
+        raise ValueError(f"verify step requires an attention-only arch, got "
+                         f"'{cfg.name}': SSM recurrences advance one token "
+                         f"per step")
     lay = model_layout(cfg, plan)
 
     def verify_fn(params, cache, tokens, pos, qlen, block_table):
@@ -64,25 +88,29 @@ def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
 
 def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
     """-> chunk_fn(params, cache, tokens (1, C), chunk_start, last_idx,
-    block_table (1, n_max)) -> (logits (1, V), cache updated in place).
-    ``chunk_start`` and ``last_idx`` are host integers: the chunk's first
-    absolute position and the in-chunk index of the prompt's last token."""
+    block_table (1, n_max)[, slab_ids (1,)]) -> (logits (1, V), cache
+    updated in place).  ``chunk_start`` and ``last_idx`` are host integers:
+    the chunk's first absolute position and the in-chunk index of the
+    prompt's last token (SSM layers leave their state untouched past
+    it)."""
     lay = model_layout(cfg, plan)
 
     def chunk_fn(params, cache, tokens, chunk_start: int, last_idx: int,
-                 block_table):
+                 block_table, slab_ids=None):
         _expect("tokens", tokens, (1, chunk))
         _expect("block_table", block_table, (1, n_max_pages))
         if not 0 <= last_idx < chunk:
             raise ValueError(f"last_idx {last_idx} outside the chunk {chunk}")
-        pages = {"block_table": block_table}
+        pages = _pages(cfg, block_table, slab_ids, 1)
         return model.forward_prefill_chunk(params, cache, tokens, chunk_start,
                                            last_idx, cfg, plan, lay, pages)
 
     return chunk_fn
 
 
-def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda"):
+def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda",
+                         n_slabs: int = 0):
     lay = model_layout(cfg, plan)
     return zero_paged_cache(
-        paged_cache_template(cfg, plan, lay, n_pages, page_size), device)
+        paged_cache_template(cfg, plan, lay, n_pages, page_size, n_slabs),
+        device)

@@ -1,6 +1,7 @@
-"""Dispatch over the kernels of the paged-serving path: rmsnorm, matmul,
-flash attention, and paged decode and verify attention over float or int8
-pools (seven kernel variants in all).
+"""Dispatch over the kernels of the paged-serving paths: rmsnorm, matmul,
+flash attention, paged decode and verify attention over float or int8
+pools, and the SSD scan from a float or an int8 state (nine kernel
+variants in all).
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version
 (``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
@@ -11,7 +12,8 @@ Each kernel variant has its own wrapper with a plain integer ``launches``,
 raised by one exactly where it launches its kernel, so a run can show that
 it went through every kernel (``launch_counts`` / ``reset_launch_counts``).
 ``paged_decode_attention`` and ``paged_verify_attention`` hand int8 pools
-(``k_scale``/``v_scale`` given) to their ``_i8`` twins.
+(``k_scale``/``v_scale`` given) to their ``_i8`` twins; ``ssd_scan_i8``
+takes the int8 state slab and its per-head scales.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import matmul as _matmul
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def rmsnorm(x, scale, eps: float = 1e-6):
@@ -118,9 +121,32 @@ def paged_verify_attention_i8(q, k_pages, v_pages, block_table, length,
     return out
 
 
+def ssd_scan(x, dt, B, C, A, state0=None):
+    """x: (Bt, S, H, P); dt: (Bt, S, H) float32; B/C: (Bt, S, N); A: (H,);
+    state0: (Bt, H, P, N) float32 or None (zeros) -> (y (Bt, S, H, P) in
+    x's dtype without the D term, final state (Bt, H, P, N) float32)."""
+    if x.device.type == "cpu":
+        return ref.ref_ssd_scan(x, dt, B, C, A, state0)
+    out = _ssd.ssd_scan(x, dt, B, C, A, state0=state0)
+    ssd_scan.launches += 1
+    return out
+
+
+def ssd_scan_i8(x, dt, B, C, A, state0, state0_scale):
+    """``ssd_scan`` seeded from an int8 state slab (Bt, H, P, N) and its
+    (Bt, H) float32 scales, dequantized in float32."""
+    if x.device.type == "cpu":
+        return ref.ref_ssd_scan(x, dt, B, C, A,
+                                ref.ref_dequant_state(state0, state0_scale))
+    out = _ssd.ssd_scan(x, dt, B, C, A, state0=state0,
+                        state0_scale=state0_scale)
+    ssd_scan_i8.launches += 1
+    return out
+
+
 WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention,
             paged_decode_attention_i8, paged_verify_attention,
-            paged_verify_attention_i8)
+            paged_verify_attention_i8, ssd_scan, ssd_scan_i8)
 for _w in WRAPPERS:
     _w.launches = 0
 

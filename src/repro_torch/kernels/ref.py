@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the paged-serving path.
+"""Plain PyTorch versions of the kernels on the paged-serving paths.
 
 Each ``ref_*`` is the function its Hopper kernel computes, with the Pallas
 kernel's contract and shapes, and no tiling.  ``kernels.ops`` runs these on
@@ -103,3 +103,33 @@ def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
     return ref_paged_verify_attention(q[:, :, None], k_pages, v_pages,
                                       block_table, length, scale, k_scale,
                                       v_scale)[:, :, 0]
+
+
+def ref_dequant_state(state, scales):
+    """An int8 SSD state slab through its per-head scales, in float32.
+    state: (..., H, P, N) int8; scales: (..., H) float32."""
+    return state.float() * scales[..., None, None]
+
+
+def ref_ssd_scan(x, dt, B, C, A, state0=None):
+    """The SSD recurrence one token at a time (JAX ``ref_ssd_scan`` with a
+    leading batch axis): h_t = exp(dt_t A) h_{t-1} + dt_t x_t (x) B_t and
+    y_t = C_t . h_t.
+
+    x: (Bt, S, H, P); dt: (Bt, S, H) float32; B/C: (Bt, S, N); A: (H,)
+    negative; state0: (Bt, H, P, N) float32 or None (zeros).  No ``D``
+    skip term.  -> (y (Bt, S, H, P) in x's dtype, final state (Bt, H, P, N)
+    float32)."""
+    Bt, S, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    Af = A.float()
+    h = torch.zeros((Bt, H, P, N), dtype=torch.float32, device=x.device) \
+        if state0 is None else state0.float()
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dtf[:, t] * Af)                          # (Bt, H)
+        u = dtf[:, t, :, None] * xf[:, t]                        # (Bt, H, P)
+        h = h * dec[:, :, None, None] + u[..., None] * Bf[:, t, None, None, :]
+        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h

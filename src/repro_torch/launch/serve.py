@@ -6,8 +6,10 @@ engine, on the card unless ``--device cpu``.
 
 Takes the flags of ``python -m repro.launch.serve`` that the paged greedy
 path supports, ``--speculative K`` (prompt-lookup drafts verified in one
-step) and ``--kv-dtype int8`` (int8 page pools) among them; the port is
-always paged, dp=1, FCFS, greedy and serial.  Any other flag of that
+step, attention-only archs) and ``--kv-dtype int8`` (int8 page pools and
+int8 SSM state slabs) among them; the port is always paged, dp=1, FCFS,
+greedy and serial.  ``--arch mamba2-370m`` serves the SSM decoder from
+state slabs.  Any other flag of that
 launcher is refused with the slice it waits for.
 Weights are random, drawn from ``--seed``; prompts are random token ids.
 """
@@ -57,7 +59,8 @@ def parse_args(argv=None):
                     default="fp16",
                     help="page-pool dtype: fp32, fp16 (bfloat16 pools, as in "
                          "the JAX launcher) or int8 (per-row scales, "
-                         "dequantized on read)")
+                         "dequantized on read; SSM state slabs also int8, "
+                         "with per-(slab, head) scales)")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--n-pages", type=int, default=0,
@@ -78,6 +81,15 @@ def parse_args(argv=None):
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
     if args.speculative < 0:
         ap.error("--speculative must be >= 0")
+    from repro_torch.configs import get_config
+    from repro_torch.core.kvcache import cache_profile
+    try:
+        cfg = get_config(args.arch)
+    except KeyError as e:
+        ap.error(str(e))
+    if args.speculative and "ssm" in cache_profile(cfg):
+        ap.error(f"--speculative is unsupported for arch '{args.arch}': SSM "
+                 f"recurrences advance one token per step")
     if args.prompt_len + args.max_new > args.seq_budget:
         ap.error("--prompt-len + --max-new must fit --seq-budget")
     return args
@@ -97,7 +109,9 @@ def main(argv=None):
         cfg = reduced(cfg)
     kvd = {"fp32": "float32", "fp16": "bfloat16", "int8": "int8"}[
         args.kv_dtype]
-    plan = ShardingPlan(kv_cache_dtype=kvd)
+    plan = ShardingPlan(kv_cache_dtype=kvd,
+                        ssm_cache_dtype="int8" if args.kv_dtype == "int8"
+                        else "")
     params = model.init_params(cfg, plan,
                                torch.Generator().manual_seed(args.seed),
                                device=args.device)
@@ -137,6 +151,10 @@ def main(argv=None):
               f"spec_denied={stats.spec_denied}")
     print(f"pages_free={engine.allocator.n_free}/"
           f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
+    if engine.has_ssm:
+        print(f"ssm_slabs: slabs={engine.n_slabs - 1} "
+              f"allocated={engine.slab_allocator.total_allocated} "
+              f"free={engine.slab_allocator.n_free}")
     return 0
 
 

@@ -33,6 +33,16 @@ quantized with its own scale as it is written; after each tick's
 admissions the engine zeroes, in place, the scale rows of the pages freed
 since the last tick (``PageAllocator.take_scale_dirty``), so a recycled
 page never pairs a fresh payload with a stale scale.
+
+**SSM archs** (mamba2): each admission also gets one recurrent-state
+**slab** (``SlabAllocator``; ``batch_slots + 1`` slabs, slab 0 scratch),
+zeroed at admission so the previous owner's state cannot leak into the new
+request; prefill chunks and decode steps read and write it by slab id, and
+idle lanes point at the scratch slab.  A pure-SSM arch has no KV pool and
+budgets no pages.  ``plan.ssm_cache_dtype == "int8"`` stores the slabs as
+int8 with per-(slab, head) scales.  Speculation is refused: an SSM
+recurrence advances one token per step.  The FCFS engine never preempts,
+so the JAX engine's host stash of a preempted slab has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -44,7 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.core.kvcache import SCRATCH_PAGE, PageAllocator, pages_needed
+from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
+                                      PageAllocator, SlabAllocator,
+                                      cache_profile, pages_needed)
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
 from repro_torch.core.steps import (make_paged_decode_step,
@@ -123,7 +135,17 @@ class ServingEngine:
                              f"{prefill_chunk}")
         if speculative < 0:
             raise ValueError(f"speculative must be >= 0, got {speculative}")
+        prof = cache_profile(cfg)
+        if speculative > 0 and prof != {"kv"}:
+            raise ValueError(
+                f"speculative decoding is unsupported for arch "
+                f"'{cfg.name}': the k-token verify step covers "
+                f"attention-only decoders (cache kinds {sorted(prof)}) "
+                f"— SSM recurrences advance one token per step and "
+                f"enc-dec verify is not implemented")
         self.cfg, self.plan = cfg, plan
+        self.has_ssm = "ssm" in prof
+        self.n_slabs = batch_slots + 1 if self.has_ssm else 0
         self.B = batch_slots
         self.S = seq_budget
         self.page_size = page_size
@@ -136,15 +158,19 @@ class ServingEngine:
         self.params = self.model.tree()
         self.stats = EngineStats()
         self.speculative = int(speculative)
-        self.quant_pools = kv_pool_is_quantized(plan)
+        self.quant_pools = kv_pool_is_quantized(plan) and "kv" in prof
         self.allocator = PageAllocator(n_pages)
+        self.slab_allocator = SlabAllocator(self.n_slabs) if self.has_ssm \
+            else None
         self.sched = FCFSScheduler(seq_budget=seq_budget,
                                    allocator=self.allocator,
                                    page_size=page_size,
                                    spec_tokens=self.speculative,
-                                   stats=self.stats)
+                                   stats=self.stats,
+                                   slab_allocator=self.slab_allocator,
+                                   kv_pages="kv" in prof)
         self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
-                                          self.device)
+                                          self.device, self.n_slabs)
         self.prefill_fn = make_prefill_chunk_step(cfg, plan, prefill_chunk,
                                                   self.n_max_pages)
         self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
@@ -222,6 +248,8 @@ class ServingEngine:
             self.prefill_done[b] = 0
             self.pos[b] = 0
             self.last_token[b] = 0
+            if self.has_ssm:
+                self._zero_slab(adm.slab)
         if self.quant_pools:
             dirty = self.allocator.take_scale_dirty()
             if dirty:
@@ -242,6 +270,25 @@ class ServingEngine:
             for entry in group:
                 entry["kv"]["ksp"][:, idx] = 0.0
                 entry["kv"]["vsp"][:, idx] = 0.0
+
+    def _zero_slab(self, slab: int):
+        """Zero, in place, slab ``slab`` of every SSM layer (state, conv
+        tails and, for int8 slabs, scales): the previous owner's state
+        must not leak into the new request."""
+        for group in self.cache:
+            for entry in group:
+                for pool in entry.get("ssm", {}).values():
+                    pool[:, slab] = 0
+
+    def _slab_id(self, b: int, active: bool = True) -> int:
+        adm = self.admissions[b]
+        return adm.slab if (active and adm is not None
+                            and adm.slab is not None) else SCRATCH_SLAB
+
+    def _slab_ids(self, ids):
+        """The steps' ``slab_ids`` input, for SSM archs only."""
+        return (self._to_device(np.asarray(ids, np.int32)),) \
+            if self.has_ssm else ()
 
     def _to_device(self, x: np.ndarray, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,
@@ -266,7 +313,8 @@ class ServingEngine:
         toks[0, :n] = prompt[c0:c0 + n]
         logits, self.cache = self.prefill_fn(
             self.params, self.cache, self._to_device(toks, torch.int64), c0,
-            min(L - 1 - c0, C - 1), self._to_device(self._bt_row(b)[None]))
+            min(L - 1 - c0, C - 1), self._to_device(self._bt_row(b)[None]),
+            *self._slab_ids([self._slab_id(b)]))
         self.prefill_done[b] = c0 + C
         return b, logits, (L if c0 + C >= L else None)
 
@@ -291,7 +339,9 @@ class ServingEngine:
         logits, self.cache = self.decode_fn(
             self.params, self.cache,
             self._to_device(self.last_token[:, None], torch.int64),
-            self._to_device(pos), self._to_device(bt))
+            self._to_device(pos), self._to_device(bt),
+            *self._slab_ids([self._slab_id(b, b in active)
+                             for b in range(self.B)]))
         return "decode", logits, active
 
     def _plan_drafts(self, active: List[int]):

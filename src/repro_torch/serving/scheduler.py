@@ -2,13 +2,13 @@
 
 A copy of the part of the JAX package's ``serving/scheduler.py`` that FCFS
 paged serving without a prefix cache needs: the ``Scheduler`` interface,
-``Admission`` records, ``FCFSScheduler``'s all-or-nothing page budgeting
-and its speculative draft headroom.  The engine executes admissions and
-reports lifecycle events back (``on_prefill_complete``, ``on_finish``,
-``on_spec_trim``).
+``Admission`` records, ``FCFSScheduler``'s all-or-nothing budgeting of
+pages and state slabs and its speculative draft headroom.  The engine
+executes admissions and reports lifecycle events back
+(``on_prefill_complete``, ``on_finish``, ``on_spec_trim``).
 
-Invariant: leak freedom — every page is free after ``run()``/``drain()``
-    retire all admissions.
+Invariant: leak freedom — every page and every slab is free after
+    ``run()``/``drain()`` retire all admissions.
 """
 from __future__ import annotations
 
@@ -45,11 +45,12 @@ class Admission:
     spec: the run includes draft headroom (+spec_tokens of coverage), so the
     engine may run the verify step on the slot; False means speculation was
     denied at admission (pool pressure) and the slot decodes one token per
-    tick."""
+    tick.  slab: the slot's recurrent-state slab id (SSM archs)."""
     slot: int
     req: object
     pages: Optional[List[int]] = None
     spec: bool = False
+    slab: Optional[int] = None
 
 
 class Scheduler:
@@ -78,23 +79,28 @@ class Scheduler:
 
 
 class FCFSScheduler(Scheduler):
-    """First-come-first-served admission with all-or-nothing page
-    budgeting: the head request either gets its full budget (prompt +
-    max_new_tokens) or the whole queue waits (no mid-flight OOM, no
-    starvation by overtaking).  With ``spec_tokens`` > 0 an admission also
-    tries for +spec_tokens of page coverage, so the verify step can write
-    drafted positions past prompt + max_new_tokens: all or nothing, and a
-    request denied it (``stats.spec_denied``) is still admitted, with
-    ``spec=False``."""
+    """First-come-first-served admission with all-or-nothing budgeting: the
+    head request either gets its full page budget (prompt +
+    max_new_tokens) and, for SSM archs, a state slab, or the whole queue
+    waits (no mid-flight OOM, no starvation by overtaking).  A pure-SSM
+    arch has no KV pool (``kv_pages=False``): its page demand is zero and
+    its state lives entirely in the slab.  With ``spec_tokens`` > 0 an
+    admission also tries for +spec_tokens of page coverage, so the verify
+    step can write drafted positions past prompt + max_new_tokens: all or
+    nothing, and a request denied it (``stats.spec_denied``) is still
+    admitted, with ``spec=False``."""
 
     def __init__(self, *, seq_budget: int, allocator, page_size: int,
-                 spec_tokens: int = 0, stats=None):
+                 spec_tokens: int = 0, stats=None, slab_allocator=None,
+                 kv_pages: bool = True):
         self.queue: collections.deque = collections.deque()
         self.seq_budget = seq_budget
         self.allocator = allocator
         self.psz = page_size
         self.spec_tokens = spec_tokens
         self.stats = stats
+        self.slab_allocator = slab_allocator      # SSM archs
+        self.kv_pages = kv_pages
 
     def submit(self, req) -> None:
         if len(req.prompt) == 0:
@@ -115,6 +121,8 @@ class FCFSScheduler(Scheduler):
         return bool(self.queue)
 
     def _req_pages(self, req) -> int:
+        if not self.kv_pages:
+            return 0
         return pages_needed(len(effective_prompt(req)) +
                             remaining_new_tokens(req), self.psz)
 
@@ -124,13 +132,21 @@ class FCFSScheduler(Scheduler):
             if not self.queue:
                 break
             req = self.queue[0]
+            slab = None
+            if self.slab_allocator is not None:
+                slab = self.slab_allocator.alloc()
+                if slab is None:        # every slab busy: the head waits
+                    break
             total = self._req_pages(req)
             pages = self.allocator.alloc(total)
             if pages is None:           # blocked: the head waits for pages
+                if slab is not None:
+                    self.slab_allocator.free(slab)
                 break
             self.queue.popleft()
             out.append(Admission(slot=slot, req=req, pages=pages,
-                                 spec=self._draft_headroom(req, total, pages)))
+                                 spec=self._draft_headroom(req, total, pages),
+                                 slab=slab))
         return out
 
     def _draft_headroom(self, req, total: int, pages: List[int]) -> bool:
@@ -152,6 +168,8 @@ class FCFSScheduler(Scheduler):
 
     def on_finish(self, adm: Admission) -> None:
         self.allocator.decref(adm.pages)
+        if adm.slab is not None:
+            self.slab_allocator.free(adm.slab)
 
     def on_spec_trim(self, adm: Admission, keep: int) -> None:
         """Return the headroom pages past block-table index ``keep``: drop

@@ -20,6 +20,7 @@ from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import matmul as k_matmul
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as k_rmsnorm
+from repro_torch.kernels import ssd_scan as k_ssd
 
 DTYPES = [("float32", jnp.float32, torch.float32),
           ("bfloat16", jnp.bfloat16, torch.bfloat16)]
@@ -151,12 +152,18 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
     ops.paged_verify_attention(*(torch.from_numpy(a.astype(np.float32))
                                  for a in (q[:, :, None], kp, vp)),
                                torch.from_numpy(bt), torch.from_numpy(length))
+    xs, dts, bc = torch.zeros(1, 3, 2, 4), torch.zeros(1, 3, 2), \
+        torch.zeros(1, 3, 8)
+    ops.ssd_scan(xs, dts, bc, bc, -torch.ones(2))
+    ops.ssd_scan_i8(xs, dts, bc, bc, -torch.ones(2),
+                    torch.zeros(1, 2, 4, 8, dtype=torch.int8), torch.zeros(1, 2))
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
                                    "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_decode_attention_i8": 0,
                                    "paged_verify_attention": 0,
-                                   "paged_verify_attention_i8": 0}
+                                   "paged_verify_attention_i8": 0,
+                                   "ssd_scan": 0, "ssd_scan_i8": 0}
 
 
 @pytest.mark.parametrize("launch", [
@@ -175,6 +182,8 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
         x[None], x[None, None].to(torch.int8), x[None, None].to(torch.int8),
         torch.zeros((1, 1), dtype=torch.int32),
         torch.ones(1, dtype=torch.int32), k_scale=x[:1], v_scale=x[:1]),
+    lambda x: k_ssd.ssd_scan(x[None, None, :, :16], x[None, :1], x[None, :1],
+                             x[None, :1], x[0]),
 ])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only; it never computes on the CPU."""
