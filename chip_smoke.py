@@ -10,15 +10,20 @@ each (and a few detail lines):
 
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
             versions, and the time to build every kernel from ``src/``.
-2. kernels  each of the nine kernel variants (rmsnorm, matmul, flash
+2. kernels  each of the ten kernel variants (rmsnorm, matmul, flash
             attention, paged decode and paged verify over float and int8
-            pools, the SSD scan from a float or an int8 state) against its
-            plain PyTorch version on the card, at the main paths' shapes
-            plus ragged cases (page-crossing lengths, a shuffled block
-            table, an idle lane on scratch page 0, Q in {2, 5}, zero-scale
-            rows; for the SSD scan the serve chunk, several chunks with a
-            partial tail, trailing dt = 0 rows, two batch rows, y and the
-            final state), with the stated tolerance; median
+            pools, the SSD scan from a float or an int8 state, decode
+            attention over a contiguous cache) against its plain PyTorch
+            version on the card, at the main paths' shapes plus ragged cases
+            (page-crossing lengths, a shuffled block table, an idle lane on
+            scratch page 0, Q in {2, 5}, zero-scale rows; for flash
+            attention also the contiguous prefill's square Sq = Skv in
+            {23, 130, 160}; for the SSD scan
+            the serve chunk, several chunks with a partial tail, trailing
+            dt = 0 rows, two batch rows, y and the final state; for the
+            contiguous decode the serve shape with full and ragged lengths,
+            S = 300 with D 32 and 128 and an idle lane, NaN in every key and
+            value past a row's length), with the stated tolerance; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (a yardstick
@@ -34,17 +39,27 @@ each (and a few detail lines):
             printed.  parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
-            tolerance, slabs leak-free after drain().
-4. serve    bfloat16 weights, 8 slots, 16 requests, in six phases:
+            tolerance, slabs leak-free after drain().  parity-contig: the
+            contiguous engine on tinyllama-42m, float32 lanes (tokens also
+            equal to the paged engine's on the card) and fixed-scale int8
+            lanes; parity-contig-ssm: the contiguous engine on mamba2-370m
+            (tokens also equal to the paged engine's on the card).
+4. serve    bfloat16 weights, 8 slots, 16 requests, in eight phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
-            (int8 pools, random prompts) and serve-spec-int8, and
-            full-width mamba2-370m (48 layers) in serve-ssm (float32 state
-            slabs) and serve-ssm-int8 (int8 slabs).  Every request
+            (int8 pools, random prompts) and serve-spec-int8, full-width
+            mamba2-370m (48 layers) in serve-ssm (float32 state slabs) and
+            serve-ssm-int8 (int8 slabs), and tinyllama-42m on the
+            contiguous engine in serve-contig (bfloat16 lanes) and
+            serve-contig-int8 (fixed-scale int8 lanes).  Every request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
             set to 0 just before each phase and read just after; the SSD
-            scan 48 times per prefill chunk, never in a decode tick).
+            scan 48 times per prefill chunk, never in a decode tick; the
+            contiguous decode kernel once per layer in every contiguous
+            decode tick and in no paged phase, flash attention once per
+            layer in every whole-prompt prefill, no paged kernel in a
+            contiguous phase).
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
@@ -89,6 +104,11 @@ SSD_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
 # step apart); atol is about 5x each reading (PERF.md)
 SSM_PARITY_TOL = dict(rtol=1e-4, atol=2e-4)
 SSM_INT8_PARITY_TOL = dict(rtol=1e-4, atol=1e-3)
+# contiguous int8 lanes (weights x1.75, |logit| up to about 4) store K/V at
+# the fixed scale 16: a value on a rounding boundary of x * 16 may quantize
+# one step (1/16) apart on the card and on the CPU.  The first H100 run read
+# 3.9e-3; atol is about 5x that
+CONTIG_INT8_PARITY_TOL = dict(rtol=1e-3, atol=2e-2)
 
 
 class SmokeFailure(RuntimeError):
@@ -251,6 +271,12 @@ def phase_kernels(torch, F):
                          ops.flash_attention(q, k, v, window=win, q_offset=q_off),
                          ref.ref_flash_attention(q, k, v, window=win,
                                                  q_offset=q_off), dt, torch))
+        # the contiguous engine's whole-prompt prefill: square and ragged
+        for S in (23, 130, 160):
+            q, k, v = (randn(H, S, D, dtype=dt) for _ in range(3))
+            note("flash_attention", f"Sq=Skv={S} q_offset=0 {dtype_name(dt)}",
+                 compare("flash_attention", ops.flash_attention(q, k, v, q_offset=0),
+                         ref.ref_flash_attention(q, k, v, q_offset=0), dt, torch))
     q, k, v = (randn(H, Sq, D, dtype=torch.bfloat16),
                randn(H, Skv, D, dtype=torch.bfloat16),
                randn(H, Skv, D, dtype=torch.bfloat16))
@@ -490,6 +516,56 @@ def phase_kernels(torch, F):
                              torch),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
+    # ---- decode attention over a contiguous cache: the serve shape (B 8,
+    # H 8, S 256, D 64) with full and ragged lengths, and ragged cases at
+    # S = 300 (no multiple of the 32-key tile) with D 32 and 128 and an idle
+    # lane (length 1).  Every key at or past a row's length is NaN in the
+    # kernel's input (the plain version gets the clean cache): a kernel that
+    # read one would return NaN
+    def poisoned(t, length):
+        t = t.clone()
+        for b, L in enumerate(length.tolist()):
+            t[b, :, L:] = float("nan")
+        return t
+
+    def contig_check(case, Bc, Hc, S, Dc, lengths, dt):
+        qc = randn(Bc, Hc, Dc, dtype=dt)
+        kc, vc = randn(Bc, Hc, S, Dc, dtype=dt), randn(Bc, Hc, S, Dc, dtype=dt)
+        lc = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        err = compare("decode_attention",
+                      ops.decode_attention(qc, poisoned(kc, lc), poisoned(vc, lc), lc),
+                      ref.ref_decode_attention(qc, kc, vc, lc), dt, torch)
+        note("decode_attention", f"{case} {dtype_name(dt)}", err)
+        return err
+
+    for dt in (torch.float32, torch.bfloat16):
+        contig_check("serve shape B=8 H=8 S=256 D=64 full lengths", 8, 8, 256, 64,
+                     [256] * 8, dt)
+        contig_check("serve shape, ragged lengths", 8, 8, 256, 64,
+                     [1, 13, 31, 32, 33, 150, 255, 1], dt)
+        for Dc in (32, 128):
+            contig_check(f"B=6 H=4 S=300 D={Dc} lengths 1,13,150,256,300 + idle",
+                         6, 4, 300, Dc, [1, 13, 150, 256, 300, 1], dt)
+    Bc, Hc, S, Dc = 8, 8, 256, 64
+    qc = randn(Bc, Hc, Dc, dtype=torch.bfloat16)
+    kc = randn(Bc, Hc, S, Dc, dtype=torch.bfloat16)
+    vc = randn(Bc, Hc, S, Dc, dtype=torch.bfloat16)
+    lc = torch.full((Bc,), S, dtype=torch.int32, device="cuda")
+    err = compare("decode_attention", ops.decode_attention(qc, kc, vc, lc),
+                  ref.ref_decode_attention(qc, kc, vc, lc), torch.bfloat16, torch)
+    toks = int(lc.sum())
+    # bytes: q read and o written, each row's valid keys and values read once
+    b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * Hc * toks * Dc * 2 + Bc * 4,
+                       4 * Dc * Hc * toks, torch.bfloat16)
+    kmask = (torch.arange(S, device="cuda")[None, :] < lc[:, None])[:, None, None]
+    rows["decode_attention"] = dict(
+        shape=f"B={Bc} H={Hc} S={S} D={Dc} lengths all {S} bf16", max_abs_err=err,
+        ms=time_ms(lambda: ops.decode_attention(qc, kc, vc, lc), torch),
+        plain_ms=time_ms(lambda: ref.ref_decode_attention(qc, kc, vc, lc), torch),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qc[:, :, None], kc, vc, attn_mask=kmask), torch),
+        bound_ms=b_ms, bound_by=b_by)
+
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -522,14 +598,19 @@ def _motif_requests(Request, rng, n, lo, hi, max_new, vocab):
     return out
 
 
-def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
-    """Serve ``reqs`` on a fresh engine.  -> (engine, tokens per request,
-    live logits of every step in call order (prefill chunks; decode rows
-    and verify columns of live slots), logits row behind each emitted token
-    of the one-token path per rid)."""
+def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
+                **kw):
+    """Serve ``reqs`` on a fresh engine, paged or contiguous.  -> (engine,
+    tokens per request, live logits of every step in call order (prefill
+    chunks or whole prompts; decode rows and verify columns of live slots),
+    logits row behind each emitted token of the one-token path per rid)."""
     from repro_torch.serving import ServingEngine
-    eng = ServingEngine.build_paged(cfg, plan, slots, 256, params, page_size=16,
-                                    prefill_chunk=32, device=device, **kw)
+    if paged:
+        eng = ServingEngine.build_paged(cfg, plan, slots, 256, params,
+                                        page_size=16, prefill_chunk=32,
+                                        device=device, **kw)
+    else:
+        eng = ServingEngine(cfg, plan, slots, 256, params, device=device, **kw)
     steps, emitted = [], {}
     prefill, decode, verify, sample = (eng.prefill_fn, eng.decode_fn,
                                        eng.verify_fn, eng._sample)
@@ -539,11 +620,16 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
         steps.append(logits.float().cpu().reshape(-1))
         return logits, cache
 
-    def rec_decode(params_, cache, tokens, pos, bt, *slab_ids):
-        logits, cache = decode(params_, cache, tokens, pos, bt, *slab_ids)
-        # live lanes: a page of their own, or (SSM archs) a slab of their own
-        live = (slab_ids[0] if slab_ids else bt[:, 0]) != 0
-        steps.append(logits.float().cpu()[live.cpu()].reshape(-1))
+    def rec_decode(params_, cache, tokens, pos, *paging):
+        logits, cache = decode(params_, cache, tokens, pos, *paging)
+        # live lanes: an admission (contiguous), a page of their own, or
+        # (SSM archs) a slab of their own
+        if not paged:
+            live = torch.tensor([a is not None for a in eng.admissions])
+        else:
+            bt, *slab_ids = paging
+            live = ((slab_ids[0] if slab_ids else bt[:, 0]) != 0).cpu()
+        steps.append(logits.float().cpu()[live].reshape(-1))
         return logits, cache
 
     def rec_verify(params_, cache, tokens, pos, qlen, bt):
@@ -564,10 +650,11 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, **kw):
         eng.submit(r)
     eng.run()
     check(all(r.done for r in reqs), f"parity: unfinished requests on {device}")
-    check(eng.drain() == 0 and eng.allocator.n_free ==
+    check(eng.drain() == 0, f"parity: slots still admitted on {device}")
+    check(not paged or eng.allocator.n_free ==
           eng.allocator.n_pages - eng.allocator.n_reserved,
           f"parity: pool not leak-free after drain() on {device}")
-    check(not eng.has_ssm or eng.slab_allocator.n_free == eng.n_slabs - 1,
+    check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
           f"parity: slabs not leak-free after drain() on {device}")
     return eng, [r.out_tokens for r in reqs], torch.cat(steps), emitted
 
@@ -748,6 +835,105 @@ def phase_parity_ssm(torch):
           f"position")
 
 
+def phase_parity_contig(torch):
+    """The contiguous engine, full-width tinyllama-42m in float32, card
+    (decode-attention and flash kernels) against CPU (plain versions):
+    float lanes at weights x10 (the parity phase's setup), identical greedy
+    tokens to the CPU and to the paged engine on the card; fixed-scale int8
+    lanes at weights x1.75, identical to the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = get_config("tinyllama-42m")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu", dtype="float32")
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    x10 = model.tree_map(lambda t: t * 10, base)
+    runs = {dev: _run_engine(torch, cfg, plan, x10, reqs(), dev, paged=False)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-contig", runs["cuda"][1:3], runs["cpu"][1:3],
+                    PARITY_TOL)
+    paged = _run_engine(torch, cfg, plan, x10, reqs(), "cuda")
+    toks = runs["cuda"][1]
+    check(toks == paged[1], f"parity-contig: contiguous and paged engines "
+          f"differ on cuda\n  {toks}\n  {paged[1]}")
+    print(f"parity-contig: tinyllama-42m float32 contiguous engine on cuda vs "
+          f"cpu: live logits of every step ({runs['cuda'][2].numel()} values) "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{PARITY_TOL['rtol']} atol={PARITY_TOL['atol']}); greedy tokens "
+          f"identical to cpu and to the paged engine on cuda: 4 requests x 16 "
+          f"tokens, {len({t for r in toks for t in r})} distinct")
+
+    mid = model.tree_map(lambda t: t * 1.75, base)
+    i8 = {dev: _run_engine(torch, cfg, plan_i8, mid, reqs(), dev, paged=False)
+          for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-contig-int8", i8["cuda"][1:3], i8["cpu"][1:3],
+                    CONTIG_INT8_PARITY_TOL)
+    fp = _run_engine(torch, cfg, plan, mid, reqs(), "cuda", paged=False)
+    same = sum(a == b for ra, rb in zip(fp[1], i8["cuda"][1])
+               for a, b in zip(ra, rb))
+    print(f"parity-contig-int8: fixed-scale int8 lanes on cuda vs cpu: live "
+          f"logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{CONTIG_INT8_PARITY_TOL['rtol']} atol="
+          f"{CONTIG_INT8_PARITY_TOL['atol']}); greedy tokens identical; "
+          f"against float lanes on cuda {same} of "
+          f"{sum(len(r) for r in fp[1])} tokens equal position by position")
+
+
+def phase_parity_contig_ssm(torch):
+    """The contiguous engine on full-width mamba2-370m in float32 at the
+    port's init scale: card (the SSD scan from a zero state over each whole
+    prompt) against CPU, identical greedy tokens, live logits within
+    ``SSM_PARITY_TOL``, and tokens identical to the paged engine (float32
+    slabs) on the card."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(get_config("mamba2-370m"), dtype="float32")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu")
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev, paged=False)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-contig-ssm", runs["cuda"][1:3], runs["cpu"][1:3],
+                    SSM_PARITY_TOL)
+    toks = runs["cuda"][1]
+    n_distinct = len({t for r in toks for t in r})
+    check(n_distinct > 1, f"parity-contig-ssm: one token only {toks}")
+    paged = _run_engine(torch, cfg, plan, params, reqs(), "cuda")
+    check(toks == paged[1], f"parity-contig-ssm: contiguous and paged engines "
+          f"differ on cuda\n  {toks}\n  {paged[1]}")
+    print(f"parity-contig-ssm: mamba2-370m float32 contiguous engine on cuda "
+          f"vs cpu: live logits of every step ({runs['cuda'][2].numel()} "
+          f"values) max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{SSM_PARITY_TOL['rtol']} atol={SSM_PARITY_TOL['atol']}); greedy "
+          f"tokens identical to cpu and to the paged engine on cuda: 4 "
+          f"requests x 16 tokens, {n_distinct} distinct")
+
+
 SERVE_PHASES = {
     # name: (arch, pool dtype, slab dtype, speculative k, prompts)
     "serve": ("tinyllama-42m", "bfloat16", "", 0, "random"),
@@ -756,7 +942,11 @@ SERVE_PHASES = {
     "serve-spec-int8": ("tinyllama-42m", "int8", "", 4, "motif"),
     "serve-ssm": ("mamba2-370m", "bfloat16", "", 0, "random"),
     "serve-ssm-int8": ("mamba2-370m", "bfloat16", "int8", 0, "random"),
+    "serve-contig": ("tinyllama-42m", "bfloat16", "", 0, "random"),
+    "serve-contig-int8": ("tinyllama-42m", "int8", "", 0, "random"),
 }
+# the phases served by the contiguous engine (the others are paged)
+CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
 # the mixer kernel each serving phase must launch: attention in its decode or
 # verify ticks; the SSD scan in its prefill chunks, once per layer, and never
 # in a decode tick
@@ -765,7 +955,9 @@ PHASE_MIXER = {"serve": "paged_decode_attention",
                "serve-int8": "paged_decode_attention_i8",
                "serve-spec-int8": "paged_verify_attention_i8",
                "serve-ssm": "ssd_scan",
-               "serve-ssm-int8": "ssd_scan_i8"}
+               "serve-ssm-int8": "ssd_scan_i8",
+               "serve-contig": "decode_attention",
+               "serve-contig-int8": "decode_attention"}
 
 
 SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
@@ -774,7 +966,8 @@ SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
 def _serve_setup(torch, name):
     """Serve phase ``name``'s model, an engine factory and its 16 requests:
     the full-width arch, bfloat16 weights, 8 slots, prompts 16-160 tokens,
-    32 new (random prompts, or repetitive motifs where speculation runs)."""
+    32 new (random prompts, or repetitive motifs where speculation runs);
+    the contiguous engine for ``CONTIG_PHASES``, else the paged one."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -789,6 +982,8 @@ def _serve_setup(torch, name):
     make = _requests if kind == "random" else _motif_requests
 
     def engine():
+        if name in CONTIG_PHASES:
+            return ServingEngine(cfg, plan, SLOTS, SB, params, device="cuda")
         return ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                          page_size=PSZ, prefill_chunk=CH,
                                          speculative=k, device="cuda")
@@ -848,10 +1043,11 @@ def phase_serve(torch, name):
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           f"{name}: token ids out of range")
     check(eng.drain() == 0, f"{name}: slots still admitted after run()")
-    n_usable = eng.allocator.n_pages - eng.allocator.n_reserved
-    check(eng.allocator.n_free == n_usable,
-          f"{name}: pool leaked {n_usable - eng.allocator.n_free} pages")
-    if eng.has_ssm:
+    if eng.paged:
+        n_usable = eng.allocator.n_pages - eng.allocator.n_reserved
+        check(eng.allocator.n_free == n_usable,
+              f"{name}: pool leaked {n_usable - eng.allocator.n_free} pages")
+    if eng.has_slabs:
         check(eng.slab_allocator.n_free == eng.n_slabs - 1,
               f"{name}: slabs leaked")
     steps = [kd for kd in ("decode", "verify") if calls[kd]]
@@ -859,8 +1055,21 @@ def phase_serve(torch, name):
         check(all(per_phase[kd][kn] > 0 for kd in ["prefill"] + steps),
               f"{name}: {kn} not launched in every step kind {per_phase}")
     mixer = PHASE_MIXER[name]
-    if eng.has_ssm:
-        n_ssm = cfg.n_layers
+    n_layers = cfg.n_layers
+    if not eng.paged:
+        # whole-prompt flash attention in every prefill, the decode kernel
+        # in every decode tick, once per layer each; no other mixer kernel
+        check(per_phase["prefill"]["flash_attention"] == n_layers * calls["prefill"]
+              > 0 and per_phase["prefill"][mixer] == 0 and
+              per_phase["decode"][mixer] == n_layers * calls["decode"] > 0 and
+              per_phase["decode"]["flash_attention"] == 0,
+              f"{name}: flash_attention not launched {n_layers} times per "
+              f"prefill and {mixer} {n_layers} times per decode tick {per_phase}")
+        others = [kn for kn, v in launches.items()
+                  if v and kn not in ("rmsnorm", "matmul", "flash_attention", mixer)]
+        check(not others, f"{name}: paged or SSM kernels launched {others}")
+    elif eng.has_slabs:
+        n_ssm = n_layers
         check(per_phase["prefill"][mixer] == n_ssm * calls["prefill"] > 0 and
               per_phase["decode"][mixer] == 0,
               f"{name}: {mixer} not launched {n_ssm} times per prefill chunk "
@@ -875,6 +1084,9 @@ def phase_serve(torch, name):
               f"{name}: {mixer} not launched {per_phase}")
         check(launches["flash_attention"] > 0,
               f"{name}: kernel flash_attention never launched")
+    if eng.paged:
+        check(launches["decode_attention"] == 0,
+              f"{name}: the contiguous decode_attention launched in a paged phase")
     if k:
         check(stats.spec_accepted > 0, f"{name}: no draft accepted")
     for kn in ("rmsnorm", "matmul", mixer):
@@ -886,9 +1098,11 @@ def phase_serve(torch, name):
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
             if k else "")
-    store = (f"{ssmd or 'float32'} slabs" if eng.has_ssm else f"{kvd} pools")
+    store = (f"{ssmd or 'float32'} slabs" if eng.has_slabs else
+             f"{kvd} {'pools' if eng.paged else 'lanes'}")
+    layout = f"page={PSZ} chunk={CH}" if eng.paged else "contiguous"
     print(f"{name}: {arch} bf16 weights, {store}, speculative={k}, "
-          f"{kind} prompts, slots={SLOTS} seq_budget={SB} page={PSZ} chunk={CH} "
+          f"{kind} prompts, slots={SLOTS} seq_budget={SB} {layout} "
           f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
           f"tok_per_s={stats.decoded_tokens / wall:.1f} "
@@ -896,8 +1110,9 @@ def phase_serve(torch, name):
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}"
           f"launches={ {kn: v for kn, v in launches.items() if v} } "
-          f"prefill_chunks={calls['prefill']} decode_ticks={calls['decode']} "
-          f"per_prefill_chunk={per_call['prefill']} "
+          f"{'prefill_chunks' if eng.paged else 'prefills'}={calls['prefill']} "
+          f"decode_ticks={calls['decode']} "
+          f"per_{'prefill_chunk' if eng.paged else 'prefill'}={per_call['prefill']} "
           f"per_decode_tick={per_call['decode']}")
     return launches, per_call, wall
 
@@ -959,6 +1174,8 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:84"),
     "ssd_scan_i8": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssd_scan.py:67"),
+    "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:59"),
 }
 
 
@@ -992,6 +1209,8 @@ def main() -> int:
         rows = timed("kernels", phase_kernels, torch, F)
         timed("parity", phase_parity, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
+        timed("parity-contig", phase_parity_contig, torch)
+        timed("parity-contig-ssm", phase_parity_contig_ssm, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
         for name, out in served.items():

@@ -1,4 +1,5 @@
-"""Attention: prefill-chunk flash attention, paged single-token decode and
+"""Attention: flash attention (a whole prompt or a prefill chunk),
+single-token decode over a contiguous cache or through a block table, and
 paged speculative verify (Q queries per slot), over float or int8 pools.
 
 Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
@@ -7,17 +8,22 @@ Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
     k/v: (B, G, Skv, D)
 
 On CPU tensors these are plain PyTorch (the oracle the tests hold against
-JAX).  On CUDA tensors ``flash_attention``, ``paged_decode_attention`` and
-``paged_verify_attention`` launch the Hopper kernels through
-``kernels.ops``; the kernels take one kv head per q head (R == 1) and no
-sliding window in decode or verify, and anything else raises until the
-slice that ports GQA and windows.
+JAX).  On CUDA tensors every function here launches a Hopper kernel
+through ``kernels.ops``; the kernels take one kv head per q head (R == 1)
+and no sliding window in decode or verify, and anything else raises until
+the slice that ports GQA and windows.
 
 Convention: these functions take the INCLUSIVE position ``cur_pos`` of the
 current token (query i of verify sits at ``cur_pos + i`` and sees
-``kv_pos <= cur_pos + i``); the paged kernels take the count of valid
+``kv_pos <= cur_pos + i``); the decode kernels take the count of valid
 tokens ``length = cur_pos + 1``.  The conversion happens here and nowhere
 else.
+
+The contiguous decode kernel masks by that prefix length, not by the
+lane's ``slot_pos``: the two agree while slot s holds position s for every
+s <= cur_pos, which holds when the lane's ring is as long as the sequence
+budget and the engine retires a slot before its position reaches it
+(``steps.make_decode_step`` refuses a shorter ring on the card).
 """
 from __future__ import annotations
 
@@ -74,8 +80,14 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
                      scale=None):
     """q: (B, G, R, D); caches: (B, G, S_slots, D); slot_pos: (B, S_slots)
-    absolute position held by each slot (-1 = empty); cur_pos: (B,)."""
+    absolute position held by each slot (-1 = empty); cur_pos: (B,).  On the
+    card the kernel reads slots [0, cur_pos] (module docstring)."""
     B, G, R, D = q.shape
+    if q.is_cuda:
+        _card_layout("decode-attention", R, window)
+        out = ops.decode_attention(q[:, :, 0].contiguous(), k_cache, v_cache,
+                                   (cur_pos + 1).to(torch.int32), scale=scale)
+        return out[:, :, None]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bgrd,bgsd->bgrs", q.float(), k_cache.float()) * scale
     valid = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
@@ -117,10 +129,10 @@ def gather_kv(k_pool, v_pool, block_table, dtype, k_scale=None, v_scale=None):
     return gather_pages(k_pool, block_table), gather_pages(v_pool, block_table)
 
 
-def _card_layout(kind, R, window):
+def _card_layout(kernel, R, window):
     if R != 1 or window > 0:
         raise NotImplementedError(
-            f"the paged-{kind} kernel takes one kv head per q head and no "
+            f"the {kernel} kernel takes one kv head per q head and no "
             f"window (got R={R}, window={window}); GQA and windows come "
             f"with a later slice")
 
@@ -133,7 +145,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, cur_pos, *,
     ((n_pages, psz) float32): int8 pools, dequantized on read."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        _card_layout("decode", R, window)
+        _card_layout("paged-decode", R, window)
         out = ops.paged_decode_attention(
             q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
@@ -155,7 +167,7 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, cur_pos, *,
     ``paged_decode_attention``; cur_pos: (B,) -> (B, G, R, Q, D)."""
     B, G, R, Q, D = q.shape
     if q.is_cuda:
-        _card_layout("verify", R, window)
+        _card_layout("paged-verify", R, window)
         out = ops.paged_verify_attention(
             q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,

@@ -1,13 +1,17 @@
-"""One transformer layer over the paged cache, at tp=1.
+"""One transformer layer over the contiguous or the paged cache, at tp=1.
 
-Port of the parts of the JAX package's ``core/blocks.py`` that paged
-serving of attention-only and pure-SSM decoders runs: the paged branch of
-``attn_mixer`` (decode, speculative-verify and prefill-chunk modes, over
-float or int8 pools), ``_row_quant``, ``_page_write``, ``dense_ffn``, the
-decode and chunked-prefill branches of ``ssm_mixer`` with ``_paged_ssm``
-(float32 or int8 state slabs), and ``layer_forward``.  On one device every
-``psum`` of the two-sync contract is the identity.  Every matrix product
-goes through ``kernels.ops.matmul``.
+Port of the parts of the JAX package's ``core/blocks.py`` that serving of
+attention-only and pure-SSM decoders runs at dp=1: ``attn_mixer`` over a
+contiguous lane (decode, and whole-prompt prefill; ``_kv_q``/``_kv_dq``
+with the fixed ``KVQ`` int8 scale, ``_kv_write``, ``_kv_fill``) or over
+the page pools (decode, speculative-verify and prefill-chunk modes, over
+float or int8 pools; ``_row_quant``, ``_page_write``), ``dense_ffn``,
+``ssm_mixer`` (decode, whole-sequence prefill from a zero state, and
+chunked prefill) over a contiguous lane or, through ``_paged_ssm``, over
+float32 or int8 state slabs, and ``layer_forward``.  Caches are updated
+in place where JAX returns new arrays.  On one device every ``psum`` of
+the two-sync contract is the identity.  Every matrix product goes through
+``kernels.ops.matmul``.
 
 Parameters arrive with the tp axis already stripped (``bridge`` and
 ``model.init_params`` store what the JAX package's ``_lo`` returns).
@@ -19,12 +23,31 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import FFN_NONE, MIX_ATTN, MIX_SSM
 from repro_torch.core import ssm as ssd
-from repro_torch.core.attention import (flash_attention, gather_kv,
-                                        paged_decode_attention,
+from repro_torch.core.attention import (decode_attention, flash_attention,
+                                        gather_kv, paged_decode_attention,
                                         paged_verify_attention)
 from repro_torch.core.layers import activation, apply_norm, apply_rope, \
     rmsnorm
 from repro_torch.kernels import ops
+
+KVQ = {"scale": 16.0}  # fixed-point int8 scale of the contiguous KV lanes
+
+
+def _kv_q(x, dtype):
+    """K/V for a contiguous lane: int8 fixed point (x * 16, rounded half to
+    even as ``jnp.round`` does, clipped at +-127, so |x| > 7.94 saturates)
+    or a plain cast."""
+    if dtype == torch.int8:
+        return torch.round(x.float() * KVQ["scale"]).clamp(-127, 127).to(
+            torch.int8)
+    return x.to(dtype)
+
+
+def _kv_dq(x, compute_dtype):
+    """A lane back in ``compute_dtype`` (int8 through the fixed scale)."""
+    if x.dtype == torch.int8:
+        return (x.float() * (1.0 / KVQ["scale"])).to(compute_dtype)
+    return x.to(compute_dtype)
 
 
 def _row_quant(x):
@@ -84,25 +107,67 @@ def _ungroup(o, lay):
 
 
 def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
-               pages):
-    """Paged attention sublayer -> (output (B, S, E), kv_cache updated in
-    place)."""
-    if mode not in ("decode", "verify", "prefill") or kv_cache is None \
-            or "kp" not in kv_cache:
+               pages=None):
+    """Attention sublayer over a contiguous lane ({"k", "v", "pos"}) or the
+    page pools ({"kp", "vp", ...}) -> (output (B, S, E), kv_cache updated
+    in place)."""
+    paged = kv_cache is not None and "kp" in kv_cache
+    if mode not in (("decode", "verify", "prefill") if paged
+                    else ("decode", "prefill")) or \
+            (mode == "decode" and kv_cache is None):
         raise NotImplementedError(
-            f"attn_mixer mode '{mode}': the port runs paged decode, verify "
-            f"and prefill chunks; the contiguous cache comes with a later "
-            f"slice")
+            f"attn_mixer mode '{mode}' over a "
+            f"{'paged' if paged else 'contiguous'} cache is not ported")
     window = cfg.window_for(spec)
     q, k, v = _project_qkv(xn, pa)
     q, k = _rope_qk(q, k, positions, cfg)
     qg = _group_q(q, lay)                            # (B, G, R, S, D)
     kg = k.transpose(1, 2)                           # (B, G, S, D)
     vg = v.transpose(1, 2)
-    out, kv_cache = _paged_attn(qg, kg, vg, kv_cache, pages, mode, positions,
-                                pos, window, cfg)
+    if paged:
+        out, kv_cache = _paged_attn(qg, kg, vg, kv_cache, pages, mode,
+                                    positions, pos, window, cfg)
+    elif mode == "decode":
+        _kv_write(kv_cache, kg, vg, pos)
+        out = decode_attention(
+            qg[:, :, :, 0], _kv_dq(kv_cache["k"], qg.dtype),
+            _kv_dq(kv_cache["v"], qg.dtype), kv_cache["pos"], pos,
+            window=window, scale=cfg.attn_scale)
+        out = out[:, :, :, None, :]                  # (B, G, R, 1, D)
+    else:
+        out = flash_attention(qg, kg, vg, causal=cfg.causal, window=window,
+                              scale=cfg.attn_scale)
+        if kv_cache is not None:
+            _kv_fill(kv_cache, kg, vg, positions)
     return _mm(_ungroup(out, lay), pa["wo"].reshape(-1, xn.shape[-1])), \
         kv_cache
+
+
+def _kv_write(kv, kg, vg, pos):
+    """Decode-step write into a contiguous lane, in place (JAX's
+    ``.at[].set``): token b goes to ring slot ``pos[b] % W``.  kg/vg: (B, G,
+    1, D); pos: (B,)."""
+    B, G, W, D = kv["k"].shape
+    slot = (pos % W).long()
+    bidx = torch.arange(B, device=pos.device)
+    kv["k"][bidx, :, slot] = _kv_q(kg[:, :, 0], kv["k"].dtype)
+    kv["v"][bidx, :, slot] = _kv_q(vg[:, :, 0], kv["v"].dtype)
+    kv["pos"][bidx, slot] = pos.to(torch.int32)
+    return kv
+
+
+def _kv_fill(kv, kg, vg, positions):
+    """Prefill write into a contiguous lane, in place: the last W tokens at
+    their ring slots.  kg/vg: (B, G, S, D); positions: (B, S), equal rows."""
+    W = kv["k"].shape[2]
+    S = kg.shape[2]
+    n = min(W, S)
+    p_tail = positions[:, S - n:]
+    slots = (p_tail[0] % W).long()
+    kv["k"][:, :, slots] = _kv_q(kg[:, :, S - n:], kv["k"].dtype)
+    kv["v"][:, :, slots] = _kv_q(vg[:, :, S - n:], kv["v"].dtype)
+    kv["pos"][:, slots] = p_tail.to(torch.int32)
+    return kv
 
 
 def _paged_attn(qg, kg, vg, kv, pages, mode, positions, pos, window, cfg):
@@ -177,20 +242,21 @@ def dense_ffn(xn, pf, cfg):
 
 
 def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
-    """The SSD mixer for one decode token (``mode == "decode"``) or one
-    prefill chunk carried on from ``ssm_cache`` (``chunk_last_idx`` given:
-    rows past it are padding beyond the prompt's end; their dt is zeroed,
-    so they leave the state untouched, and the conv tails are cut at it).
+    """The SSD mixer for one decode token (``mode == "decode"``), a whole
+    prompt (``mode == "prefill"``: the conv and the scan start from zeros,
+    and ``ssm_cache`` is not read), or one prefill chunk carried on from
+    ``ssm_cache`` (``chunk_last_idx`` given: rows past it are padding
+    beyond the prompt's end; their dt is zeroed, so they leave the state
+    untouched, and the conv tails are cut at it).
     ssm_cache: {"state" (B, H, P, N) float32, or int8 with "state_scale"
     (B, H), "conv_x" (B, K-1, H*P), "conv_B"/"conv_C" (B, K-1, N)}.
     -> (out (B, S, E), new cache with a float32 state).  The gated norm
     over d_inner runs through ``layers.rmsnorm`` (the rmsnorm kernel with
     n = H*P), which at tp=1 is JAX's ``rmsnorm_from_sumsq``."""
-    if mode != "decode" and chunk_last_idx is None:
-        raise NotImplementedError(
-            f"ssm_mixer mode '{mode}': the port runs decode and chunked "
-            f"prefill over state slabs; whole-sequence prefill and context "
-            f"parallelism come with later slices")
+    if mode not in ("decode", "prefill"):
+        raise NotImplementedError(f"ssm_mixer mode '{mode}' is not ported")
+    whole = mode == "prefill" and chunk_last_idx is None
+    prev = {} if whole else ssm_cache      # a whole prompt starts from zeros
     B, S, E = xn.shape
     H, Pd = lay.ssm.hq_loc, cfg.ssm_head_dim
     z = _mm(xn, ps["in_z"])                                     # (B,S,H,P)
@@ -201,9 +267,9 @@ def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
     tail = None if mode == "decode" else chunk_last_idx
     xi_f, cs_x = ssd.causal_conv(xi.reshape(B, S, H * Pd),
                                  ps["conv_x"].reshape(H * Pd, -1),
-                                 ssm_cache["conv_x"], tail)
-    Bm, cs_B = ssd.causal_conv(Bm, ps["conv_B"], ssm_cache["conv_B"], tail)
-    Cm, cs_C = ssd.causal_conv(Cm, ps["conv_C"], ssm_cache["conv_C"], tail)
+                                 prev.get("conv_x"), tail)
+    Bm, cs_B = ssd.causal_conv(Bm, ps["conv_B"], prev.get("conv_B"), tail)
+    Cm, cs_C = ssd.causal_conv(Cm, ps["conv_C"], prev.get("conv_C"), tail)
     xi = F.silu(xi_f).reshape(B, S, H, Pd)
     Bm, Cm = F.silu(Bm), F.silu(Cm)
     dt = F.softplus(dt_raw.float() + ps["dt_bias"].float())
@@ -212,6 +278,8 @@ def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
         y, state = ssd.ssd_decode_step(xi[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0],
                                        A, ps["D"], ssm_cache["state"])
         y = y[:, None]                                          # (B,1,H,P)
+    elif whole:
+        y, state = ssd.ssd_chunked(xi, dt, Bm, Cm, A, ps["D"])
     else:
         # padding past the prompt must not advance the recurrence: dt = 0
         # makes a padded position's decay exp(0) = 1 and contribution 0
@@ -275,10 +343,14 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
         partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
                                  cache["kv"], positions, pos, pages)
         cache = {**cache, "kv": kv}
-    elif spec.mixer == MIX_SSM:
+    elif spec.mixer == MIX_SSM and "statep" in cache["ssm"]:
         partial, slabs = _paged_ssm(h, p["ssm"], cfg, lay, mode,
                                     cache["ssm"], pages)
         cache = {**cache, "ssm": slabs}
+    elif spec.mixer == MIX_SSM:                       # a contiguous lane
+        partial, new = ssm_mixer(h, p["ssm"], cfg, lay, mode, cache["ssm"])
+        for name, t in new.items():
+            cache["ssm"][name].copy_(t)
     else:
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "

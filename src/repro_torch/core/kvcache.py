@@ -1,10 +1,23 @@
-"""Paged cache: the page pools and SSM state slabs, and the host-side page
-and slab allocators.
+"""The decode caches: the contiguous per-slot lanes, the page pools and SSM
+state slabs, and the host-side page and slab allocators.
 
 Port of the JAX package's ``core/kvcache.py`` for attention-only and
-pure-SSM decoders on one device (dp=1, so the pools carry no replica
-axis).  Per layer group and pattern entry the cache holds, for an
-attention layer,
+pure-SSM decoders on one device (dp=1, so nothing carries a replica axis).
+
+**Contiguous lanes** (``cache_template``/``zero_cache``): per layer group
+and pattern entry, stacked under the group's reps axis,
+
+    {"kv": {"k"/"v": (reps, B, G, W, D) in plan.kv_cache_dtype,
+            "pos": (reps, B, W) int32, -1 = empty}}
+    {"ssm": {"state": (reps, B, H, P, N) float32,
+             "conv_x": (reps, B, K-1, H*P), "conv_B"/"conv_C": (reps, B,
+             K-1, N) in cfg.dtype}}
+
+with W = ``kv_window`` (the sequence budget, or a sliding window shorter
+than it); int8 lanes hold the fixed-scale ``blocks.KVQ`` payload.
+
+**Paged pools** (``paged_cache_template``/``zero_paged_cache``): per layer
+group and pattern entry, for an attention layer,
 
     {"kv": {"kp": (reps, n_pages, n_kv_loc, page_size, D),
             "vp": (reps, n_pages, n_kv_loc, page_size, D)}}
@@ -36,6 +49,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.configs.base import ATTN_WINDOW
 from repro_torch.core.device import resolve_device
 from repro_torch.core.model import check_supported
 from repro_torch.core.partition import (kv_pool_is_quantized,
@@ -52,6 +66,56 @@ def cache_profile(cfg) -> set:
     for spec in cfg.layer_specs():
         kinds.update(spec.cache_kinds())
     return kinds
+
+
+def kv_window(cfg, spec, budget: int) -> int:
+    """Ring length of a layer's contiguous KV lane: the budget, or the
+    sliding window where the layer has one and it is shorter."""
+    if spec.attn == ATTN_WINDOW and cfg.sliding_window:
+        return min(budget, cfg.sliding_window)
+    return budget
+
+
+def layer_cache_template(cfg, plan, lay, spec, batch: int, budget: int):
+    """-> {kind: {name: (shape, dtype)}} for ONE layer (no reps axis)."""
+    out = {}
+    if "kv" in spec.cache_kinds():
+        W = kv_window(cfg, spec, budget)
+        kv_shape = (batch, lay.attn.n_kv_loc, W, cfg.head_dim_)
+        kvd = torch_dtype(plan.kv_cache_dtype)
+        out["kv"] = {"k": (kv_shape, kvd), "v": (kv_shape, kvd),
+                     "pos": ((batch, W), torch.int32)}
+    if "ssm" in spec.cache_kinds():
+        H, Pd, N = lay.ssm.hq_loc, cfg.ssm_head_dim, cfg.ssm_state
+        K, conv_dt = cfg.ssm_conv, torch_dtype(cfg.dtype)
+        out["ssm"] = {"state": ((batch, H, Pd, N), torch.float32),
+                      "conv_x": ((batch, K - 1, H * Pd), conv_dt),
+                      "conv_B": ((batch, K - 1, N), conv_dt),
+                      "conv_C": ((batch, K - 1, N), conv_dt)}
+    return out
+
+
+def cache_template(cfg, plan, lay, batch: int, budget: int):
+    """The contiguous cache: list (per layer group) of lists (per pattern
+    entry) of layer templates stacked under the group's reps axis."""
+    check_supported(cfg)
+    return [[{kind: {name: ((g.n_reps,) + shape, dtype)
+                     for name, (shape, dtype) in leaves.items()}
+              for kind, leaves in layer_cache_template(
+                  cfg, plan, lay, spec, batch, budget).items()}
+             for spec in g.pattern] for g in cfg.layer_groups()]
+
+
+def zero_cache(tmpl, device="cuda"):
+    """Materialize a contiguous cache template: zeros, and -1 in the int32
+    ``pos`` leaves (every slot starts empty)."""
+    dev = resolve_device(device)
+    return [[{kind: {name: (torch.full(shape, -1, dtype=dtype, device=dev)
+                            if dtype == torch.int32 else
+                            torch.zeros(shape, dtype=dtype, device=dev))
+                     for name, (shape, dtype) in leaves.items()}
+              for kind, leaves in entry.items()}
+             for entry in group] for group in tmpl]
 
 
 def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,

@@ -1,4 +1,5 @@
-"""Decoder parameters and forward passes over the paged cache.
+"""Decoder parameters and forward passes over the contiguous or the paged
+cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
 decoders and pure-SSM (mamba2) decoders at tp=1.  The parameter tree has
@@ -260,8 +261,25 @@ def final_logits(params, x):
     return logits(x, params["embed"]["table"])
 
 
-def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages):
-    """One decode step.  tokens: (B, 1); pos: (B,) -> (logits (B, V), cache)."""
+def forward_prefill(params, tokens, cache, cfg, plan, lay):
+    """Prefill a whole prompt into a contiguous cache (JAX
+    ``forward_prefill`` for token decoders, without context parallelism).
+    tokens: (B, S); cache: lanes of ``kvcache.cache_template`` with a ring
+    of at least S, filled in place -> (logits of the last position (B, V),
+    cache)."""
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device,
+                             dtype=torch.int32).expand(B, S)
+    x = embed_tokens(params, tokens)
+    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
+                          lay, "prefill", positions, cache=cache)
+    x = apply_norm(x[:, -1:], params["final_norm"], cfg)
+    return final_logits(params, x)[:, 0], cache
+
+
+def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages=None):
+    """One decode step over contiguous lanes (``pages`` None) or the page
+    pools.  tokens: (B, 1); pos: (B,) -> (logits (B, V), cache)."""
     positions = pos[:, None]
     x = embed_tokens(params, tokens)
     x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,

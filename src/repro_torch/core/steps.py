@@ -1,20 +1,25 @@
-"""The paged serving steps: decode, speculative verify and prefill chunk.
+"""The serving steps: contiguous decode and whole-prompt prefill, and the
+paged decode, speculative verify and prefill chunk.
 
-Port of the JAX package's ``make_paged_decode_step``, ``make_verify_step``
-and ``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch
-runs eagerly; nothing is compiled).  Each step's shapes are fixed when it
+Port of the JAX package's ``make_decode_step``, ``make_prefill_step``,
+``make_paged_decode_step``, ``make_verify_step`` and
+``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch
+runs eagerly; nothing is compiled).  The contiguous steps take the
+per-slot lanes of ``kvcache.cache_template``; the prefill step takes one
+prompt at its own length.  Each paged step's shapes are fixed when it
 is made — (batch, n_max_pages) for decode, (batch, q_len, n_max_pages) for
 verify, (chunk, n_max_pages) for a prefill chunk — and every request
 length reaches them only as data (block tables, positions, live-column
-counts), never as a shape, as in the JAX engine.  Models with SSM layers
-take one more input, ``slab_ids``: each row's state slab (scratch slab 0
-for idle lanes).
+counts), never as a shape, as in the JAX engine.  Paged models with SSM
+layers take one more input, ``slab_ids``: each row's state slab (scratch
+slab 0 for idle lanes).
 """
 from __future__ import annotations
 
 from repro_torch.core import model
-from repro_torch.core.kvcache import (cache_profile, paged_cache_template,
-                                      zero_paged_cache)
+from repro_torch.core.kvcache import (cache_profile, cache_template,
+                                      kv_window, paged_cache_template,
+                                      zero_cache, zero_paged_cache)
 from repro_torch.core.partition import model_layout
 
 
@@ -37,6 +42,56 @@ def _pages(cfg, block_table, slab_ids, rows):
     elif slab_ids is not None:
         raise ValueError(f"arch '{cfg.name}' has no SSM layers: no slab_ids")
     return pages
+
+
+def make_decode_step(cfg, plan, batch: int, budget: int):
+    """-> decode_fn(params, cache, tokens (B, 1), pos (B,)) -> (logits (B,
+    V), cache updated in place), over the contiguous lanes of
+    ``zero_cache_for(cfg, plan, batch, budget)``.  ``pos`` is the inclusive
+    position of each row's token; idle rows run with token 0 and pos 0.
+    On the card the decode kernel reads each lane's slots [0, pos] (see
+    ``core.attention``), so a layer whose ring is shorter than the budget
+    (a sliding window) is refused there."""
+    lay = model_layout(cfg, plan)
+    n_short = sum(1 for g in cfg.layer_groups() for spec in g.pattern
+                  if "kv" in spec.cache_kinds()
+                  and kv_window(cfg, spec, budget) < budget)
+
+    def decode_fn(params, cache, tokens, pos):
+        _expect("tokens", tokens, (batch, 1))
+        _expect("pos", pos, (batch,))
+        if n_short and tokens.is_cuda:
+            raise NotImplementedError(
+                f"arch '{cfg.name}': {n_short} layer patterns keep KV rings "
+                f"shorter than the budget {budget}, and the decode-attention "
+                f"kernel masks by prefix length; windows come with a later "
+                f"slice")
+        return model.forward_decode(params, cache, tokens, pos, cfg, plan,
+                                    lay)
+
+    return decode_fn
+
+
+def make_prefill_step(cfg, plan, budget: int):
+    """-> prefill_fn(params, prompt (1, S), cache) -> (logits (1, V), cache
+    filled in place), for a batch-1 lane of ``zero_cache_for(cfg, plan, 1,
+    budget)`` and 1 <= S < budget."""
+    lay = model_layout(cfg, plan)
+
+    def prefill_fn(params, prompt, cache):
+        if prompt.dim() != 2 or prompt.shape[0] != 1 or \
+                not 1 <= prompt.shape[1] < budget:
+            raise ValueError(f"prompt: shape {tuple(prompt.shape)} is not "
+                             f"(1, S) with 1 <= S < {budget}")
+        return model.forward_prefill(params, prompt, cache, cfg, plan, lay)
+
+    return prefill_fn
+
+
+def zero_cache_for(cfg, plan, batch: int, budget: int, device="cuda"):
+    """Empty contiguous lanes for ``batch`` slots of ``budget`` tokens."""
+    lay = model_layout(cfg, plan)
+    return zero_cache(cache_template(cfg, plan, lay, batch, budget), device)
 
 
 def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int):

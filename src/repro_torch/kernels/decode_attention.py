@@ -1,9 +1,12 @@
-"""Launchers of the Hopper paged-attention kernels (``csrc/paged_decode.cu``).
+"""Launchers of the Hopper decode-attention kernels: the paged ones
+(``csrc/paged_decode.cu``) and the contiguous one
+(``csrc/decode_attention.cu``).
 
 Replace ``src/repro/kernels/decode_attention.py::paged_decode_attention``
-(float and int8 pools) and ``::paged_verify_attention`` (float and int8
-pools).  See the source for what bounds them and how they are built;
-``kernels.ops`` is the entry point.
+(float and int8 pools), ``::paged_verify_attention`` (float and int8
+pools) and ``::decode_attention`` (a contiguous cache).  See the sources
+for what bounds them and how they are built; ``kernels.ops`` is the entry
+point.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ _ARGTYPES = {
     "repro_paged_decode_i8": [_P] * 8 + [_I] * 5 + _TAIL,
     "repro_paged_verify": [_P] * 6 + [_I] * 6 + _TAIL,
     "repro_paged_verify_i8": [_P] * 8 + [_I] * 6 + _TAIL,
+    "repro_decode_attention": [_P] * 5 + [_I] * 4 + _TAIL,
 }
 
 
@@ -109,3 +113,42 @@ def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
         "repro_paged_verify_i8"
     return _launch(symbol, q, k_pages, v_pages, block_table, length,
                    k_scale, v_scale, scale, nq=q.shape[2])
+
+
+def decode_attention(q, k, v, length, *, scale=None):
+    """q: (B, H, D); k/v: (B, H, S, D) in q's dtype; length: (B,) int32
+    valid-key counts (``pos + 1``; keys at or past it are never read)
+    -> (B, H, D) in q's dtype."""
+    name = "decode_attention"
+    build.check_cuda_tensor(q, f"{name} q", 3, _DTYPES)
+    build.check_cuda_tensor(k, f"{name} k", 4, (q.dtype,))
+    build.check_cuda_tensor(v, f"{name} v", 4, (q.dtype,))
+    build.check_cuda_tensor(length, f"{name} length", 1, (torch.int32,))
+    B, H, D = q.shape
+    S = k.shape[2]
+    if tuple(k.shape) != (B, H, S, D) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)}: k/v must be (B, H, S, D) with "
+                         f"q's B, H and D (GQA comes later)")
+    if length.shape[0] != B:
+        raise ValueError(f"{name}: length {tuple(length.shape)} does not "
+                         f"cover B={B}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if len({t.device for t in (q, k, v, length)}) != 1:
+        raise ValueError(f"{name}: tensors on several devices")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k and v must be 16-byte aligned (the "
+                         f"kernel reads key rows with 16-byte loads)")
+    scale = float(scale if scale is not None else D ** -0.5)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = build.kernel_function(name, "repro_decode_attention",
+                               _ARGTYPES["repro_decode_attention"])
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
+                out.data_ptr(), B, H, S, D, scale, build.dtype_code(q.dtype),
+                build.stream_of(q))
+    build.check_launch(rc, name)
+    return out

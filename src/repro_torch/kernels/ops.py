@@ -1,7 +1,7 @@
-"""Dispatch over the kernels of the paged-serving paths: rmsnorm, matmul,
-flash attention, paged decode and verify attention over float or int8
-pools, and the SSD scan from a float or an int8 state (nine kernel
-variants in all).
+"""Dispatch over the kernels of the serving paths: rmsnorm, matmul, flash
+attention, paged decode and verify attention over float or int8 pools,
+the SSD scan from a float or an int8 state, and decode attention over a
+contiguous cache (ten kernel variants in all).
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version
 (``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
@@ -144,9 +144,20 @@ def ssd_scan_i8(x, dt, B, C, A, state0, state0_scale):
     return out
 
 
+def decode_attention(q, k, v, length, *, scale=None):
+    """q: (B, H, D) over a contiguous cache k/v (B, H, S, D) in q's dtype;
+    ``length`` (B,) int32 counts valid keys (``pos + 1``) -> (B, H, D)."""
+    if q.device.type == "cpu":
+        return ref.ref_decode_attention(q, k, v, length, scale)
+    out = _decode.decode_attention(q, k, v, length, scale=scale)
+    decode_attention.launches += 1
+    return out
+
+
 WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention,
             paged_decode_attention_i8, paged_verify_attention,
-            paged_verify_attention_i8, ssd_scan, ssd_scan_i8)
+            paged_verify_attention_i8, ssd_scan, ssd_scan_i8,
+            decode_attention)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -105,6 +105,21 @@ def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
                                       v_scale)[:, :, 0]
 
 
+def ref_decode_attention(q, k, v, length, scale=None):
+    """One query per (row, head) over a contiguous cache, keys at positions
+    < length.  q: (B, H, D); k/v: (B, H, S, D); length: (B,) int32 valid-key
+    counts -> (B, H, D) in q's dtype.  A row with length 0 gives zeros, as
+    the Pallas kernel does (JAX's ``ref_decode_attention`` returns the mean
+    of V there: its softmax runs over all-masked scores)."""
+    B, H, D = q.shape
+    S = k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float())[:, :, None] * scale
+    mask = torch.arange(S, device=q.device)[None, :] < \
+        length.to(q.device).long()[:, None]                      # (B, S)
+    return _masked_softmax_av(s, mask[:, None, None], v)[:, :, 0].to(q.dtype)
+
+
 def ref_dequant_state(state, scales):
     """An int8 SSD state slab through its per-head scales, in float32.
     state: (..., H, P, N) int8; scales: (..., H) float32."""

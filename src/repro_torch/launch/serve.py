@@ -1,17 +1,20 @@
-"""Serving launcher of the PyTorch port: batched requests through the paged
-engine, on the card unless ``--device cpu``.
+"""Serving launcher of the PyTorch port: batched requests through the
+serving engine, on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-42m \\
-        --requests 16 --slots 8 --seq-budget 256 --max-new 32
+        --requests 16 --slots 8 --seq-budget 256 --max-new 32 [--paged]
 
-Takes the flags of ``python -m repro.launch.serve`` that the paged greedy
-path supports, ``--speculative K`` (prompt-lookup drafts verified in one
-step, attention-only archs) and ``--kv-dtype int8`` (int8 page pools and
-int8 SSM state slabs) among them; the port is always paged, dp=1, FCFS,
-greedy and serial.  ``--arch mamba2-370m`` serves the SSM decoder from
-state slabs.  Any other flag of that
-launcher is refused with the slice it waits for.
-Weights are random, drawn from ``--seed``; prompts are random token ids.
+Takes the flags of ``python -m repro.launch.serve`` that the greedy
+one-replica path supports, and selects the engine as that launcher does:
+the contiguous engine by default, the paged engine with ``--paged`` or
+``--speculative K`` (prompt-lookup drafts verified in one step,
+attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
+(contiguous) or int8 page pools and SSM state slabs (paged).
+``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
+or from state slabs with ``--paged``.  The port runs dp=1, FCFS, greedy
+and serial; any other flag of that launcher is refused with the slice it
+waits for.  Weights are random, drawn from ``--seed``; prompts are random
+token ids.
 """
 from __future__ import annotations
 
@@ -31,7 +34,6 @@ LATER = {
     "--no-overlap": "the overlap pipeline (ROADMAP Queue 1 item 6); the "
                     "port's loop is already the serial one",
     "--temperature": "sampled decoding (the port decodes greedily)",
-    "--paged": "nothing: the port is always paged, drop the flag",
     "--prefix-cache": "the prefix cache (ROADMAP Queue 1 item 9)",
     "--shared-prefix": "the prefix cache (ROADMAP Queue 1 item 9)",
     "--frame-groups": "encoder-decoder serving (ROADMAP Queue 1 item 11)",
@@ -44,7 +46,7 @@ LATER = {
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
-        description="paged greedy serving on the PyTorch port")
+        description="greedy serving on the PyTorch port")
     ap.add_argument("--arch", required=True,
                     help="registered config id (repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true",
@@ -57,10 +59,13 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kv-dtype", choices=("fp32", "fp16", "int8"),
                     default="fp16",
-                    help="page-pool dtype: fp32, fp16 (bfloat16 pools, as in "
-                         "the JAX launcher) or int8 (per-row scales, "
-                         "dequantized on read; SSM state slabs also int8, "
-                         "with per-(slab, head) scales)")
+                    help="KV dtype: fp32, fp16 (bfloat16, as in the JAX "
+                         "launcher) or int8 (contiguous lanes at a fixed "
+                         "scale; paged pools with per-row scales, and SSM "
+                         "state slabs with per-(slab, head) scales)")
+    ap.add_argument("--paged", action="store_true",
+                    help="the paged engine (page pools, chunked prefill, "
+                         "SSM state slabs) instead of the contiguous one")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=32)
     ap.add_argument("--n-pages", type=int, default=0,
@@ -115,11 +120,15 @@ def main(argv=None):
     params = model.init_params(cfg, plan,
                                torch.Generator().manual_seed(args.seed),
                                device=args.device)
-    engine = ServingEngine.build_paged(
-        cfg, plan, args.slots, args.seq_budget, params,
-        page_size=args.page_size, n_pages=args.n_pages,
-        prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
-        speculative=args.speculative, device=args.device)
+    if args.paged or args.speculative:
+        engine = ServingEngine.build_paged(
+            cfg, plan, args.slots, args.seq_budget, params,
+            page_size=args.page_size, n_pages=args.n_pages,
+            prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
+            speculative=args.speculative, device=args.device)
+    else:
+        engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
+                               rng_seed=args.seed, device=args.device)
     rng = np.random.RandomState(args.seed)
     t0 = time.time()
     for rid in range(args.requests):
@@ -132,7 +141,9 @@ def main(argv=None):
     dt = time.time() - t0
     where = (torch.cuda.get_device_name(engine.device)
              if engine.device.type == "cuda" else "cpu")
-    print(f"device={where} arch={cfg.name} requests={args.requests} "
+    print(f"device={where} arch={cfg.name} "
+          f"engine={'paged' if engine.paged else 'contiguous'} "
+          f"requests={args.requests} "
           f"ticks={stats.ticks} prefills={stats.prefills} "
           f"tokens={stats.decoded_tokens}")
     if stats.ttft_s:
@@ -149,9 +160,10 @@ def main(argv=None):
               f"{stats.spec_draft_lookups} lookups) accepted="
               f"{stats.spec_accepted}/{stats.spec_drafted} drafted "
               f"spec_denied={stats.spec_denied}")
-    print(f"pages_free={engine.allocator.n_free}/"
-          f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
-    if engine.has_ssm:
+    if engine.paged:
+        print(f"pages_free={engine.allocator.n_free}/"
+              f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
+    if engine.has_slabs:
         print(f"ssm_slabs: slabs={engine.n_slabs - 1} "
               f"allocated={engine.slab_allocator.total_allocated} "
               f"free={engine.slab_allocator.n_free}")

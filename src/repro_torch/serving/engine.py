@@ -1,19 +1,36 @@
-"""Paged serving engine: continuous batching over the prefill-chunk and
-decode steps.
+"""Serving engine: continuous batching over contiguous lanes, or over the
+prefill-chunk and decode steps of the paged cache.
 
 Port of the JAX package's ``serving/engine.py`` for one replica (dp=1),
 FCFS admission, greedy sampling and the serial loop (the JAX engine's
-``overlap=False``).  The engine is mechanism: it owns the page pools, block
+``overlap=False``).  The engine is mechanism: it owns the cache, block
 tables and positions and runs the steps; admission and page budgeting
 live in ``serving.scheduler``.
 
-A fixed decode batch of ``batch_slots`` slots: every tick admits what the
-pool can hold (each admission gets its whole page run up front — prompt +
-max_new_tokens — or waits), advances every prefilling slot by one chunk,
-runs ONE decode step over all slots (idle and prefilling lanes point at the
-scratch page with pos 0), then collects: prefill completions first (their
-first token is sampled from the chunk's logits), then decode emissions.
-Finished slots return their pages and are refilled from the queue.
+**Contiguous engine** (``ServingEngine(...)``, ``paged=False``, the JAX
+launcher's default): every slot owns a lane of ``seq_budget`` tokens.
+Each tick admits the queue's head into every free slot and prefills its
+exact prompt (``steps.make_prefill_step``: flash attention over the
+whole prompt, or the SSD scan from a zero state) straight into the
+slot's lane, emptied in place first (zeros, ``pos = -1``), which leaves
+the lane as JAX's copy of a fresh batch-1 lane does; the slot's first
+token is emitted at prefill completion.  Then ONE decode step runs over all slots (``steps.make_decode_step``, the
+decode-attention kernel over the lanes); idle lanes run with token 0 and
+pos 0 and their logits are ignored.  A slot retires at its token budget,
+at EOS, or when its position reaches ``seq_budget - 1``, so a lane's ring
+never wraps.  int8 lanes (``plan.kv_cache_dtype == "int8"``) store K/V at
+the fixed scale ``blocks.KVQ``; an SSM arch's lane holds its float32
+state and conv tails.  Speculation needs the paged engine.  A tick with
+no slot in flight after admission is not counted, as in JAX.
+
+**Paged engine** (``build_paged``): a fixed decode batch of ``batch_slots``
+slots: every tick admits what the pool can hold (each admission gets its
+whole page run up front — prompt + max_new_tokens — or waits), advances
+every prefilling slot by one chunk, runs ONE decode step over all slots
+(idle and prefilling lanes point at the scratch page with pos 0), then
+collects: prefill completions first (their first token is sampled from the
+chunk's logits), then decode emissions. Finished slots return their pages
+and are refilled from the queue.
 
 **Speculative decoding** (``speculative=k``): each tick a self-drafting
 source (``serving.prefix_cache.PromptLookupDraft``: n-gram lookup over the
@@ -28,21 +45,21 @@ drafts miss ``SPEC_DISABLE_AFTER`` times in a row stops drafting and
 returns the headroom (``Scheduler.on_spec_trim``).  A tick where no slot
 drafts runs the plain decode step.
 
-**int8 page pools** (``plan.kv_cache_dtype == "int8"``): every token row is
-quantized with its own scale as it is written; after each tick's
+**int8 page pools** (paged, ``plan.kv_cache_dtype == "int8"``): every token
+row is quantized with its own scale as it is written; after each tick's
 admissions the engine zeroes, in place, the scale rows of the pages freed
 since the last tick (``PageAllocator.take_scale_dirty``), so a recycled
 page never pairs a fresh payload with a stale scale.
 
-**SSM archs** (mamba2): each admission also gets one recurrent-state
+**SSM archs** (mamba2), paged: each admission also gets one recurrent-state
 **slab** (``SlabAllocator``; ``batch_slots + 1`` slabs, slab 0 scratch),
 zeroed at admission so the previous owner's state cannot leak into the new
 request; prefill chunks and decode steps read and write it by slab id, and
 idle lanes point at the scratch slab.  A pure-SSM arch has no KV pool and
 budgets no pages.  ``plan.ssm_cache_dtype == "int8"`` stores the slabs as
 int8 with per-(slab, head) scales.  Speculation is refused: an SSM
-recurrence advances one token per step.  The FCFS engine never preempts,
-so the JAX engine's host stash of a preempted slab has no counterpart yet.
+recurrence advances one token per step.  The FCFS engine never preempts, so
+the JAX engine's host stash of a preempted slab has no counterpart yet.
 """
 from __future__ import annotations
 
@@ -59,8 +76,9 @@ from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
                                       cache_profile, pages_needed)
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
-from repro_torch.core.steps import (make_paged_decode_step,
-                                    make_prefill_chunk_step, make_verify_step,
+from repro_torch.core.steps import (make_decode_step, make_paged_decode_step,
+                                    make_prefill_chunk_step, make_prefill_step,
+                                    make_verify_step, zero_cache_for,
                                     zero_paged_cache_for)
 from repro_torch.serving.prefix_cache import PromptLookupDraft
 from repro_torch.serving.sampler import (SamplerConfig, sample_from_logits,
@@ -124,18 +142,17 @@ class EngineStats:
 
 class ServingEngine:
     def __init__(self, cfg, plan, batch_slots: int, seq_budget: int, params,
-                 *, page_size: int, n_pages: int, prefill_chunk: int,
+                 *, paged: bool = False, page_size: int = 16,
+                 n_pages: int = 0, prefill_chunk: int = 16,
                  eos_id: int = 1, rng_seed: int = 0, speculative: int = 0,
                  device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
-        if seq_budget % page_size or seq_budget % prefill_chunk:
-            raise ValueError(f"seq_budget {seq_budget} must be a multiple of "
-                             f"page_size {page_size} and prefill_chunk "
-                             f"{prefill_chunk}")
         if speculative < 0:
             raise ValueError(f"speculative must be >= 0, got {speculative}")
         prof = cache_profile(cfg)
+        if speculative > 0 and not paged:
+            raise ValueError("speculative decoding requires the paged engine")
         if speculative > 0 and prof != {"kv"}:
             raise ValueError(
                 f"speculative decoding is unsupported for arch "
@@ -143,14 +160,16 @@ class ServingEngine:
                 f"attention-only decoders (cache kinds {sorted(prof)}) "
                 f"— SSM recurrences advance one token per step and "
                 f"enc-dec verify is not implemented")
+        if paged and (seq_budget % page_size or seq_budget % prefill_chunk):
+            raise ValueError(f"seq_budget {seq_budget} must be a multiple of "
+                             f"page_size {page_size} and prefill_chunk "
+                             f"{prefill_chunk}")
         self.cfg, self.plan = cfg, plan
-        self.has_ssm = "ssm" in prof
-        self.n_slabs = batch_slots + 1 if self.has_ssm else 0
+        self.paged = bool(paged)
+        self.has_slabs = self.paged and "ssm" in prof
+        self.n_slabs = batch_slots + 1 if self.has_slabs else 0
         self.B = batch_slots
         self.S = seq_budget
-        self.page_size = page_size
-        self.chunk = prefill_chunk
-        self.n_max_pages = seq_budget // page_size
         self.eos = eos_id
         self.sampler = SamplerConfig()          # greedy
         self.rng_seed = rng_seed
@@ -158,28 +177,45 @@ class ServingEngine:
         self.params = self.model.tree()
         self.stats = EngineStats()
         self.speculative = int(speculative)
-        self.quant_pools = kv_pool_is_quantized(plan) and "kv" in prof
-        self.allocator = PageAllocator(n_pages)
-        self.slab_allocator = SlabAllocator(self.n_slabs) if self.has_ssm \
-            else None
-        self.sched = FCFSScheduler(seq_budget=seq_budget,
-                                   allocator=self.allocator,
-                                   page_size=page_size,
-                                   spec_tokens=self.speculative,
-                                   stats=self.stats,
-                                   slab_allocator=self.slab_allocator,
-                                   kv_pages="kv" in prof)
-        self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
-                                          self.device, self.n_slabs)
-        self.prefill_fn = make_prefill_chunk_step(cfg, plan, prefill_chunk,
+        self.quant_pools = self.paged and kv_pool_is_quantized(plan) and \
+            "kv" in prof
+        self.allocator = self.slab_allocator = None
+        self.verify_fn = self.draft_source = None
+        if self.paged:
+            n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
+            self.page_size = page_size
+            self.chunk = prefill_chunk
+            self.n_max_pages = seq_budget // page_size
+            self.allocator = PageAllocator(n_pages)
+            if self.has_slabs:
+                self.slab_allocator = SlabAllocator(self.n_slabs)
+            self.sched = FCFSScheduler(seq_budget=seq_budget,
+                                       allocator=self.allocator,
+                                       page_size=page_size,
+                                       spec_tokens=self.speculative,
+                                       stats=self.stats,
+                                       slab_allocator=self.slab_allocator,
+                                       kv_pages="kv" in prof)
+            self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
+                                              self.device, self.n_slabs)
+            self.prefill_fn = make_prefill_chunk_step(cfg, plan,
+                                                      prefill_chunk,
+                                                      self.n_max_pages)
+            self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
+                                                    self.n_max_pages)
+            if self.speculative:
+                self.verify_fn = make_verify_step(cfg, plan, batch_slots,
+                                                  self.speculative + 1,
                                                   self.n_max_pages)
-        self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
-                                                self.n_max_pages)
-        self.verify_fn = (make_verify_step(cfg, plan, batch_slots,
-                                           self.speculative + 1,
-                                           self.n_max_pages)
-                          if self.speculative else None)
-        self.draft_source = PromptLookupDraft() if self.speculative else None
+                self.draft_source = PromptLookupDraft()
+        else:
+            self.sched = FCFSScheduler(seq_budget=seq_budget,
+                                       stats=self.stats)
+            self.cache = zero_cache_for(cfg, plan, batch_slots, seq_budget,
+                                        self.device)
+            self.prefill_fn = make_prefill_step(cfg, plan, seq_budget)
+            self.decode_fn = make_decode_step(cfg, plan, batch_slots,
+                                              seq_budget)
         self.admissions: List[Optional[Admission]] = [None] * self.B
         self.slot_state: List[Optional[str]] = [None] * self.B
         self.pos = np.zeros(self.B, np.int32)
@@ -198,8 +234,7 @@ class ServingEngine:
         exercise admission control under memory pressure.
         ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
         in one step."""
-        n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
-        return cls(cfg, plan, batch_slots, seq_budget, params,
+        return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
                    rng_seed=rng_seed, speculative=speculative, device=device)
@@ -226,8 +261,8 @@ class ServingEngine:
         return self.stats
 
     def drain(self) -> int:
-        """Abort every in-flight admission, returning its pages to the
-        pool.  Aborted requests keep ``done=False``; queued requests stay
+        """Abort every in-flight admission, returning its pages and slab
+        (paged engine).  Aborted requests keep ``done=False``; queued requests stay
         queued.  -> number of slots drained."""
         n = 0
         for b in range(self.B):
@@ -240,6 +275,59 @@ class ServingEngine:
     # ----------------------------------------------------------------- tick
     def tick(self):
         t0 = time.monotonic()
+        if self.paged:
+            self._tick_paged()
+        elif not self._tick_contiguous():
+            return                 # nothing in flight: not a counted tick
+        self.stats.ticks += 1
+        self.stats.tick_wall_s += time.monotonic() - t0
+
+    def _tick_contiguous(self) -> bool:
+        """Admit into free slots (each prefilled at admission), then one
+        decode step over every lane.  -> False when no slot is in flight
+        after admission (no decode step ran)."""
+        free = [b for b in range(self.B) if self.admissions[b] is None]
+        for adm in self.sched.plan(free):
+            self.admissions[adm.slot] = adm
+            self._prefill_into(adm.slot, adm.req)
+        live = list(self.admissions)
+        if all(a is None for a in live):
+            return False
+        logits, self.cache = self.decode_fn(
+            self.params, self.cache,
+            self._to_device(self.last_token[:, None], torch.int64),
+            self._to_device(self.pos))
+        logits = logits.float().cpu().numpy()
+        now = time.monotonic()
+        for b, adm in enumerate(live):
+            if adm is None:
+                continue
+            self.pos[b] += 1        # the decode step wrote last_token's KV
+            self._emit(b, adm.req, self._sample(logits, b, adm.req), now)
+        return True
+
+    def _prefill_into(self, b: int, req: Request):
+        """Empty slot b's lanes in place (zeros; pos -1 marks every ring
+        slot empty, as in a fresh lane), prefill ``req``'s exact prompt
+        straight into them, and emit the token sampled from the prompt's
+        last logits: the first generated token."""
+        lane = [[{kind: {name: t[:, b:b + 1] for name, t in leaves.items()}
+                  for kind, leaves in entry.items()} for entry in group]
+                for group in self.cache]
+        for group in lane:
+            for entry in group:
+                for leaves in entry.values():
+                    for t in leaves.values():        # (reps, 1, ...) views
+                        t.fill_(-1 if t.dtype == torch.int32 else 0)
+        prompt = np.asarray(req.prompt, np.int64)[None]
+        logits, _ = self.prefill_fn(self.params,
+                                    self._to_device(prompt, torch.int64), lane)
+        self.stats.prefills += 1
+        self.pos[b] = len(req.prompt)
+        self._emit(b, req, self._sample(logits.float().cpu().numpy(), 0, req),
+                   time.monotonic())
+
+    def _tick_paged(self):
         for adm in self.sched.plan([b for b in range(self.B)
                                     if self.admissions[b] is None]):
             b = adm.slot
@@ -248,7 +336,7 @@ class ServingEngine:
             self.prefill_done[b] = 0
             self.pos[b] = 0
             self.last_token[b] = 0
-            if self.has_ssm:
+            if self.has_slabs:
                 self._zero_slab(adm.slab)
         if self.quant_pools:
             dirty = self.allocator.take_scale_dirty()
@@ -258,8 +346,6 @@ class ServingEngine:
                   if self.slot_state[b] == "prefill"]
         step = self._decode_step()
         self._collect(rounds, step)
-        self.stats.ticks += 1
-        self.stats.tick_wall_s += time.monotonic() - t0
 
     def _reset_scale_rows(self, pids):
         """Zero, in place, the scale rows of recycled pages: scale 0
@@ -288,7 +374,7 @@ class ServingEngine:
     def _slab_ids(self, ids):
         """The steps' ``slab_ids`` input, for SSM archs only."""
         return (self._to_device(np.asarray(ids, np.int32)),) \
-            if self.has_ssm else ()
+            if self.has_slabs else ()
 
     def _to_device(self, x: np.ndarray, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device,

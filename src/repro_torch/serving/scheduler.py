@@ -1,10 +1,12 @@
 """Scheduling policy for the serving engine (policy/mechanism split).
 
 A copy of the part of the JAX package's ``serving/scheduler.py`` that FCFS
-paged serving without a prefix cache needs: the ``Scheduler`` interface,
+serving without a prefix cache needs: the ``Scheduler`` interface,
 ``Admission`` records, ``FCFSScheduler``'s all-or-nothing budgeting of
-pages and state slabs and its speculative draft headroom.  The engine
-executes admissions and reports lifecycle events back
+pages and state slabs and its speculative draft headroom.  Without a page
+allocator (``allocator=None``, the contiguous engine) it only orders the
+queue: every slot owns a whole lane, so a free slot admits the head.  The
+engine executes admissions and reports lifecycle events back
 (``on_prefill_complete``, ``on_finish``, ``on_spec_trim``).
 
 Invariant: leak freedom — every page and every slab is free after
@@ -84,13 +86,14 @@ class FCFSScheduler(Scheduler):
     max_new_tokens) and, for SSM archs, a state slab, or the whole queue
     waits (no mid-flight OOM, no starvation by overtaking).  A pure-SSM
     arch has no KV pool (``kv_pages=False``): its page demand is zero and
-    its state lives entirely in the slab.  With ``spec_tokens`` > 0 an
+    its state lives entirely in the slab.  With no ``allocator`` (the
+    contiguous engine) nothing is budgeted.  With ``spec_tokens`` > 0 an
     admission also tries for +spec_tokens of page coverage, so the verify
     step can write drafted positions past prompt + max_new_tokens: all or
     nothing, and a request denied it (``stats.spec_denied``) is still
     admitted, with ``spec=False``."""
 
-    def __init__(self, *, seq_budget: int, allocator, page_size: int,
+    def __init__(self, *, seq_budget: int, allocator=None, page_size: int = 0,
                  spec_tokens: int = 0, stats=None, slab_allocator=None,
                  kv_pages: bool = True):
         self.queue: collections.deque = collections.deque()
@@ -102,9 +105,21 @@ class FCFSScheduler(Scheduler):
         self.slab_allocator = slab_allocator      # SSM archs
         self.kv_pages = kv_pages
 
+    @property
+    def paged(self) -> bool:
+        return self.allocator is not None
+
     def submit(self, req) -> None:
         if len(req.prompt) == 0:
             raise RuntimeError(f"request {req.rid} has an empty prompt")
+        if not self.paged:
+            if len(req.prompt) >= self.seq_budget:
+                # the contiguous lane needs room past the prompt for decode
+                raise RuntimeError(
+                    f"request {req.rid} prompt ({len(req.prompt)} tokens) "
+                    f"exceeds the sequence budget {self.seq_budget}")
+            self.queue.append(req)
+            return
         if len(req.prompt) + req.max_new_tokens > self.seq_budget:
             raise RuntimeError(
                 f"request {req.rid} needs {len(req.prompt)} prompt + "
@@ -121,7 +136,7 @@ class FCFSScheduler(Scheduler):
         return bool(self.queue)
 
     def _req_pages(self, req) -> int:
-        if not self.kv_pages:
+        if not self.paged or not self.kv_pages:
             return 0
         return pages_needed(len(effective_prompt(req)) +
                             remaining_new_tokens(req), self.psz)
@@ -131,6 +146,9 @@ class FCFSScheduler(Scheduler):
         for slot in free_slots:
             if not self.queue:
                 break
+            if not self.paged:
+                out.append(Admission(slot=slot, req=self.queue.popleft()))
+                continue
             req = self.queue[0]
             slab = None
             if self.slab_allocator is not None:
@@ -167,6 +185,8 @@ class FCFSScheduler(Scheduler):
         return True
 
     def on_finish(self, adm: Admission) -> None:
+        if not self.paged:
+            return
         self.allocator.decref(adm.pages)
         if adm.slab is not None:
             self.slab_allocator.free(adm.slab)

@@ -157,13 +157,16 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
     ops.ssd_scan(xs, dts, bc, bc, -torch.ones(2))
     ops.ssd_scan_i8(xs, dts, bc, bc, -torch.ones(2),
                     torch.zeros(1, 2, 4, 8, dtype=torch.int8), torch.zeros(1, 2))
+    ops.decode_attention(x[None, :2, :32], x.reshape(1, 2, 4, 32),
+                         x.reshape(1, 2, 4, 32), torch.ones(1, dtype=torch.int32))
     assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
                                    "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_decode_attention_i8": 0,
                                    "paged_verify_attention": 0,
                                    "paged_verify_attention_i8": 0,
-                                   "ssd_scan": 0, "ssd_scan_i8": 0}
+                                   "ssd_scan": 0, "ssd_scan_i8": 0,
+                                   "decode_attention": 0}
 
 
 @pytest.mark.parametrize("launch", [
@@ -184,6 +187,9 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
         torch.ones(1, dtype=torch.int32), k_scale=x[:1], v_scale=x[:1]),
     lambda x: k_ssd.ssd_scan(x[None, None, :, :16], x[None, :1], x[None, :1],
                              x[None, :1], x[0]),
+    lambda x: k_decode.decode_attention(x[None, :1], x[None, None],
+                                        x[None, None],
+                                        torch.ones(1, dtype=torch.int32)),
 ])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only; it never computes on the CPU."""

@@ -112,7 +112,7 @@ def test_launcher_serves_on_cpu(capsys):
                        "--slots", "2", "--seq-budget", "64", "--prompt-len",
                        "20", "--max-new", "4", "--page-size", "8",
                        "--prefill-chunk", "16", "--kv-dtype", "fp32",
-                       "--device", "cpu"]) == 0
+                       "--paged", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "device=cpu" in out and "tokens=16" in out and "pages_free=16/16" in out
 

@@ -434,7 +434,8 @@ def test_launcher_serves_speculative_int8_on_cpu(capsys):
                        "--slots", "2", "--seq-budget", "64", "--prompt-len",
                        "20", "--max-new", "6", "--page-size", "8",
                        "--prefill-chunk", "16", "--kv-dtype", "int8",
-                       "--speculative", "3", "--device", "cpu"]) == 0
+                       "--speculative", "3", "--paged", "--device",
+                       "cpu"]) == 0
     out = capsys.readouterr().out
     assert "tokens=24" in out and "pages_free=16/16" in out
     assert "speculative(k=3): accepted_tokens_per_tick=" in out

@@ -463,7 +463,7 @@ def test_engine_greedy_tokens_identical_to_jax(ssm_weights, jax_engine_tokens,
     eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                     page_size=PSZ, prefill_chunk=CHUNK,
                                     device="cpu")
-    assert eng.has_ssm and eng.n_slabs == SLOTS + 1 and not eng.quant_pools
+    assert eng.has_slabs and eng.n_slabs == SLOTS + 1 and not eng.quant_pools
     admitted = []
     plan_fn = eng.sched.plan
 
@@ -519,7 +519,7 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
                        "--slots", "2", "--seq-budget", "64", "--prompt-len",
                        "20", "--max-new", "4", "--page-size", "8",
                        "--prefill-chunk", "16", "--kv-dtype", "int8",
-                       "--device", "cpu"]) == 0
+                       "--paged", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "arch=mamba2-370m-smoke" in out and "tokens=12" in out
     assert "ssm_slabs: slabs=2 allocated=3 free=2" in out
