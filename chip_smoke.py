@@ -15,7 +15,11 @@ each (and a few detail lines):
             pools, the SSD scan from a float or an int8 state, decode
             attention over a contiguous cache) against its plain PyTorch
             version on the card, at the main paths' shapes plus ragged cases
-            (page-crossing lengths, a shuffled block table, an idle lane on
+            (for matmul every product of both models at M in {8, 32, 33,
+            40, 160}, K or N off a multiple of 8, two bf16 calls bitwise
+            equal, one kernel node per call in a CUDA graph, and times per
+            shape beside torch.matmul's;
+            page-crossing lengths, a shuffled block table, an idle lane on
             scratch page 0, Q in {2, 5}, zero-scale rows; for flash
             attention also the contiguous prefill's square Sq = Skv in
             {23, 130, 160}; for the SSD scan
@@ -63,7 +67,10 @@ each (and a few detail lines):
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
-            and the device's busy share of the phase.
+            the device's busy share of the phase, and matmul's calls,
+            device time per call and share (never more kernels in the
+            trace than launches; the kernel phase checks one kernel per
+            call exactly, in CUDA graphs).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -160,6 +167,31 @@ def time_ms(fn, torch, reps=10, iters=20):
     return statistics.median(samples)
 
 
+def graph_nodes(torch, fn):
+    """The node types of a CUDA graph captured around one ``fn()`` call,
+    read through libcuda's cuGraphGetNodes (0 is a kernel node): how many
+    kernels the call launches, and whether it adds copies or memsets,
+    exactly, where a profiler trace may drop records."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return kinds
+
+
 def compare(name, got, want, dtype, torch, tol=None):
     torch.cuda.synchronize()
     got, want = got.float(), want.float()
@@ -199,7 +231,22 @@ def phase_env(torch, build):
     return smi_line
 
 
+# Every matmul of the two models' main paths: (name, K, N, trans_b).
+MATMULS = (("tinyllama wq/wk/wv/wo", 512, 512, False),
+           ("tinyllama w_gate/w_up", 512, 2048, False),
+           ("tinyllama w_down", 2048, 512, False),
+           ("tinyllama LM head", 512, 32000, True),
+           ("mamba2 in_z/in_x", 1024, 2048, False),
+           ("mamba2 in_dt", 1024, 32, False),
+           ("mamba2 in_B/in_C", 1024, 128, False),
+           ("mamba2 out", 2048, 1024, False),
+           ("mamba2 LM head", 1024, 50280, True))
+MATMULS_RAGGED = (("ragged K", 1004, 520, False), ("ragged K", 1004, 300, True),
+                  ("ragged N", 512, 50, False))
+
+
 def phase_kernels(torch, F):
+    from repro_torch.kernels import matmul as _mm
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -234,30 +281,66 @@ def phase_kernels(torch, F):
                     if hasattr(F, "rms_norm") else None),
         bound_ms=b_ms, bound_by=b_by)
 
-    # ---- matmul: projections, FFN and the tied head (NT), ragged M; weights
-    # at the model's init scale (0.02), as the main path feeds them
+    # ---- matmul: every main-path product of both models at the rows a step
+    # hands over (8 decode, 32 paged chunk, 33 ragged, 40 k=4 verify, 160 a
+    # whole prompt), plus K or N off a multiple of 8 (chunks gathered element
+    # by element); weights at the models' init scale (0.02), as the main
+    # paths feed them.  Every bf16 case runs twice: bitwise-equal outputs.
+    # Every case, captured in a CUDA graph, is one kernel node and nothing
+    # else: one launch per call, no second reduction kernel, no memset.
+    n_graphs = 0
     for dt in (torch.float32, torch.bfloat16):
-        for M in (8, 32, 33):
-            for K, N, nt in ((512, 512, False), (512, 2048, False),
-                             (2048, 512, False), (512, 32000, True)):
+        for tag, K, N, nt in MATMULS + MATMULS_RAGGED:
+            b = (0.02 * randn(N, K) if nt else 0.02 * randn(K, N)).to(dt)
+            for M in (8, 32, 33, 40, 160):
                 a = randn(M, K, dtype=dt)         # activations ~ N(0, 1)
-                b = (0.02 * randn(N, K) if nt else 0.02 * randn(K, N)).to(dt)
-                note("matmul", f"M={M} K={K} N={N}{' NT' if nt else ''} "
-                               f"{dtype_name(dt)}",
-                     compare("matmul", ops.matmul(a, b, trans_b=nt),
-                             ref.ref_matmul(a, b, nt), dt, torch))
-    a = randn(8, 512, dtype=torch.bfloat16)
-    table = (0.02 * randn(32000, 512)).to(torch.bfloat16)
-    err = compare("matmul", ops.matmul(a, table, trans_b=True),
-                  ref.ref_matmul(a, table, True), torch.bfloat16, torch)
-    b_ms, b_by = bound((a.numel() + table.numel() + 8 * 32000) * 2,
-                       2 * 8 * 512 * 32000, torch.bfloat16)
-    rows["matmul"] = dict(
-        shape="LM head a (8, 512) @ table (32000, 512)^T bf16", max_abs_err=err,
-        ms=time_ms(lambda: ops.matmul(a, table, trans_b=True), torch),
-        plain_ms=time_ms(lambda: ref.ref_matmul(a, table, True), torch),
-        library_ms=time_ms(lambda: torch.matmul(a, table.t()), torch),
-        bound_ms=b_ms, bound_by=b_by)
+                got = ops.matmul(a, b, trans_b=nt)
+                case = f"{tag} M={M} K={K} N={N}{' NT' if nt else ''} {dtype_name(dt)}"
+                note("matmul", case, compare("matmul", got, ref.ref_matmul(a, b, nt),
+                                             dt, torch))
+                if dt == torch.bfloat16:
+                    check(torch.equal(got, ops.matmul(a, b, trans_b=nt)),
+                          f"matmul {case}: two calls differ")
+                kinds = graph_nodes(torch, lambda: ops.matmul(a, b, trans_b=nt))
+                check(kinds == [0], f"matmul {case}: one call is graph nodes "
+                                    f"{kinds}, not one kernel node")
+                n_graphs += 1
+            del b
+    print(f"  matmul: each of {n_graphs} cases is one kernel node in a CUDA graph")
+    # times (L2-warm: the same weight every call) at M = 8 for every shape,
+    # and at 32 and 160 for tinyllama's; the row of the JSON line is
+    # tinyllama's LM head at M = 8, as before
+    by_shape = []
+    for tag, K, N, nt in MATMULS:
+        b = (0.02 * (randn(N, K) if nt else randn(K, N))).to(torch.bfloat16)
+        for M in ((8, 32, 160) if tag.startswith("tinyllama") else (8,)):
+            a = randn(M, K, dtype=torch.bfloat16)
+            err = compare("matmul", ops.matmul(a, b, trans_b=nt),
+                          ref.ref_matmul(a, b, nt), torch.bfloat16, torch)
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K,
+                               torch.bfloat16)
+            p = _mm.plan(M, N, K, torch.bfloat16, nt)
+            r = dict(shape=f"{tag} a ({M}, {K}) @ {'(%d, %d)^T' % (N, K) if nt else '(%d, %d)' % (K, N)} bf16",
+                     M=M, K=K, N=N, trans_b=nt, max_abs_err=err,
+                     plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} "
+                          f"blocks={p.blocks}",
+                     ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
+                     plain_ms=time_ms(lambda: ref.ref_matmul(a, b, nt), torch),
+                     library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b),
+                                        torch),
+                     bound_ms=b_ms, bound_by=b_by)
+            print(f"  matmul time {r['shape']}: us={1e3 * r['ms']:.2f} "
+                  f"bound_us={1e3 * b_ms:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+                  f"torch_matmul_us={1e3 * r['library_ms']:.2f} [{r['plan']}]")
+            by_shape.append(r)
+        del b
+    for r in by_shape:
+        if r["M"] == 8 and "LM head" in r["shape"]:
+            print(f"  matmul {r['shape']}: kernel / torch.matmul = "
+                  f"{r['ms'] / r['library_ms']:.3f}")
+    head = next(r for r in by_shape
+                if r["shape"].startswith("tinyllama LM head") and r["M"] == 8)
+    rows["matmul"] = dict(head, by_shape=by_shape)
 
     # ---- flash attention: one prefill chunk of 32 over a 256-key stream
     H, Sq, Skv, D = 8, 32, 256, 64
@@ -1124,14 +1207,18 @@ def phase_profile(torch, name, serve_wall_s):
     divides the traced device time by the untraced phase's wall time: the
     same work, so what is left is time the device waited on the host."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     _, engine, requests = _serve_setup(torch, name)
     eng = engine()
     for r in requests():
         eng.submit(r)
     torch.cuda.synchronize()
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
+    matmul_launches = ops.matmul.launches
     rows, host = [], []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1151,6 +1238,23 @@ def phase_profile(torch, name, serve_wall_s):
           f"{'; '.join(host) or 'none recorded'}")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:6d} calls {100 * ms / total:5.1f}%  {key[:100]}")
+    # matmul: every instantiation of csrc/matmul.cu's two kernels, never
+    # more of them in the trace than ops.matmul launches.  The trace may
+    # hold fewer: the profiler drops kernel records it cannot place in its
+    # capture window (its "Out-of-range" count), from none to hundreds per
+    # trace on the H100, anywhere in it.  One kernel per call is checked
+    # exactly in the kernel phase (graph_nodes); here the loss is printed.
+    mm = [(ms, n) for ms, n, key in rows
+          if "matmul_mma_kernel" in key or "matmul_simt_kernel" in key]
+    mm_ms, mm_calls = sum(r[0] for r in mm), sum(r[1] for r in mm)
+    check(mm_calls <= matmul_launches,
+          f"profile[{name}]: {mm_calls} matmul kernels in the trace for "
+          f"{matmul_launches} ops.matmul launches")
+    print(f"profile[{name}]: matmul calls={mm_calls} of "
+          f"launches={matmul_launches} (records dropped by the profiler: "
+          f"{matmul_launches - mm_calls}) device_ms={mm_ms:.2f} "
+          f"per_call_us={1e3 * mm_ms / max(mm_calls, 1):.2f} "
+          f"share_of_device={mm_ms / total:.3f}")
 
 
 # name: (route, source, the TPU kernel it replaces)
@@ -1230,7 +1334,8 @@ def main() -> int:
             "shape": r["shape"], "max_abs_err_all_cases": r["max_abs_err_all_cases"],
             "launches_by_phase": by_phase,
             "per_step": {ph: {kd: c[name] for kd, c in out[1].items() if name in c}
-                         for ph, out in served.items()}})
+                         for ph, out in served.items()},
+            **({"by_shape": r["by_shape"]} if "by_shape" in r else {})})
     print(f"total_s={time.perf_counter() - t_start:.1f} phase_s={phase_s}")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -9,8 +9,9 @@ raises.  Nothing falls back: a kernel that does not build or launch is an
 error, never a silent detour through the plain version.
 
 Each kernel variant has its own wrapper with a plain integer ``launches``,
-raised by one exactly where it launches its kernel, so a run can show that
-it went through every kernel (``launch_counts`` / ``reset_launch_counts``).
+raised by one exactly where it launches its kernel (an empty output
+launches none), so a run can show that it went through every kernel
+(``launch_counts`` / ``reset_launch_counts``).
 ``paged_decode_attention`` and ``paged_verify_attention`` hand int8 pools
 (``k_scale``/``v_scale`` given) to their ``_i8`` twins; ``ssd_scan_i8``
 takes the int8 state slab and its per-head scales.
@@ -30,7 +31,8 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     if x.device.type == "cpu":
         return ref.ref_rmsnorm(x, scale, eps)
     out = _rmsnorm.rmsnorm(x, scale, eps)
-    rmsnorm.launches += 1
+    if out.numel():
+        rmsnorm.launches += 1
     return out
 
 
@@ -40,7 +42,8 @@ def matmul(a, b, *, trans_b: bool = False):
     if a.device.type == "cpu":
         return ref.ref_matmul(a, b, trans_b)
     out = _matmul.matmul(a, b, trans_b=trans_b)
-    matmul.launches += 1
+    if out.numel():
+        matmul.launches += 1
     return out
 
 
@@ -53,7 +56,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                        scale=scale, q_offset=q_offset)
     out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale, q_offset=q_offset)
-    flash_attention.launches += 1
+    if out.numel():
+        flash_attention.launches += 1
     return out
 
 
@@ -71,7 +75,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
                                               block_table, length, scale)
     out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale)
-    paged_decode_attention.launches += 1
+    if out.numel():
+        paged_decode_attention.launches += 1
     return out
 
 
@@ -85,7 +90,8 @@ def paged_decode_attention_i8(q, k_pages, v_pages, block_table, length,
     out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale,
                                          k_scale=k_scale, v_scale=v_scale)
-    paged_decode_attention_i8.launches += 1
+    if out.numel():
+        paged_decode_attention_i8.launches += 1
     return out
 
 
@@ -103,7 +109,8 @@ def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
                                               block_table, length, scale)
     out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale)
-    paged_verify_attention.launches += 1
+    if out.numel():
+        paged_verify_attention.launches += 1
     return out
 
 
@@ -117,7 +124,8 @@ def paged_verify_attention_i8(q, k_pages, v_pages, block_table, length,
     out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale,
                                          k_scale=k_scale, v_scale=v_scale)
-    paged_verify_attention_i8.launches += 1
+    if out.numel():
+        paged_verify_attention_i8.launches += 1
     return out
 
 
@@ -150,7 +158,8 @@ def decode_attention(q, k, v, length, *, scale=None):
     if q.device.type == "cpu":
         return ref.ref_decode_attention(q, k, v, length, scale)
     out = _decode.decode_attention(q, k, v, length, scale=scale)
-    decode_attention.launches += 1
+    if out.numel():
+        decode_attention.launches += 1
     return out
 
 

@@ -4,6 +4,9 @@ run in interpret mode, and against its ``kernels/ref.py`` oracles, on the
 same numpy inputs.  Tolerances are ``tests/test_kernels.py``'s: fp32 1e-4,
 bf16 2e-2.  The Hopper kernels themselves run only on the card, where
 ``chip_smoke.py`` holds each against these plain versions."""
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,6 +79,121 @@ def test_matmul_ragged_and_transposed_match_ref(m, k, n, trans_b, name, jdt,
     bj, bt = _both(b, jdt, tdt)
     want = jref.ref_matmul(aj, bj.T if trans_b else bj)
     _close(ops.matmul(at, bt, trans_b=trans_b), want, name)
+
+
+# Every matmul of the two models' main paths, as (K, N, trans_b):
+# tinyllama-42m q/k/v/o, gate/up, down and the tied head (N, K); mamba2-370m
+# in_z/in_x, in_dt, in_B/in_C, out and the tied head.
+MAIN_MATMULS = [(512, 512, False), (512, 2048, False), (2048, 512, False),
+                (512, 32000, True), (1024, 2048, False), (1024, 32, False),
+                (1024, 128, False), (2048, 1024, False), (1024, 50280, True)]
+
+
+@pytest.mark.parametrize("m", [8, 32, 33, 40, 160])
+@pytest.mark.parametrize("k,n,trans_b", MAIN_MATMULS)
+def test_matmul_plan_limits_at_main_shapes(k, n, trans_b, m):
+    """The bf16 launch plan at the rows a step hands over (decode 8, chunk
+    32, ragged 33, k=4 verify 40, a whole prompt up to 160): no block
+    streams more than 32 KB of weights per tile, a 2 MB weight puts a
+    block on each of the 132 SMs and a smaller one a block per 16 KB, the
+    split divides the K tiles within a cluster of 8, shared memory fits
+    in 227 KB, and the tiles cover the output."""
+    p = k_matmul.plan(m, n, k, torch.bfloat16, trans_b)
+    assert p.kernel == "mma" and p.vec
+    k_tiles = -(-k // p.bk)
+    assert p.bk * p.bn == 4096 and p.bn in (16, 32, 64)
+    assert k_tiles % p.split == 0 and p.kt == k_tiles // p.split
+    assert p.split in (1, 2, 4, 8)
+    assert p.bn * p.kt * p.bk * 2 == p.tile_bytes <= 32 * 1024
+    if k * n * 2 >= 2 * 2**20:
+        assert p.blocks >= 132
+    else:                              # small weights: a block per 16 KB
+        assert p.blocks >= -(-k * n * 2 // (16 * 1024))
+    assert p.smem <= 232448
+    assert p.bm % 8 == 0 and p.bm <= 64
+    assert (p.n_tiles - 1) * p.bn < n <= p.n_tiles * p.bn
+    assert (p.m_tiles - 1) * p.bm < m <= p.m_tiles * p.bm
+    # a split's blocks share one tile; a split-1 block may walk several
+    assert p.grid_n == p.n_tiles if p.split > 1 else 1 <= p.grid_n <= p.n_tiles
+
+
+@pytest.mark.parametrize("trans_b,bn,bm,kt,split,tiles,want", [
+    # ring + K-warp partials + split inboxes + activations (odd chunk stride)
+    (True, 16, 8, 4, 1, 6, 2 * 4 * 8192 + 4 * 8 * 16 * 4 + 8 * 129 * 16),
+    (True, 32, 8, 2, 1, 9, 4 * 2 * 8192 + 2 * 8 * 32 * 4 + 8 * 33 * 16),
+    (True, 64, 40, 1, 1, 1, 8192 + 40 * 9 * 16),
+    (False, 16, 8, 4, 1, 6, 6 * 8192 + 4 * 8 * 16 * 4 + 8 * 129 * 16),
+    (False, 64, 8, 1, 8, 1, 8192 + 8 * 64 * 4 + 8 * 64 * 4 + 8 * 9 * 16),
+    (False, 64, 40, 2, 1, 1, 2 * 8192 + 40 * 17 * 16),
+    (False, 32, 56, 4, 2, 1,
+     4 * 8192 + 2 * 56 * 32 * 4 + 56 * 32 * 4 + 56 * 65 * 16),
+])
+def test_matmul_smem_layout(trans_b, bn, bm, kt, split, tiles, want):
+    """The shared memory the plan asks for, term by term as csrc/matmul.cu
+    lays it out (smem_bytes), which refuses a launch that differs: an
+    (N, K) weight rings 4 whole tiles of up to 16 KB or 2 larger, a (K, N)
+    weight up to 6 pieces of 8 KB."""
+    assert k_matmul._smem_bytes(trans_b, bn, bm, kt, split, tiles) == want
+
+
+def test_matmul_plan_mirrors_the_kernel_source():
+    """The plan's ring constants are the ones csrc/matmul.cu compiles."""
+    src = (Path(k_matmul.__file__).parent / "csrc" / "matmul.cu").read_text()
+    assert re.search(rf"constexpr int STAGE = {k_matmul.STAGE};", src)
+    assert re.search(rf"constexpr int STAGES = {k_matmul.STAGES};", src)
+    assert re.search(r"constexpr int THREADS = 128;", src)
+    assert re.search(rf"__launch_bounds__\(THREADS, {k_matmul.MAX_BLOCKS_SM}\)", src)
+
+
+@pytest.mark.parametrize("m,n,k,trans_b,vec", [
+    (8, 520, 1004, False, False), (33, 300, 1004, True, False),
+    (8, 50, 512, False, False), (8, 50, 512, True, True),
+    (1, 7, 40, False, False), (5, 64, 0, True, True)])
+def test_matmul_plan_takes_ragged_shapes(m, n, k, trans_b, vec):
+    """K or N off a multiple of 8 gathers chunks element by element (no
+    cp.async) in the same kernel; the plan still covers the output."""
+    p = k_matmul.plan(m, n, k, torch.bfloat16, trans_b)
+    assert p.kernel == "mma" and p.vec is vec
+    assert p.split * p.kt * p.bk >= k and p.n_tiles * p.bn >= n
+    assert p.smem <= 232448
+
+
+def test_matmul_plan_float32_stays_on_cuda_cores():
+    for m, bm in ((8, 32), (32, 32), (33, 64), (160, 64)):
+        p = k_matmul.plan(m, 32000, 512, torch.float32, True)
+        assert (p.kernel, p.bm, p.bn, p.split, p.smem) == ("simt", bm, 64, 1, 0)
+
+
+def _misaligned(rows, cols, dtype):
+    """A contiguous (rows, cols) view two bytes past a 16-byte boundary."""
+    return torch.zeros(rows * cols + 1, dtype=dtype)[1:].view(rows, cols)
+
+
+@pytest.mark.parametrize("refuse", [
+    lambda: k_matmul.launch_plan(_misaligned(8, 512, torch.bfloat16),
+                                 torch.zeros(512, 64, dtype=torch.bfloat16),
+                                 False),
+    lambda: k_matmul.launch_plan(torch.zeros(8, 512, dtype=torch.bfloat16),
+                                 _misaligned(64, 512, torch.bfloat16), True),
+    lambda: k_matmul.launch_plan(torch.zeros(8, 512, dtype=torch.bfloat16),
+                                 torch.zeros(256, 64, dtype=torch.bfloat16),
+                                 False),
+    lambda: k_matmul.plan(8, 64, 10**7, torch.bfloat16, False),
+    lambda: k_matmul.plan(8, 64, 512, torch.float16, False),
+    lambda: k_matmul.plan(0, 64, 512, torch.bfloat16, False),
+])
+def test_matmul_launch_plan_refuses_what_the_kernel_cannot_take(refuse):
+    """Misaligned operands, mismatched inner dims, a K range beyond shared
+    memory and dtypes without a kernel raise ValueError before any launch."""
+    with pytest.raises(ValueError):
+        refuse()
+
+
+def test_matmul_float32_takes_misaligned_operands():
+    """The CUDA-core kernel reads element by element: any address."""
+    p = k_matmul.launch_plan(_misaligned(8, 512, torch.float32),
+                             torch.zeros(512, 64), False)
+    assert p.kernel == "simt"
 
 
 @pytest.mark.parametrize("sq,skv,causal,win", [
