@@ -21,10 +21,14 @@ each (and a few detail lines):
             shape beside torch.matmul's;
             page-crossing lengths, a shuffled block table, an idle lane on
             scratch page 0, Q in {2, 5}, zero-scale rows; for flash
-            attention also the contiguous prefill's square Sq = Skv in
-            {23, 130, 160}; for the SSD scan
-            the serve chunk, several chunks with a partial tail, trailing
-            dt = 0 rows, two batch rows, y and the final state; for the
+            attention the prefill chunk at q_offset 0, 96 and 224 with and
+            without windows, the contiguous prefill's square Sq = Skv in
+            {23, 130, 160}, head dims 32, 64 and 128, and times at four
+            shapes beside SDPA's; for the SSD scan the serve chunk, S = 5
+            and 33, several chunks with a partial tail, trailing dt = 0
+            rows, two batch rows, y and the final state; flash and the SSD
+            scan also two bf16 calls bitwise equal and one kernel node per
+            call; for the
             contiguous decode the serve shape with full and ragged lengths,
             S = 300 with D 32 and 128 and an idle lane, NaN in every key and
             value past a row's length), with the stated tolerance; median
@@ -67,10 +71,11 @@ each (and a few detail lines):
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
-            the device's busy share of the phase, and matmul's calls,
-            device time per call and share (never more kernels in the
-            trace than launches; the kernel phase checks one kernel per
-            call exactly, in CUDA graphs).
+            the device's busy share of the phase, and the calls, device
+            time per call and share of matmul, flash attention and the SSD
+            scan (never more kernels in the trace than launches; the
+            kernel phase checks one kernel per call exactly, in CUDA
+            graphs).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -246,6 +251,7 @@ MATMULS_RAGGED = (("ragged K", 1004, 520, False), ("ragged K", 1004, 300, True),
 
 
 def phase_kernels(torch, F):
+    from repro_torch.kernels import flash_attention as _fl
     from repro_torch.kernels import matmul as _mm
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -259,6 +265,17 @@ def phase_kernels(torch, F):
     def note(kname, case, err):
         print(f"  {kname} {case}: max_abs_err={err:.3e}")
         worst[kname] = max(worst.get(kname, 0.0), err)
+
+    n_graphs = 0
+
+    def one_kernel(kname, case, call):
+        """``call()``, captured in a CUDA graph, is one kernel node and
+        nothing else: one launch per call, no second kernel, no memset."""
+        nonlocal n_graphs
+        kinds = graph_nodes(torch, call)
+        check(kinds == [0], f"{kname} {case}: one call is graph nodes {kinds}, "
+                            f"not one kernel node")
+        n_graphs += 1
 
     # ---- rmsnorm: T = 8 decode rows / 32 chunk rows, E = 512
     for dt in (torch.float32, torch.bfloat16):
@@ -286,9 +303,8 @@ def phase_kernels(torch, F):
     # whole prompt), plus K or N off a multiple of 8 (chunks gathered element
     # by element); weights at the models' init scale (0.02), as the main
     # paths feed them.  Every bf16 case runs twice: bitwise-equal outputs.
-    # Every case, captured in a CUDA graph, is one kernel node and nothing
-    # else: one launch per call, no second reduction kernel, no memset.
-    n_graphs = 0
+    # Every case is one kernel node in a CUDA graph (no second reduction
+    # kernel, no memset).
     for dt in (torch.float32, torch.bfloat16):
         for tag, K, N, nt in MATMULS + MATMULS_RAGGED:
             b = (0.02 * randn(N, K) if nt else 0.02 * randn(K, N)).to(dt)
@@ -301,10 +317,7 @@ def phase_kernels(torch, F):
                 if dt == torch.bfloat16:
                     check(torch.equal(got, ops.matmul(a, b, trans_b=nt)),
                           f"matmul {case}: two calls differ")
-                kinds = graph_nodes(torch, lambda: ops.matmul(a, b, trans_b=nt))
-                check(kinds == [0], f"matmul {case}: one call is graph nodes "
-                                    f"{kinds}, not one kernel node")
-                n_graphs += 1
+                one_kernel("matmul", case, lambda: ops.matmul(a, b, trans_b=nt))
             del b
     print(f"  matmul: each of {n_graphs} cases is one kernel node in a CUDA graph")
     # times (L2-warm: the same weight every call) at M = 8 for every shape,
@@ -342,46 +355,84 @@ def phase_kernels(torch, F):
                 if r["shape"].startswith("tinyllama LM head") and r["M"] == 8)
     rows["matmul"] = dict(head, by_shape=by_shape)
 
-    # ---- flash attention: one prefill chunk of 32 over a 256-key stream
-    H, Sq, Skv, D = 8, 32, 256, 64
-    for dt in (torch.float32, torch.bfloat16):
+    # ---- flash attention: the paged prefill chunk (H 8, Sq 32 over the
+    # 256-key gathered stream, D 64) at q_offset 0 (every cluster rank past
+    # the causal diagonal has no key), 96, 224 and the Pallas default, with
+    # a 64- and a 32-key window at 224 (the latter empties the low ranks);
+    # the contiguous prefill's square prompts Sq = Skv in {23, 130, 160} (no
+    # multiple of the 64-key tile); head dims 32 and 128 at the chunk shape
+    # and at Sq = Skv = 130.  Every bf16 case runs twice (bitwise-equal
+    # outputs); every case, captured in a CUDA graph, is one kernel node.
+    H = 8
+    n_graphs = 0
+
+    def flash_case(dt, Sq, Skv, D, q_off, win):
         q, k, v = (randn(H, Sq, D, dtype=dt), randn(H, Skv, D, dtype=dt),
                    randn(H, Skv, D, dtype=dt))
-        for q_off, win in ((0, 0), (96, 0), (224, 0), (None, 0), (224, 64)):
-            note("flash_attention", f"q_offset={q_off} window={win} "
-                                    f"{dtype_name(dt)}",
-                 compare("flash_attention",
-                         ops.flash_attention(q, k, v, window=win, q_offset=q_off),
-                         ref.ref_flash_attention(q, k, v, window=win,
-                                                 q_offset=q_off), dt, torch))
-        # the contiguous engine's whole-prompt prefill: square and ragged
+
+        def call():
+            return ops.flash_attention(q, k, v, window=win, q_offset=q_off)
+
+        case = (f"Sq={Sq} Skv={Skv} D={D} q_offset={q_off} window={win} "
+                f"{dtype_name(dt)}")
+        got = call()
+        note("flash_attention", case, compare(
+            "flash_attention", got, ref.ref_flash_attention(
+                q, k, v, window=win, q_offset=q_off), dt, torch))
+        if dt == torch.bfloat16:
+            check(torch.equal(got, call()), f"flash_attention {case}: two "
+                                            f"calls differ")
+        one_kernel("flash_attention", case, call)
+
+    for dt in (torch.float32, torch.bfloat16):
+        for q_off, win in ((0, 0), (96, 0), (224, 0), (None, 0), (224, 64),
+                           (224, 32)):
+            flash_case(dt, 32, 256, 64, q_off, win)
         for S in (23, 130, 160):
-            q, k, v = (randn(H, S, D, dtype=dt) for _ in range(3))
-            note("flash_attention", f"Sq=Skv={S} q_offset=0 {dtype_name(dt)}",
-                 compare("flash_attention", ops.flash_attention(q, k, v, q_offset=0),
-                         ref.ref_flash_attention(q, k, v, q_offset=0), dt, torch))
-    q, k, v = (randn(H, Sq, D, dtype=torch.bfloat16),
-               randn(H, Skv, D, dtype=torch.bfloat16),
-               randn(H, Skv, D, dtype=torch.bfloat16))
-    q_off = 224
-    err = compare("flash_attention", ops.flash_attention(q, k, v, q_offset=q_off),
-                  ref.ref_flash_attention(q, k, v, q_offset=q_off),
-                  torch.bfloat16, torch)
-    mask = (torch.arange(Skv, device="cuda")[None, :]
-            <= torch.arange(Sq, device="cuda")[:, None] + q_off)
-    pairs = int(mask.sum())
-    kv_read = int(mask.any(0).sum())        # keys some query attends to
-    b_ms, b_by = bound((q.numel() * 2 + 2 * H * kv_read * D) * 2,
-                       4 * D * H * pairs, torch.bfloat16)
-    rows["flash_attention"] = dict(
-        shape=f"H={H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} bf16",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=q_off), torch),
-        plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v, q_offset=q_off),
-                         torch),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], attn_mask=mask[None, None]), torch),
-        bound_ms=b_ms, bound_by=b_by)
+            flash_case(dt, S, S, 64, 0, 0)
+        for D in (32, 128):
+            for q_off, win in ((0, 0), (224, 0), (224, 32)):
+                flash_case(dt, 32, 256, D, q_off, win)
+            flash_case(dt, 130, 130, D, 0, 0)
+    print(f"  flash_attention: each of {n_graphs} cases is one kernel node in "
+          f"a CUDA graph")
+    # times (bf16, L2-warm) at the chunk shape at q_offset 0, 96 and 224,
+    # and the whole prompt Sq = Skv = 160; the row of the JSON line is the
+    # chunk at q_offset 224, as before
+    D = 64
+    flash_rows = []
+    for Sq, Skv, q_off in ((32, 256, 0), (32, 256, 96), (32, 256, 224),
+                           (160, 160, 0)):
+        q, k, v = (randn(H, Sq, D, dtype=torch.bfloat16),
+                   randn(H, Skv, D, dtype=torch.bfloat16),
+                   randn(H, Skv, D, dtype=torch.bfloat16))
+        err = compare("flash_attention", ops.flash_attention(q, k, v, q_offset=q_off),
+                      ref.ref_flash_attention(q, k, v, q_offset=q_off),
+                      torch.bfloat16, torch)
+        mask = (torch.arange(Skv, device="cuda")[None, :]
+                <= torch.arange(Sq, device="cuda")[:, None] + q_off)
+        pairs = int(mask.sum())
+        kv_read = int(mask.any(0).sum())        # keys some query attends to
+        b_ms, b_by = bound((q.numel() * 2 + 2 * H * kv_read * D) * 2,
+                           4 * D * H * pairs, torch.bfloat16)
+        p = _fl.plan(H, Sq, Skv, D, torch.bfloat16)
+        r = dict(
+            shape=f"H={H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} bf16",
+            max_abs_err=err, plan=f"wq={p.wq} split={p.split} blocks="
+                                  f"{p.split * H * -(-Sq // (16 * p.wq))}",
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=q_off), torch),
+            plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
+                                                             q_offset=q_off),
+                             torch),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=mask[None, None]), torch),
+            bound_ms=b_ms, bound_by=b_by)
+        print(f"  flash_attention time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * b_ms:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"sdpa_us={1e3 * r['library_ms']:.2f} kernel/sdpa="
+              f"{r['ms'] / r['library_ms']:.3f} [{r['plan']}]")
+        flash_rows.append(r)
+    rows["flash_attention"] = dict(flash_rows[2], by_shape=flash_rows)
 
     # ---- paged decode: 8 slots over a shuffled pool, ragged lengths
     B, psz, n_max = 8, 16, 16
@@ -529,10 +580,13 @@ def phase_kernels(torch, F):
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
     # ---- SSD scan at full width (H 32, P 64, N 128): the serve chunk (Bt 1,
-    # S 32) and three kernel chunks and a partial one (S 200), with and
-    # without trailing dt = 0 rows (padding past a prompt), one and two
+    # S 32), a chunk shorter than one 16-row tile (S 5), one row past a
+    # tile (S 33), and three kernel chunks and a partial one (S 200), with
+    # and without trailing dt = 0 rows (padding past a prompt), one and two
     # batch rows, from a zero, a float32 and an int8 state (one head's
-    # scale 0); y and the final state against the plain version
+    # scale 0); y and the final state against the plain version.  Every
+    # bf16 case runs twice (bitwise-equal outputs); every case is one
+    # kernel node in a CUDA graph
     Hs, Ps, Ns = 32, 64, 128
 
     def ssd_inputs(Bt, S, dt_, pad=0):
@@ -567,10 +621,17 @@ def phase_kernels(torch, F):
                   compare(f"{name} final state", st, wst, torch.float32, torch,
                           SSD_TOL["float32"]))
         note(name, case, err)
+        if dt_ == torch.bfloat16:
+            y2, st2 = ssd_call(name, inputs, s0)
+            check(torch.equal(y, y2) and torch.equal(st, st2),
+                  f"{name} {case}: two calls differ")
+        one_kernel(name, case, lambda: ssd_call(name, inputs, s0))
         return err
 
+    n_graphs = 0
     for dt_ in (torch.float32, torch.bfloat16):
-        for Bt, S, pad in ((1, 32, 0), (1, 32, 9), (2, 200, 0), (2, 200, 17)):
+        for Bt, S, pad in ((1, 32, 0), (1, 32, 9), (1, 5, 0), (1, 5, 2),
+                           (1, 33, 0), (2, 200, 0), (2, 200, 17)):
             inputs = ssd_inputs(Bt, S, dt_, pad)
             case = f"Bt={Bt} S={S} trailing dt=0 rows={pad} {dtype_name(dt_)}"
             ssd_check("ssd_scan", case + ", zero state", inputs, None)
@@ -578,6 +639,8 @@ def phase_kernels(torch, F):
                       randn(Bt, Hs, Ps, Ns))
             ssd_check("ssd_scan_i8", case + ", int8 state", inputs,
                       int8_state(Bt))
+    print(f"  ssd_scan: each of {n_graphs} cases is one kernel node in a CUDA "
+          f"graph")
     S = 32
     inputs = ssd_inputs(1, S, torch.bfloat16)
     io_bytes = (2 * S * Hs * Ps + 2 * S * Ns) * 2 + S * Hs * 4 + Hs * 4
@@ -586,10 +649,14 @@ def phase_kernels(torch, F):
             ("ssd_scan", randn(1, Hs, Ps, Ns), 4 * state_elems),
             ("ssd_scan_i8", int8_state(1), state_elems + 4 * Hs)):
         err = ssd_check(name, "serve chunk, timed", inputs, s0)
-        # per token and state element: decay, update and read-out (5 ops);
-        # the final state is written once in float32
+        # the chunked form's products, all on bf16 tensor cores (S <= one
+        # chunk): C h^T and the update (2 + 2 ops per token and state
+        # element), and C B^T and W x on and below the diagonal; the final
+        # state is written once in float32
+        tri = S * (S + 1) // 2
         b_ms, b_by = bound(io_bytes + s0_bytes + 4 * state_elems,
-                           5 * S * state_elems, torch.float32)
+                           4 * S * state_elems + 2 * tri * Hs * (Ns + Ps),
+                           torch.bfloat16)
         rows[name] = dict(
             shape=f"Bt=1 S={S} H={Hs} P={Ps} N={Ns} x/B/C bf16, "
                   f"{'int8' if name.endswith('i8') else 'float32'} state0",
@@ -1218,7 +1285,7 @@ def phase_profile(torch, name, serve_wall_s):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run()
         torch.cuda.synchronize()
-    matmul_launches = ops.matmul.launches
+    launches = ops.launch_counts()
     rows, host = [], []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
@@ -1238,23 +1305,33 @@ def phase_profile(torch, name, serve_wall_s):
           f"{'; '.join(host) or 'none recorded'}")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:6d} calls {100 * ms / total:5.1f}%  {key[:100]}")
-    # matmul: every instantiation of csrc/matmul.cu's two kernels, never
-    # more of them in the trace than ops.matmul launches.  The trace may
-    # hold fewer: the profiler drops kernel records it cannot place in its
-    # capture window (its "Out-of-range" count), from none to hundreds per
-    # trace on the H100, anywhere in it.  One kernel per call is checked
-    # exactly in the kernel phase (graph_nodes); here the loss is printed.
-    mm = [(ms, n) for ms, n, key in rows
-          if "matmul_mma_kernel" in key or "matmul_simt_kernel" in key]
-    mm_ms, mm_calls = sum(r[0] for r in mm), sum(r[1] for r in mm)
-    check(mm_calls <= matmul_launches,
-          f"profile[{name}]: {mm_calls} matmul kernels in the trace for "
-          f"{matmul_launches} ops.matmul launches")
-    print(f"profile[{name}]: matmul calls={mm_calls} of "
-          f"launches={matmul_launches} (records dropped by the profiler: "
-          f"{matmul_launches - mm_calls}) device_ms={mm_ms:.2f} "
-          f"per_call_us={1e3 * mm_ms / max(mm_calls, 1):.2f} "
-          f"share_of_device={mm_ms / total:.3f}")
+    # matmul, flash attention and the SSD scan in the serve trace: each
+    # kernel's device functions (never more of them in the trace than its
+    # wrappers' launches), calls, device time per call and share.  The
+    # trace may hold fewer: the profiler drops kernel records it cannot
+    # place in its capture window (its "Out-of-range" count), from none to
+    # hundreds per trace on the H100, anywhere in it.  One kernel per call
+    # is checked exactly in the kernel phase (graph_nodes); here the loss
+    # is printed.
+    for kname, fns, wrappers in (
+            ("matmul", ("matmul_mma_kernel", "matmul_simt_kernel"), ("matmul",)),
+            ("flash_attention", ("flash_mma_kernel", "flash_simt_kernel"),
+             ("flash_attention",)),
+            ("ssd_scan", ("ssd_mma_kernel", "ssd_simt_kernel"),
+             ("ssd_scan", "ssd_scan_i8"))):
+        n_launch = sum(launches[w] for w in wrappers)
+        if not n_launch:
+            continue
+        got = [(ms, n) for ms, n, key in rows if any(f in key for f in fns)]
+        k_ms, k_calls = sum(r[0] for r in got), sum(r[1] for r in got)
+        check(k_calls <= n_launch,
+              f"profile[{name}]: {k_calls} {kname} kernels in the trace for "
+              f"{n_launch} launches")
+        print(f"profile[{name}]: {kname} calls={k_calls} of "
+              f"launches={n_launch} (records dropped by the profiler: "
+              f"{n_launch - k_calls}) device_ms={k_ms:.2f} "
+              f"per_call_us={1e3 * k_ms / max(k_calls, 1):.2f} "
+              f"share_of_device={k_ms / total:.3f}")
 
 
 # name: (route, source, the TPU kernel it replaces)

@@ -83,15 +83,23 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
+using repro::cluster_arrive;
+using repro::cluster_wait;
+using repro::cp_async_16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::cp_async_wait_upto;
+using repro::ldsm_x2;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
+using repro::mma_bf16;
+using repro::swz;
+using repro::swz_row;
 
 // ------------------------------------------------- bfloat16: tensor cores
 constexpr int THREADS = 128;    // four warps
 constexpr int STAGE = 4096;     // weight elements per ring piece (8 KB)
 constexpr int STAGES = 6;       // ring depth of a (K, N) weight, in pieces
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
 
 // 8 bfloat16 of a row into shared memory: `avail` of them (0..8) lie inside
 // the matrix, the rest are zeros.  `vec`: the chunk is 16-byte aligned and
@@ -102,14 +110,7 @@ template <bool CA = false>
 __device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int avail,
                                            bool vec, const bf16* base) {
   if (vec) {
-    if (CA)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                   "l"(avail > 0 ? src : base), "r"(avail > 0 ? 16 : 0)
-                   : "memory");
-    else
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-                   "l"(avail > 0 ? src : base), "r"(avail > 0 ? 16 : 0)
-                   : "memory");
+    cp_async_16<CA>(dst, avail > 0 ? src : base, avail > 0 ? 16 : 0);
     return;
   }
   const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
@@ -121,66 +122,6 @@ __device__ __forceinline__ void load_chunk(bf16* dst, const bf16* src, int avail
     w[i] = lo | (hi << 16);
   }
   *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x2(unsigned* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p)));
-}
-
-// d (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Thread-block cluster barrier, split in two: arrive early, wait before the
-// first access to another block's shared memory.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Chunk (r, c) of a shared tile whose rows hold cpr 16-byte chunks, a
-// multiple of 8: the chunk index XOR the row mod 8.
-__device__ __forceinline__ int swz_row(int r, int c, int cpr) { return r * cpr + (c ^ (r & 7)); }
-
-// The same for a piece of a (K, N) weight, CPR a power of two: swz_row
-// for CPR >= 8, else the low three bits of the linear index XOR the next
-// three.  Either way 8 consecutive rows at one chunk column, which one
-// ldmatrix phase reads, fall in 8 distinct bank groups.
-template <int CPR>
-__device__ __forceinline__ int swz(int r, int c) {
-  if (CPR >= 8) return swz_row(r, c, CPR);
-  const int L = r * CPR + c;
-  return L ^ ((L >> 3) & 7);
 }
 
 // Geometry of a launch, shared by the kernel and the host check; mirrored
@@ -215,16 +156,6 @@ __host__ __device__ constexpr int smem_bytes(bool trans_b, int bn, int bm, int k
                                              int tiles) {
   return ring_pieces(trans_b, kt, tiles) * STAGE * 2 + red_floats(bn, bm, split) * 4 +
          (split > 1 ? split * inbox_per(bn, bm, split) * 4 : 0) + bm * a_stride(kt, bn) * 16;
-}
-
-// cp.async.wait_group with a count known only at run time (0..3)
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
-  }
 }
 
 // One launch.  Grid (grid_n x split, m tiles), cluster (split, 1, 1).  The

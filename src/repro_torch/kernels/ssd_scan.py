@@ -13,10 +13,33 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-P_TILE = 16          # state rows per block: head_dim must be a multiple
-MAX_STATE = 256      # state size N that fits the block's shared memory
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 9 + [_I] * 7 + [_P]
+
+Q_CHUNK = 64         # rows per chunk (csrc/ssd_scan.cu Q)
+P_TILE = 16          # head_dim must be a multiple (a warp's or block's rows)
+MAX_STATE = 256      # float32 kernel: state size N its shared memory takes
+MMA_MAX_N = 128      # bfloat16 kernel: state size one warp's registers hold
+MMA_MAX_P = 128      # bfloat16 kernel: head_dim, P / 16 warps a block
+
+
+def check_shape(S: int, P: int, N: int, dtype: torch.dtype) -> None:
+    """Raises ValueError for shapes no kernel takes: float32 on CUDA cores
+    (P a multiple of 16, N up to 256), bfloat16 on tensor cores (P and N
+    multiples of 16 up to 128); the C entry refuses the same."""
+    if min(S, P, N) <= 0 or P % P_TILE:
+        raise ValueError(f"ssd_scan: head_dim {P} must be a multiple of "
+                         f"{P_TILE}; S {S}, N {N} > 0")
+    if dtype == torch.float32:
+        if N > MAX_STATE:
+            raise ValueError(f"ssd_scan: float32 state {N} > {MAX_STATE}")
+        return
+    if dtype != torch.bfloat16:
+        raise ValueError(f"ssd_scan: dtype {dtype} has no kernel")
+    if N % 16 or N > MMA_MAX_N or P > MMA_MAX_P:
+        raise ValueError(f"ssd_scan: the bfloat16 kernel takes a state size "
+                         f"N that is a multiple of 16 up to {MMA_MAX_N} and "
+                         f"head_dim up to {MMA_MAX_P}, got N {N}, P {P}")
 
 
 def ssd_scan(x, dt, B, C, A, *, state0=None, state0_scale=None):
@@ -36,9 +59,10 @@ def ssd_scan(x, dt, B, C, A, *, state0=None, state0_scale=None):
         raise ValueError(f"ssd_scan: x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"B {tuple(B.shape)} C {tuple(C.shape)} A "
                          f"{tuple(A.shape)} do not fit (Bt, S, H, P)")
-    if P % P_TILE or not 0 < N <= MAX_STATE or S == 0:
-        raise ValueError(f"ssd_scan: head_dim {P} must be a multiple of "
-                         f"{P_TILE}, state {N} in 1..{MAX_STATE}, S {S} > 0")
+    check_shape(S, P, N, x.dtype)
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan: the tensor-core kernel needs 16-byte "
+                         "aligned x, B and C")
     tensors = [x, dt, B, C, A]
     s0_kind, s0_ptr, scale_ptr = 0, None, None
     if state0 is not None:

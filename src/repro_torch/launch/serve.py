@@ -11,8 +11,10 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
 ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
-or from state slabs with ``--paged``.  The port runs dp=1, FCFS, greedy
-and serial; any other flag of that launcher is refused with the slice it
+or from state slabs with ``--paged``.  The port runs tp=1, dp=1, FCFS,
+greedy and serial: the JAX launcher's other flags parse with its defaults,
+and a value the port cannot serve (``--tp 2``, ``--temperature 0.7``,
+``--overlap``, any ``--prefix-cache``, ...) is refused with the slice it
 waits for.  Weights are random, drawn from ``--seed``; prompts are random
 token ids.
 """
@@ -24,23 +26,31 @@ import time
 
 import numpy as np
 
-# flags of the JAX launcher -> the later slice of the port that brings them
+# flags of the JAX launcher, parsed with its types and defaults: (the
+# values the port serves, the later slice of the port that brings the rest).
+# ``--overlap`` defaults to None here: the port's loop is the serial one,
+# which the JAX launcher runs with ``--no-overlap`` (token-identical either
+# way), so only an explicit ``--overlap`` is refused.
 LATER = {
-    "--tp": "tensor parallelism (ROADMAP Queue 1 item 14)",
-    "--dp": "data-parallel replicas (ROADMAP Queue 1 item 13)",
-    "--disagg": "disaggregated prefill/decode (ROADMAP Queue 1 item 13)",
-    "--scale-events": "elastic replicas (ROADMAP Queue 1 item 13)",
-    "--overlap": "the overlap pipeline (ROADMAP Queue 1 item 6)",
-    "--no-overlap": "the overlap pipeline (ROADMAP Queue 1 item 6); the "
-                    "port's loop is already the serial one",
-    "--temperature": "sampled decoding (the port decodes greedily)",
-    "--prefix-cache": "the prefix cache (ROADMAP Queue 1 item 9)",
-    "--shared-prefix": "the prefix cache (ROADMAP Queue 1 item 9)",
-    "--frame-groups": "encoder-decoder serving (ROADMAP Queue 1 item 11)",
-    "--policy": "priority and fair policies (ROADMAP Queue 1 item 9)",
-    "--preemption": "preemption (ROADMAP Queue 1 item 9)",
-    "--high-priority-every": "priority policies (ROADMAP Queue 1 item 9)",
-    "--clients": "the fair policy (ROADMAP Queue 1 item 9)",
+    "--tp": ((1,), "tensor parallelism (ROADMAP Queue 1 item 14)"),
+    "--dp": ((1,), "data-parallel replicas (ROADMAP Queue 1 item 13)"),
+    "--disagg": ((None,), "disaggregated prefill/decode (ROADMAP Queue 1 "
+                          "item 13)"),
+    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 13)"),
+    "--overlap": ((None, False), "the overlap pipeline (ROADMAP Queue 1 "
+                                 "item 6)"),
+    "--temperature": ((0.0,), "sampled decoding (the port decodes "
+                              "greedily)"),
+    "--prefix-cache": ((False,), "the prefix cache (ROADMAP Queue 1 item 9)"),
+    "--shared-prefix": ((0,), "the prefix cache (ROADMAP Queue 1 item 9)"),
+    "--frame-groups": ((1,), "encoder-decoder serving (ROADMAP Queue 1 "
+                             "item 11)"),
+    "--policy": (("fcfs",), "priority and fair policies (ROADMAP Queue 1 "
+                            "item 9)"),
+    "--preemption": ((False,), "preemption (ROADMAP Queue 1 item 9)"),
+    "--high-priority-every": ((0,), "priority policies (ROADMAP Queue 1 "
+                                    "item 9)"),
+    "--clients": ((1,), "the fair policy (ROADMAP Queue 1 item 9)"),
 }
 
 
@@ -76,14 +86,30 @@ def parse_args(argv=None):
                          "stay token-identical)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the Hopper kernels) or cpu (plain PyTorch)")
-    args, rest = ap.parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in LATER:
-            ap.error(f"{flag} is not supported by the PyTorch port yet: it "
-                     f"waits for {LATER[flag]}")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
+    # the JAX launcher's flags of later slices, with its types and defaults
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--disagg", default=None, metavar="P:D")
+    ap.add_argument("--scale-events", default=None, metavar="T:N[,T:N...]")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=None, help="--no-overlap is the port's serial "
+                                       "loop; --overlap is refused")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--frame-groups", type=int, default=1, metavar="K")
+    ap.add_argument("--policy", choices=("fcfs", "priority", "fair"),
+                    default="fcfs")
+    ap.add_argument("--preemption", action="store_true")
+    ap.add_argument("--high-priority-every", type=int, default=0, metavar="N")
+    ap.add_argument("--clients", type=int, default=1)
+    args = ap.parse_args(argv)
+    for flag, (served, slice_) in LATER.items():
+        value = getattr(args, flag[2:].replace("-", "_"))
+        if value not in served:
+            shown = flag if isinstance(value, bool) else f"{flag} {value}"
+            ap.error(f"{shown} is not supported by the PyTorch port yet: it "
+                     f"waits for {slice_}")
     if args.speculative < 0:
         ap.error("--speculative must be >= 0")
     from repro_torch.configs import get_config

@@ -196,6 +196,127 @@ def test_matmul_float32_takes_misaligned_operands():
     assert p.kernel == "simt"
 
 
+# the flash call sites: the paged prefill chunk (8 heads, 32 queries over
+# the 256-key gathered prefix) and the contiguous whole prompt (Sq = Skv,
+# 16-160), at each head dim the kernel takes, with and without a window
+FLASH_SHAPES = [(8, 32, 256), (8, 16, 16), (8, 23, 23), (8, 130, 130),
+                (8, 160, 160)]
+
+
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("h,sq,skv", FLASH_SHAPES)
+def test_flash_plan_limits_at_main_shapes(h, sq, skv, d, window):
+    """The bf16 launch plan: a cluster of at most 8 blocks and no more
+    ranks than key tiles, shared memory within 227 KB, and the split only
+    stops doubling at the SMs (or at the window's span)."""
+    p = k_flash.plan(h, sq, skv, d, torch.bfloat16, window)
+    assert p.kernel == "mma" and p.split in (1, 2, 4, 8)
+    assert p.wq == min(4, -(-sq // 16))
+    row_tiles, n_tiles = -(-sq // (16 * p.wq)), -(-skv // 64)
+    assert p.smem <= 232448
+    assert p.smem == k_flash._smem_bytes(d, p.wq, p.split)
+    assert p.split <= max(1, n_tiles)
+    if p.split < 8 and p.split * 2 <= n_tiles and not window:
+        assert h * row_tiles * p.split >= 132
+
+
+class _CInt(int):
+    """An int with C's integer division and remainder (toward zero)."""
+
+    def _c(f):
+        return lambda a, b: _CInt(f(int(a), int(b)))
+
+    def _div(a, b):
+        q = abs(a) // abs(b)
+        return q if (a < 0) == (b < 0) else -q
+
+    __add__ = __radd__ = _c(lambda a, b: a + b)
+    __sub__ = _c(lambda a, b: a - b)
+    __rsub__ = _c(lambda a, b: b - a)
+    __mul__ = __rmul__ = _c(lambda a, b: a * b)
+    __truediv__ = _c(_div)
+    __mod__ = _c(lambda a, b: a - b * _CInt._div(a, b))
+
+
+@pytest.mark.parametrize("n_tiles", [1, 4, 9])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_flash_kernel_deals_each_visible_tile_once(split, n_tiles):
+    """The kernel's own formulas (t_first, my_n in csrc/flash_attention.cu,
+    evaluated with C's integer arithmetic): for every range [t_begin, t_end)
+    of key tiles a block's rows can see, the ranks of a cluster walk each
+    tile of it exactly once, tile t on rank t % split, and none outside it."""
+    src = (Path(k_flash.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    first = re.search(r"const int t_first = (.+?);\n", src).group(1)
+    count = re.search(r"const int my_n = t_first < t_end \? (.+?) : 0;\n",
+                      src).group(1)
+    for t_begin in range(n_tiles + 1):
+        for t_end in range(t_begin, n_tiles + 1):
+            dealt = []
+            for rank in range(split):
+                env = {"rank": _CInt(rank), "split": _CInt(split),
+                       "t_begin": _CInt(t_begin), "t_end": _CInt(t_end)}
+                env["t_first"] = t_first = eval(first, {}, env)
+                my_n = eval(count, {}, env) if t_first < t_end else 0
+                tiles = [t_first + i * split for i in range(my_n)]
+                assert all(t % split == rank for t in tiles)
+                dealt += tiles
+            assert sorted(dealt) == list(range(t_begin, t_end))
+
+
+def test_flash_plan_reads_no_q_offset():
+    """The launch geometry depends only on the shapes: the plan takes no
+    q_offset, and the chunk shape gets its cluster split however far into
+    the prompt the chunk sits."""
+    import inspect
+    assert "q_offset" not in inspect.signature(k_flash.plan).parameters
+    p = k_flash.plan(8, 32, 256, 64, torch.bfloat16)
+    assert (p.wq, p.split) == (2, 4)
+
+
+@pytest.mark.parametrize("d,wq,split,want", [
+    (64, 2, 1, 2 * 2 * 64 * 9 * 16),
+    (64, 2, 4, 2 * 2 * 64 * 9 * 16 + 4 * (4 * 8 * 66 + 5 * 8)),
+    (128, 4, 8, 2 * 2 * 64 * 17 * 16 + 4 * (8 * 8 * 130 + 9 * 8)),
+    (32, 1, 2, 2 * 2 * 64 * 5 * 16 + 4 * (2 * 8 * 34 + 3 * 8)),
+])
+def test_flash_smem_layout(d, wq, split, want):
+    """Shared memory term by term as csrc/flash_attention.cu lays it out
+    (smem_bytes), which refuses a launch that differs: the two-stage K/V
+    ring at an odd chunk stride, then the inbox of a split."""
+    assert k_flash._smem_bytes(d, wq, split) == want
+
+
+def test_flash_plan_mirrors_the_kernel_source():
+    """The plan's constants are the ones csrc/flash_attention.cu compiles."""
+    src = (Path(k_flash.__file__).parent / "csrc" /
+           "flash_attention.cu").read_text()
+    assert re.search(rf"constexpr int KV_TILE = {k_flash.KV_TILE};", src)
+    assert re.search(rf"constexpr int WQ_MAX = {k_flash.WQ_MAX};", src)
+    assert re.search(rf"constexpr int KV_STAGES = {k_flash.KV_STAGES};", src)
+    assert re.search(r"return d / 8 \+ 1;", src)
+    assert "asm" not in src             # the tensor-core kit of common.cuh
+    assert "mma_bf16(" in src and "ldsm_x4_trans(" in src
+
+
+def test_flash_plan_float32_stays_on_cuda_cores():
+    for sq in (16, 32, 160):
+        p = k_flash.plan(8, sq, 256, 64, torch.float32)
+        assert (p.kernel, p.wq, p.split, p.smem) == ("simt", 4, 1, 0)
+
+
+@pytest.mark.parametrize("refuse", [
+    lambda: k_flash.plan(8, 32, 256, 96, torch.bfloat16),
+    lambda: k_flash.plan(8, 32, 256, 64, torch.float16),
+    lambda: k_flash.plan(0, 32, 256, 64, torch.bfloat16),
+    lambda: k_flash.plan(70000, 32, 256, 64, torch.bfloat16),
+])
+def test_flash_plan_refuses_what_the_kernel_cannot_take(refuse):
+    with pytest.raises(ValueError):
+        refuse()
+
+
 @pytest.mark.parametrize("sq,skv,causal,win", [
     (64, 64, True, 0), (32, 96, True, 0), (64, 64, True, 16),
     (32, 32, False, 0)])

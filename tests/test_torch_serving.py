@@ -119,12 +119,68 @@ def test_launcher_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,slice_", [
     (["--tp", "2"], "tensor parallelism"),
+    (["--dp", "2"], "data-parallel replicas"),
+    (["--disagg", "1:1"], "disaggregated prefill/decode"),
+    (["--scale-events", "8:1"], "elastic replicas"),
+    (["--overlap"], "overlap pipeline"),
+    (["--temperature", "0.7"], "sampled decoding"),
     (["--prefix-cache"], "prefix cache"),
+    (["--shared-prefix", "4"], "prefix cache"),
     (["--frame-groups", "2"], "encoder-decoder"),
-    (["--no-overlap"], "overlap pipeline"),
+    (["--policy", "fair"], "priority and fair policies"),
+    (["--preemption"], "preemption"),
+    (["--high-priority-every", "2"], "priority policies"),
+    (["--clients", "2"], "fair policy"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
+    """A value of the JAX launcher's flags that the port cannot serve is
+    refused with the slice it waits for; so is any explicit ``--overlap``
+    (the JAX default), since the port's loop is the serial one."""
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--arch", "tinyllama-42m", *argv])
     assert e.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+LAUNCH = ["--arch", "tinyllama-42m", "--smoke", "--requests", "3", "--slots",
+          "2", "--seq-budget", "32", "--prompt-len", "12", "--max-new", "3",
+          "--kv-dtype", "fp32", "--device", "cpu"]
+JAX_DEFAULTS = [["--tp", "1"], ["--dp", "1"], ["--no-overlap"],
+                ["--temperature", "0"], ["--policy", "fcfs"],
+                ["--shared-prefix", "0"], ["--frame-groups", "1"],
+                ["--high-priority-every", "0"], ["--clients", "1"]]
+
+
+def _served_tokens(argv, monkeypatch):
+    """Serve ``argv`` through the launcher on the CPU -> each request's
+    greedy tokens."""
+    seen = []
+    submit = ServingEngine.submit
+
+    def record(self, req):
+        seen.append(req)
+        return submit(self, req)
+
+    with monkeypatch.context() as m:
+        m.setattr(ServingEngine, "submit", record)
+        assert serve.main(argv) == 0
+    return [r.out_tokens for r in seen]
+
+
+@pytest.fixture(scope="module")
+def bare_tokens():
+    with pytest.MonkeyPatch.context() as m:
+        return _served_tokens(LAUNCH, m)
+
+
+@pytest.mark.parametrize("flags", JAX_DEFAULTS + [sum(JAX_DEFAULTS, [])],
+                         ids=[f[0] for f in JAX_DEFAULTS] + ["all"])
+def test_launcher_takes_the_jax_defaults(flags, bare_tokens, monkeypatch):
+    """A JAX command line that spells out its defaults runs on the port and
+    serves the same greedy tokens as the bare command."""
+    args = serve.parse_args([*LAUNCH, *flags])
+    assert (args.tp, args.dp, args.temperature, args.policy) == \
+        (1, 1, 0.0, "fcfs")
+    assert args.overlap in (None, False)
+    got = _served_tokens([*LAUNCH, *flags], monkeypatch)
+    assert got == bare_tokens and all(len(t) == 3 for t in got)

@@ -13,6 +13,7 @@ the chunked and sequential forms sum in other orders); fp32 1e-4
 elsewhere."""
 import dataclasses
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -114,6 +115,106 @@ def test_ssd_scan_i8_state0_matches_pallas_i8():
             jnp.asarray(s0[b]), jnp.asarray(s0s[b])))
         _close(y[b], wy, SSD_TOL)
         _close(state[b], ws, SSD_TOL)
+
+
+def test_ssd_limits_mirror_the_kernel_source():
+    """The wrapper's shape limits are the ones csrc/ssd_scan.cu compiles,
+    and the bf16 kernel uses the tensor-core kit of common.cuh."""
+    src = (Path(k_ssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    assert re.search(rf"constexpr int Q = {k_ssd.Q_CHUNK};", src)
+    assert re.search(rf"constexpr int MMA_MAX_N = {k_ssd.MMA_MAX_N};", src)
+    assert re.search(rf"constexpr int MMA_MAX_P = {k_ssd.MMA_MAX_P};", src)
+    assert re.search(rf"constexpr int TP = {k_ssd.P_TILE};", src)
+    assert re.search(rf"N > {k_ssd.MAX_STATE}\)", src)
+    assert "asm" not in src
+    assert "mma_bf16(" in src and "ldsm_x4_trans(" in src
+
+
+# The tensor-core SSD kernel feeds three float32 operands to bf16 mma
+# products: W (in x^T W^T, which makes y), the carried state h (in h C^T,
+# which makes y) and f o x (in the state update).  Each enters as one bf16
+# term (v rounded) or two (hi = bf16(v), lo = bf16(v - hi)).  The helpers
+# below emulate one chunk of the chunked form in float64 with each operand
+# rounded one way or the other: arithmetic only, not the card.
+_TOL_Y, _TOL_STATE = 2e-2, 1e-3
+
+
+def _rounded(v, terms):
+    """v as the mma sees it: one bf16 term, or hi + lo."""
+    hi = v.to(torch.bfloat16).double()
+    if terms == 1:
+        return hi
+    return hi + (v - hi).to(torch.bfloat16).double()
+
+
+def _emulated_chunk(x, dt, B, C, A, h, terms_w, terms_h, terms_u):
+    """One chunk, float64, with the kernel's operand rounding.  x: (S, H,
+    P); dt: (S, H); B/C: (S, N); h: (H, P, N)."""
+    S = x.shape[0]
+    cs = torch.cumsum(dt * A[None, :], dim=0)                    # (S, H)
+    G = C @ B.T                                                  # exact
+    seg = cs[:, None, :] - cs[None, :, :]                        # (i, j, H)
+    tri = torch.tril(torch.ones(S, S, dtype=torch.bool))[:, :, None]
+    W = torch.where(tri, G[:, :, None] * torch.exp(torch.where(
+        tri, seg, torch.zeros_like(seg))) * dt[None, :, :],
+        torch.zeros_like(seg))
+    y = torch.einsum("ijh,jhp->ihp", _rounded(W, terms_w), x)
+    y = y + torch.einsum("in,hpn->ihp", C, _rounded(h, terms_h)) * \
+        torch.exp(cs)[:, :, None]
+    f = torch.exp(cs[-1][None, :] - cs) * dt                     # (S, H)
+    u = _rounded(f[:, :, None] * x, terms_u)                     # (S, H, P)
+    h = h * torch.exp(cs[-1])[:, None, None] + \
+        torch.einsum("jhp,jn->hpn", u, B)
+    return y, h
+
+
+def _excess(got, want, tol):
+    """The largest |got - want| beyond atol = rtol = tol (<= 0 passes)."""
+    return ((got - want).abs() - tol - tol * want.abs()).max().item()
+
+
+@pytest.mark.parametrize("terms,misses", [
+    ((2, 2, 2), None),           # every float32 operand as two terms
+    ((2, 1, 2), "y"),            # the state in h C^T as one term
+    ((2, 2, 1), "state"),        # f o x in the update as one term
+], ids=["two-terms", "state-one-term", "fx-one-term"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ssd_bf16_operands_need_two_terms(seed, terms, misses):
+    """The bf16 kernel's operand rounding (csrc/ssd_scan.cu), emulated in
+    float64 at the serve chunk (S 32, H 32, P 64, N 128) with chip_smoke's
+    input distribution and a float32 state0 ~ N(0, 1): with every float32
+    operand as two bf16 terms y meets bf16's 2e-2 and the final state
+    float32's 1e-3 against the plain version; the state as one term misses
+    y's tolerance, f o x as one term the final state's."""
+    g = torch.Generator().manual_seed(seed)
+    S, H, P, N = 32, 32, 64, 128
+    x = torch.randn(1, S, H, P, generator=g).to(torch.bfloat16).double()
+    dt = 0.1 * torch.randn(1, S, H, generator=g).abs().double()
+    B = torch.randn(1, S, N, generator=g).to(torch.bfloat16).double()
+    C = torch.randn(1, S, N, generator=g).to(torch.bfloat16).double()
+    A = -(torch.randn(H, generator=g).abs() + 0.5).double()
+    h0 = torch.randn(1, H, P, N, generator=g).double()
+    wy, wst = ops.ssd_scan(x, dt, B, C, A, h0)
+    y, st = _emulated_chunk(x[0], dt[0], B[0], C[0], A, h0[0], *terms)
+    ey = _excess(y.to(torch.bfloat16).double(),
+                 wy[0].to(torch.bfloat16).double(), _TOL_Y)
+    es = _excess(st, wst[0], _TOL_STATE)
+    assert (ey > 0) == (misses == "y")
+    assert (es > 0) == (misses == "state")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 64, 100), torch.bfloat16),    # N not a multiple of 16
+    ((32, 64, 256), torch.bfloat16),    # N past one warp's registers
+    ((32, 144, 128), torch.bfloat16),   # more than 8 warps
+    ((32, 24, 128), torch.float32),     # P not a multiple of 16
+    ((32, 64, 300), torch.float32),     # N past shared memory
+    ((0, 64, 128), torch.float32),
+    ((32, 64, 128), torch.float16),
+])
+def test_ssd_scan_refuses_what_the_kernels_cannot_take(shape, dtype):
+    with pytest.raises(ValueError):
+        k_ssd.check_shape(*shape, dtype)
 
 
 # --------------------------------------------------------------- core/ssm
