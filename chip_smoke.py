@@ -9,7 +9,8 @@ imports nothing of JAX and nothing of the JAX package.  Phases, one line
 each (and a few detail lines):
 
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
-            versions, and the time to build every kernel from ``src/``.
+            versions, the time to build every kernel from ``src/``, and
+            each kernel instantiation's registers and spills (ptxas).
 2. kernels  each of the ten kernel variants (rmsnorm, matmul, flash
             attention, paged decode and paged verify over float and int8
             pools, the SSD scan from a float or an int8 state, decode
@@ -19,10 +20,15 @@ each (and a few detail lines):
             40, 160}, K or N off a multiple of 8, two bf16 calls bitwise
             equal, one kernel node per call in a CUDA graph, and times per
             shape beside torch.matmul's;
-            page-crossing lengths, a shuffled block table, an idle lane on
-            scratch page 0, Q in {2, 5}, zero-scale rows; for flash
-            attention the prefill chunk at q_offset 0, 96 and 224 with and
-            without windows, the contiguous prefill's square Sq = Skv in
+            for paged attention page-crossing lengths, a shuffled block
+            table, an idle lane on scratch page 0, verify at Q in {1, 2, 5,
+            8}, zero-scale rows, lengths on page edges at head dims 32, 64
+            and 128 and pages of 8 and 16, two bf16 calls bitwise equal, one
+            kernel node per call, and a CUDA graph of each entry replayed
+            after its length changes in place equal to the eager call; for
+            flash attention the prefill chunk at q_offset 0, 96 and 224
+            with and without windows, the contiguous prefill's square Sq =
+            Skv in
             {23, 130, 160}, head dims 32, 64 and 128, and times at four
             shapes beside SDPA's; for the SSD scan the serve chunk, S = 5
             and 33, several chunks with a partial tail, trailing dt = 0
@@ -72,10 +78,10 @@ each (and a few detail lines):
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
             the device's busy share of the phase, and the calls, device
-            time per call and share of matmul, flash attention and the SSD
-            scan (never more kernels in the trace than launches; the
-            kernel phase checks one kernel per call exactly, in CUDA
-            graphs).
+            time per call and share of matmul, flash attention, the SSD
+            scan and paged attention (never more kernels in the trace than
+            launches; the kernel phase checks one kernel per call exactly,
+            in CUDA graphs).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -230,10 +236,34 @@ def phase_env(torch, build):
           f"count={torch.cuda.device_count()} build_cuda_s={cuda_s:.1f} "
           f"build_triton_s={triton_s:.1f}")
     for stem, log in sorted(build.BUILD_LOG.items()):
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line.lower():
-                print(f"  ptxas[{stem}]: {line.strip()}")
+        for name, regs, spills in ptxas_usage(log):
+            print(f"  ptxas[{stem}] {name}: {regs} registers, {spills}")
     return smi_line
+
+
+def ptxas_usage(log):
+    """-> (kernel instantiation, registers, spill line) for each function in
+    nvcc's ``-Xptxas -v`` output, names demangled by the toolkit's cu++filt
+    (template arguments kept, the parameter list dropped)."""
+    import re
+    from torch.utils.cpp_extension import CUDA_HOME
+    found, name, spills = [], None, ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif "spill" in line:
+            spills = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            found.append([name, int(m.group(1)), spills])
+            name = None
+    filt = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cu++filt"
+    if found and filt.exists():
+        out = subprocess.run([str(filt)], input="\n".join(f[0] for f in found),
+                             capture_output=True, text=True, timeout=60)
+        for f, line in zip(found, out.stdout.splitlines()):
+            line = line.removeprefix("void ").replace("<unnamed>::", "")
+            f[0] = line[:line.index(">(") + 1] if ">(" in line else line.split("(")[0]
+    return found
 
 
 # Every matmul of the two models' main paths: (name, K, N, trans_b).
@@ -251,6 +281,7 @@ MATMULS_RAGGED = (("ragged K", 1004, 520, False), ("ragged K", 1004, 300, True),
 
 
 def phase_kernels(torch, F):
+    from repro_torch.kernels import decode_attention as _dec
     from repro_torch.kernels import flash_attention as _fl
     from repro_torch.kernels import matmul as _mm
     from repro_torch.kernels import ops, ref
@@ -434,7 +465,50 @@ def phase_kernels(torch, F):
         flash_rows.append(r)
     rows["flash_attention"] = dict(flash_rows[2], by_shape=flash_rows)
 
-    # ---- paged decode: 8 slots over a shuffled pool, ragged lengths
+    # ---- paged decode and verify.  Every case is held against the plain
+    # version, runs twice in bf16 (bitwise-equal outputs) and, captured in a
+    # CUDA graph, is one kernel node; a graph of each entry replayed after
+    # `length` changes in place equals the eager call (the launch reads no
+    # length on the host).
+    n_graphs = 0
+
+    def paged_check(case, dt, kname, call, plain):
+        got = call()
+        err = compare(kname, got, plain(), dt, torch)
+        note(kname, case, err)
+        if dt == torch.bfloat16:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+        return err
+
+    def paged_fns(decode, q_, kp_, vp_, table, len_, sc):
+        """(kernel name, kernel call, plain call) of one entry."""
+        if decode:
+            kname = "paged_decode_attention"
+            fn, plain = ops.paged_decode_attention, ref.ref_paged_decode_attention
+        else:
+            kname = "paged_verify_attention"
+            fn, plain = ops.paged_verify_attention, ref.ref_paged_verify_attention
+        return (kname + ("_i8" if sc else ""),
+                lambda: fn(q_, kp_, vp_, table, len_, **sc),
+                lambda: plain(q_, kp_, vp_, table, len_, **sc))
+
+    def replay_check(kname, case, call, len_, new):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = call()
+        before, saved = call(), len_.clone()
+        len_.copy_(torch.tensor(new, dtype=torch.int32, device="cuda"))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager), f"{kname} {case}: the graph replayed at "
+                                       f"lengths {new} differs from the eager call")
+        check(not torch.equal(out, before), f"{kname} {case}: the replay did not "
+                                            f"read the new lengths")
+        len_.copy_(saved)
+
+    # 8 slots over a shuffled pool, ragged lengths
     B, psz, n_max = 8, 16, 16
     n_pages = B * n_max + 1
     lengths = [1, 15, 16, 17, 100, 255, 256, 1]      # last slot: idle lane
@@ -446,27 +520,19 @@ def phase_kernels(torch, F):
     for dt in (torch.float32, torch.bfloat16):
         qd = randn(B, H, D, dtype=dt)
         kp, vp = randn(n_pages, H, psz, D, dtype=dt), randn(n_pages, H, psz, D, dtype=dt)
-        note("paged_decode_attention", f"lengths={lengths} {dtype_name(dt)}",
-             compare("paged_decode_attention",
-                     ops.paged_decode_attention(qd, kp, vp, bt, length),
-                     ref.ref_paged_decode_attention(qd, kp, vp, bt, length),
-                     dt, torch))
+        paged_check(f"lengths={lengths} {dtype_name(dt)}", dt,
+                    *paged_fns(True, qd, kp, vp, bt, length, {}))
     qd = randn(B, H, D, dtype=torch.bfloat16)
     kp = randn(n_pages, H, psz, D, dtype=torch.bfloat16)
     vp = randn(n_pages, H, psz, D, dtype=torch.bfloat16)
-    err = compare("paged_decode_attention",
-                  ops.paged_decode_attention(qd, kp, vp, bt, length),
-                  ref.ref_paged_decode_attention(qd, kp, vp, bt, length),
-                  torch.bfloat16, torch)
+    _, call, plain = paged_fns(True, qd, kp, vp, bt, length, {})
+    err = compare("paged_decode_attention", call(), plain(), torch.bfloat16, torch)
     toks = sum(lengths)
     b_ms, b_by = bound(2 * qd.numel() * 2 + 2 * H * toks * D * 2
                        + bt.numel() * 4 + B * 4, 4 * D * H * toks, torch.bfloat16)
     rows["paged_decode_attention"] = dict(
         shape=f"B={B} H={H} D={D} psz={psz} n_max={n_max} lengths={lengths} bf16",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.paged_decode_attention(qd, kp, vp, bt, length), torch),
-        plain_ms=time_ms(lambda: ref.ref_paged_decode_attention(qd, kp, vp, bt,
-                                                                length), torch),
+        max_abs_err=err, ms=time_ms(call, torch), plain_ms=time_ms(plain, torch),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
     # ---- int8 pools and speculative verify, the same 8 slots.  Each slot's
@@ -479,75 +545,104 @@ def phase_kernels(torch, F):
             out[b, min(-(-(L + nq - 1) // psz), n_max):] = 0
         return out
 
-    def int8_pool():
+    def int8_pool(n_pages=n_pages, psz=psz, D=D):
         pool = torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
                              device="cuda", dtype=torch.int8)
         scale = 0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
         return pool, scale
 
     def zero_rows(scale, table):         # a recycled page's reset rows
-        scale[int(table[4, 0]), psz // 2:] = 0.0   # read by slot 4 (len 100)
+        scale[int(table[4, 0]), scale.shape[1] // 2:] = 0.0   # read by slot 4
         return scale
-
-    def decode_i8(qd, kq, vq, ks, vs, table):
-        return (ops.paged_decode_attention(qd, kq, vq, table, length,
-                                           k_scale=ks, v_scale=vs),
-                ref.ref_paged_decode_attention(qd, kq, vq, table, length,
-                                               k_scale=ks, v_scale=vs))
 
     bt_dec = block_table(lengths, 1)
     for dt in (torch.float32, torch.bfloat16):
         (kq, ks), (vq, vs) = int8_pool(), int8_pool()
         zero_rows(ks, bt_dec), zero_rows(vs, bt_dec)
         qd = randn(B, H, D, dtype=dt)
-        note("paged_decode_attention_i8", f"lengths={lengths} q "
-                                          f"{dtype_name(dt)}, zero-scale rows",
-             compare("paged_decode_attention_i8",
-                     *decode_i8(qd, kq, vq, ks, vs, bt_dec), dt, torch))
+        paged_check(f"lengths={lengths} q {dtype_name(dt)}, zero-scale rows", dt,
+                    *paged_fns(True, qd, kq, vq, bt_dec, length,
+                               dict(k_scale=ks, v_scale=vs)))
     (kq, ks), (vq, vs) = int8_pool(), int8_pool()
     zero_rows(ks, bt_dec), zero_rows(vs, bt_dec)
     qd = randn(B, H, D, dtype=torch.bfloat16)
-    err = compare("paged_decode_attention_i8",
-                  *decode_i8(qd, kq, vq, ks, vs, bt_dec), torch.bfloat16, torch)
+    _, call, plain = paged_fns(True, qd, kq, vq, bt_dec, length,
+                               dict(k_scale=ks, v_scale=vs))
+    err = compare("paged_decode_attention_i8", call(), plain(), torch.bfloat16,
+                  torch)
     b_ms, b_by = bound(2 * qd.numel() * 2 + 2 * H * toks * D + 2 * toks * 4
                        + bt.numel() * 4 + B * 4, 6 * D * H * toks, torch.int8)
     rows["paged_decode_attention_i8"] = dict(
         shape=f"B={B} H={H} D={D} psz={psz} n_max={n_max} lengths={lengths} "
               f"q bf16, int8 pools",
-        max_abs_err=err,
-        ms=time_ms(lambda: ops.paged_decode_attention(
-            qd, kq, vq, bt_dec, length, k_scale=ks, v_scale=vs), torch),
-        plain_ms=time_ms(lambda: ref.ref_paged_decode_attention(
-            qd, kq, vq, bt_dec, length, k_scale=ks, v_scale=vs), torch),
+        max_abs_err=err, ms=time_ms(call, torch), plain_ms=time_ms(plain, torch),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
     # verify: query i of a slot sees positions < length + i; the longest
-    # slot's deepest query passes n_max * psz (the kernel clamps the pages)
+    # slot's deepest query passes n_max * psz (the kernel clamps the pages);
+    # Q 1 (the verify entry at decode's shape) up to 8 (k = 7)
     v_lengths = [1, 12, 16, 17, 100, 250, 254, 1]
     v_length = torch.tensor(v_lengths, dtype=torch.int32, device="cuda")
 
-    def verify(qv, kp_, vp_, table, **sc):
-        return (ops.paged_verify_attention(qv, kp_, vp_, table, v_length, **sc),
-                ref.ref_paged_verify_attention(qv, kp_, vp_, table, v_length,
-                                               **sc))
-
-    for nq in (2, 5):
+    for nq in (1, 2, 5, 8):
         bt_v = block_table(v_lengths, nq)
         for dt in (torch.float32, torch.bfloat16):
             qv = randn(B, H, nq, D, dtype=dt)
             kp_, vp_ = (randn(n_pages, H, psz, D, dtype=dt) for _ in range(2))
-            note("paged_verify_attention", f"Q={nq} lengths={v_lengths} "
-                                           f"{dtype_name(dt)}",
-                 compare("paged_verify_attention",
-                         *verify(qv, kp_, vp_, bt_v), dt, torch))
+            paged_check(f"Q={nq} lengths={v_lengths} {dtype_name(dt)}", dt,
+                        *paged_fns(False, qv, kp_, vp_, bt_v, v_length, {}))
             (kq, ks), (vq, vs) = int8_pool(), int8_pool()
             zero_rows(ks, bt_v), zero_rows(vs, bt_v)
-            note("paged_verify_attention_i8",
-                 f"Q={nq} lengths={v_lengths} q {dtype_name(dt)}, "
-                 f"zero-scale rows",
-                 compare("paged_verify_attention_i8",
-                         *verify(qv, kq, vq, bt_v, k_scale=ks, v_scale=vs),
-                         dt, torch))
+            paged_check(f"Q={nq} lengths={v_lengths} q {dtype_name(dt)}, "
+                        f"zero-scale rows", dt,
+                        *paged_fns(False, qv, kq, vq, bt_v, v_length,
+                                   dict(k_scale=ks, v_scale=vs)))
+
+    # page edges at every head dim, pages of 8 and 16: a slot's length, or
+    # its deepest query's view (length + nq - 1), ends on a page edge, or
+    # runs to or past n_max * psz; decode and verify at Q 1, 2, 5 and 8,
+    # float and int8 pools (a full block table, the last slot idle)
+    for D_, psz_ in ((32, 8), (32, 16), (64, 8), (128, 8), (128, 16)):
+        n_pages_ = B * n_max + 1
+        table = (torch.randperm(n_pages_ - 1, generator=torch.Generator()
+                                .manual_seed(2)) + 1)[:B * n_max]
+        table = table.reshape(B, n_max).to(torch.int32)
+        table[-1] = 0
+        table = table.cuda()
+        for nq in (1, 2, 5, 8):
+            edges = [psz_, 2 * psz_, psz_ - nq + 1, 3 * psz_ - nq + 1, 6 * psz_,
+                     n_max * psz_ - nq + 1, n_max * psz_, 1]
+            len_ = torch.tensor(edges, dtype=torch.int32, device="cuda")
+            for dt in (torch.float32, torch.bfloat16):
+                q_ = randn(B, H, nq, D_, dtype=dt)
+                pools = {False: ((randn(n_pages_, H, psz_, D_, dtype=dt),
+                                  randn(n_pages_, H, psz_, D_, dtype=dt)), {})}
+                (kq, ks), (vq, vs) = (int8_pool(n_pages_, psz_, D_) for _ in range(2))
+                pools[True] = ((kq, vq), dict(k_scale=ks, v_scale=vs))
+                for quant, ((kp_, vp_), sc) in pools.items():
+                    case = (f"D={D_} psz={psz_} Q={nq} page-edge lengths={edges} "
+                            f"q {dtype_name(dt)}{', int8 pools' if quant else ''}")
+                    for decode in ((True, False) if nq == 1 else (False,)):
+                        q_in = q_[:, :, 0].contiguous() if decode else q_
+                        paged_check(case, dt, *paged_fns(decode, q_in, kp_, vp_,
+                                                         table, len_, sc))
+    print(f"  paged attention: each of {n_graphs} cases is one kernel node in a "
+          f"CUDA graph")
+
+    # a captured graph of each entry, replayed after `length` changes in place
+    new_lengths = [40, 3, 200, 16, 1, 129, 64, 1]
+    for dt in (torch.float32, torch.bfloat16):
+        (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+        kp_, vp_ = (randn(n_pages, H, psz, D, dtype=dt) for _ in range(2))
+        for decode, nq in ((True, 1), (False, 5)):
+            q_ = randn(B, H, D, dtype=dt) if decode else randn(B, H, nq, D, dtype=dt)
+            for pools, sc in (((kp_, vp_), {}), ((kq, vq), dict(k_scale=ks, v_scale=vs))):
+                len_ = torch.tensor(v_lengths, dtype=torch.int32, device="cuda")
+                kname, call, _ = paged_fns(decode, q_, *pools, bt, len_, sc)
+                replay_check(kname, dtype_name(dt), call, len_, new_lengths)
+    print("  paged attention: each entry's CUDA graph, replayed after length "
+          "changed in place, equals the eager call (float32 and bf16)")
+
     nq = 5
     bt_v = block_table(v_lengths, nq)
     n_kv = [min(L + nq - 1, n_max * psz) for L in v_lengths]   # keys read
@@ -562,8 +657,8 @@ def phase_kernels(torch, F):
             ("paged_verify_attention", (kp_, vp_), {}, 2, torch.bfloat16, 0),
             ("paged_verify_attention_i8", (kq, vq),
              dict(k_scale=ks, v_scale=vs), 1, torch.int8, 2 * sum(n_kv) * 4)):
-        err = compare(name, *verify(qv, *pools, bt_v, **sc), torch.bfloat16,
-                      torch)
+        _, call, plain = paged_fns(False, qv, *pools, bt_v, v_length, sc)
+        err = compare(name, call(), plain(), torch.bfloat16, torch)
         b_ms, b_by = bound(io_bytes + 2 * H * sum(n_kv) * D * elt + extra,
                            4 * D * H * pairs + (2 * D * H * sum(n_kv)
                                                 if sc else 0), ops_dt)
@@ -571,13 +666,18 @@ def phase_kernels(torch, F):
             shape=f"B={B} H={H} Q={nq} D={D} psz={psz} n_max={n_max} "
                   f"lengths={v_lengths} q bf16, "
                   f"{'int8' if sc else 'bf16'} pools",
-            max_abs_err=err,
-            ms=time_ms(lambda p=pools, s_=sc: ops.paged_verify_attention(
-                qv, *p, bt_v, v_length, **s_), torch),
-            plain_ms=time_ms(lambda p=pools, s_=sc:
-                             ref.ref_paged_verify_attention(
-                                 qv, *p, bt_v, v_length, **s_), torch),
+            max_abs_err=err, ms=time_ms(call, torch),
+            plain_ms=time_ms(plain, torch),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    for name in ("paged_decode_attention", "paged_decode_attention_i8",
+                 "paged_verify_attention", "paged_verify_attention_i8"):
+        p = _dec.plan(B, H, 1 if "decode" in name else nq, D, psz, n_max,
+                      torch.bfloat16, name.endswith("_i8"))
+        rows[name]["plan"] = f"nw={p.nw} split={p.split} blocks={p.split * B * H}"
+        print(f"  {name} time {rows[name]['shape']}: "
+              f"us={1e3 * rows[name]['ms']:.2f} "
+              f"bound_us={1e3 * rows[name]['bound_ms']:.2f} "
+              f"plain_us={1e3 * rows[name]['plain_ms']:.2f} [{rows[name]['plan']}]")
 
     # ---- SSD scan at full width (H 32, P 64, N 128): the serve chunk (Bt 1,
     # S 32), a chunk shorter than one 16-row tile (S 5), one row past a
@@ -1305,9 +1405,9 @@ def phase_profile(torch, name, serve_wall_s):
           f"{'; '.join(host) or 'none recorded'}")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:6d} calls {100 * ms / total:5.1f}%  {key[:100]}")
-    # matmul, flash attention and the SSD scan in the serve trace: each
-    # kernel's device functions (never more of them in the trace than its
-    # wrappers' launches), calls, device time per call and share.  The
+    # matmul, flash attention, the SSD scan and paged attention in the serve
+    # trace: each kernel's device functions (never more of them in the trace
+    # than its wrappers' launches), calls, device time per call and share.  The
     # trace may hold fewer: the profiler drops kernel records it cannot
     # place in its capture window (its "Out-of-range" count), from none to
     # hundreds per trace on the H100, anywhere in it.  One kernel per call
@@ -1318,7 +1418,10 @@ def phase_profile(torch, name, serve_wall_s):
             ("flash_attention", ("flash_mma_kernel", "flash_simt_kernel"),
              ("flash_attention",)),
             ("ssd_scan", ("ssd_mma_kernel", "ssd_simt_kernel"),
-             ("ssd_scan", "ssd_scan_i8"))):
+             ("ssd_scan", "ssd_scan_i8")),
+            ("paged attention", ("paged_mma_kernel", "paged_simt_kernel"),
+             ("paged_decode_attention", "paged_decode_attention_i8",
+              "paged_verify_attention", "paged_verify_attention_i8"))):
         n_launch = sum(launches[w] for w in wrappers)
         if not n_launch:
             continue

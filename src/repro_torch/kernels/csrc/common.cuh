@@ -1,8 +1,9 @@
 // Shared helpers of the port's CUDA kernels: float32/bfloat16 (and int8
 // payload) loads and float32/bfloat16 stores through float, warp
 // reductions, and the tensor-core kit of the bfloat16 kernels (matmul,
-// flash attention, the SSD scan): cp.async copies, ldmatrix, mma.sync
-// m16n8k16, the thread-block cluster barrier and the shared-tile swizzle.
+// flash attention, the SSD scan, paged attention): cp.async copies,
+// ldmatrix, mma.sync m16n8k16, the thread-block cluster barrier and the
+// shared-tile swizzle.
 #pragma once
 
 #include <cstdint>
@@ -52,6 +53,15 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                  "l"(src), "r"(src_bytes)
                  : "memory");
+}
+
+// 4 bytes from global to shared memory, of which the first `src_bytes` (0
+// or 4) are read and the rest zero-filled (cp.async's .ca form: the 4- and
+// 8-byte sizes have no .cg).  `src` must be a valid address either way.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -7,10 +7,18 @@ Replace ``src/repro/kernels/decode_attention.py::paged_decode_attention``
 pools) and ``::decode_attention`` (a contiguous cache).  See the sources
 for what bounds them and how they are built; ``kernels.ops`` is the entry
 point.
+
+``plan`` chooses every paged launch from the shapes alone, in plain
+Python, so the CPU tests can hold it to its limits; never from ``length``,
+which the kernel reads on the card, so a CUDA graph of a step replays one
+launch for every tick.  The C entries check the plan against the shape and
+refuse one that does not fit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -18,16 +26,85 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
-MAX_NQ = 8           # verify queries per slot the kernel holds in registers
+MAX_NQ = 8           # verify queries per slot (csrc/paged_decode.cu)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TAIL = [ctypes.c_float, _I, _P]                     # scale, dtype, stream
+_PLAN_TAIL = [ctypes.c_float, _I, _I, _I, _I, _P]    # + nw, split, smem
 _ARGTYPES = {
-    "repro_paged_decode": [_P] * 6 + [_I] * 5 + _TAIL,
-    "repro_paged_decode_i8": [_P] * 8 + [_I] * 5 + _TAIL,
-    "repro_paged_verify": [_P] * 6 + [_I] * 6 + _TAIL,
-    "repro_paged_verify_i8": [_P] * 8 + [_I] * 6 + _TAIL,
+    "repro_paged_decode": [_P] * 6 + [_I] * 5 + _PLAN_TAIL,
+    "repro_paged_decode_i8": [_P] * 8 + [_I] * 5 + _PLAN_TAIL,
+    "repro_paged_verify": [_P] * 6 + [_I] * 6 + _PLAN_TAIL,
+    "repro_paged_verify_i8": [_P] * 8 + [_I] * 6 + _PLAN_TAIL,
     "repro_decode_attention": [_P] * 5 + [_I] * 4 + _TAIL,
 }
+
+SMS = 132                # H100 SXM
+KT = 16                  # keys per tile (csrc/paged_decode.cu)
+NW_MAX = 4               # warps per block
+KV_STAGES = 2            # ring depth of each warp's K/V tiles
+SPLITS = (1, 2, 4, 8)    # blocks of a cluster sharing one (head, slot)
+_SIMT_WARPS = 4          # the float32 kernel's warps per block
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One paged launch: ``kernel`` "mma" (bfloat16 q, tensor cores) or
+    "simt" (float32 q, CUDA cores); ``nw`` warps a block; the key tiles of
+    a (head, slot) dealt out over the ``split`` blocks of a cluster;
+    ``smem`` bytes of dynamic shared memory."""
+    kernel: str
+    nw: int
+    split: int
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _smem_bytes(d: int, quant: bool, nq: int, nw: int, split: int) -> int:
+    """csrc/paged_decode.cu::smem_bytes: per warp a ring of KV_STAGES
+    stages, each a 16-key K and V tile (rows of d / 8 chunks of 16 bytes
+    in bf16, d / 16 in int8, plus one at an odd stride; int8 adds the 16
+    keys' k and v scales), then the inbox: per warp of the cluster the
+    owner's rows of d floats with their m and l, then a weight per (row,
+    warp) and 1 / L per row."""
+    row_chunks = (d // 16 if quant else d // 8) + 1
+    stage = 2 * KT * row_chunks * 16 + (2 * KT * 4 if quant else 0)
+    rp, parts = _cdiv(nq, split), nw * split
+    return nw * KV_STAGES * stage + 4 * (parts * rp * (d + 2) + (parts + 1) * rp)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, nq: int, D: int, psz: int, n_max: int,
+         dtype: torch.dtype, quant: bool = False) -> Plan:
+    """The launch for a paged decode (``nq`` 1) or verify call at these
+    shapes; ``dtype`` is q's, ``quant`` says the pools are int8.
+    bfloat16: one cluster of ``split`` blocks per (head, slot), the split
+    doubling while fewer blocks than SMs run and there are that many
+    16-key tiles in ``n_max * psz`` keys; ``nw`` warps a block, as many as
+    the rank's share of those tiles, at most 4.  float32: the CUDA-core
+    kernel, 4 warps, no split.  Raises ValueError for shapes no kernel
+    takes."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged attention: head_dim {D} not in {HEAD_DIMS}")
+    if not 1 <= nq <= MAX_NQ:
+        raise ValueError(f"paged attention: {nq} queries per slot, not 1 to "
+                         f"{MAX_NQ}")
+    if min(B, H, psz, n_max) <= 0 or max(B, H) > 65535:
+        raise ValueError(f"paged attention: no plan for B={B} H={H} "
+                         f"psz={psz} n_max={n_max}")
+    if dtype == torch.float32:
+        return Plan("simt", _SIMT_WARPS, 1, 0)
+    if dtype != torch.bfloat16:
+        raise ValueError(f"paged attention: dtype {dtype} has no kernel")
+    n_tiles = _cdiv(n_max * psz, KT)
+    split = 1
+    for s in SPLITS[1:]:
+        if s <= n_tiles and B * H * split < SMS:
+            split = s
+    nw = min(NW_MAX, _cdiv(n_tiles, split))
+    return Plan("mma", nw, split, _smem_bytes(D, quant, nq, nw, split))
 
 
 def _check(name, q, k_pages, v_pages, block_table, length, k_scale, v_scale):
@@ -74,6 +151,11 @@ def _launch(symbol, q, k_pages, v_pages, block_table, length, k_scale,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    p = plan(B, H, nq or 1, D, psz, n_max, q.dtype, k_scale is not None)
+    if p.kernel == "mma" and any(t.data_ptr() % 16
+                                 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"{symbol}: the tensor-core kernel needs 16-byte "
+                         f"aligned q and pools")
     fn = build.kernel_function("paged_decode", symbol, _ARGTYPES[symbol])
     scales = [] if k_scale is None else [k_scale.data_ptr(),
                                          v_scale.data_ptr()]
@@ -81,7 +163,8 @@ def _launch(symbol, q, k_pages, v_pages, block_table, length, k_scale,
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
                 block_table.data_ptr(), length.data_ptr(), out.data_ptr(),
-                *dims, scale, build.dtype_code(q.dtype), build.stream_of(q))
+                *dims, scale, build.dtype_code(q.dtype), p.nw, p.split,
+                p.smem, build.stream_of(q))
     build.check_launch(rc, symbol)
     return out
 

@@ -22,6 +22,7 @@ from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import matmul as k_matmul
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as k_rmsnorm
 from repro_torch.kernels import ssd_scan as k_ssd
 
@@ -375,6 +376,344 @@ def test_paged_decode_matches_pallas(name, jdt, tdt):
                                      torch.from_numpy(length))
     _close(got, pl_paged(qj, kj, vj, jnp.asarray(bt), jnp.asarray(length),
                          interpret=True), name)
+
+
+# The paged kernels' launch plan (kernels/decode_attention.py::plan) at
+# serve's shapes (8 slots x 8 heads, n_max 16) and others the kernel takes:
+# decode (nq 1) and verify (nq 2-8), each head dim, pages of 8 and 16, float
+# and int8 pools
+PAGED_SHAPES = [(8, 8, 16), (8, 8, 8), (2, 3, 16), (1, 1, 1), (64, 32, 64)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pools", "int8-pools"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("nq", [1, 5, 8])
+@pytest.mark.parametrize("b,h,psz", PAGED_SHAPES)
+def test_paged_plan_limits_at_main_shapes(b, h, psz, nq, d, quant):
+    """The bf16 launch plan: a cluster of at most 8 blocks and no more ranks
+    than 16-key tiles in n_max * psz keys (so at most n_max at pages of 16
+    or fewer), 1-4 warps, shared memory within 227 KB, and the split only
+    stops doubling at the SMs or at the tiles."""
+    n_max = 16
+    p = k_decode.plan(b, h, nq, d, psz, n_max, torch.bfloat16, quant)
+    n_tiles = -(-n_max * psz // 16)
+    assert p.kernel == "mma" and p.split in (1, 2, 4, 8)
+    assert p.split <= n_tiles and p.split <= n_max
+    assert p.nw == min(4, -(-n_tiles // p.split))
+    assert p.smem <= 232448
+    assert p.smem == k_decode._smem_bytes(d, quant, nq, p.nw, p.split)
+    if p.split < 8 and p.split * 2 <= n_tiles:
+        assert b * h * p.split >= 132
+    if (b, h, psz) == (8, 8, 16):
+        assert (p.split, p.nw) == (4, 4)
+
+
+def _paged_dealing_formulas():
+    src = (Path(k_decode.__file__).parent / "csrc" /
+           "paged_decode.cu").read_text()
+    lines = [re.search(rf"const int {v} = (.+?);", src).group(1)
+             for v in ("n_kv", "n_tiles", "t_first")]
+    count = re.search(r"const int my_n = t_first < n_tiles \? (.+?) : 0;",
+                      src).group(1)
+    assert "KT" in lines[1]
+    return [compile(e, "paged_decode.cu", "eval") for e in lines + [count]]
+
+
+@pytest.mark.parametrize("psz", [8, 16])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_paged_kernel_deals_each_visible_page_once(split, psz):
+    """The kernel's own formulas (n_kv, n_tiles, t_first, my_n in
+    csrc/paged_decode.cu, evaluated with C's integer arithmetic): for every
+    length from 0 to n_max * psz + 7 and every nq from 1 to 8, the warps of
+    a cluster walk each 16-key tile the deepest query sees exactly once and
+    no other (keys past n_max * psz never), tile t on rank t % split; so
+    every visible page goes to exactly one rank (a 16-key tile holds one
+    page of 16 or two of 8)."""
+    n_kv_e, n_tiles_e, first_e, count_e = _paged_dealing_formulas()
+    n_max = 4
+    env0 = {"min": lambda a, b: _CInt(min(a, b)),
+            "max": lambda a, b: _CInt(max(a, b)),
+            "KT": _CInt(16), "psz": _CInt(psz), "n_max": _CInt(n_max),
+            "split": _CInt(split)}
+    for nw in range(1, 5):
+        for nq in range(1, 9):
+            for length in range(n_max * psz + 8):
+                env = dict(env0, nw=_CInt(nw), nq=_CInt(nq),
+                           length=_CInt(length))
+                env["n_kv"] = n_kv = eval(n_kv_e, {}, env)
+                env["n_tiles"] = n_tiles = eval(n_tiles_e, {}, env)
+                tiles, keys, pages = [], [], {}
+                for rank in range(split):
+                    for warp in range(nw):
+                        env.update(rank=_CInt(rank), warp=_CInt(warp))
+                        env["t_first"] = t_first = eval(first_e, {}, env)
+                        my_n = eval(count_e, {}, env) \
+                            if t_first < n_tiles else 0
+                        for i in range(my_n):
+                            t = t_first + i * split * nw
+                            assert t % split == rank
+                            tiles.append(t)
+                            kp = [k for k in range(16 * t, 16 * t + 16)
+                                  if k < n_kv]
+                            keys += kp
+                            for k in kp:
+                                pages.setdefault(k // psz, set()).add(rank)
+                want = min(length + nq - 1, n_max * psz)
+                assert sorted(tiles) == list(range(-(-max(want, 0) // 16)))
+                assert sorted(keys) == list(range(max(want, 0)))
+                assert sorted(pages) == list(range(-(-max(want, 0) // psz)))
+                assert all(len(r) == 1 for r in pages.values())
+
+
+def test_paged_plan_reads_no_length():
+    """The launch geometry depends only on the shapes: the plan takes no
+    length, so one captured launch serves every tick."""
+    import inspect
+    assert "length" not in inspect.signature(k_decode.plan).parameters
+    for nq in (1, 5):
+        p = k_decode.plan(8, 8, nq, 64, 16, 16, torch.bfloat16)
+        assert (p.kernel, p.nw, p.split) == ("mma", 4, 4)
+
+
+@pytest.mark.parametrize("d,quant,nq,nw,split,want", [
+    # per warp two stages of a 16-key K and V tile (odd chunk stride; int8
+    # adds 32 scales), then the inbox: rows, m and l per warp; weights, 1/L
+    (64, False, 5, 4, 4, 4 * 2 * (2 * 16 * 9 * 16)
+     + 4 * (16 * 2 * 66 + 17 * 2)),
+    (64, True, 1, 4, 4, 4 * 2 * (2 * 16 * 5 * 16 + 128)
+     + 4 * (16 * 1 * 66 + 17 * 1)),
+    (128, False, 8, 4, 4, 4 * 2 * (2 * 16 * 17 * 16)
+     + 4 * (16 * 2 * 130 + 17 * 2)),
+    (32, True, 8, 2, 4, 2 * 2 * (2 * 16 * 3 * 16 + 128)
+     + 4 * (8 * 2 * 34 + 9 * 2)),
+    (32, False, 1, 1, 1, 2 * (2 * 16 * 5 * 16) + 4 * (1 * 1 * 34 + 2 * 1)),
+])
+def test_paged_smem_layout(d, quant, nq, nw, split, want):
+    """Shared memory term by term as csrc/paged_decode.cu lays it out
+    (smem_bytes), which refuses a launch that differs."""
+    assert k_decode._smem_bytes(d, quant, nq, nw, split) == want
+
+
+def test_paged_plan_mirrors_the_kernel_source():
+    """The plan's constants are the ones csrc/paged_decode.cu compiles."""
+    src = (Path(k_decode.__file__).parent / "csrc" /
+           "paged_decode.cu").read_text()
+    assert re.search(rf"constexpr int KT = {k_decode.KT};", src)
+    assert re.search(rf"constexpr int NW_MAX = {k_decode.NW_MAX};", src)
+    assert re.search(rf"constexpr int KV_STAGES = {k_decode.KV_STAGES};", src)
+    assert re.search(rf"constexpr int MAX_NQ = {k_decode.MAX_NQ};", src)
+    assert re.search(rf"constexpr int NW = {k_decode._SIMT_WARPS};", src)
+    assert re.search(r"return \(quant \? d / 16 : d / 8\) \+ 1;", src)
+    assert "asm" not in src             # the tensor-core kit of common.cuh
+    assert "mma_bf16(" in src and "ldsm_x4_trans(" in src
+    assert "cp_async_16(" in src and "map_shared_rank(" in src
+
+
+def test_paged_plan_float32_stays_on_cuda_cores():
+    for nq in (1, 5, 8):
+        for quant in (False, True):
+            p = k_decode.plan(8, 8, nq, 64, 16, 16, torch.float32, quant)
+            assert (p.kernel, p.nw, p.split, p.smem) == ("simt", 4, 1, 0)
+
+
+# (B, H, nq, D, psz, dtype): shapes no paged kernel takes
+PAGED_REFUSED = [(8, 8, 1, 96, 16, torch.bfloat16),
+                 (8, 8, 9, 64, 16, torch.bfloat16),
+                 (8, 8, 2, 64, 16, torch.float16),
+                 (1, 70000, 1, 32, 1, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,h,nq,d,psz,dt", PAGED_REFUSED)
+def test_paged_plan_refuses_what_the_kernel_cannot_take(b, h, nq, d, psz, dt):
+    with pytest.raises(ValueError):
+        k_decode.plan(b, h, nq, d, psz, 16, dt)
+
+
+class _Reached(Exception):
+    """Raised in place of building a kernel: the wrapper got that far."""
+
+
+@pytest.fixture
+def paged_wrapper_without_card(monkeypatch):
+    """The paged wrappers with the device check and the kernel build taken
+    out (there is no card here): a call runs every other check and the
+    plan, and ends at the kernel's C entry with ``_Reached``."""
+    def check(t, name, ndim, dtypes):
+        if t.dim() != ndim or t.dtype not in dtypes:
+            raise ValueError(f"{name}: {t.dim()} dims, {t.dtype}")
+
+    def reached(stem, symbol, argtypes):
+        raise _Reached(symbol, len(argtypes))
+
+    monkeypatch.setattr(k_decode.build, "check_cuda_tensor", check)
+    monkeypatch.setattr(k_decode.build, "kernel_function", reached)
+
+
+def _paged_call(b, h, nq, d, psz, dt, quant=False):
+    n_max = 2
+    q = torch.zeros(b, h, nq, d, dtype=dt)
+    pool_dt = torch.int8 if quant else dt
+    pools = [torch.zeros(b * n_max, h, psz, d, dtype=pool_dt)
+             for _ in range(2)]
+    sc = dict(k_scale=torch.zeros(b * n_max, psz),
+              v_scale=torch.zeros(b * n_max, psz)) if quant else {}
+    args = (torch.zeros(b, n_max, dtype=torch.int32),
+            torch.ones(b, dtype=torch.int32))
+    if nq == 1:
+        return k_decode.paged_decode_attention(q[:, :, 0], *pools, *args, **sc)
+    return k_decode.paged_verify_attention(q, *pools, *args, **sc)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pools", "int8-pools"])
+@pytest.mark.parametrize("b,h,nq,d,psz,dt", PAGED_REFUSED)
+def test_paged_wrappers_refuse_what_the_plan_refuses(
+        paged_wrapper_without_card, b, h, nq, d, psz, dt, quant):
+    with pytest.raises(ValueError):
+        _paged_call(b, h, nq, d, psz, dt, quant)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pools", "int8-pools"])
+@pytest.mark.parametrize("nq", [1, 2, 8])
+def test_paged_wrappers_pass_what_the_plan_takes(paged_wrapper_without_card,
+                                                 nq, quant):
+    """Shapes the plan takes reach the C entry, whose argument list is the
+    source's own (the plan's nw, split and smem before the stream)."""
+    with pytest.raises(_Reached) as hit:
+        _paged_call(3, 2, nq, 32, 8, torch.bfloat16, quant)
+    symbol, n_args = hit.value.args
+    src = (Path(k_decode.__file__).parent / "csrc" /
+           "paged_decode.cu").read_text()
+    sig = re.search(rf'extern "C" int {symbol}\((.+?)\)', src, re.S).group(1)
+    assert n_args == sig.count(",") + 1
+    assert re.search(r"int nw, int split, int smem,\s+void\* stream$", sig)
+
+
+@pytest.mark.parametrize("which", ["q", "k_pages"])
+def test_paged_wrapper_refuses_misaligned_bf16_operands(
+        paged_wrapper_without_card, which):
+    """The tensor-core kernel reads q and the pools in 16-byte pieces: a
+    view that starts off a 16-byte boundary is refused, never launched."""
+    b, h, nq, d, psz, n_max = 2, 2, 2, 32, 8, 2
+    shapes = {"q": (b, h, nq, d), "k_pages": (b * n_max, h, psz, d)}
+    t = {k: torch.zeros(v, dtype=torch.bfloat16) for k, v in shapes.items()}
+    n = t[which].numel()
+    t[which] = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(shapes[which])
+    with pytest.raises(ValueError, match="16-byte"):
+        k_decode.paged_verify_attention(
+            t["q"], t["k_pages"], torch.zeros(shapes["k_pages"],
+                                              dtype=torch.bfloat16),
+            torch.zeros(b, n_max, dtype=torch.int32),
+            torch.ones(b, dtype=torch.int32))
+
+
+# The bf16 kernel's rounding (csrc/paged_decode.cu), emulated in float64 at
+# chip_smoke.py's paged shapes: B 8, H 8, D 64, pages of 16, n_max 16, its
+# ragged lengths (verify Q 5), the plan's split 4 x 4 warps
+_PAGED_LENGTHS = {1: [1, 15, 16, 17, 100, 255, 256, 1],
+                  5: [1, 12, 16, 17, 100, 250, 254, 1]}
+
+
+def _emulated_paged(q, kp, vp, bt, length, ks, vs, nw, split):
+    """The tensor-core kernel's arithmetic in float64: 16-key tiles dealt
+    over split x nw warps, scores of bf16 q against the pool rows (int8
+    values exact), each column times its k_scale, the online softmax in the
+    log2 domain per warp, P (int8: P * v_scale) rounded to bf16 for P V while
+    l sums the unrounded p, and the warps merged in (rank, warp) order."""
+    NEG = -1e30
+    B, H, nq, D = q.shape
+    psz, n_max = kp.shape[2], bt.shape[1]
+    scale_log2 = D ** -0.5 / np.log(2.0)
+    n_kv = (length + nq - 1).clamp(max=n_max * psz)
+    see = (length[:, None] + torch.arange(nq)).clamp(max=n_max * psz)
+    parts = []
+    for rank in range(split):
+        for warp in range(nw):
+            m = torch.full((B, H, nq), NEG, dtype=torch.float64)
+            l = torch.zeros(B, H, nq, dtype=torch.float64)
+            o = torch.zeros(B, H, nq, D, dtype=torch.float64)
+            t = rank + split * warp
+            while 16 * t < n_max * psz:
+                kpos = 16 * t + torch.arange(16)
+                inside = kpos[None, :] < n_kv[:, None]                 # (B, 16)
+                page = bt[:, (kpos // psz).clamp(max=n_max - 1)].long()
+                row = kpos % psz
+                k = kp[page, :, row].permute(0, 2, 1, 3) * inside[:, None, :, None]
+                v = vp[page, :, row].permute(0, 2, 1, 3) * inside[:, None, :, None]
+                s = q @ k.transpose(-1, -2)                            # (B, H, nq, 16)
+                if ks is not None:
+                    s = s * ks[page, row][:, None, None, :]
+                valid = (kpos[None, None, :] < see[:, :, None])[:, None]
+                s = torch.where(valid, s * scale_log2, torch.full_like(s, NEG))
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m - mx)
+                p = torch.where(s <= NEG, torch.zeros_like(s),
+                                torch.exp2(s - mx[..., None]))
+                l = l * corr + p.sum(-1)
+                if vs is not None:
+                    p = p * vs[page, row][:, None, None, :]
+                p = p.to(torch.bfloat16).double()
+                o = o * corr[..., None] + p @ v
+                m = mx
+                t += split * nw
+            parts.append((m, l, o))
+    M = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.where(m <= NEG, torch.zeros_like(m), torch.exp2(m - M))
+         for m, _, _ in parts]
+    L = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+    O = sum(wi[..., None] * o for wi, (_, _, o) in zip(w, parts))
+    inv = torch.where(L > 0, 1.0 / L.clamp_min(1e-300), torch.zeros_like(L))
+    return O * inv[..., None]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("nq", [1, 5], ids=["decode", "verify"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-pools", "int8-pools"])
+def test_paged_bf16_rounding_stays_within_tolerance(seed, nq, quant):
+    """With P (int8 pools: P * v_scale) rounded to bf16 for P V, int8 rows
+    taken exactly and k_scale applied per score column, the kernel's result
+    stays within bf16's 2e-2 of the plain version (kernels/ref.py, which
+    dequantizes in float32 as the Pallas i8 kernels do), at under half the
+    tolerance.  At these seeds P's rounding alone moves the output by at
+    most 0.13 of the tolerance with bf16 pools and 0.43 with int8 pools
+    (outputs that cancel to near 0 feel it most), and the emulated bf16
+    output differs from the plain version's by at most 0.25 and 0.43 of
+    it."""
+    g = torch.Generator().manual_seed(seed)
+    B, H, D, psz, n_max = 8, 8, 64, 16, 16
+    n_pages = B * n_max + 1
+    bt = (torch.randperm(n_pages - 1, generator=g)[:B * n_max] + 1) \
+        .reshape(B, n_max).to(torch.int32)
+    bt[-1] = 0                                   # idle lane: scratch page
+    length = torch.tensor(_PAGED_LENGTHS[nq], dtype=torch.int32)
+    q = torch.randn(B, H, nq, D, generator=g).to(torch.bfloat16)
+    if quant:
+        kp, vp = (torch.randint(-127, 128, (n_pages, H, psz, D), generator=g,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (0.05 * torch.rand(n_pages, psz, generator=g)
+                  for _ in range(2))
+        ks[int(bt[4, 0]), psz // 2:] = 0.0       # a recycled page's reset rows
+        sc = dict(k_scale=ks, v_scale=vs)
+        exact_pools = (kp, vp)
+    else:
+        kp, vp = (torch.randn(n_pages, H, psz, D, generator=g)
+                  .to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+        sc = {}
+        exact_pools = (kp.float(), vp.float())
+    p = k_decode.plan(B, H, nq, D, psz, n_max, torch.bfloat16, quant)
+    got = _emulated_paged(q.double(), kp.double(), vp.double(), bt, length,
+                          None if ks is None else ks.double(),
+                          None if vs is None else vs.double(), p.nw, p.split)
+
+    def share(a, b):                              # of bf16's 2e-2 tolerance
+        return ((a.double() - b.double()).abs()
+                / (2e-2 + 2e-2 * b.double().abs())).max().item()
+
+    exact = ref.ref_paged_verify_attention(q.float(), *exact_pools, bt,
+                                           length, **sc)
+    want = ref.ref_paged_verify_attention(q, kp, vp, bt, length, **sc)
+    assert share(got, exact) < 0.5, "P's bf16 rounding"
+    assert share(got.to(torch.bfloat16), want) < 0.5, "the bf16 output"
 
 
 def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
