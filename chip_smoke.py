@@ -11,11 +11,17 @@ each (and a few detail lines):
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
             versions, the time to build every kernel from ``src/``, and
             each kernel instantiation's registers and spills (ptxas).
-2. kernels  each of the ten kernel variants (rmsnorm, matmul, flash
+2. kernels  each of the thirteen kernel variants (rmsnorm alone, with the
+            residual add fused in and as mamba2's gated norm, matmul, flash
             attention, paged decode and paged verify over float and int8
             pools, the SSD scan from a float or an int8 state, decode
-            attention over a contiguous cache) against its plain PyTorch
+            attention over contiguous float or fixed-scale int8 lanes)
+            against its plain PyTorch
             version on the card, at the main paths' shapes plus ragged cases
+            (for the norm family T in {8, 32, 160}, E 512 and 1024, the
+            residual variant's sum bitwise x + r and its norm bitwise
+            ops.rmsnorm(x + r), the gated one over n = 2048 with y, z and
+            the output each float32 or bf16, one kernel node per call;
             (for matmul every product of both models at M in {8, 32, 33,
             40, 160}, K or N off a multiple of 8, two bf16 calls bitwise
             equal, one kernel node per call in a CUDA graph, and times per
@@ -34,10 +40,12 @@ each (and a few detail lines):
             and 33, several chunks with a partial tail, trailing dt = 0
             rows, two batch rows, y and the final state; flash and the SSD
             scan also two bf16 calls bitwise equal and one kernel node per
-            call; for the
-            contiguous decode the serve shape with full and ragged lengths,
-            S = 300 with D 32 and 128 and an idle lane, NaN in every key and
-            value past a row's length), with the stated tolerance; median
+            call; for the contiguous decode, float and int8 lanes, S 256
+            and 1024 with full, ragged, tile-edge and zero lengths, S = 300
+            with D 32 and 128 and an idle lane, NaN in every float key and
+            value past a row's length, two bf16 calls bitwise equal, one
+            kernel node per call and a graph replayed after `length`
+            changes equal to the eager call), with the stated tolerance; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (a yardstick
@@ -70,16 +78,21 @@ each (and a few detail lines):
             each kernel launched in the steps it belongs to (launch counts
             set to 0 just before each phase and read just after; the SSD
             scan 48 times per prefill chunk, never in a decode tick; the
-            contiguous decode kernel once per layer in every contiguous
+            contiguous decode kernel (its int8 variant in
+            serve-contig-int8) once per layer in every contiguous
             decode tick and in no paged phase, flash attention once per
             layer in every whole-prompt prefill, no paged kernel in a
-            contiguous phase).
+            contiguous phase; the norm family once per norm of the model
+            in every step: one plain norm, the rest with the residual add
+            fused in, mamba2's gated norm in every layer; 10L + 2 counted
+            kernels per tinyllama decode tick, 8L + 2 per mamba2 tick).
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
             the device's busy share of the phase, and the calls, device
             time per call and share of matmul, flash attention, the SSD
-            scan and paged attention (never more kernels in the trace than
+            scan, paged and contiguous decode attention and the norm family
+            (never more kernels in the trace than
             launches; the kernel phase checks one kernel per call exactly,
             in CUDA graphs).
 
@@ -226,9 +239,11 @@ def phase_env(torch, build):
     build.build_all()
     cuda_s = time.perf_counter() - t0
     from repro_torch.kernels import ops
-    x = torch.randn(4, 512, device="cuda")
+    x, sc = torch.randn(4, 512, device="cuda"), torch.zeros(512, device="cuda")
     t0 = time.perf_counter()
-    ops.rmsnorm(x, torch.zeros(512, device="cuda"))       # compiles the Triton kernel
+    ops.rmsnorm(x, sc)                   # compiles the Triton kernel's variants
+    ops.rmsnorm_residual(x, x, sc)
+    ops.rmsnorm_gated(x, x, sc)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
     print(f"env: card='{smi_line}' torch={torch.__version__} "
@@ -308,13 +323,60 @@ def phase_kernels(torch, F):
                             f"not one kernel node")
         n_graphs += 1
 
-    # ---- rmsnorm: T = 8 decode rows / 32 chunk rows, E = 512
+    # ---- rmsnorm: T = 8 decode rows / 32 chunk rows, E = 512; each call one
+    # kernel node in a CUDA graph
     for dt in (torch.float32, torch.bfloat16):
         for T in (8, 32, 33):
             x, s = randn(T, 512, dtype=dt), 0.1 * randn(512, dtype=dt)
-            note("rmsnorm", f"T={T} {dtype_name(dt)}",
+            case = f"T={T} {dtype_name(dt)}"
+            note("rmsnorm", case,
                  compare("rmsnorm", ops.rmsnorm(x, s), ref.ref_rmsnorm(x, s),
                          dt, torch))
+            one_kernel("rmsnorm", case, lambda: ops.rmsnorm(x, s))
+
+    # ---- rmsnorm_residual: the residual add fused into the norm, at the
+    # rows a step hands over (8 decode, 32 chunk, 160 a whole prompt) and
+    # both models' widths: the sum bitwise x + r, the norm bitwise
+    # ops.rmsnorm(x + r) (so the fused model's logits are the unfused
+    # ones), and within tolerance of the plain version
+    for dt in (torch.float32, torch.bfloat16):
+        for T in (8, 32, 160):
+            for E in (512, 1024):
+                x, r = randn(T, E, dtype=dt), randn(T, E, dtype=dt)
+                s = 0.1 * randn(E, dtype=dt)
+                case = f"T={T} E={E} {dtype_name(dt)}"
+                xs, y = ops.rmsnorm_residual(x, r, s)
+                check(torch.equal(xs, x + r),
+                      f"rmsnorm_residual {case}: the sum is not bitwise x + r")
+                check(torch.equal(y, ops.rmsnorm(x + r, s)),
+                      f"rmsnorm_residual {case}: the norm is not bitwise "
+                      f"ops.rmsnorm(x + r)")
+                note("rmsnorm_residual", case, compare(
+                    "rmsnorm_residual", y, ref.ref_rmsnorm_residual(x, r, s)[1],
+                    dt, torch))
+                one_kernel("rmsnorm_residual", case,
+                           lambda: ops.rmsnorm_residual(x, r, s))
+
+    # ---- rmsnorm_gated: mamba2's gated norm over d_inner = 2048, at 8
+    # decode rows and 32 chunk rows, y and z each float32 or bf16, written
+    # in float32 or bf16
+    for ydt in (torch.float32, torch.bfloat16):
+        for zdt in (torch.float32, torch.bfloat16):
+            for odt in (torch.float32, torch.bfloat16):
+                for T in (8, 32):
+                    y, z = randn(T, 2048, dtype=ydt), 2.0 * randn(T, 2048, dtype=zdt)
+                    s = 0.1 * randn(2048, dtype=torch.bfloat16)
+                    case = (f"T={T} n=2048 y {dtype_name(ydt)} z {dtype_name(zdt)} "
+                            f"out {dtype_name(odt)}")
+                    got = ops.rmsnorm_gated(y, z, s, out_dtype=odt)
+                    check(got.dtype == odt, f"rmsnorm_gated {case}: dtype {got.dtype}")
+                    note("rmsnorm_gated", case, compare(
+                        "rmsnorm_gated", got,
+                        ref.ref_rmsnorm_gated(y, z, s, out_dtype=odt), odt, torch))
+                    one_kernel("rmsnorm_gated", case,
+                               lambda: ops.rmsnorm_gated(y, z, s, out_dtype=odt))
+    print(f"  rmsnorm family: each of {n_graphs} cases is one kernel node in a "
+          f"CUDA graph")
     x, s = randn(8, 512, dtype=torch.bfloat16), 0.1 * randn(512, dtype=torch.bfloat16)
     w1 = (1.0 + s.float()).to(torch.bfloat16)
     err = compare("rmsnorm", ops.rmsnorm(x, s), ref.ref_rmsnorm(x, s),
@@ -328,6 +390,34 @@ def phase_kernels(torch, F):
         library_ms=(time_ms(lambda: F.rms_norm(x, (512,), w1, 1e-6), torch)
                     if hasattr(F, "rms_norm") else None),
         bound_ms=b_ms, bound_by=b_by)
+    # the fused variants at the serve shapes: the residual norm over
+    # tinyllama's (8, 512) bf16 rows (x and r read, s and y written); the
+    # gated norm over mamba2's (8, 2048) decode rows in serve's dtypes (y in
+    # x's dtype, bf16; z bf16; out bf16).  No single PyTorch call computes
+    # either.
+    r = randn(8, 512, dtype=torch.bfloat16)
+    err = compare("rmsnorm_residual", ops.rmsnorm_residual(x, r, s)[1],
+                  ref.ref_rmsnorm_residual(x, r, s)[1], torch.bfloat16, torch)
+    b_ms, b_by = bound(4 * x.numel() * 2 + s.numel() * 2, 6 * x.numel(),
+                       torch.float32)
+    rows["rmsnorm_residual"] = dict(
+        shape="x, r (8, 512) bf16", max_abs_err=err,
+        ms=time_ms(lambda: ops.rmsnorm_residual(x, r, s), torch),
+        plain_ms=time_ms(lambda: ref.ref_rmsnorm_residual(x, r, s), torch),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    y, z = randn(8, 2048, dtype=torch.bfloat16), 2.0 * randn(8, 2048, dtype=torch.bfloat16)
+    sg = 0.1 * randn(2048, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    err = compare("rmsnorm_gated", ops.rmsnorm_gated(y, z, sg, out_dtype=bf),
+                  ref.ref_rmsnorm_gated(y, z, sg, out_dtype=bf), bf, torch)
+    b_ms, b_by = bound(3 * y.numel() * 2 + sg.numel() * 2, 10 * y.numel(),
+                       torch.float32)
+    rows["rmsnorm_gated"] = dict(
+        shape="y, z (8, 2048) bf16 -> bf16", max_abs_err=err,
+        ms=time_ms(lambda: ops.rmsnorm_gated(y, z, sg, out_dtype=bf), torch),
+        plain_ms=time_ms(lambda: ref.ref_rmsnorm_gated(y, z, sg, out_dtype=bf),
+                         torch),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
     # ---- matmul: every main-path product of both models at the rows a step
     # hands over (8 decode, 32 paged chunk, 33 ragged, 40 k=4 verify, 160 a
@@ -336,6 +426,7 @@ def phase_kernels(torch, F):
     # paths feed them.  Every bf16 case runs twice: bitwise-equal outputs.
     # Every case is one kernel node in a CUDA graph (no second reduction
     # kernel, no memset).
+    n_graphs = 0
     for dt in (torch.float32, torch.bfloat16):
         for tag, K, N, nt in MATMULS + MATMULS_RAGGED:
             b = (0.02 * randn(N, K) if nt else 0.02 * randn(K, N)).to(dt)
@@ -766,55 +857,123 @@ def phase_kernels(torch, F):
                              torch),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
-    # ---- decode attention over a contiguous cache: the serve shape (B 8,
-    # H 8, S 256, D 64) with full and ragged lengths, and ragged cases at
-    # S = 300 (no multiple of the 32-key tile) with D 32 and 128 and an idle
-    # lane (length 1).  Every key at or past a row's length is NaN in the
-    # kernel's input (the plain version gets the clean cache): a kernel that
-    # read one would return NaN
+    # ---- decode attention over contiguous lanes, float (decode_attention)
+    # and fixed-scale int8 (decode_attention_i8, dq = 1/16): the serve shape
+    # (B 8, H 8, S 256, D 64) and tinyllama's longest lane (S 1024) with
+    # full, ragged and 16-key-tile-edge lengths, zero lengths and idle lanes
+    # (length 1), and S = 300 (no multiple of a tile) at D 32 and 128.
+    # Every float key and value at or past a row's length is NaN in the
+    # kernel's input (the plain version gets the clean lanes): a kernel that
+    # read one would return NaN (int8 has no NaN; its lanes are whole).
+    # Every bf16 case runs twice (bitwise-equal outputs); every case is one
+    # kernel node in a CUDA graph; a graph of each variant, replayed after
+    # `length` changes in place, equals the eager call.
+    DQ = 1.0 / 16.0
+
     def poisoned(t, length):
         t = t.clone()
         for b, L in enumerate(length.tolist()):
             t[b, :, L:] = float("nan")
         return t
 
-    def contig_check(case, Bc, Hc, S, Dc, lengths, dt):
+    def contig_inputs(Bc, Hc, S, Dc, dt, quant):
         qc = randn(Bc, Hc, Dc, dtype=dt)
-        kc, vc = randn(Bc, Hc, S, Dc, dtype=dt), randn(Bc, Hc, S, Dc, dtype=dt)
+        if quant:
+            kc, vc = (torch.randint(-127, 128, (Bc, Hc, S, Dc), generator=gen,
+                                    device="cuda", dtype=torch.int8)
+                      for _ in range(2))
+        else:
+            kc, vc = randn(Bc, Hc, S, Dc, dtype=dt), randn(Bc, Hc, S, Dc, dtype=dt)
+        return qc, kc, vc
+
+    def contig_fns(qc, kc, vc, lc, quant, kin=None, vin=None):
+        """(kernel name, kernel call, plain call); the kernel reads kin/vin
+        (default kc/vc)."""
+        kin = kc if kin is None else kin
+        vin = vc if vin is None else vin
+        if quant:
+            return ("decode_attention_i8",
+                    lambda: ops.decode_attention_i8(qc, kin, vin, lc, DQ),
+                    lambda: ref.ref_decode_attention_i8(qc, kc, vc, lc, DQ))
+        return ("decode_attention", lambda: ops.decode_attention(qc, kin, vin, lc),
+                lambda: ref.ref_decode_attention(qc, kc, vc, lc))
+
+    def contig_check(case, Bc, Hc, S, Dc, lengths, dt, quant):
+        qc, kc, vc = contig_inputs(Bc, Hc, S, Dc, dt, quant)
         lc = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        err = compare("decode_attention",
-                      ops.decode_attention(qc, poisoned(kc, lc), poisoned(vc, lc), lc),
-                      ref.ref_decode_attention(qc, kc, vc, lc), dt, torch)
-        note("decode_attention", f"{case} {dtype_name(dt)}", err)
+        kin, vin = (kc, vc) if quant else (poisoned(kc, lc), poisoned(vc, lc))
+        kname, call, plain = contig_fns(qc, kc, vc, lc, quant, kin, vin)
+        got = call()
+        err = compare(kname, got, plain(), dt, torch)
+        case = f"{case} {dtype_name(dt)}{' q, int8 lanes' if quant else ''}"
+        note(kname, case, err)
+        if dt == torch.bfloat16:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
         return err
 
+    n_graphs = 0
     for dt in (torch.float32, torch.bfloat16):
-        contig_check("serve shape B=8 H=8 S=256 D=64 full lengths", 8, 8, 256, 64,
-                     [256] * 8, dt)
-        contig_check("serve shape, ragged lengths", 8, 8, 256, 64,
-                     [1, 13, 31, 32, 33, 150, 255, 1], dt)
-        for Dc in (32, 128):
-            contig_check(f"B=6 H=4 S=300 D={Dc} lengths 1,13,150,256,300 + idle",
-                         6, 4, 300, Dc, [1, 13, 150, 256, 300, 1], dt)
-    Bc, Hc, S, Dc = 8, 8, 256, 64
-    qc = randn(Bc, Hc, Dc, dtype=torch.bfloat16)
-    kc = randn(Bc, Hc, S, Dc, dtype=torch.bfloat16)
-    vc = randn(Bc, Hc, S, Dc, dtype=torch.bfloat16)
-    lc = torch.full((Bc,), S, dtype=torch.int32, device="cuda")
-    err = compare("decode_attention", ops.decode_attention(qc, kc, vc, lc),
-                  ref.ref_decode_attention(qc, kc, vc, lc), torch.bfloat16, torch)
-    toks = int(lc.sum())
-    # bytes: q read and o written, each row's valid keys and values read once
-    b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * Hc * toks * Dc * 2 + Bc * 4,
-                       4 * Dc * Hc * toks, torch.bfloat16)
-    kmask = (torch.arange(S, device="cuda")[None, :] < lc[:, None])[:, None, None]
-    rows["decode_attention"] = dict(
-        shape=f"B={Bc} H={Hc} S={S} D={Dc} lengths all {S} bf16", max_abs_err=err,
-        ms=time_ms(lambda: ops.decode_attention(qc, kc, vc, lc), torch),
-        plain_ms=time_ms(lambda: ref.ref_decode_attention(qc, kc, vc, lc), torch),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            qc[:, :, None], kc, vc, attn_mask=kmask), torch),
-        bound_ms=b_ms, bound_by=b_by)
+        for quant in (False, True):
+            for S, lens in (
+                    (256, [256] * 8),
+                    (256, [1, 13, 31, 32, 33, 150, 255, 1]),
+                    (256, [16, 32, 48, 64, 128, 240, 0, 1]),
+                    (1024, [1024] * 8),
+                    (1024, [0, 1, 16, 17, 511, 512, 1000, 1024])):
+                contig_check(f"B=8 H=8 S={S} D=64 lengths={lens}", 8, 8, S, 64,
+                             lens, dt, quant)
+            for Dc in (32, 128):
+                contig_check(f"B=6 H=4 S=300 D={Dc} lengths 0,13,150,256,300 + idle",
+                             6, 4, 300, Dc, [0, 13, 150, 256, 300, 1], dt, quant)
+    print(f"  decode attention: each of {n_graphs} cases is one kernel node in a "
+          f"CUDA graph")
+    for dt in (torch.float32, torch.bfloat16):
+        for quant in (False, True):
+            qc, kc, vc = contig_inputs(8, 8, 256, 64, dt, quant)
+            len_ = torch.tensor([256, 1, 13, 255, 0, 64, 200, 1], dtype=torch.int32,
+                                device="cuda")
+            kname, call, _ = contig_fns(qc, kc, vc, len_, quant)
+            replay_check(kname, dtype_name(dt), call, len_,
+                         [40, 3, 200, 16, 1, 129, 64, 0])
+    print("  decode attention: each variant's CUDA graph, replayed after length "
+          "changed in place, equals the eager call (float32 and bf16)")
+
+    # times (bf16, L2-warm) at the serve shape and at S 1024, full lengths;
+    # the rows of the JSON line are the serve shape's
+    Bc, Hc, Dc = 8, 8, 64
+    for quant in (False, True):
+        by_shape = []
+        for S in (256, 1024):
+            qc, kc, vc = contig_inputs(Bc, Hc, S, Dc, torch.bfloat16, quant)
+            lc = torch.full((Bc,), S, dtype=torch.int32, device="cuda")
+            kname, call, plain = contig_fns(qc, kc, vc, lc, quant)
+            err = compare(kname, call(), plain(), torch.bfloat16, torch)
+            toks = int(lc.sum())
+            # bytes: q read and o written, each row's valid keys and values
+            # read once (one byte an element in int8)
+            elt = 1 if quant else 2
+            b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * Hc * toks * Dc * elt + Bc * 4,
+                               (6 if quant else 4) * Dc * Hc * toks,
+                               torch.int8 if quant else torch.bfloat16)
+            kmask = (torch.arange(S, device="cuda")[None, :] < lc[:, None])[:, None, None]
+            p = _dec.contiguous_plan(Bc, Hc, S, Dc, torch.bfloat16, quant)
+            r = dict(
+                shape=f"B={Bc} H={Hc} S={S} D={Dc} lengths all {S} q bf16, "
+                      f"{'int8' if quant else 'bf16'} lanes",
+                max_abs_err=err, plan=f"nw={p.nw} split={p.split} "
+                                      f"blocks={p.split * Bc * Hc}",
+                ms=time_ms(call, torch), plain_ms=time_ms(plain, torch),
+                library_ms=None if quant else time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qc[:, :, None], kc, vc, attn_mask=kmask), torch),
+                bound_ms=b_ms, bound_by=b_by)
+            lib = "none" if quant else f"{1e3 * r['library_ms']:.2f}"
+            print(f"  {kname} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+                  f"bound_us={1e3 * b_ms:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+                  f"sdpa_us={lib} [{r['plan']}]")
+            by_shape.append(r)
+        rows[kname] = dict(by_shape[0], by_shape=by_shape)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -1207,7 +1366,10 @@ PHASE_MIXER = {"serve": "paged_decode_attention",
                "serve-ssm": "ssd_scan",
                "serve-ssm-int8": "ssd_scan_i8",
                "serve-contig": "decode_attention",
-               "serve-contig-int8": "decode_attention"}
+               "serve-contig-int8": "decode_attention_i8"}
+# the norm kernel's three variants: alone (the first layer's input norm),
+# with the residual add before it, and mamba2's gated norm
+NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
 
 
 SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
@@ -1301,11 +1463,27 @@ def phase_serve(torch, name):
         check(eng.slab_allocator.n_free == eng.n_slabs - 1,
               f"{name}: slabs leaked")
     steps = [kd for kd in ("decode", "verify") if calls[kd]]
-    for kn in ("rmsnorm", "matmul"):
-        check(all(per_phase[kd][kn] > 0 for kd in ["prefill"] + steps),
-              f"{name}: {kn} not launched in every step kind {per_phase}")
+    check(all(per_phase[kd]["matmul"] > 0 for kd in ["prefill"] + steps),
+          f"{name}: matmul not launched in every step kind {per_phase}")
     mixer = PHASE_MIXER[name]
     n_layers = cfg.n_layers
+    # every step runs the norm family once per norm of the model: the plain
+    # norm for the first layer's input, every later norm with the residual
+    # add before it fused in (tinyllama 2L of them, mamba2 L), and mamba2's
+    # gated norm in every layer; each decode tick launches as many counted
+    # kernels as before the fusion (tinyllama 10L + 2, mamba2 8L + 2)
+    ssm = arch.startswith("mamba2")
+    per_norm = {"rmsnorm": 1, "rmsnorm_residual": n_layers * (1 if ssm else 2),
+                "rmsnorm_gated": n_layers if ssm else 0}
+    for kd in ["prefill"] + steps:
+        got = {kn: per_phase[kd][kn] for kn in NORMS}
+        check(got == {kn: v * calls[kd] for kn, v in per_norm.items()},
+              f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
+              f"{per_norm} per step")
+    per_tick = (8 if ssm else 10) * n_layers + 2
+    check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
+          f"{name}: {sum(per_phase['decode'].values())} kernels in "
+          f"{calls['decode']} decode ticks, not {per_tick} per tick")
     if not eng.paged:
         # whole-prompt flash attention in every prefill, the decode kernel
         # in every decode tick, once per layer each; no other mixer kernel
@@ -1316,8 +1494,9 @@ def phase_serve(torch, name):
               f"{name}: flash_attention not launched {n_layers} times per "
               f"prefill and {mixer} {n_layers} times per decode tick {per_phase}")
         others = [kn for kn, v in launches.items()
-                  if v and kn not in ("rmsnorm", "matmul", "flash_attention", mixer)]
-        check(not others, f"{name}: paged or SSM kernels launched {others}")
+                  if v and kn not in NORMS + ("matmul", "flash_attention", mixer)]
+        check(not others, f"{name}: paged, SSM or other decode kernels "
+                          f"launched {others}")
     elif eng.has_slabs:
         n_ssm = n_layers
         check(per_phase["prefill"][mixer] == n_ssm * calls["prefill"] > 0 and
@@ -1325,7 +1504,7 @@ def phase_serve(torch, name):
               f"{name}: {mixer} not launched {n_ssm} times per prefill chunk "
               f"and never in a decode tick {per_phase}")
         others = [kn for kn, v in launches.items()
-                  if v and kn not in ("rmsnorm", "matmul", mixer)]
+                  if v and kn not in NORMS + ("matmul", mixer)]
         check(not others, f"{name}: unexpected kernels launched {others}")
     else:
         check(per_phase["prefill"]["flash_attention"] > 0,
@@ -1335,11 +1514,12 @@ def phase_serve(torch, name):
         check(launches["flash_attention"] > 0,
               f"{name}: kernel flash_attention never launched")
     if eng.paged:
-        check(launches["decode_attention"] == 0,
-              f"{name}: the contiguous decode_attention launched in a paged phase")
+        check(launches["decode_attention"] == launches["decode_attention_i8"] == 0,
+              f"{name}: the contiguous decode attention launched in a paged phase")
     if k:
         check(stats.spec_accepted > 0, f"{name}: no draft accepted")
-    for kn in ("rmsnorm", "matmul", mixer):
+    for kn in ("rmsnorm", "rmsnorm_residual", "matmul", mixer) + \
+            (("rmsnorm_gated",) if ssm else ()):
         check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
     ttft = np.asarray(stats.ttft_s) * 1e3
     per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
@@ -1421,7 +1601,12 @@ def phase_profile(torch, name, serve_wall_s):
              ("ssd_scan", "ssd_scan_i8")),
             ("paged attention", ("paged_mma_kernel", "paged_simt_kernel"),
              ("paged_decode_attention", "paged_decode_attention_i8",
-              "paged_verify_attention", "paged_verify_attention_i8"))):
+              "paged_verify_attention", "paged_verify_attention_i8")),
+            # the same tensor-core kernel, with the contiguous policy, in
+            # the contiguous phases (no paged wrapper launches there)
+            ("contiguous decode attention", ("paged_mma_kernel", "contig_simt_kernel"),
+             ("decode_attention", "decode_attention_i8")),
+            ("the norm family", ("_rmsnorm_kernel",), NORMS)):
         n_launch = sum(launches[w] for w in wrappers)
         if not n_launch:
             continue
@@ -1442,6 +1627,10 @@ _PAGED = "src/repro_torch/kernels/csrc/paged_decode.cu"
 KERNELS = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm.py",
                 "src/repro/kernels/rmsnorm.py:25"),
+    "rmsnorm_residual": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+                         "src/repro/kernels/rmsnorm.py:25"),
+    "rmsnorm_gated": ("triton", "src/repro_torch/kernels/rmsnorm.py",
+                      "src/repro/kernels/rmsnorm.py:25"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:36"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1458,8 +1647,8 @@ KERNELS = {
                  "src/repro/kernels/ssd_scan.py:84"),
     "ssd_scan_i8": ("cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssd_scan.py:67"),
-    "decode_attention": ("cuda", "src/repro_torch/kernels/csrc/decode_attention.cu",
-                         "src/repro/kernels/decode_attention.py:59"),
+    "decode_attention": ("cuda", _PAGED, "src/repro/kernels/decode_attention.py:59"),
+    "decode_attention_i8": ("cuda", _PAGED, "src/repro/kernels/decode_attention.py:59"),
 }
 
 

@@ -9,9 +9,9 @@ Each round runs PARENT, CHANGE, CHANGE, PARENT, every run in a fresh
 process from that checkout's own ``chip_smoke.py``: it builds the
 checkout's kernels, runs its kernel phase (``phase_kernels``: every kernel
 against its plain version, and each kernel's graph-captured, L2-warm time
-at the main path's shapes), then traces the given serve phases
-(``phase_profile``: the phase's workload under torch.profiler) and keeps
-their device time.  Prints one line per run, then one JSON line with every
+at the main path's shapes) and times the contiguous decode at S 256 and
+1024, then traces the given serve phases (``phase_profile``: the phase's
+workload under torch.profiler) and keeps their device time.  Prints one line per run, then one JSON line with every
 reading.  Two versions are compared only inside one call: cards and hosts
 differ between calls.
 """
@@ -38,6 +38,17 @@ with contextlib.redirect_stdout(io.StringIO()):
     rows = cs.phase_kernels(torch, F)
 out = {"kernel_us": {k: 1e3 * r["ms"] for k, r in rows.items()},
        "device_ms": {}}
+# the contiguous decode at the serve shape and at tinyllama's longest lane,
+# through the entry point both checkouts have (bf16, full lengths)
+from repro_torch.kernels import ops
+g = torch.Generator(device="cuda").manual_seed(0)
+for S in (256, 1024):
+    q = torch.randn(8, 8, 64, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(8, 8, S, 64, generator=g, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    L = torch.full((8,), S, dtype=torch.int32, device="cuda")
+    out["kernel_us"][f"decode_attention_S{S}"] = 1e3 * cs.time_ms(
+        lambda: ops.decode_attention(q, k, v, L), torch)
 for name in sys.argv[1:]:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):

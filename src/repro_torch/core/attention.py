@@ -78,16 +78,22 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
-                     scale=None):
+                     scale=None, kv_scale=None):
     """q: (B, G, R, D); caches: (B, G, S_slots, D); slot_pos: (B, S_slots)
     absolute position held by each slot (-1 = empty); cur_pos: (B,).  On the
-    card the kernel reads slots [0, cur_pos] (module docstring)."""
+    card the kernel reads slots [0, cur_pos] (module docstring), and takes
+    int8 caches as they are stored, with their fixed dequantization scale
+    ``kv_scale``; the plain path takes caches in q's dtype."""
     B, G, R, D = q.shape
     if q.is_cuda:
         _card_layout("decode-attention", R, window)
         out = ops.decode_attention(q[:, :, 0].contiguous(), k_cache, v_cache,
-                                   (cur_pos + 1).to(torch.int32), scale=scale)
+                                   (cur_pos + 1).to(torch.int32), scale=scale,
+                                   kv_scale=kv_scale)
         return out[:, :, None]
+    if kv_scale is not None:
+        raise ValueError("decode_attention: the plain path takes caches "
+                         "dequantized to q's dtype, not kv_scale")
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bgrd,bgsd->bgrs", q.float(), k_cache.float()) * scale
     valid = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])

@@ -3,7 +3,8 @@
 Port of the parts of the JAX package's ``core/blocks.py`` that serving of
 attention-only and pure-SSM decoders runs at dp=1: ``attn_mixer`` over a
 contiguous lane (decode, and whole-prompt prefill; ``_kv_q``/``_kv_dq``
-with the fixed ``KVQ`` int8 scale, ``_kv_write``, ``_kv_fill``) or over
+with the fixed ``KVQ`` int8 scale, the card's decode kernel reading int8
+lanes in place, ``_kv_write``, ``_kv_fill``) or over
 the page pools (decode, speculative-verify and prefill-chunk modes, over
 float or int8 pools; ``_row_quant``, ``_page_write``), ``dense_ffn``,
 ``ssm_mixer`` (decode, whole-sequence prefill from a zero state, and
@@ -27,7 +28,7 @@ from repro_torch.core.attention import (decode_attention, flash_attention,
                                         gather_kv, paged_decode_attention,
                                         paged_verify_attention)
 from repro_torch.core.layers import activation, apply_norm, apply_rope, \
-    rmsnorm
+    gated_rmsnorm
 from repro_torch.kernels import ops
 
 KVQ = {"scale": 16.0}  # fixed-point int8 scale of the contiguous KV lanes
@@ -129,10 +130,13 @@ def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
                                     positions, pos, window, cfg)
     elif mode == "decode":
         _kv_write(kv_cache, kg, vg, pos)
-        out = decode_attention(
-            qg[:, :, :, 0], _kv_dq(kv_cache["k"], qg.dtype),
-            _kv_dq(kv_cache["v"], qg.dtype), kv_cache["pos"], pos,
-            window=window, scale=cfg.attn_scale)
+        k, v, dq = kv_cache["k"], kv_cache["v"], {}
+        if k.dtype == torch.int8 and qg.is_cuda:     # read as int8 on the card
+            dq = dict(kv_scale=1.0 / KVQ["scale"])
+        else:
+            k, v = _kv_dq(k, qg.dtype), _kv_dq(v, qg.dtype)
+        out = decode_attention(qg[:, :, :, 0], k, v, kv_cache["pos"], pos,
+                               window=window, scale=cfg.attn_scale, **dq)
         out = out[:, :, :, None, :]                  # (B, G, R, 1, D)
     else:
         out = flash_attention(qg, kg, vg, causal=cfg.causal, window=window,
@@ -251,8 +255,9 @@ def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
     ssm_cache: {"state" (B, H, P, N) float32, or int8 with "state_scale"
     (B, H), "conv_x" (B, K-1, H*P), "conv_B"/"conv_C" (B, K-1, N)}.
     -> (out (B, S, E), new cache with a float32 state).  The gated norm
-    over d_inner runs through ``layers.rmsnorm`` (the rmsnorm kernel with
-    n = H*P), which at tp=1 is JAX's ``rmsnorm_from_sumsq``."""
+    over d_inner, JAX's ``rmsnorm_from_sumsq`` at tp=1, runs as one call of
+    ``layers.gated_rmsnorm`` (the rmsnorm kernel's gated variant with n =
+    H*P), which writes the out projection's input dtype directly."""
     if mode not in ("decode", "prefill"):
         raise NotImplementedError(f"ssm_mixer mode '{mode}' is not ported")
     whole = mode == "prefill" and chunk_last_idx is None
@@ -289,9 +294,9 @@ def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
         y, state = ssd.ssd_chunked(xi, dt, Bm, Cm, A, ps["D"],
                                    state0=ssm_cache["state"],
                                    state0_scale=ssm_cache.get("state_scale"))
-    g = (y * F.silu(z.float())).reshape(B, S, H * Pd)
-    g = rmsnorm(g, ps["norm_scale"], cfg.norm_eps)
-    out = _mm(g.to(xn.dtype), ps["out"].reshape(H * Pd, E))
+    g = gated_rmsnorm(y.reshape(B, S, H * Pd), z.reshape(B, S, H * Pd),
+                      ps["norm_scale"], cfg.norm_eps, xn.dtype)
+    out = _mm(g, ps["out"].reshape(H * Pd, E))
     return out, {"state": state, "conv_x": cs_x, "conv_B": cs_B,
                  "conv_C": cs_C}
 
@@ -335,10 +340,16 @@ def _paged_ssm(xn, ps, cfg, lay, mode, slab_pool, pages):
 
 
 def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
-                  pos=None, pages=None):
+                  pos=None, pages=None, delta=None):
     """One layer: an attention or SSM mixer, then a dense FFN unless the
-    layer has none.  -> (x, cache updated in place)."""
-    h = apply_norm(x, p["ln1"], cfg)
+    layer has none.  The residual stream is carried as ``x`` and a pending
+    ``delta`` (None before the first layer): each residual add is fused
+    into the norm after it (``layers.add_rmsnorm``), so the layer opens
+    with the norm of ``x + delta``, and the add of its last sublayer's
+    output is left pending for the next layer or the final norm.
+    -> ((x, delta), cache updated in place); ``x + delta`` is the layer's
+    output."""
+    x, h = apply_norm(x, p["ln1"], cfg, delta)
     if spec.mixer == MIX_ATTN:
         partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
                                  cache["kv"], positions, pos, pages)
@@ -355,8 +366,7 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "
             f"comes with hymba-1.5b, ROADMAP Queue 1 item 10)")
-    x = x + partial
-    if spec.ffn != FFN_NONE:
-        h = apply_norm(x, p["ln2"], cfg)
-        x = x + dense_ffn(h, p["ffn"], cfg)
-    return x, cache
+    if spec.ffn == FFN_NONE:
+        return (x, partial), cache
+    x, h = apply_norm(x, p["ln2"], cfg, partial)
+    return (x, dense_ffn(h, p["ffn"], cfg)), cache

@@ -1,7 +1,9 @@
 """Normalization, rotary embeddings, activations, embedding and LM head.
 
 Port of the JAX package's ``core/layers.py`` at tp=1 (every ``psum`` there
-is the identity on one device).  ``rmsnorm`` and the LM head go through
+is the identity on one device).  ``rmsnorm``, ``add_rmsnorm`` (the
+residual add fused into the norm after it), ``gated_rmsnorm`` (mamba2's
+gated norm, ``rmsnorm_from_sumsq`` at tp=1) and the LM head go through
 ``kernels.ops``, so on the card they run the Hopper kernels.
 """
 from __future__ import annotations
@@ -21,8 +23,31 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return y.reshape(x.shape)
 
 
-def apply_norm(x, p, cfg):
-    return rmsnorm(x, p["scale"], cfg.norm_eps)
+def add_rmsnorm(x, delta, scale, eps: float = 1e-6):
+    """``s = x + delta`` and ``rmsnorm(s)`` in one pass -> (s, norm), both
+    bitwise what the add and ``rmsnorm`` give one after the other."""
+    E = x.shape[-1]
+    s, y = ops.rmsnorm_residual(x.reshape(-1, E).contiguous(),
+                                delta.reshape(-1, E).contiguous(), scale, eps)
+    return s.reshape(x.shape), y.reshape(x.shape)
+
+
+def gated_rmsnorm(y, z, scale, eps: float = 1e-6, out_dtype=None):
+    """RMSNorm of ``y * silu(float(z))`` over the last axis, in float32,
+    cast to ``out_dtype`` (default float32)."""
+    E = y.shape[-1]
+    out = ops.rmsnorm_gated(y.reshape(-1, E).contiguous(),
+                            z.reshape(-1, E).contiguous(), scale, eps,
+                            out_dtype)
+    return out.reshape(y.shape)
+
+
+def apply_norm(x, p, cfg, delta=None):
+    """The residual stream with its pending ``delta`` added, and its norm
+    -> (x + delta, rmsnorm(x + delta)); with no delta (x, rmsnorm(x))."""
+    if delta is not None:
+        return add_rmsnorm(x, delta, p["scale"], cfg.norm_eps)
+    return x, rmsnorm(x, p["scale"], cfg.norm_eps)
 
 
 def activation(x, kind: str):

@@ -21,7 +21,9 @@ with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
   "norm_scale": (reps, H * P), "out": (reps, H, P, E)}`` (no FFN).
 
 ``A_log`` and ``dt_bias`` stay float32 whatever the weight dtype, as in
-JAX.  ``_run_stack`` loops over ``reps`` in Python where JAX scans.
+JAX.  ``_run_stack`` loops over ``reps`` in Python where JAX scans, and
+carries the residual stream as (x, pending delta) so that every residual
+add runs inside the norm after it.
 """
 from __future__ import annotations
 
@@ -241,15 +243,27 @@ class Decoder(nn.Module):
 def _run_stack(x, stack_params, groups, cfg, plan, lay, mode, positions,
                pos=None, cache=None, pages=None):
     """Every layer group, each repetition in turn; the pools in ``cache``
-    (aligned with ``groups``) are updated in place."""
+    (aligned with ``groups``) are updated in place.  The residual stream
+    is carried as a pair (x, pending delta), each add fused into the norm
+    after it (``layer_forward``) -> ((x, delta), cache): the stack's output
+    is ``x + delta``, which the caller folds into the final norm
+    (``final_norm``)."""
+    delta = None
     for group, gparams, gcache in zip(groups, stack_params, cache, strict=True):
         for r in range(group.n_reps):
             for pi, spec in enumerate(group.pattern):
                 p_rep = tree_map(lambda a, r=r: a[r], gparams[pi])
                 c_rep = tree_map(lambda a, r=r: a[r], gcache[pi])
-                x, _ = layer_forward(x, p_rep, c_rep, cfg, plan, lay, spec,
-                                     mode, positions, pos, pages)
-    return x, cache
+                (x, delta), _ = layer_forward(x, p_rep, c_rep, cfg, plan,
+                                              lay, spec, mode, positions,
+                                              pos, pages, delta)
+    return (x, delta), cache
+
+
+def final_norm(params, x, delta, cfg):
+    """The final norm of the stack's output ``x + delta``, the last
+    residual add fused into it."""
+    return apply_norm(x, params["final_norm"], cfg, delta)[1]
 
 
 def embed_tokens(params, tokens):
@@ -271,9 +285,10 @@ def forward_prefill(params, tokens, cache, cfg, plan, lay):
     positions = torch.arange(S, device=tokens.device,
                              dtype=torch.int32).expand(B, S)
     x = embed_tokens(params, tokens)
-    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
-                          lay, "prefill", positions, cache=cache)
-    x = apply_norm(x[:, -1:], params["final_norm"], cfg)
+    (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
+                                   cfg, plan, lay, "prefill", positions,
+                                   cache=cache)
+    x = final_norm(params, x[:, -1:], delta[:, -1:], cfg)
     return final_logits(params, x)[:, 0], cache
 
 
@@ -282,10 +297,10 @@ def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages=None):
     pools.  tokens: (B, 1); pos: (B,) -> (logits (B, V), cache)."""
     positions = pos[:, None]
     x = embed_tokens(params, tokens)
-    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
-                          lay, "decode", positions, pos=pos, cache=cache,
-                          pages=pages)
-    x = apply_norm(x, params["final_norm"], cfg)
+    (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
+                                   cfg, plan, lay, "decode", positions,
+                                   pos=pos, cache=cache, pages=pages)
+    x = final_norm(params, x, delta, cfg)
     return final_logits(params, x)[:, 0], cache
 
 
@@ -305,10 +320,10 @@ def forward_verify(params, cache, tokens, pos, qlen, cfg, plan, lay, pages):
                             pos[:, None] + cols[None, :],
                             torch.full_like(cols, -1)[None, :])
     x = embed_tokens(params, tokens)
-    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
-                          lay, "verify", positions, pos=pos, cache=cache,
-                          pages=pages)
-    x = apply_norm(x, params["final_norm"], cfg)
+    (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
+                                   cfg, plan, lay, "verify", positions,
+                                   pos=pos, cache=cache, pages=pages)
+    x = final_norm(params, x, delta, cfg)
     return final_logits(params, x), cache
 
 
@@ -328,8 +343,9 @@ def forward_prefill_chunk(params, cache, tokens, chunk_start: int,
     pages = {**pages, "chunk_start": int(chunk_start),
              "last_idx": int(last_idx)}
     x = embed_tokens(params, tokens)
-    x, cache = _run_stack(x, params["stacks"], cfg.layer_groups(), cfg, plan,
-                          lay, "prefill", positions, cache=cache, pages=pages)
-    x = x[:, last_idx:last_idx + 1]
-    x = apply_norm(x, params["final_norm"], cfg)
+    (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
+                                   cfg, plan, lay, "prefill", positions,
+                                   cache=cache, pages=pages)
+    keep = slice(last_idx, last_idx + 1)
+    x = final_norm(params, x[:, keep], delta[:, keep], cfg)
     return final_logits(params, x)[:, 0], cache

@@ -1,7 +1,9 @@
 // Paged attention for Hopper over the slot's pages, in four variants that
 // share one kernel: decode (one query per slot) and speculative verify
 // (nq <= 8 queries per slot), each over float pools (in q's dtype) or int8
-// pools with one float32 scale per token row.
+// pools with one float32 scale per token row.  The same kernel serves
+// decode over a contiguous cache (two more variants, float lanes and
+// fixed-scale int8 lanes; see "Contiguous lanes" below).
 //
 //   q (B, H, nq, D) (decode: nq = 1, q (B, H, D)); k/v pools (n_pages, H,
 //   psz, D); int8 scales k_scale/v_scale (n_pages, psz) float32;
@@ -73,6 +75,33 @@
 // into registers (int8 rows dequantised through the row's scale) and
 // scored against every query that may see it; the warps' states merge
 // through shared memory.
+//
+// Contiguous lanes (repro_decode_attention, repro_decode_attention_i8):
+//   q (B, H, D); k/v (B, H, S, D) in q's dtype, or int8 whose values times
+//   one float `dq` are the keys and values (the engine's fixed-scale lanes,
+//   dq = 1/16); length (B,) int32 -> o (B, H, D) in q's dtype; key j of row
+//   b is valid when j < length[b] (clamped to S), and no key at or past it
+//   is read.
+// Replaces: src/repro/kernels/decode_attention.py::decode_attention
+//   (_decode_kernel; pallas_call at :72).
+// Bound on this card: each (row, head) reads its valid keys and values
+//   once (one byte an element in int8), ~4 operations per element: bytes.
+//   At the serve shape (B 8, H 8, S 256, D 64, bf16) 4.2 MB, 1.26 us; what
+//   limits it is latency, as above.
+// Design: a lane set (B, H, S, D) is a pool of B pages of psz = S rows in
+//   which row b's one page is page b (n_max = 1), so the bfloat16 kernel
+//   above serves it with a contiguous addressing policy (template CONTIG):
+//   key j of row b is row (b H + h) S + j, computed, with no block table
+//   read (one dependent round trip fewer).  Its plan is the paged plan at
+//   nq 1, psz S, n_max 1 (kernels/decode_attention.py::contiguous_plan),
+//   so the tiles of a long lane are dealt over the cluster as a long page's
+//   are.  int8 lanes enter the tensor cores exactly; dq, a power of two,
+//   scales each score column and is folded into P, both exact, so the
+//   result is that of the bf16 kernel on the dequantised lanes, up to the
+//   order of accumulation, with no dequantised copy of the cache ever made.
+//   float32 q keeps the CUDA-core kernel of the first contiguous port
+//   (contig_simt_kernel): eight warps taking 32-key tiles of [0, length),
+//   one key a lane, int8 lanes dequantised on load.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <type_traits>
@@ -96,6 +125,7 @@ using repro::mma_bf16;
 using repro::NEG;
 using repro::pack_bf16;
 using repro::to_float;
+using repro::warp_max;
 using repro::warp_sum;
 
 constexpr int MAX_NQ = 8;     // verify queries per slot (k + 1 <= 8)
@@ -133,14 +163,16 @@ __device__ __forceinline__ unsigned pack_i8(const int8_t* p, int step) {
 }
 
 // Grid (split, H, B), cluster (split, 1, 1), nw warps.  PT: the pools'
-// element type, bf16 or int8 (then KS/VS hold the rows' scales).
-template <int D, typename PT>
+// element type, bf16 or int8 (then KS/VS hold the rows' scales).  CONTIG:
+// contiguous lanes, a pool of B pages of psz = S rows, row b's page being
+// b (n_max 1; BT, KS and VS unused; int8 lanes dequantised by dq).
+template <int D, typename PT, bool CONTIG>
 __global__ void __launch_bounds__(NW_MAX * 32)
 paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
                  const PT* __restrict__ VP, const float* __restrict__ KS,
                  const float* __restrict__ VS, const int* __restrict__ BT,
                  const int* __restrict__ LEN, bf16* __restrict__ O, int H, int nq, int psz,
-                 int n_max, float scale_log2, int nw, int split) {
+                 int n_max, float scale_log2, float dq, int nw, int split) {
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   constexpr int EPC = 16 / sizeof(PT);          // pool elements per 16-byte chunk
   constexpr int CPR = D / EPC;                  // chunks per pool row
@@ -165,7 +197,14 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   const int n_tiles = (max(n_kv, 0) + KT - 1) / KT;
   const int t_first = rank + split * warp;
   const int my_n = t_first < n_tiles ? (n_tiles - 1 - t_first) / (split * nw) + 1 : 0;
-  const int* bt = BT + (size_t)b * n_max;
+  const int* bt = CONTIG ? nullptr : BT + (size_t)b * n_max;
+  // the pool row holding key kpos (< n_kv): row b's own lane, or its page
+  auto pool_row = [&](int kpos) -> size_t {
+    if constexpr (CONTIG)
+      return ((size_t)b * H + h) * psz + kpos;
+    else
+      return ((size_t)bt[kpos / psz] * H + h) * psz + kpos % psz;
+  };
 
   auto issue = [&](int i) {                     // the warp's i-th tile into stage i % 2
     unsigned char* st = ring + (i % KV_STAGES) * STAGE;
@@ -173,12 +212,11 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
     for (int c = lane; c < KT * CPR; c += 32) {
       const int r = c / CPR, cc = c % CPR, kpos = key0 + r;
       const bool in = kpos < n_kv;
-      const size_t off =
-          in ? (((size_t)bt[kpos / psz] * H + h) * psz + kpos % psz) * D + cc * EPC : 0;
+      const size_t off = in ? pool_row(kpos) * D + cc * EPC : 0;
       cp_async_16(st + r * RB + cc * 16, KP + off, in ? 16 : 0);
       cp_async_16(st + TILE + r * RB + cc * 16, VP + off, in ? 16 : 0);
     }
-    if (QUANT && lane < KT) {
+    if (QUANT && !CONTIG && lane < KT) {
       const int kpos = key0 + lane;
       const bool in = kpos < n_kv;
       const size_t row = in ? (size_t)bt[kpos / psz] * psz + kpos % psz : 0;
@@ -251,14 +289,15 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
       mma_bf16(s[1], qf[kk], bk + 2);
     }
 
-    // scale (int8: each key's k_scale), mask, running max, correction
+    // scale (int8: each key's k_scale, or the lanes' dq), mask, running
+    // max, correction
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = nt * 8 + 2 * t4 + (e & 1);
-        const float x = QUANT ? s[nt][e] * kscale[key] : s[nt][e];
+        const float x = QUANT ? s[nt][e] * (CONTIG ? dq : kscale[key]) : s[nt][e];
         s[nt][e] = key0 + key < see[e >> 1] ? x * scale_log2 : NEG;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
@@ -279,14 +318,14 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
       o[nt][3] *= corr[1];
     }
     // p in float32 (masked: 0, never exp(NEG - NEG)); l sums it unrounded;
-    // int8: the A fragment carries p * v_scale of its key
+    // int8: the A fragment carries p * v_scale of its key (or p * dq)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = s[nt][e] <= NEG ? 0.f : exp2f(s[nt][e] - m[e >> 1]);
         l[e >> 1] += p;
-        s[nt][e] = QUANT ? p * kscale[KT + nt * 8 + 2 * t4 + (e & 1)] : p;
+        s[nt][e] = QUANT ? p * (CONTIG ? dq : kscale[KT + nt * 8 + 2 * t4 + (e & 1)]) : p;
       }
     unsigned a[4];
     a[0] = pack_bf16(s[0][0], s[0][1]);
@@ -372,11 +411,12 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   }
 }
 
-template <int D, typename PT>
+template <int D, typename PT, bool CONTIG>
 int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                const void* bt, const void* len, void* o, int B, int H, int nq, int psz,
-               int n_max, float scale, int nw, int split, int smem, cudaStream_t stream) {
-  auto kernel = paged_mma_kernel<D, PT>;
+               int n_max, float scale, float dq, int nw, int split, int smem,
+               cudaStream_t stream) {
+  auto kernel = paged_mma_kernel<D, PT, CONTIG>;
   static int granted = 48 * 1024;               // dynamic shared memory allowed so far
   if (smem > granted) {
     const cudaError_t e =
@@ -399,8 +439,34 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, co
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const PT*)kp, (const PT*)vp,
                      (const float*)ks, (const float*)vs, (const int*)bt, (const int*)len,
-                     (bf16*)o, H, nq, psz, n_max, scale_log2, nw, split);
+                     (bf16*)o, H, nq, psz, n_max, scale_log2, dq, nw, split);
   return (int)cudaGetLastError();
+}
+
+// The tensor-core kernel at head dim D in {32, 64, 128}.
+template <typename PT, bool CONTIG>
+int launch_mma_d(int D, const void* q, const void* kp, const void* vp, const void* ks,
+                 const void* vs, const void* bt, const void* len, void* o, int B, int H,
+                 int nq, int psz, int n_max, float scale, float dq, int nw, int split,
+                 int smem, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch_mma<32, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
+                                        scale, dq, nw, split, smem, stream);
+    case 64:
+      return launch_mma<64, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
+                                        scale, dq, nw, split, smem, stream);
+    default:
+      return launch_mma<128, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
+                                         scale, dq, nw, split, smem, stream);
+  }
+}
+
+// A tensor-core plan the kernel takes: 1 <= nw <= 4 warps, split 1, 2, 4
+// or 8, smem as smem_bytes().
+bool mma_plan_fits(int D, bool quant, int nq, int nw, int split, int smem) {
+  return nw >= 1 && nw <= NW_MAX && split >= 1 && split <= 8 && !(split & (split - 1)) &&
+         smem == smem_bytes(D, quant, nq, nw, split);
 }
 
 // ------------------------------------------------ float32: CUDA cores
@@ -541,20 +607,156 @@ int run(int dtype, const void* q, const void* kp, const void* vp, const void* ks
     if (nw != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
     return launch_simt<FP, NQ>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, D, psz, n_max, scale, s);
   }
-  if (dtype != 1 || nw < 1 || nw > NW_MAX || split < 1 || split > 8 || (split & (split - 1)) ||
-      smem != smem_bytes(D, QUANT, nq, nw, split))
+  if (dtype != 1 || !mma_plan_fits(D, QUANT, nq, nw, split, smem))
     return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 32:
-      return launch_mma<32, BP>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max, scale, nw,
-                                split, smem, s);
-    case 64:
-      return launch_mma<64, BP>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max, scale, nw,
-                                split, smem, s);
-    default:
-      return launch_mma<128, BP>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max, scale, nw,
-                                 split, smem, s);
+  return launch_mma_d<BP, false>(D, q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max, scale,
+                                 1.f, nw, split, smem, s);
+}
+
+// ------------------------------ float32 over contiguous lanes: CUDA cores
+constexpr int CONTIG_NW = 8;     // warps per block
+constexpr int CONTIG_TILE = 32;  // keys per warp tile: one per lane
+
+// 16 bytes of a lane row as floats: 4 float32 or 16 int8 values.
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+__device__ __forceinline__ void load16(const int8_t* p, float* out) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = (float)c[i];
+}
+
+// One block per (head, row), eight warps taking 32-key tiles of
+// [0, length) in turn; in a tile each lane scores one key (its row by
+// 16-byte loads, dotted with q staged in shared memory), the warp takes one
+// max and one sum over its 32 scores and accumulates the tile's value rows
+// one at a time, each lane holding D / 32 output columns; the warps merge
+// through shared memory.  KV float (dq unused) or int8 (values times dq).
+template <typename KV, int D>
+__global__ void __launch_bounds__(CONTIG_NW * 32)
+contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
+                   const KV* __restrict__ V, const int* __restrict__ LEN, float* __restrict__ O,
+                   int H, int S, float scale, float dq) {
+  constexpr bool QUANT = std::is_same<KV, int8_t>::value;
+  constexpr int DPL = D / 32;                    // output columns per lane
+  constexpr int VEC = 16 / sizeof(KV);           // elements per 16-byte load
+  __shared__ float sq[D];
+  __shared__ float sm[CONTIG_NW], sl[CONTIG_NW];
+  __shared__ float sacc[CONTIG_NW][D];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = max(0, min(LEN[b], S));          // valid keys of this row
+  const size_t bh = (size_t)b * H + h;
+  const KV* krow = K + bh * S * D;
+  const KV* vrow = V + bh * S * D;
+  auto deq = [&](float x) { return QUANT ? x * dq : x; };
+
+  for (int d = threadIdx.x; d < D; d += CONTIG_NW * 32) sq[d] = Q[bh * D + d];
+  __syncthreads();
+
+  float m = NEG, l = 0.f, acc[DPL];
+#pragma unroll
+  for (int c = 0; c < DPL; ++c) acc[c] = 0.f;
+
+  for (int t0 = warp * CONTIG_TILE; t0 < n; t0 += CONTIG_NW * CONTIG_TILE) {
+    const int j = t0 + lane;                     // this lane's key
+    float s = NEG;
+    if (j < n) {
+      const KV* kp = krow + (size_t)j * D;
+      float dot = 0.f;
+#pragma unroll
+      for (int d0 = 0; d0 < D; d0 += VEC) {
+        float kv[VEC];
+        load16(kp + d0, kv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dot = fmaf(sq[d0 + i], deq(kv[i]), dot);
+      }
+      s = dot * scale;
+    }
+    const float m_new = fmaxf(m, warp_max(s));   // the tile has a valid key
+    const float corr = expf(m - m_new);
+    const float p = j < n ? expf(s - m_new) : 0.f;
+    l = l * corr + warp_sum(p);
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[c] *= corr;
+    const int cnt = min(CONTIG_TILE, n - t0);    // uniform over the warp
+    for (int i = 0; i < cnt; ++i) {
+      const float pi = __shfl_sync(0xffffffffu, p, i);
+      const KV* vp = vrow + (size_t)(t0 + i) * D;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) acc[c] = fmaf(pi, deq(to_float(vp[lane + 32 * c])), acc[c]);
+    }
+    m = m_new;
   }
+
+  if (lane == 0) {
+    sm[warp] = m;
+    sl[warp] = l;
+  }
+#pragma unroll
+  for (int c = 0; c < DPL; ++c) sacc[warp][lane + 32 * c] = acc[c];
+  __syncthreads();
+  float mx = NEG;
+#pragma unroll
+  for (int w = 0; w < CONTIG_NW; ++w) mx = fmaxf(mx, sm[w]);
+  float den = 0.f;
+#pragma unroll
+  for (int w = 0; w < CONTIG_NW; ++w) den = fmaf(sl[w], expf(sm[w] - mx), den);
+  const float inv = 1.f / fmaxf(den, 1e-20f);
+  for (int d = threadIdx.x; d < D; d += CONTIG_NW * 32) {
+    float out = 0.f;
+#pragma unroll
+    for (int w = 0; w < CONTIG_NW; ++w) out = fmaf(sacc[w][d], expf(sm[w] - mx), out);
+    O[bh * D + d] = out * inv;
+  }
+}
+
+template <typename KV>
+int launch_contig_simt(const void* q, const void* k, const void* v, const void* len, void* o,
+                       int B, int H, int S, int D, float scale, float dq, cudaStream_t stream) {
+  const dim3 grid(H, B), block(CONTIG_NW * 32);
+#define REPRO_CONTIG_SIMT(DIM)                                                              \
+  contig_simt_kernel<KV, DIM><<<grid, block, 0, stream>>>(                                  \
+      (const float*)q, (const KV*)k, (const KV*)v, (const int*)len, (float*)o, H, S, scale, \
+      dq)
+  switch (D) {
+    case 32: REPRO_CONTIG_SIMT(32); break;
+    case 64: REPRO_CONTIG_SIMT(64); break;
+    default: REPRO_CONTIG_SIMT(128); break;
+  }
+#undef REPRO_CONTIG_SIMT
+  return (int)cudaGetLastError();
+}
+
+// Check the plan against the shape and launch it.  dtype 0 (float32 q;
+// float32 or int8 lanes): the CUDA-core kernel, nw 8, split 1, smem 0.
+// dtype 1 (bfloat16 q; bfloat16 or int8 lanes): the tensor-core kernel
+// with the contiguous policy, its plan that of nq 1, psz S, n_max 1.
+template <bool QUANT>
+int run_contig(int dtype, const void* q, const void* k, const void* v, const void* len, void* o,
+               int B, int H, int S, int D, float scale, float dq, int nw, int split, int smem,
+               void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || S <= 0 ||
+      (D != 32 && D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  using FK = typename std::conditional<QUANT, int8_t, float>::type;
+  using BK = typename std::conditional<QUANT, int8_t, bf16>::type;
+  if (dtype == 0) {
+    if (nw != CONTIG_NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
+    return launch_contig_simt<FK>(q, k, v, len, o, B, H, S, D, scale, dq, s);
+  }
+  if (dtype != 1 || !mma_plan_fits(D, QUANT, 1, nw, split, smem))
+    return (int)cudaErrorInvalidValue;
+  return launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, len, o, B, H, 1, S, 1,
+                                scale, dq, nw, split, smem, s);
 }
 
 }  // namespace
@@ -600,4 +802,27 @@ extern "C" int repro_paged_verify_i8(const void* q, const void* kp, const void* 
                                      void* stream) {
   return run<true, MAX_NQ>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H,
                            nq, D, psz, n_max, scale, nw, split, smem, stream);
+}
+
+// Decode over contiguous lanes, each one launch of the plan
+// kernels/decode_attention.py::contiguous_plan chose (see run_contig()).
+// dtype: 0 = float32, 1 = bfloat16 (q, output, and the lanes of
+// repro_decode_attention; repro_decode_attention_i8 takes int8 lanes whose
+// values times dq are the keys and values); head_dim D in {32, 64, 128}.
+// All tensors contiguous; q and the lanes 16-byte aligned.  Each returns a
+// CUDA error code, as the paged entries do.
+extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
+                                      const void* length, void* o, int B, int H, int S, int D,
+                                      float scale, int dtype, int nw, int split, int smem,
+                                      void* stream) {
+  return run_contig<false>(dtype, q, k, v, length, o, B, H, S, D, scale, 1.f, nw, split, smem,
+                           stream);
+}
+
+extern "C" int repro_decode_attention_i8(const void* q, const void* k, const void* v,
+                                         const void* length, void* o, int B, int H, int S,
+                                         int D, float scale, float dq, int dtype, int nw,
+                                         int split, int smem, void* stream) {
+  return run_contig<true>(dtype, q, k, v, length, o, B, H, S, D, scale, dq, nw, split, smem,
+                          stream);
 }

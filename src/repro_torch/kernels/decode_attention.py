@@ -1,18 +1,20 @@
-"""Launchers of the Hopper decode-attention kernels: the paged ones
-(``csrc/paged_decode.cu``) and the contiguous one
-(``csrc/decode_attention.cu``).
+"""Launchers of the Hopper decode-attention kernel (``csrc/paged_decode.cu``):
+paged decode and verify over float or int8 pools, and decode over a
+contiguous cache of float or fixed-scale int8 lanes, which the same kernel
+reads as a pool of one page per row.
 
 Replace ``src/repro/kernels/decode_attention.py::paged_decode_attention``
 (float and int8 pools), ``::paged_verify_attention`` (float and int8
-pools) and ``::decode_attention`` (a contiguous cache).  See the sources
+pools) and ``::decode_attention`` (a contiguous cache).  See the source
 for what bounds them and how they are built; ``kernels.ops`` is the entry
 point.
 
-``plan`` chooses every paged launch from the shapes alone, in plain
-Python, so the CPU tests can hold it to its limits; never from ``length``,
-which the kernel reads on the card, so a CUDA graph of a step replays one
-launch for every tick.  The C entries check the plan against the shape and
-refuse one that does not fit.
+``plan`` chooses every paged launch, and ``contiguous_plan`` every
+contiguous one, from the shapes alone, in plain Python, so the CPU tests
+can hold them to their limits; never from ``length``, which the kernel
+reads on the card, so a CUDA graph of a step replays one launch for every
+tick.  The C entries check the plan against the shape and refuse one that
+does not fit.
 """
 from __future__ import annotations
 
@@ -27,15 +29,16 @@ from repro_torch.kernels import build
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
 MAX_NQ = 8           # verify queries per slot (csrc/paged_decode.cu)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_TAIL = [ctypes.c_float, _I, _P]                     # scale, dtype, stream
-_PLAN_TAIL = [ctypes.c_float, _I, _I, _I, _I, _P]    # + nw, split, smem
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# scale, dtype, the plan's nw, split and smem, stream
+_PLAN_TAIL = [_F, _I, _I, _I, _I, _P]
 _ARGTYPES = {
     "repro_paged_decode": [_P] * 6 + [_I] * 5 + _PLAN_TAIL,
     "repro_paged_decode_i8": [_P] * 8 + [_I] * 5 + _PLAN_TAIL,
     "repro_paged_verify": [_P] * 6 + [_I] * 6 + _PLAN_TAIL,
     "repro_paged_verify_i8": [_P] * 8 + [_I] * 6 + _PLAN_TAIL,
-    "repro_decode_attention": [_P] * 5 + [_I] * 4 + _TAIL,
+    "repro_decode_attention": [_P] * 5 + [_I] * 4 + _PLAN_TAIL,
+    "repro_decode_attention_i8": [_P] * 5 + [_I] * 4 + [_F] + _PLAN_TAIL,  # + dq
 }
 
 SMS = 132                # H100 SXM
@@ -44,6 +47,7 @@ NW_MAX = 4               # warps per block
 KV_STAGES = 2            # ring depth of each warp's K/V tiles
 SPLITS = (1, 2, 4, 8)    # blocks of a cluster sharing one (head, slot)
 _SIMT_WARPS = 4          # the float32 kernel's warps per block
+_CONTIG_SIMT_WARPS = 8   # the float32 contiguous kernel's warps per block
 
 
 @dataclass(frozen=True)
@@ -198,14 +202,29 @@ def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
                    k_scale, v_scale, scale, nq=q.shape[2])
 
 
-def decode_attention(q, k, v, length, *, scale=None):
-    """q: (B, H, D); k/v: (B, H, S, D) in q's dtype; length: (B,) int32
-    valid-key counts (``pos + 1``; keys at or past it are never read)
-    -> (B, H, D) in q's dtype."""
-    name = "decode_attention"
+@functools.lru_cache(maxsize=None)
+def contiguous_plan(B: int, H: int, S: int, D: int, dtype: torch.dtype,
+                    quant: bool = False) -> Plan:
+    """The launch for a decode call over contiguous lanes (B, H, S, D);
+    ``dtype`` is q's, ``quant`` says the lanes are int8.  bfloat16: the
+    paged plan of the same kernel at nq 1, psz S, n_max 1 (row b's lane is
+    its one page).  float32: the CUDA-core contiguous kernel, 8 warps, no
+    split.  Raises ValueError for shapes no kernel takes."""
+    p = plan(B, H, 1, D, S, 1, dtype, quant)
+    return Plan("simt", _CONTIG_SIMT_WARPS, 1, 0) if p.kernel == "simt" else p
+
+
+def decode_attention(q, k, v, length, *, scale=None, kv_scale=None):
+    """q: (B, H, D); k/v: (B, H, S, D) in q's dtype, or int8 lanes whose
+    values times ``kv_scale`` (a float) are the keys and values; length:
+    (B,) int32 valid-key counts (``pos + 1``; keys at or past it are never
+    read) -> (B, H, D) in q's dtype."""
+    quant = kv_scale is not None
+    name = "decode_attention_i8" if quant else "decode_attention"
     build.check_cuda_tensor(q, f"{name} q", 3, _DTYPES)
-    build.check_cuda_tensor(k, f"{name} k", 4, (q.dtype,))
-    build.check_cuda_tensor(v, f"{name} v", 4, (q.dtype,))
+    lane_dt = (torch.int8,) if quant else (q.dtype,)
+    build.check_cuda_tensor(k, f"{name} k", 4, lane_dt)
+    build.check_cuda_tensor(v, f"{name} v", 4, lane_dt)
     build.check_cuda_tensor(length, f"{name} length", 1, (torch.int32,))
     B, H, D = q.shape
     S = k.shape[2]
@@ -216,22 +235,23 @@ def decode_attention(q, k, v, length, *, scale=None):
     if length.shape[0] != B:
         raise ValueError(f"{name}: length {tuple(length.shape)} does not "
                          f"cover B={B}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
     if len({t.device for t in (q, k, v, length)}) != 1:
         raise ValueError(f"{name}: tensors on several devices")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError(f"{name}: k and v must be 16-byte aligned (the "
-                         f"kernel reads key rows with 16-byte loads)")
+    p = contiguous_plan(B, H, S, D, q.dtype, quant)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k and v must be 16-byte aligned (the "
+                         f"kernels read rows with 16-byte loads)")
     scale = float(scale if scale is not None else D ** -0.5)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = build.kernel_function(name, "repro_decode_attention",
-                               _ARGTYPES["repro_decode_attention"])
+    symbol = "repro_" + name
+    fn = build.kernel_function("paged_decode", symbol, _ARGTYPES[symbol])
+    dq = [float(kv_scale)] if quant else []
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-                out.data_ptr(), B, H, S, D, scale, build.dtype_code(q.dtype),
+                out.data_ptr(), B, H, S, D, scale, *dq,
+                build.dtype_code(q.dtype), p.nw, p.split, p.smem,
                 build.stream_of(q))
     build.check_launch(rc, name)
     return out

@@ -1,7 +1,9 @@
-"""Dispatch over the kernels of the serving paths: rmsnorm, matmul, flash
+"""Dispatch over the kernels of the serving paths: rmsnorm (alone, with
+the residual add before it, or as mamba2's gated norm), matmul, flash
 attention, paged decode and verify attention over float or int8 pools,
 the SSD scan from a float or an int8 state, and decode attention over a
-contiguous cache (ten kernel variants in all).
+contiguous cache of float or fixed-scale int8 lanes (thirteen kernel
+variants in all).
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version
 (``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
@@ -13,8 +15,10 @@ raised by one exactly where it launches its kernel (an empty output
 launches none), so a run can show that it went through every kernel
 (``launch_counts`` / ``reset_launch_counts``).
 ``paged_decode_attention`` and ``paged_verify_attention`` hand int8 pools
-(``k_scale``/``v_scale`` given) to their ``_i8`` twins; ``ssd_scan_i8``
-takes the int8 state slab and its per-head scales.
+(``k_scale``/``v_scale`` given) to their ``_i8`` twins, and
+``decode_attention`` int8 lanes (``kv_scale`` given) to
+``decode_attention_i8``; ``ssd_scan_i8`` takes the int8 state slab and its
+per-head scales.
 """
 from __future__ import annotations
 
@@ -33,6 +37,29 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     out = _rmsnorm.rmsnorm(x, scale, eps)
     if out.numel():
         rmsnorm.launches += 1
+    return out
+
+
+def rmsnorm_residual(x, r, scale, eps: float = 1e-6):
+    """x, r: (T, E); scale: (E,) -> (s = x + r, rmsnorm(s)), both in
+    x.dtype: the residual add fused into the norm after it."""
+    if x.device.type == "cpu":
+        return ref.ref_rmsnorm_residual(x, r, scale, eps)
+    s, y = _rmsnorm.rmsnorm_residual(x, r, scale, eps)
+    if y.numel():
+        rmsnorm_residual.launches += 1
+    return s, y
+
+
+def rmsnorm_gated(y, z, scale, eps: float = 1e-6, out_dtype=None):
+    """y, z: (T, E); scale: (E,) -> rmsnorm(y * silu(float(z))) in
+    float32, cast to ``out_dtype`` (default float32): mamba2's gated
+    norm."""
+    if y.device.type == "cpu":
+        return ref.ref_rmsnorm_gated(y, z, scale, eps, out_dtype)
+    out = _rmsnorm.rmsnorm_gated(y, z, scale, eps, out_dtype)
+    if out.numel():
+        rmsnorm_gated.launches += 1
     return out
 
 
@@ -152,9 +179,12 @@ def ssd_scan_i8(x, dt, B, C, A, state0, state0_scale):
     return out
 
 
-def decode_attention(q, k, v, length, *, scale=None):
-    """q: (B, H, D) over a contiguous cache k/v (B, H, S, D) in q's dtype;
+def decode_attention(q, k, v, length, *, scale=None, kv_scale=None):
+    """q: (B, H, D) over a contiguous cache k/v (B, H, S, D) in q's dtype,
+    or int8 lanes read at the fixed dequantization scale ``kv_scale``;
     ``length`` (B,) int32 counts valid keys (``pos + 1``) -> (B, H, D)."""
+    if kv_scale is not None:
+        return decode_attention_i8(q, k, v, length, kv_scale, scale=scale)
     if q.device.type == "cpu":
         return ref.ref_decode_attention(q, k, v, length, scale)
     out = _decode.decode_attention(q, k, v, length, scale=scale)
@@ -163,10 +193,23 @@ def decode_attention(q, k, v, length, *, scale=None):
     return out
 
 
-WRAPPERS = (rmsnorm, matmul, flash_attention, paged_decode_attention,
+def decode_attention_i8(q, k, v, length, kv_scale, *, scale=None):
+    """``decode_attention`` over int8 lanes k/v (B, H, S, D) whose values
+    times ``kv_scale`` (a float) are the keys and values."""
+    if q.device.type == "cpu":
+        return ref.ref_decode_attention_i8(q, k, v, length, kv_scale, scale)
+    out = _decode.decode_attention(q, k, v, length, scale=scale,
+                                   kv_scale=kv_scale)
+    if out.numel():
+        decode_attention_i8.launches += 1
+    return out
+
+
+WRAPPERS = (rmsnorm, rmsnorm_residual, rmsnorm_gated, matmul,
+            flash_attention, paged_decode_attention,
             paged_decode_attention_i8, paged_verify_attention,
             paged_verify_attention_i8, ssd_scan, ssd_scan_i8,
-            decode_attention)
+            decode_attention, decode_attention_i8)
 for _w in WRAPPERS:
     _w.launches = 0
 

@@ -9,6 +9,7 @@ with no valid key (fully masked) yields zeros, as the kernels do.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG = -1e30
 
@@ -25,6 +26,20 @@ def ref_rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def ref_rmsnorm_residual(x, r, scale, eps: float = 1e-6):
+    """x, r: (T, E); scale: (E,) -> (s = x + r, ref_rmsnorm(s)): the
+    residual add before a norm, s in PyTorch's own rounding."""
+    s = x + r
+    return s, ref_rmsnorm(s, scale, eps)
+
+
+def ref_rmsnorm_gated(y, z, scale, eps: float = 1e-6, out_dtype=None):
+    """y, z: (T, E); scale: (E,) -> ref_rmsnorm(y * silu(float(z))) in
+    float32, cast to ``out_dtype`` (default float32): mamba2's gated norm."""
+    g = y * F.silu(z.float())
+    return ref_rmsnorm(g, scale, eps).to(out_dtype or torch.float32)
 
 
 def _masked_softmax_av(s, mask, v):
@@ -118,6 +133,14 @@ def ref_decode_attention(q, k, v, length, scale=None):
     mask = torch.arange(S, device=q.device)[None, :] < \
         length.to(q.device).long()[:, None]                      # (B, S)
     return _masked_softmax_av(s, mask[:, None, None], v)[:, :, 0].to(q.dtype)
+
+
+def ref_decode_attention_i8(q, k, v, length, kv_scale, scale=None):
+    """``ref_decode_attention`` over int8 lanes k/v (B, H, S, D) at one
+    fixed dequantization scale ``kv_scale`` (a float), dequantized in
+    float32."""
+    return ref_decode_attention(q, k.float() * kv_scale, v.float() * kv_scale,
+                                length, scale)
 
 
 def ref_dequant_state(state, scales):

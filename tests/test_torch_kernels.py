@@ -606,6 +606,89 @@ def test_paged_wrapper_refuses_misaligned_bf16_operands(
             torch.ones(b, dtype=torch.int32))
 
 
+# ------------------------------------------------ contiguous decode plan
+# (B, H, S, D, split, nw): the serve shape, tinyllama's longest lane, a
+# lane of one tile, chip_smoke's ragged S = 300, one (row, head) pair
+CONTIG_PLANS = [(8, 8, 256, 64, 4, 4), (8, 8, 1024, 64, 4, 4),
+                (8, 8, 16, 64, 1, 1), (6, 4, 300, 32, 8, 3),
+                (6, 4, 300, 128, 8, 3), (1, 1, 1024, 64, 8, 4)]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-lanes", "int8-lanes"])
+@pytest.mark.parametrize("b,h,s,d,split,nw", CONTIG_PLANS)
+def test_contiguous_plan_limits(b, h, s, d, split, nw, quant):
+    """A contiguous lane set is a pool of one page of S rows per row: its
+    plan is the paged plan at nq 1, psz S, n_max 1 (split 4 x 4 warps, 256
+    blocks, at the serve shape and at S 1024, where 64 (row, head) pairs x
+    4 ranks already reach the SMs), its shared memory the source's
+    formula at nq 1, within 227 KB."""
+    p = k_decode.contiguous_plan(b, h, s, d, torch.bfloat16, quant)
+    assert p == k_decode.plan(b, h, 1, d, s, 1, torch.bfloat16, quant)
+    assert (p.kernel, p.split, p.nw) == ("mma", split, nw)
+    assert p.smem == k_decode._smem_bytes(d, quant, 1, nw, split) <= 232448
+
+
+def test_contiguous_plan_reads_no_length():
+    import inspect
+    assert "length" not in inspect.signature(k_decode.contiguous_plan).parameters
+    p32 = k_decode.contiguous_plan(8, 8, 256, 64, torch.float32, True)
+    assert (p32.kernel, p32.nw, p32.split, p32.smem) == ("simt", 8, 1, 0)
+
+
+def test_contiguous_plan_mirrors_the_kernel_source():
+    """The float32 contiguous kernel's warps, and the C entry's check of a
+    tensor-core plan at nq 1 with the paged formula, are the source's."""
+    src = (Path(k_decode.__file__).parent / "csrc" /
+           "paged_decode.cu").read_text()
+    assert re.search(rf"constexpr int CONTIG_NW = "
+                     rf"{k_decode._CONTIG_SIMT_WARPS};", src)
+    body = re.search(r"int run_contig\(.+?\n}\n", src, re.S).group(0)
+    assert "mma_plan_fits(D, QUANT, 1, nw, split, smem)" in body
+    assert "launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, " \
+           "len, o, B, H, 1, S, 1," in " ".join(body.split())
+    assert not (Path(k_decode.__file__).parent / "csrc" /
+                "decode_attention.cu").exists()
+
+
+@pytest.mark.parametrize("refuse", [
+    dict(d=96), dict(dt=torch.float16), dict(lanes=torch.float32),
+    dict(misaligned=True)])
+@pytest.mark.parametrize("quant", [False, True], ids=["float-lanes", "int8-lanes"])
+def test_contiguous_wrapper_refuses_what_no_kernel_takes(
+        paged_wrapper_without_card, refuse, quant):
+    d, dt = refuse.get("d", 32), refuse.get("dt", torch.bfloat16)
+    q = torch.zeros(2, 3, d, dtype=dt)
+    lane_dt = refuse.get("lanes", torch.int8 if quant else dt)
+    k = torch.zeros(2, 3, 40, d, dtype=lane_dt)
+    if refuse.get("misaligned"):
+        k = torch.zeros(k.numel() + 1, dtype=lane_dt)[1:].view(k.shape)
+    with pytest.raises(ValueError):
+        k_decode.decode_attention(q, k, torch.zeros_like(k),
+                                  torch.ones(2, dtype=torch.int32),
+                                  kv_scale=1 / 16 if quant else None)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant", [False, True], ids=["float-lanes", "int8-lanes"])
+def test_contiguous_wrappers_reach_their_entry(paged_wrapper_without_card,
+                                               quant, dt):
+    """Shapes the plan takes reach the C entry of csrc/paged_decode.cu,
+    whose argument list is the source's own (int8: dq after the scale)."""
+    q = torch.zeros(2, 3, 32, dtype=dt)
+    k = torch.zeros(2, 3, 40, 32, dtype=torch.int8 if quant else dt)
+    with pytest.raises(_Reached) as hit:
+        k_decode.decode_attention(q, k, k.clone(), torch.ones(2, dtype=torch.int32),
+                                  kv_scale=1 / 16 if quant else None)
+    symbol, n_args = hit.value.args
+    assert symbol == "repro_decode_attention" + ("_i8" if quant else "")
+    src = (Path(k_decode.__file__).parent / "csrc" /
+           "paged_decode.cu").read_text()
+    sig = re.search(rf'extern "C" int {symbol}\((.+?)\)', src, re.S).group(1)
+    assert n_args == sig.count(",") + 1
+    assert re.search(r"float scale, (float dq, )?int dtype, int nw, int split,"
+                     r" int smem,\s+void\* stream$", " ".join(sig.split()))
+
+
 # The bf16 kernel's rounding (csrc/paged_decode.cu), emulated in float64 at
 # chip_smoke.py's paged shapes: B 8, H 8, D 64, pages of 16, n_max 16, its
 # ragged lengths (verify Q 5), the plan's split 4 x 4 warps
@@ -716,6 +799,45 @@ def test_paged_bf16_rounding_stays_within_tolerance(seed, nq, quant):
     assert share(got.to(torch.bfloat16), want) < 0.5, "the bf16 output"
 
 
+@pytest.mark.parametrize("S", [256, 1024])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16-lanes", "int8-lanes"])
+def test_contiguous_bf16_rounding_stays_within_tolerance(S, quant):
+    """The tensor-core kernel over contiguous lanes is the paged one over
+    a pool of one page per row (page b of row b, psz S): emulated with its
+    plan's dealing at the serve shape and at S 1024, int8 lanes exact with
+    dq = 1/16 on the score columns and folded into P, it stays within
+    bf16's 2e-2 of the plain version at under half the tolerance."""
+    g = torch.Generator().manual_seed(S)
+    B, H, D = 8, 8, 64
+    length = torch.tensor([S, 1, 13, S - 1, 0, 64, S // 2 + 7, 1],
+                          dtype=torch.int32)
+    q = torch.randn(B, H, 1, D, generator=g).to(torch.bfloat16)
+    if quant:
+        k, v = (torch.randint(-127, 128, (B, H, S, D), generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        dq = torch.full((B, S), 1 / 16, dtype=torch.float64)
+        exact = (k.float() / 16, v.float() / 16)
+        want = ref.ref_decode_attention_i8(q[:, :, 0], k, v, length, 1 / 16)
+    else:
+        k, v = (torch.randn(B, H, S, D, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        dq = None
+        exact = (k.float(), v.float())
+        want = ref.ref_decode_attention(q[:, :, 0], k, v, length)
+    p = k_decode.contiguous_plan(B, H, S, D, torch.bfloat16, quant)
+    bt = torch.arange(B, dtype=torch.int32)[:, None]
+    got = _emulated_paged(q.double(), k.double(), v.double(), bt, length, dq,
+                          dq, p.nw, p.split)[:, :, 0]
+
+    def share(a, b):                              # of bf16's 2e-2 tolerance
+        return ((a.double() - b.double()).abs()
+                / (2e-2 + 2e-2 * b.double().abs())).max().item()
+
+    exact = ref.ref_decode_attention(q[:, :, 0].float(), *exact, length)
+    assert share(got, exact) < 0.5, "P's bf16 rounding"
+    assert share(got.to(torch.bfloat16), want) < 0.5, "the bf16 output"
+
+
 def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(4, 64).astype(np.float32))
@@ -737,14 +859,23 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
                     torch.zeros(1, 2, 4, 8, dtype=torch.int8), torch.zeros(1, 2))
     ops.decode_attention(x[None, :2, :32], x.reshape(1, 2, 4, 32),
                          x.reshape(1, 2, 4, 32), torch.ones(1, dtype=torch.int32))
-    assert ops.launch_counts() == {"rmsnorm": 0, "matmul": 0,
+    lanes = torch.ones(1, 2, 4, 32, dtype=torch.int8)
+    ops.decode_attention_i8(x[None, :2, :32], lanes, lanes,
+                            torch.ones(1, dtype=torch.int32), 1 / 16)
+    ops.decode_attention(x[None, :2, :32], lanes, lanes,
+                         torch.ones(1, dtype=torch.int32), kv_scale=1 / 16)
+    ops.rmsnorm_residual(x, x, torch.zeros(64))
+    ops.rmsnorm_gated(x, x, torch.zeros(64), out_dtype=torch.bfloat16)
+    assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_residual": 0,
+                                   "rmsnorm_gated": 0, "matmul": 0,
                                    "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_decode_attention_i8": 0,
                                    "paged_verify_attention": 0,
                                    "paged_verify_attention_i8": 0,
                                    "ssd_scan": 0, "ssd_scan_i8": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0,
+                                   "decode_attention_i8": 0}
 
 
 @pytest.mark.parametrize("launch", [
@@ -768,6 +899,11 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
     lambda x: k_decode.decode_attention(x[None, :1], x[None, None],
                                         x[None, None],
                                         torch.ones(1, dtype=torch.int32)),
+    lambda x: k_decode.decode_attention(
+        x[None, :1], x[None, None].to(torch.int8), x[None, None].to(torch.int8),
+        torch.ones(1, dtype=torch.int32), kv_scale=1 / 16),
+    lambda x: k_rmsnorm.rmsnorm_residual(x, x, x[0]),
+    lambda x: k_rmsnorm.rmsnorm_gated(x, x, x[0]),
 ])
 def test_kernel_launchers_refuse_cpu_tensors(launch):
     """A launcher takes CUDA tensors only; it never computes on the CPU."""
