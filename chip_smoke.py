@@ -33,7 +33,9 @@ each (and a few detail lines):
             kernel node per call, and a CUDA graph of each entry replayed
             after its length changes in place equal to the eager call; for
             flash attention the prefill chunk at q_offset 0, 96 and 224
-            with and without windows, the contiguous prefill's square Sq =
+            with and without windows, the offset as an int32 on the card (a
+            graph replayed after it changed in place equals the eager
+            call), the contiguous prefill's square Sq =
             Skv in
             {23, 130, 160}, head dims 32, 64 and 128, and times at four
             shapes beside SDPA's; for the SSD scan the serve chunk, S = 5
@@ -51,7 +53,10 @@ each (and a few detail lines):
             computes the same function where there is one (a yardstick
             only; the port never calls it).
 3. parity   full-width tinyllama-42m in float32, engines on the card
-            (kernels) against engines on the CPU (plain versions): the
+            (kernels; steps in CUDA graphs, the pipelined tick) against
+            engines on the CPU (plain versions), and every card engine's
+            greedy tokens against the same engine with graphs=False,
+            overlap=False (eager steps, the serial loop): the
             one-token engine, the speculative engine (k=4), the int8-pool
             engine and the speculative int8-pool engine each give identical
             greedy tokens and the live logits of every step within
@@ -86,6 +91,18 @@ each (and a few detail lines):
             in every step: one plain norm, the rest with the residual add
             fused in, mamba2's gated norm in every layer; 10L + 2 counted
             kernels per tinyllama decode tick, 8L + 2 per mamba2 tick).
+            Launches are counted where a wrapper launches its kernel and at
+            every replay of a step's graph (the kernels its capture
+            recorded).  Each step graph is read node by node
+            (cuGraphGetNodes, kernel names by cuFuncGetName): the port's
+            kernels in it equal the step's counted launches, and the rest
+            are PyTorch's (the greedy argmax among them); memcpy and memset
+            nodes and the graph's memory are printed.  Every paged phase is
+            served once more with every plan and dispatch under
+            set_sync_debug_mode("error") (collect outside it).  serve,
+            serve-ssm and serve-contig are served again with graphs=False,
+            overlap=False (identical greedy tokens), and tok/s, wall per
+            tick and busy share of the two are printed side by side (ab[]).
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
@@ -94,7 +111,9 @@ each (and a few detail lines):
             scan, paged and contiguous decode attention and the norm family
             (never more kernels in the trace than
             launches; the kernel phase checks one kernel per call exactly,
-            in CUDA graphs).
+            in CUDA graphs; the kernels of a graph replay are traced one
+            by one); for the eager-serial runs of serve, serve-ssm and
+            serve-contig too.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -191,29 +210,55 @@ def time_ms(fn, torch, reps=10, iters=20):
     return statistics.median(samples)
 
 
-def graph_nodes(torch, fn):
-    """The node types of a CUDA graph captured around one ``fn()`` call,
-    read through libcuda's cuGraphGetNodes (0 is a kernel node): how many
-    kernels the call launches, and whether it adds copies or memsets,
-    exactly, where a profiler trace may drop records."""
+def read_graph(graph, names=False):
+    """The nodes of a kept ``torch.cuda.CUDAGraph``, read through libcuda's
+    cuGraphGetNodes: (type, kernel name) per node (type 0 a kernel, 1 a
+    memcpy, 2 a memset; the name, with ``names``, of a kernel node's
+    function through cuGraphKernelNodeGetParams and cuFuncGetName, else
+    None): how many kernels a call launches, and which, exactly, where a
+    profiler trace may drop records."""
     import ctypes
+
+    class KernelParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("smem", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
     cu = ctypes.CDLL("libcuda.so.1")
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        fn()
-    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
-    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+    g, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)) == 0,
           "cuGraphGetNodes failed")
     nodes = (ctypes.c_void_p * n.value)()
-    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)) == 0,
           "cuGraphGetNodes failed")
-    kinds = []
+    out = []
     for node in nodes:
         kind = ctypes.c_int(-1)
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
               "cuGraphNodeGetType failed")
-        kinds.append(kind.value)
-    return kinds
+        name = None
+        if names and kind.value == 0:
+            kp, s = KernelParams(), ctypes.c_char_p()
+            check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                   ctypes.byref(kp)) == 0,
+                  "cuGraphKernelNodeGetParams failed")
+            rc = (cu.cuFuncGetName(ctypes.byref(s), ctypes.c_void_p(kp.func))
+                  if kp.func else
+                  cu.cuKernelGetName(ctypes.byref(s), ctypes.c_void_p(kp.kern)))
+            check(rc == 0 and s.value, f"no name for a kernel node (CUresult {rc})")
+            name = s.value.decode()
+        out.append((kind.value, name))
+    return out
+
+
+def graph_nodes(torch, fn):
+    """The node types of a CUDA graph captured around one ``fn()`` call
+    (``read_graph``)."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    return [kind for kind, _ in read_graph(g)]
 
 
 def compare(name, got, want, dtype, torch, tol=None):
@@ -518,9 +563,31 @@ def phase_kernels(torch, F):
             flash_case(dt, 130, 130, D, 0, 0)
     print(f"  flash_attention: each of {n_graphs} cases is one kernel node in "
           f"a CUDA graph")
+    # the prefill chunk's offset is device data (one int32 the kernel reads
+    # there): a graph of one call, replayed after the offset changed in
+    # place, equals the eager call at the new offset, float32 and bf16
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(H, 32, 64, dtype=dt), randn(H, 256, 64, dtype=dt),
+                   randn(H, 256, 64, dtype=dt))
+        off = torch.tensor([224], dtype=torch.int32, device="cuda")
+        one_kernel("flash_attention", f"device q_offset {dtype_name(dt)}",
+                   lambda: ops.flash_attention(q, k, v, q_offset=off))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = ops.flash_attention(q, k, v, q_offset=off)
+        for new in (0, 96, 224, 37):
+            off.fill_(new)
+            graph.replay()
+            eager = ops.flash_attention(q, k, v, q_offset=new)
+            torch.cuda.synchronize()
+            check(torch.equal(out, eager), f"flash_attention {dtype_name(dt)}: the "
+                  f"graph replayed at q_offset {new} differs from the eager call")
+    print("  flash_attention: a CUDA graph replayed after its device q_offset "
+          "changed in place equals the eager call (float32 and bf16)")
     # times (bf16, L2-warm) at the chunk shape at q_offset 0, 96 and 224,
     # and the whole prompt Sq = Skv = 160; the row of the JSON line is the
     # chunk at q_offset 224, as before
+    # (the offset as the chunk step hands it over: an int32 on the card)
     D = 64
     flash_rows = []
     for Sq, Skv, q_off in ((32, 256, 0), (32, 256, 96), (32, 256, 224),
@@ -528,7 +595,8 @@ def phase_kernels(torch, F):
         q, k, v = (randn(H, Sq, D, dtype=torch.bfloat16),
                    randn(H, Skv, D, dtype=torch.bfloat16),
                    randn(H, Skv, D, dtype=torch.bfloat16))
-        err = compare("flash_attention", ops.flash_attention(q, k, v, q_offset=q_off),
+        off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+        err = compare("flash_attention", ops.flash_attention(q, k, v, q_offset=off),
                       ref.ref_flash_attention(q, k, v, q_offset=q_off),
                       torch.bfloat16, torch)
         mask = (torch.arange(Skv, device="cuda")[None, :]
@@ -542,7 +610,7 @@ def phase_kernels(torch, F):
             shape=f"H={H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} bf16",
             max_abs_err=err, plan=f"wq={p.wq} split={p.split} blocks="
                                   f"{p.split * H * -(-Sq // (16 * p.wq))}",
-            ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=q_off), torch),
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off), torch),
             plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
                                                              q_offset=q_off),
                              torch),
@@ -1009,10 +1077,12 @@ def _motif_requests(Request, rng, n, lo, hi, max_new, vocab):
 
 def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
                 **kw):
-    """Serve ``reqs`` on a fresh engine, paged or contiguous.  -> (engine,
-    tokens per request, live logits of every step in call order (prefill
-    chunks or whole prompts; decode rows and verify columns of live slots),
-    logits row behind each emitted token of the one-token path per rid)."""
+    """Serve ``reqs`` on a fresh engine, paged or contiguous (``kw``: e.g.
+    ``graphs``, ``overlap``, ``speculative``).  -> (engine, tokens per
+    request, live logits of every step in dispatch order (prefill chunks or
+    whole prompts; decode rows and verify columns of live slots), logits
+    row behind each emitted token of the one-token path per rid).  The
+    logits are read from each step's output right after it runs."""
     from repro_torch.serving import ServingEngine
     if paged:
         eng = ServingEngine.build_paged(cfg, plan, slots, 256, params,
@@ -1021,51 +1091,75 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
     else:
         eng = ServingEngine(cfg, plan, slots, 256, params, device=device, **kw)
     steps, emitted = [], {}
-    prefill, decode, verify, sample = (eng.prefill_fn, eng.decode_fn,
-                                       eng.verify_fn, eng._sample)
 
-    def rec_prefill(*args):
-        logits, cache = prefill(*args)
-        steps.append(logits.float().cpu().reshape(-1))
-        return logits, cache
+    def keep(rid, row):
+        emitted.setdefault(rid, []).append(row.numpy().copy())
 
-    def rec_decode(params_, cache, tokens, pos, *paging):
-        logits, cache = decode(params_, cache, tokens, pos, *paging)
-        # live lanes: an admission (contiguous), a page of their own, or
-        # (SSM archs) a slab of their own
-        if not paged:
-            live = torch.tensor([a is not None for a in eng.admissions])
-        else:
-            bt, *slab_ids = paging
-            live = ((slab_ids[0] if slab_ids else bt[:, 0]) != 0).cpu()
-        steps.append(logits.float().cpu()[live].reshape(-1))
-        return logits, cache
+    def rec_step(dispatch):
+        def wrapped(*args):
+            step = dispatch(*args)
+            if step is not None:
+                kind, live = step[0], step[1]
+                lg = eng.steps[kind].outputs[0].float().cpu()
+                if kind == "decode":
+                    steps.append(torch.cat([lg[b] for b, _ in live]))
+                    for b, rid in live:
+                        keep(rid, lg[b])
+                else:
+                    steps.append(torch.cat([
+                        lg[b, :len(step[2].get(b, [])) + 1].reshape(-1)
+                        for b, _ in live]))
+            return step
+        return wrapped
 
-    def rec_verify(params_, cache, tokens, pos, qlen, bt):
-        logits, cache = verify(params_, cache, tokens, pos, qlen, bt)
-        lg, live, ql = logits.float().cpu(), (bt[:, 0] != 0).cpu(), qlen.cpu()
-        steps.append(torch.cat([lg[b, :ql[b]].reshape(-1)
-                                for b in range(len(live)) if live[b]]))
-        return logits, cache
+    if paged:
+        prefill_round = eng._prefill_round
 
-    def rec_sample(logits, row, req):
-        emitted.setdefault(req.rid, []).append(logits[row].copy())
-        return sample(logits, row, req)
+        def rec_round(i, entry):
+            prefill_round(i, entry)
+            row = eng.steps["chunk"].outputs[0].float().cpu().reshape(-1)
+            steps.append(row)
+            if entry[2] is not None:          # this chunk completes a prompt
+                keep(entry[1], row)
 
-    eng.prefill_fn, eng.decode_fn, eng._sample = rec_prefill, rec_decode, rec_sample
-    if verify is not None:
-        eng.verify_fn = rec_verify
+        eng._prefill_round = rec_round
+        eng._dispatch_step = rec_step(eng._dispatch_step)
+    else:
+        prefill, prefill_into, last = eng.prefill_fn, eng._prefill_into, []
+
+        def rec_prefill(*args):
+            logits, cache = prefill(*args)
+            last[:] = [logits.float().cpu().reshape(-1)]
+            steps.append(last[0])
+            return logits, cache
+
+        def rec_prefill_into(b, req):
+            prefill_into(b, req)
+            keep(req.rid, last[0])
+
+        eng.prefill_fn, eng._prefill_into = rec_prefill, rec_prefill_into
+        eng._dispatch_decode = rec_step(eng._dispatch_decode)
     for r in reqs:
         eng.submit(r)
     eng.run()
     check(all(r.done for r in reqs), f"parity: unfinished requests on {device}")
-    check(eng.drain() == 0, f"parity: slots still admitted on {device}")
+    check(eng._inflight is None and eng.drain() == 0,
+          f"parity: work in flight or slots still admitted on {device}")
     check(not paged or eng.allocator.n_free ==
           eng.allocator.n_pages - eng.allocator.n_reserved,
           f"parity: pool not leak-free after drain() on {device}")
     check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
           f"parity: slabs not leak-free after drain() on {device}")
     return eng, [r.out_tokens for r in reqs], torch.cat(steps), emitted
+
+
+def _eager_serial(torch, name, want, *args, **kw):
+    """The same engine on the card with ``graphs=False, overlap=False``
+    (eager steps, the serial loop): its greedy tokens must equal ``want``,
+    the default engine's (graphs and overlap on)."""
+    got = _run_engine(torch, *args, "cuda", graphs=False, overlap=False, **kw)[1]
+    check(got == want, f"{name}: graphed-overlap and eager-serial engines differ "
+                       f"on cuda\n  {want}\n  {got}")
 
 
 def _same(name, a, b, tol):
@@ -1109,11 +1203,13 @@ def phase_parity(torch):
             for dev in ("cuda", "cpu")}
     err, mx = _same("parity", runs["cuda"][1:3], runs["cpu"][1:3], PARITY_TOL)
     toks = runs["cuda"][1]
+    _eager_serial(torch, "parity", toks, cfg, plan, params, reqs())
     print(f"parity: tinyllama-42m float32 engine on cuda vs cpu: live logits "
           f"of every step ({runs['cuda'][2].numel()} values) max_abs_err="
           f"{err:.3e} (|logit| max {mx:.2f}, tol rtol={PARITY_TOL['rtol']} "
-          f"atol={PARITY_TOL['atol']}); greedy tokens identical: 4 requests x "
-          f"16 tokens, {len({t for r in toks for t in r})} distinct")
+          f"atol={PARITY_TOL['atol']}); greedy tokens identical, and to the "
+          f"eager-serial engine on cuda: 4 requests x 16 tokens, "
+          f"{len({t for r in toks for t in r})} distinct")
 
     # weights x1.75: greedy decoding repeats motifs often enough for drafts
     # to be accepted and rejected, without collapsing onto one token; and
@@ -1133,11 +1229,14 @@ def phase_parity(torch):
                     PARITY_TOL)
     check(spec["cuda"][1] == one[1], f"parity-spec: speculative and one-token "
           f"engines differ on cuda\n  {spec['cuda'][1]}\n  {one[1]}")
+    _eager_serial(torch, "parity-spec", spec["cuda"][1], cfg, plan, mid,
+                  spec_reqs(), speculative=4)
     st = spec["cuda"][0].stats
     check(st.spec_accepted > 0, f"parity-spec: no draft accepted {st}")
     print(f"parity-spec: speculative=4 engine on cuda vs cpu: live logits "
           f"max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy tokens "
-          f"identical to cpu and to the one-token engine on cuda (4 requests x "
+          f"identical to cpu, to the eager-serial engine and to the one-token "
+          f"engine on cuda (4 requests x "
           f"16 tokens, {len({t for r in one[1] for t in r})} distinct); "
           f"verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
           f"accepted={st.spec_accepted} ticks={st.ticks} vs one-token "
@@ -1147,6 +1246,7 @@ def phase_parity(torch):
           for dev in ("cuda", "cpu")}
     err, mx = _same("parity-int8", i8["cuda"][1:3], i8["cpu"][1:3],
                     INT8_PARITY_TOL)
+    _eager_serial(torch, "parity-int8", i8["cuda"][1], cfg, plan_i8, mid, reqs())
     def drift(fp_run, i8_run):
         """Max |logit| difference between float and int8 pools behind each
         emitted token, up to each request's first differing token (the
@@ -1167,7 +1267,8 @@ def phase_parity(torch):
     print(f"parity-int8: int8-pool engine on cuda vs cpu: live logits "
           f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
           f"{INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); greedy "
-          f"tokens identical.  int8 vs float pools on cuda (tokens, max logit "
+          f"tokens identical, and to the eager-serial engine on cuda.  int8 vs "
+          f"float pools on cuda (tokens, max logit "
           f"drift over emitted positions; scripts/check_quant_accuracy.py "
           f"DRIFT_BOUND 0.05 at init-scale weights): init-scale weights "
           f"%s %.4f over %d; x1.75 weights %s %.4f over %d"
@@ -1182,12 +1283,15 @@ def phase_parity(torch):
     check(spec_i8["cuda"][1] == one_i8[1], f"parity-spec-int8: speculative "
           f"and one-token int8-pool engines differ on cuda\n  "
           f"{spec_i8['cuda'][1]}\n  {one_i8[1]}")
+    _eager_serial(torch, "parity-spec-int8", spec_i8["cuda"][1], cfg, plan_i8,
+                  mid, spec_reqs(), speculative=4)
     st = spec_i8["cuda"][0].stats
     check(st.spec_accepted > 0, f"parity-spec-int8: no draft accepted {st}")
     print(f"parity-spec-int8: speculative=4 int8-pool engine on cuda vs cpu: "
           f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
           f"{INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); greedy "
-          f"tokens identical to cpu and to the one-token int8-pool engine on "
+          f"tokens identical to cpu, to the eager-serial engine and to the "
+          f"one-token int8-pool engine on "
           f"cuda; verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
           f"accepted={st.spec_accepted}")
 
@@ -1227,6 +1331,8 @@ def phase_parity_ssm(torch):
         err, mx = _same(f"parity-ssm[{slabs}]", runs["cuda"][1:3],
                         runs["cpu"][1:3], tol)
         toks = runs["cuda"][1]
+        _eager_serial(torch, f"parity-ssm[{slabs}]", toks, cfg, plan_s, params,
+                      reqs())
         n_distinct = len({t for r in toks for t in r})
         check(n_distinct > 1, f"parity-ssm[{slabs}]: greedy decoding emitted "
                               f"one token only {toks}")
@@ -1234,7 +1340,8 @@ def phase_parity_ssm(torch):
               f"vs cpu: live logits of every step "
               f"({runs['cuda'][2].numel()} values) max_abs_err={err:.3e} "
               f"(|logit| max {mx:.2f}, tol rtol={tol['rtol']} "
-              f"atol={tol['atol']}); greedy tokens identical: 4 requests x 16 "
+              f"atol={tol['atol']}); greedy tokens identical, and to the "
+              f"eager-serial engine on cuda: 4 requests x 16 "
               f"tokens, {n_distinct} distinct; slabs leak-free")
         out[slabs] = toks
     same = sum(a == b for ra, rb in zip(out["float32"], out["int8"])
@@ -1277,11 +1384,14 @@ def phase_parity_contig(torch):
     toks = runs["cuda"][1]
     check(toks == paged[1], f"parity-contig: contiguous and paged engines "
           f"differ on cuda\n  {toks}\n  {paged[1]}")
+    _eager_serial(torch, "parity-contig", toks, cfg, plan, x10, reqs(),
+                  paged=False)
     print(f"parity-contig: tinyllama-42m float32 contiguous engine on cuda vs "
           f"cpu: live logits of every step ({runs['cuda'][2].numel()} values) "
           f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
           f"{PARITY_TOL['rtol']} atol={PARITY_TOL['atol']}); greedy tokens "
-          f"identical to cpu and to the paged engine on cuda: 4 requests x 16 "
+          f"identical to cpu, to the eager engine and to the paged engine on "
+          f"cuda: 4 requests x 16 "
           f"tokens, {len({t for r in toks for t in r})} distinct")
 
     mid = model.tree_map(lambda t: t * 1.75, base)
@@ -1289,13 +1399,16 @@ def phase_parity_contig(torch):
           for dev in ("cuda", "cpu")}
     err, mx = _same("parity-contig-int8", i8["cuda"][1:3], i8["cpu"][1:3],
                     CONTIG_INT8_PARITY_TOL)
+    _eager_serial(torch, "parity-contig-int8", i8["cuda"][1], cfg, plan_i8, mid,
+                  reqs(), paged=False)
     fp = _run_engine(torch, cfg, plan, mid, reqs(), "cuda", paged=False)
     same = sum(a == b for ra, rb in zip(fp[1], i8["cuda"][1])
                for a, b in zip(ra, rb))
     print(f"parity-contig-int8: fixed-scale int8 lanes on cuda vs cpu: live "
           f"logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
           f"{CONTIG_INT8_PARITY_TOL['rtol']} atol="
-          f"{CONTIG_INT8_PARITY_TOL['atol']}); greedy tokens identical; "
+          f"{CONTIG_INT8_PARITY_TOL['atol']}); greedy tokens identical, and "
+          f"to the eager engine on cuda; "
           f"against float lanes on cuda {same} of "
           f"{sum(len(r) for r in fp[1])} tokens equal position by position")
 
@@ -1335,12 +1448,14 @@ def phase_parity_contig_ssm(torch):
     paged = _run_engine(torch, cfg, plan, params, reqs(), "cuda")
     check(toks == paged[1], f"parity-contig-ssm: contiguous and paged engines "
           f"differ on cuda\n  {toks}\n  {paged[1]}")
+    _eager_serial(torch, "parity-contig-ssm", toks, cfg, plan, params, reqs(),
+                  paged=False)
     print(f"parity-contig-ssm: mamba2-370m float32 contiguous engine on cuda "
           f"vs cpu: live logits of every step ({runs['cuda'][2].numel()} "
           f"values) max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
           f"{SSM_PARITY_TOL['rtol']} atol={SSM_PARITY_TOL['atol']}); greedy "
-          f"tokens identical to cpu and to the paged engine on cuda: 4 "
-          f"requests x 16 tokens, {n_distinct} distinct")
+          f"tokens identical to cpu, to the eager engine and to the paged "
+          f"engine on cuda: 4 requests x 16 tokens, {n_distinct} distinct")
 
 
 SERVE_PHASES = {
@@ -1356,6 +1471,8 @@ SERVE_PHASES = {
 }
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
+# the phases served again with eager steps and the serial loop
+AB_PHASES = ("serve", "serve-ssm", "serve-contig")
 # the mixer kernel each serving phase must launch: attention in its decode or
 # verify ticks; the SSD scan in its prefill chunks, once per layer, and never
 # in a decode tick
@@ -1393,12 +1510,14 @@ def _serve_setup(torch, name):
                                device="cuda")
     make = _requests if kind == "random" else _motif_requests
 
-    def engine():
+    def engine(graphs=True, overlap=True):
         if name in CONTIG_PHASES:
-            return ServingEngine(cfg, plan, SLOTS, SB, params, device="cuda")
+            return ServingEngine(cfg, plan, SLOTS, SB, params, graphs=graphs,
+                                 device="cuda")
         return ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                          page_size=PSZ, prefill_chunk=CH,
-                                         speculative=k, device="cuda")
+                                         speculative=k, overlap=overlap,
+                                         graphs=graphs, device="cuda")
 
     def requests(seed=0, n=16, new=NEW):
         return make(Request, np.random.RandomState(seed), n, 16, 160, new,
@@ -1407,21 +1526,98 @@ def _serve_setup(torch, name):
     return cfg, engine, requests
 
 
-def phase_serve(torch, name):
-    """One serve phase (``SERVE_PHASES``) after a warm-up run.  The launch
-    counts are set to 0 just before the requests are submitted and read
-    just after the last token."""
+# the kernels of the port, by the names their functions carry in a graph
+OUR_KERNELS = ("matmul_mma_kernel", "matmul_simt_kernel", "flash_mma_kernel",
+               "flash_simt_kernel", "paged_mma_kernel", "paged_simt_kernel",
+               "contig_simt_kernel", "ssd_mma_kernel", "ssd_simt_kernel",
+               "_rmsnorm_kernel")
+
+
+def graph_report(torch, name, steps, calls):
+    """Each captured step graph of an engine, read node by node: kernel
+    nodes (the port's kernels by name, which must be the step's counted
+    launches per replay, and PyTorch's, the greedy argmax among them),
+    memcpy and memset nodes, the memory its capture reserved, and the
+    launches of the phase (counted launches x replays)."""
+    out = {}
+    for kind, step in steps.items():
+        nodes = read_graph(step.graph, names=True)
+        kern = [n for k, n in nodes if k == 0]
+        ours = sum(any(f in n for f in OUR_KERNELS) for n in kern)
+        counted = sum(step.launches.values())
+        check(ours == counted, f"{name}: the {kind} graph holds {ours} of the "
+                               f"port's kernels, its capture counted {counted}")
+        check(any("ArgMax" in n for n in kern),
+              f"{name}: no argmax kernel in the {kind} graph")
+        n_copy = sum(k == 1 for k, _ in nodes)
+        n_set = sum(k == 2 for k, _ in nodes)
+        replays = calls[kind]
+        print(f"  graph[{kind}]: kernel_nodes={len(kern)} (the port's {ours} = "
+              f"counted launches per replay, PyTorch's {len(kern) - ours} "
+              f"with the argmax) memcpy_nodes={n_copy} memset_nodes={n_set} "
+              f"other_nodes={len(nodes) - len(kern) - n_copy - n_set} "
+              f"pool_MiB={step.pool_bytes / 2**20:.2f} replays={replays} "
+              f"launches={counted} x {replays} = {counted * replays}")
+        out[kind] = dict(kernel_nodes=len(kern), ours=ours, memcpy=n_copy,
+                         memset=n_set, pool_bytes=step.pool_bytes,
+                         replays=replays)
+    return out
+
+
+def sync_check(torch, name, engine, requests):
+    """Serve the phase's requests on a fresh default engine, every tick's
+    plan and dispatch under ``torch.cuda.set_sync_debug_mode("error")``
+    (collect outside it): dispatch never blocks the host, and only
+    collect waits (the JAX engine's async-barrier invariant)."""
+    eng = engine()
+    reqs = requests(seed=2)
+    for r in reqs:
+        eng.submit(r)
+
+    def strict(fn, what):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        except RuntimeError as e:
+            raise SmokeFailure(f"{name}: {what} synchronized with the card: "
+                               f"{e}") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    ticks = 0
+    while eng.has_pending() or any(a is not None for a in eng.admissions):
+        strict(eng._plan_phase, "plan")
+        eng._collect_phase()
+        strict(eng._dispatch_phase, "dispatch")
+        ticks += 1
+    eng._barrier()
+    check(all(r.done for r in reqs), f"{name}: sync check left requests")
+    print(f"  sync check: {ticks} ticks, every plan and dispatch under "
+          f"set_sync_debug_mode('error'), collect outside it")
+
+
+def phase_serve(torch, name, graphs=True, overlap=True):
+    """One serve phase (``SERVE_PHASES``) after a warm-up run, on the
+    default engine (steps in CUDA graphs, the pipelined tick) or with
+    ``graphs=False, overlap=False`` (eager steps, the serial loop).  The
+    launch counts are set to 0 just before the requests are submitted and
+    read just after the last token; each step call, eager or a replay,
+    counts its kernels."""
     import numpy as np
 
     from repro_torch.kernels import ops
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     cfg, engine, requests = _serve_setup(torch, name)
-    warm = engine()                                    # first-call costs
+    variant = "graphed-overlap" if graphs else "eager-serial"
+    warm = engine(graphs, overlap)                     # first-call costs
     for r in requests(seed=1, n=2, new=4):
         warm.submit(r)
     warm.run()
 
-    eng = engine()
+    t0 = time.perf_counter()
+    eng = engine(graphs, overlap)
+    build_s = time.perf_counter() - t0
+    graph_steps = dict(eng.steps)
     kinds = ("prefill", "decode", "verify")
     per_phase = {kd: dict.fromkeys(ops.launch_counts(), 0) for kd in kinds}
     calls = dict.fromkeys(kinds, 0)
@@ -1436,10 +1632,13 @@ def phase_serve(torch, name):
             return out
         return wrapped
 
-    eng.prefill_fn = counted("prefill", eng.prefill_fn)
-    eng.decode_fn = counted("decode", eng.decode_fn)
+    if eng.paged:
+        eng.steps["chunk"] = counted("prefill", eng.steps["chunk"])
+    else:
+        eng.prefill_fn = counted("prefill", eng.prefill_fn)   # eager, per length
+    eng.steps["decode"] = counted("decode", eng.steps["decode"])
     if k:
-        eng.verify_fn = counted("verify", eng.verify_fn)
+        eng.steps["verify"] = counted("verify", eng.steps["verify"])
     reqs = requests()
     torch.cuda.synchronize()
     ops.reset_launch_counts()                 # main path starts here
@@ -1524,6 +1723,8 @@ def phase_serve(torch, name):
     ttft = np.asarray(stats.ttft_s) * 1e3
     per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
                 for kd, c in per_phase.items()}
+    step_calls = {"chunk": calls["prefill"], "decode": calls["decode"],
+                  "verify": calls["verify"]}
     spec = (f"acceptance_rate={stats.spec_accepted / max(stats.spec_drafted, 1):.3f} "
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
@@ -1531,11 +1732,16 @@ def phase_serve(torch, name):
     store = (f"{ssmd or 'float32'} slabs" if eng.has_slabs else
              f"{kvd} {'pools' if eng.paged else 'lanes'}")
     layout = f"page={PSZ} chunk={CH}" if eng.paged else "contiguous"
-    print(f"{name}: {arch} bf16 weights, {store}, speculative={k}, "
+    print(f"{name}: [{variant}] {arch} bf16 weights, {store}, speculative={k}, "
           f"{kind} prompts, slots={SLOTS} seq_budget={SB} {layout} "
           f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
+          f"wall_per_tick_ms={1e3 * wall / stats.ticks:.3f} "
           f"tok_per_s={stats.decoded_tokens / wall:.1f} "
+          f"engine_build_s={build_s:.2f} "
+          f"plan_ahead_ticks={stats.plan_ahead_ticks} "
+          f"collect_wait_ms={1e3 * stats.collect_wait_s:.1f} "
+          f"dispatch_to_collect_share={stats.device_busy_fraction:.3f} "
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}"
@@ -1544,20 +1750,29 @@ def phase_serve(torch, name):
           f"decode_ticks={calls['decode']} "
           f"per_{'prefill_chunk' if eng.paged else 'prefill'}={per_call['prefill']} "
           f"per_decode_tick={per_call['decode']}")
-    return launches, per_call, wall
+    graphs_out = {}
+    if graphs:
+        graphs_out = graph_report(torch, name, graph_steps, step_calls)
+        if eng.paged:
+            sync_check(torch, name, engine, requests)
+    return dict(launches=launches, per_call=per_call, wall=wall,
+                ticks=stats.ticks, tokens=stats.decoded_tokens,
+                graphs=graphs_out, tokens_by_request=[r.out_tokens for r in reqs])
 
 
-def phase_profile(torch, name, serve_wall_s):
+def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
     """Device time by kernel over serve phase ``name``'s workload, traced
-    with torch.profiler (CUDA activity only), and the CUDA runtime calls
-    that block the host (synchronizations and copies).  The busy share
-    divides the traced device time by the untraced phase's wall time: the
-    same work, so what is left is time the device waited on the host."""
+    with torch.profiler (CUDA activity only; the kernels of a graph replay
+    are traced one by one), and the CUDA runtime calls that block the
+    host (synchronizations and copies).  The busy share divides the
+    traced device time by the untraced phase's wall time: the same work,
+    so what is left is time the device waited on the host."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
     _, engine, requests = _serve_setup(torch, name)
-    eng = engine()
+    tag = name if graphs else f"{name}, eager-serial"
+    eng = engine(graphs, overlap)
     for r in requests():
         eng.submit(r)
     torch.cuda.synchronize()
@@ -1576,10 +1791,10 @@ def phase_profile(torch, name, serve_wall_s):
                                 "cudaDeviceSynchronize", "cudaEventSynchronize")):
             host.append(f"{ev.key} {ev.count} calls "
                         f"{getattr(ev, 'self_cpu_time_total', 0) / 1e3:.1f} ms")
-    check(rows, f"profile[{name}]: the trace holds no device time")
+    check(rows, f"profile[{tag}]: the trace holds no device time")
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile[{name}]: device_ms={total:.2f} wall_ms="
+    print(f"profile[{tag}]: device_ms={total:.2f} wall_ms="
           f"{serve_wall_s * 1e3:.1f} device_busy_share="
           f"{total / (serve_wall_s * 1e3):.3f} blocking runtime calls: "
           f"{'; '.join(host) or 'none recorded'}")
@@ -1613,13 +1828,14 @@ def phase_profile(torch, name, serve_wall_s):
         got = [(ms, n) for ms, n, key in rows if any(f in key for f in fns)]
         k_ms, k_calls = sum(r[0] for r in got), sum(r[1] for r in got)
         check(k_calls <= n_launch,
-              f"profile[{name}]: {k_calls} {kname} kernels in the trace for "
+              f"profile[{tag}]: {k_calls} {kname} kernels in the trace for "
               f"{n_launch} launches")
-        print(f"profile[{name}]: {kname} calls={k_calls} of "
+        print(f"profile[{tag}]: {kname} calls={k_calls} of "
               f"launches={n_launch} (records dropped by the profiler: "
               f"{n_launch - k_calls}) device_ms={k_ms:.2f} "
               f"per_call_us={1e3 * k_ms / max(k_calls, 1):.2f} "
               f"share_of_device={k_ms / total:.3f}")
+    return dict(device_ms=total, busy=total / (serve_wall_s * 1e3))
 
 
 # name: (route, source, the TPU kernel it replaces)
@@ -1686,15 +1902,34 @@ def main() -> int:
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
-        for name, out in served.items():
-            timed(f"profile[{name}]", phase_profile, torch, name, out[2])
+        # the same phases with eager steps and the serial loop, in this call
+        eager = {name: timed(f"{name}[eager-serial]", phase_serve, torch, name,
+                             False, False) for name in AB_PHASES}
+        for name, out in eager.items():
+            check(out["tokens_by_request"] == served[name]["tokens_by_request"],
+                  f"{name}: eager-serial tokens differ from graphed-overlap")
+        prof = {name: timed(f"profile[{name}]", phase_profile, torch, name,
+                            out["wall"]) for name, out in served.items()}
+        prof_eager = {name: timed(f"profile[{name}, eager-serial]",
+                                  phase_profile, torch, name, out["wall"],
+                                  False, False) for name, out in eager.items()}
+        for name in AB_PHASES:
+            rows_ab = []
+            for tag, sv, pr in (("graphed-overlap", served[name], prof[name]),
+                                ("eager-serial", eager[name], prof_eager[name])):
+                rows_ab.append(
+                    f"{tag} tok_per_s={sv['tokens'] / sv['wall']:.1f} "
+                    f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+                    f"ticks={sv['ticks']} busy_share={pr['busy']:.3f}")
+            print(f"ab[{name}]: " + " | ".join(rows_ab) + " (greedy tokens "
+                  f"identical)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         r = rows[name]
-        by_phase = {ph: out[0][name] for ph, out in served.items()}
+        by_phase = {ph: out["launches"][name] for ph, out in served.items()}
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "max_abs_err": r["max_abs_err"],
@@ -1702,7 +1937,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "max_abs_err_all_cases": r["max_abs_err_all_cases"],
             "launches_by_phase": by_phase,
-            "per_step": {ph: {kd: c[name] for kd, c in out[1].items() if name in c}
+            "per_step": {ph: {kd: c[name] for kd, c in out["per_call"].items()
+                              if name in c}
                          for ph, out in served.items()},
             **({"by_shape": r["by_shape"]} if "by_shape" in r else {})})
     print(f"total_s={time.perf_counter() - t_start:.1f} phase_s={phase_s}")

@@ -6,9 +6,10 @@
 Each round runs PARENT, CHANGE, CHANGE, PARENT, every run in a fresh
 process from that checkout's own ``chip_smoke.py``: it builds the
 checkout's kernels, then serves each of its serve phases once after the
-phase's own warm-up (``phase_serve``: 16 requests, bf16 weights).  Prints
-one line per run and phase (tok/s, wall, TTFT and TPOT p50), then one
-JSON line with every reading.  Two versions are compared only inside one
+phase's own warm-up (``phase_serve``: 16 requests, bf16 weights, each
+checkout's default engine).  Prints one line per run and phase (tok/s,
+wall, wall per tick, TTFT and TPOT p50), then one JSON line with every
+reading.  Two versions are compared only inside one
 call: the host's speed differs between machines by more than the change
 (PERF.md §6).
 """
@@ -35,8 +36,9 @@ for name in cs.SERVE_PHASES:
     with contextlib.redirect_stdout(buf):
         cs.phase_serve(torch, name)
     line = buf.getvalue()
-    out[name] = {k: float(re.search(rf"{k}=([0-9.]+)", line).group(1))
-                 for k in ("tok_per_s", "wall_s", "ttft_p50_ms", "tpot_p50_ms")}
+    out[name] = {k: float(re.search(rf" {k}=([0-9.]+)", line).group(1))
+                 for k in ("ticks", "tok_per_s", "wall_s", "ttft_p50_ms",
+                           "tpot_p50_ms")}
 print("AB " + json.dumps(out))
 """
 
@@ -69,7 +71,9 @@ def main() -> int:
             readings.append({"side": label, "phases": phases})
             for name, r in phases.items():
                 print(f"{label:6s} {name:17s} tok_per_s={r['tok_per_s']:7.1f} "
-                      f"wall_s={r['wall_s']:.3f} ttft_p50_ms={r['ttft_p50_ms']:.1f} "
+                      f"wall_s={r['wall_s']:.3f} ticks={r['ticks']:.0f} "
+                      f"wall_per_tick_ms={1e3 * r['wall_s'] / r['ticks']:.3f} "
+                      f"ttft_p50_ms={r['ttft_p50_ms']:.1f} "
                       f"tpot_p50_ms={r['tpot_p50_ms']:.2f}", flush=True)
     print(json.dumps({"card": smi, "readings": readings}))
     return 0

@@ -49,7 +49,8 @@ def _masked_exp(s, valid):
 def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
                     q_offset=0, kv_offset=0):
     """Returns (B, G, R, Sq, D) in q.dtype.  Query i sits at position
-    ``q_offset + i``, key j at ``kv_offset + j``."""
+    ``q_offset + i``, key j at ``kv_offset + j``; ``q_offset`` is an int or
+    a one-element int32 tensor on q's device (read there by the kernel)."""
     B, G, R, Sq, D = q.shape
     Skv = k.shape[2]
     if q.is_cuda:
@@ -61,7 +62,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
         out = ops.flash_attention(q[0, :, 0].contiguous(), k[0].contiguous(),
                                   v[0].contiguous(), causal=causal,
                                   window=window, scale=scale,
-                                  q_offset=int(q_offset))
+                                  q_offset=q_offset)
         return out[None, :, None]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bgrsd,bgcd->bgrsc", q.float(), k.float()) * scale

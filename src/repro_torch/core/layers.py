@@ -60,13 +60,26 @@ def rope_freqs(head_dim: int, theta: float):
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+_FREQS: dict = {}        # (head_dim, theta, device) -> rope frequencies
+
+
+def _rope_freqs_on(d: int, theta: float, device):
+    """The frequencies on ``device``, copied there once: a step must not
+    copy from the host (that would sync, and break a CUDA graph capture)."""
+    key = (d, float(theta), device)
+    f = _FREQS.get(key)
+    if f is None:
+        f = _FREQS[key] = torch.from_numpy(rope_freqs(d, theta)).to(device)
+    return f
+
+
 def apply_rope(x, positions, theta: float):
     """Split-half rotary embedding in float32.  x: (..., S, D) with
     positions (..., S) or (S,)."""
     if theta <= 0:
         return x
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(d, theta)).to(x.device)
+    freqs = _rope_freqs_on(d, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs          # (..., S, D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

@@ -327,25 +327,28 @@ def forward_verify(params, cache, tokens, pos, qlen, cfg, plan, lay, pages):
     return final_logits(params, x), cache
 
 
-def forward_prefill_chunk(params, cache, tokens, chunk_start: int,
-                          last_idx: int, cfg, plan, lay, pages):
+def forward_prefill_chunk(params, cache, tokens, chunk_start, last_idx, cfg,
+                          plan, lay, pages):
     """One fixed-size prefill chunk against the paged cache.
 
     tokens: (B, C) chunk of the prompt (zero-padded past its end);
-    chunk_start: absolute position of the chunk's first token; last_idx:
-    in-chunk index of the prompt's final token (callers use the logits
-    only on the chunk that holds it; SSM layers also mask the recurrence
-    past it and cut their conv tails there).  -> (logits (B, V), cache).
-    Prompt lengths reach this function only as data, never as shapes."""
+    chunk_start: (1,) int32 tensor, absolute position of the chunk's first
+    token; last_idx: (1,) int32 tensor, in-chunk index of the prompt's
+    final token (callers use the logits only on the chunk that holds it;
+    SSM layers also mask the recurrence past it and cut their conv tails
+    there).  Both are device data, as JAX's traced scalars are: nothing
+    here reads them on the host, so a CUDA graph of the step serves every
+    chunk.  -> (logits (B, V), cache).  Prompt lengths reach this function
+    only as data, never as shapes."""
     B, C = tokens.shape
-    positions = chunk_start + torch.arange(C, device=tokens.device,
-                                           dtype=torch.int32).expand(B, C)
-    pages = {**pages, "chunk_start": int(chunk_start),
-             "last_idx": int(last_idx)}
+    positions = chunk_start.reshape(1, 1) + torch.arange(
+        C, device=tokens.device, dtype=torch.int32).expand(B, C)
+    pages = {**pages, "chunk_start": chunk_start, "last_idx": last_idx}
     x = embed_tokens(params, tokens)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "prefill", positions,
                                    cache=cache, pages=pages)
-    keep = slice(last_idx, last_idx + 1)
-    x = final_norm(params, x[:, keep], delta[:, keep], cfg)
+    keep = last_idx.reshape(1).long()
+    x = final_norm(params, x.index_select(1, keep), delta.index_select(1, keep),
+                   cfg)
     return final_logits(params, x)[:, 0], cache

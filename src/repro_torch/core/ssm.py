@@ -26,9 +26,10 @@ from repro_torch.kernels import ops
 def causal_conv(x, w, state=None, tail_idx=None):
     """Depthwise causal conv.  x: (B, S, C); w: (C, K); state: (B, K-1, C)
     the previous inputs, or None (zeros).  ``tail_idx``: in-chunk index of
-    the last valid input row; the returned state is the K-1 inputs ending
-    there (inclusive), so a chunk whose tail is padding still hands the
-    next step the true history.  None = S - 1.  -> (y, new_state)."""
+    the last valid input row (an int or a one-element integer tensor, read
+    on the device); the returned state is the K-1 inputs ending there
+    (inclusive), so a chunk whose tail is padding still hands the next step
+    the true history.  None = S - 1.  -> (y, new_state)."""
     B, S, C = x.shape
     K = w.shape[1]
     if state is None:
@@ -42,8 +43,11 @@ def causal_conv(x, w, state=None, tail_idx=None):
     if tail_idx is None:
         return y, xp[:, -(K - 1):, :]
     # input row s sits at xp index K-1+s; the K-1 rows ending at tail_idx
-    # inclusive are xp[tail_idx+1 : tail_idx+K]
-    return y, xp[:, tail_idx + 1:tail_idx + K, :]
+    # inclusive are xp[tail_idx+1 : tail_idx+K], gathered at a device index
+    if not isinstance(tail_idx, torch.Tensor):
+        tail_idx = torch.tensor(tail_idx, device=x.device)
+    rows = tail_idx.reshape(1).long() + torch.arange(1, K, device=x.device)
+    return y, xp.index_select(1, rows)
 
 
 def ssd_chunked(x, dt, Bm, Cm, A, D, state0=None, state0_scale=None):

@@ -16,6 +16,8 @@ slab 0 for idle lanes).
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import model
 from repro_torch.core.kvcache import (cache_profile, cache_template,
                                       kv_window, paged_cache_template,
@@ -141,21 +143,36 @@ def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
     return verify_fn
 
 
+def _index(name, x, device):
+    """A step's per-tick scalar as the (1,) int32 device tensor the model
+    takes; a host int (a direct caller's) is copied there."""
+    if isinstance(x, torch.Tensor):
+        _expect(name, x, (1,))
+        return x
+    return torch.tensor([x], dtype=torch.int32, device=device)
+
+
 def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
     """-> chunk_fn(params, cache, tokens (1, C), chunk_start, last_idx,
     block_table (1, n_max)[, slab_ids (1,)]) -> (logits (1, V), cache
-    updated in place).  ``chunk_start`` and ``last_idx`` are host integers:
-    the chunk's first absolute position and the in-chunk index of the
-    prompt's last token (SSM layers leave their state untouched past
-    it)."""
+    updated in place).  ``chunk_start`` is the chunk's first absolute
+    position and ``last_idx`` the in-chunk index of the prompt's last token
+    (SSM layers leave their state untouched past it), each a (1,) int32
+    tensor on the device, as JAX takes them traced (the engine's case: the
+    step reads neither on the host, so one CUDA graph serves every chunk),
+    or a host int, range-checked here.  The engine checks its own
+    ``last_idx`` while it is still a host int."""
     lay = model_layout(cfg, plan)
 
-    def chunk_fn(params, cache, tokens, chunk_start: int, last_idx: int,
-                 block_table, slab_ids=None):
+    def chunk_fn(params, cache, tokens, chunk_start, last_idx, block_table,
+                 slab_ids=None):
         _expect("tokens", tokens, (1, chunk))
         _expect("block_table", block_table, (1, n_max_pages))
-        if not 0 <= last_idx < chunk:
+        if not isinstance(last_idx, torch.Tensor) and \
+                not 0 <= last_idx < chunk:
             raise ValueError(f"last_idx {last_idx} outside the chunk {chunk}")
+        chunk_start = _index("chunk_start", chunk_start, tokens.device)
+        last_idx = _index("last_idx", last_idx, tokens.device)
         pages = _pages(cfg, block_table, slab_ids, 1)
         return model.forward_prefill_chunk(params, cache, tokens, chunk_start,
                                            last_idx, cfg, plan, lay, pages)

@@ -9,6 +9,9 @@
 //   queries at the suffix of the key stream (q_offset = Skv - Sq); the
 //   prefill chunk needs them at the chunk's start inside a longer gathered
 //   stream whose tail past the chunk is garbage, so q_offset is an argument.
+//   It is read from device memory (one int32), once per block: the chunk
+//   step's offset is per-tick data, so a CUDA graph of the step replays
+//   with whatever offset the engine last copied there.
 // Bound on this card: the chunk step (8 heads, Sq = 32 queries against a
 //   256-key gathered stream, D 64) reads K and V once (0.5 MB) and does
 //   ~4 D operations per (query, key) pair: bytes bound it, at ~0.2 us.
@@ -98,8 +101,8 @@ template <int D>
 __global__ void __launch_bounds__(WQ_MAX * 32)
 flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                  const bf16* __restrict__ V, bf16* __restrict__ O, int Sq, int Skv,
-                 int q_offset, int causal, int window, float scale_log2, int wq, int split,
-                 int row_tiles) {
+                 const int* __restrict__ q_off, int causal, int window, float scale_log2,
+                 int wq, int split, int row_tiles) {
   constexpr int KS = kv_stride(D);      // chunks per stored K/V row
   constexpr int DK = D / 16;            // k steps of Q K^T
   constexpr int NS = KV_TILE / 8;       // score tiles (8 keys) per key tile
@@ -121,19 +124,18 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   const bf16* v = V + (size_t)h * Skv * D;
   if (split > 1) cluster_arrive();      // this block has started
 
-  // the key tiles the block's rows can see, and this rank's share of them
-  const int pos_lo = q_offset + q0;
-  const int pos_hi = q_offset + min(q0 + 16 * wq, Sq) - 1;
+  // the key tiles the block's rows can see, and this rank's share of them.
+  // The offset is read from the device; without a window the rank's first
+  // tile does not depend on it, so that tile is requested while the
+  // offset's load is still in flight
+  const int q_offset = __ldg(q_off);
   const int n_tiles = (Skv + KV_TILE - 1) / KV_TILE;
-  int t_end = n_tiles;
-  if (causal) t_end = pos_hi < 0 ? 0 : min(n_tiles, pos_hi / KV_TILE + 1);
   int t_begin = 0;
   if (window > 0) {
-    const int first = pos_lo - window + 1;       // the first key row lo can see
+    const int first = q_offset + q0 - window + 1;  // the first key row q0 can see
     t_begin = first <= 0 ? 0 : min(n_tiles, first / KV_TILE);
   }
   const int t_first = t_begin + ((rank - t_begin % split) % split + split) % split;
-  const int my_n = t_first < t_end ? (t_end - 1 - t_first) / split + 1 : 0;
 
   auto issue = [&](int i) {             // the rank's i-th tile into stage i % 2
     bf16* ks = ring + (i % KV_STAGES) * 2 * TILE;
@@ -147,7 +149,15 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     }
     cp_async_commit();
   };
-  if (my_n > 0) issue(0);
+  const bool early = window <= 0 && t_first < n_tiles;
+  if (early) issue(0);
+
+  const int pos_hi = q_offset + min(q0 + 16 * wq, Sq) - 1;
+  int t_end = n_tiles;
+  if (causal) t_end = pos_hi < 0 ? 0 : min(n_tiles, pos_hi / KV_TILE + 1);
+  const int my_n = t_first < t_end ? (t_end - 1 - t_first) / split + 1 : 0;
+  if (!early && my_n > 0) issue(0);
+  if (early && my_n == 0) cp_async_wait<0>();   // a tile the rank does not use
 
   // Q fragments of the warp's 16 rows (zeros past Sq), loaded once
   unsigned qf[DK][4];
@@ -320,8 +330,8 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int H, int Sq, int Skv,
-               int q_offset, int causal, int window, float scale, int wq, int split, int smem,
-               cudaStream_t stream) {
+               const int* q_offset, int causal, int window, float scale, int wq, int split,
+               int smem, cudaStream_t stream) {
   auto kernel = flash_mma_kernel<D>;
   static int granted = 48 * 1024;       // dynamic shared memory allowed so far
   if (smem > granted) {
@@ -357,8 +367,8 @@ constexpr int ROWS = BQ / NW; // query rows per warp
 template <int D>
 __global__ void __launch_bounds__(NW * 32)
 flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                  const float* __restrict__ V, float* __restrict__ O, int Sq, int Skv, int q_offset, int causal, int window,
-             float scale) {
+                  const float* __restrict__ V, float* __restrict__ O, int Sq, int Skv,
+                  const int* __restrict__ q_off, int causal, int window, float scale) {
   constexpr int BKV = D <= 64 ? 64 : 32;  // keys per tile
   constexpr int KPL = BKV / 32;           // keys per lane
   constexpr int DPL = D / 32;             // output columns per lane
@@ -380,6 +390,7 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   }
 
   // kv tiles this block's rows can see
+  const int q_offset = *q_off;
   const int q_rows = min(BQ, Sq - q0);
   const int pos_lo = q_offset + q0;
   const int pos_hi = q_offset + q0 + q_rows - 1;
@@ -471,7 +482,7 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 template <int D>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int Sq, int Skv,
-                int q_offset, int causal, int window, float scale, cudaStream_t stream) {
+                const int* q_offset, int causal, int window, float scale, cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H);
   flash_simt_kernel<D><<<grid, NW * 32, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv, q_offset, causal,
@@ -485,14 +496,15 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int
 // float32 (CUDA cores: wq 4, split 1, smem 0), 1 = bfloat16 (tensor cores:
 // wq = min(4, ceil(Sq / 16)) warps of 16 rows, split 1, 2, 4 or 8, smem as
 // smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128}.  All
-// tensors contiguous row-major.  Returns a CUDA error code: a plan that
-// does not fit the shape is cudaErrorInvalidValue, never a launch.
+// tensors contiguous row-major; q_offset points at one int32 on the device.
+// Returns a CUDA error code: a plan that does not fit the shape is
+// cudaErrorInvalidValue, never a launch.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int H, int Sq, int Skv, int D, int q_offset,
+                                     int H, int Sq, int Skv, int D, const int* q_offset,
                                      int causal, int window, float scale, int dtype,
                                      int wq, int split, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128))
+  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128) || q_offset == nullptr)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (wq != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;

@@ -7,8 +7,10 @@ entry point.
 
 ``plan`` chooses every launch from (H, Sq, Skv, D, dtype, window) alone, in
 plain Python, so the CPU tests can hold it to its limits; never from
-``q_offset``, which the kernel reads on the card.  The C entry point checks
-the plan against the shape and refuses one that does not fit.
+``q_offset``, which the kernel reads from device memory (one int32): the
+prefill chunk's offset is per-tick data, and a CUDA graph of the chunk step
+replays with whatever offset was last copied there.  The C entry point
+checks the plan against the shape and refuses one that does not fit.
 """
 from __future__ import annotations
 
@@ -22,8 +24,9 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p])
 
 SMS = 132                # H100 SXM
 KV_TILE = 64             # keys per tile (csrc/flash_attention.cu)
@@ -99,10 +102,30 @@ def plan(H: int, Sq: int, Skv: int, D: int, dtype: torch.dtype,
     return Plan("mma", wq, split, _smem_bytes(D, wq, split))
 
 
+_OFFSETS: dict = {}      # (device, value) -> a constant int32 offset on the card
+
+
+def offset_tensor(value: int, device) -> torch.Tensor:
+    """A constant ``q_offset`` as the one int32 on the card the kernel
+    reads, made once per (device, value) and never written again (never
+    made under graph capture: a graphed step passes its own tensor)."""
+    key = (torch.device(device), int(value))
+    t = _OFFSETS.get(key)
+    if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_attention: pass q_offset as a device "
+                               "tensor inside a CUDA graph capture")
+        t = _OFFSETS[key] = torch.full((1,), key[1], dtype=torch.int32,
+                                       device=key[0])
+    return t
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None, q_offset=None):
     """q: (H, Sq, D); k/v: (H, Skv, D), one kv head per q head -> (H, Sq, D).
-    Query row i sits at position ``q_offset + i`` (default ``Skv - Sq``)."""
+    Query row i sits at position ``q_offset + i`` (default ``Skv - Sq``);
+    ``q_offset`` is an int or a one-element int32 tensor on q's device, which
+    the kernel reads there."""
     build.check_cuda_tensor(q, "flash_attention q", 3, _DTYPES)
     build.check_cuda_tensor(k, "flash_attention k", 3, (q.dtype,))
     build.check_cuda_tensor(v, "flash_attention v", 3, (q.dtype,))
@@ -117,7 +140,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     scale = float(scale if scale is not None else D ** -0.5)
-    q_offset = Skv - Sq if q_offset is None else int(q_offset)
+    if q_offset is None:
+        q_offset = Skv - Sq
+    if isinstance(q_offset, torch.Tensor):
+        if q_offset.device != q.device or q_offset.dtype != torch.int32 or \
+                q_offset.numel() != 1:
+            raise ValueError(f"flash_attention: q_offset must be one int32 on "
+                             f"{q.device}, got {q_offset.dtype} "
+                             f"{tuple(q_offset.shape)} on {q_offset.device}")
+    else:
+        q_offset = offset_tensor(q_offset, q.device)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -129,7 +161,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                _ARGTYPES)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                H, Sq, Skv, D, q_offset, int(causal), int(window), scale,
+                H, Sq, Skv, D, q_offset.data_ptr(), int(causal), int(window),
+                scale,
                 build.dtype_code(q.dtype), p.wq, p.split, p.smem,
                 build.stream_of(q))
     build.check_launch(rc, "flash_attention")

@@ -13,7 +13,10 @@ error, never a silent detour through the plain version.
 Each kernel variant has its own wrapper with a plain integer ``launches``,
 raised by one exactly where it launches its kernel (an empty output
 launches none), so a run can show that it went through every kernel
-(``launch_counts`` / ``reset_launch_counts``).
+(``launch_counts`` / ``reset_launch_counts``).  A CUDA graph of a step
+(``core.graphs``) launches again, at every replay, each kernel its capture
+recorded: the capture counts nothing and each replay adds the captured
+call's counts (``add_launches``), so the counts stay the kernels that ran.
 ``paged_decode_attention`` and ``paged_verify_attention`` hand int8 pools
 (``k_scale``/``v_scale`` given) to their ``_i8`` twins, and
 ``decode_attention`` int8 lanes (``kv_scale`` given) to
@@ -77,7 +80,9 @@ def matmul(a, b, *, trans_b: bool = False):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None, q_offset=None):
     """q: (H, Sq, D); k/v: (H, Skv, D) -> (H, Sq, D); query i at position
-    ``q_offset + i`` (default ``Skv - Sq``: queries are the kv suffix)."""
+    ``q_offset + i`` (default ``Skv - Sq``: queries are the kv suffix).
+    ``q_offset``: an int, or a one-element int32 tensor on q's device (the
+    prefill chunk's per-tick offset, which the kernel reads there)."""
     if q.device.type == "cpu":
         return ref.ref_flash_attention(q, k, v, causal=causal, window=window,
                                        scale=scale, q_offset=q_offset)
@@ -221,3 +226,14 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
+
+
+def set_launch_counts(counts: dict):
+    for w in WRAPPERS:
+        w.launches = counts[w.__name__]
+
+
+def add_launches(counts: dict):
+    """One replay of a captured call that launched ``counts`` kernels."""
+    for w in WRAPPERS:
+        w.launches += counts.get(w.__name__, 0)

@@ -57,8 +57,9 @@ def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0,
     """q: (H, Sq, D), k/v: (H, Skv, D) -> (H, Sq, D).
 
     Query row i sits at position ``q_offset + i`` and key j at position j.
-    ``q_offset`` defaults to ``Skv - Sq``: the Pallas contract, where the
-    queries are the suffix of the key stream."""
+    ``q_offset`` (an int or a one-element tensor) defaults to ``Skv - Sq``:
+    the Pallas contract, where the queries are the suffix of the key
+    stream."""
     H, Sq, D = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else D ** -0.5

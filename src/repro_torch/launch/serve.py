@@ -11,12 +11,15 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
 ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
-or from state slabs with ``--paged``.  The port runs tp=1, dp=1, FCFS,
-greedy and serial: the JAX launcher's other flags parse with its defaults,
-and a value the port cannot serve (``--tp 2``, ``--temperature 0.7``,
-``--overlap``, any ``--prefix-cache``, ...) is refused with the slice it
-waits for.  Weights are random, drawn from ``--seed``; prompts are random
-token ids.
+or from state slabs with ``--paged``.  The paged engine pipelines its tick
+(plan the next tick while this one runs on the card) unless
+``--no-overlap``, as the JAX launcher does, and prints the ``pipeline:``
+line; the contiguous engine ignores the flag, as in JAX.  The port runs
+tp=1, dp=1, FCFS and greedy: the JAX launcher's other flags parse with its
+defaults, and a value the port cannot serve (``--tp 2``, ``--temperature
+0.7``, any ``--prefix-cache``, ...) is refused with the slice it waits
+for.  Weights are random, drawn from ``--seed``; prompts are random token
+ids.
 """
 from __future__ import annotations
 
@@ -27,30 +30,24 @@ import time
 import numpy as np
 
 # flags of the JAX launcher, parsed with its types and defaults: (the
-# values the port serves, the later slice of the port that brings the rest).
-# ``--overlap`` defaults to None here: the port's loop is the serial one,
-# which the JAX launcher runs with ``--no-overlap`` (token-identical either
-# way), so only an explicit ``--overlap`` is refused.
+# values the port serves, the later slice of the port that brings the rest)
 LATER = {
-    "--tp": ((1,), "tensor parallelism (ROADMAP Queue 1 item 14)"),
-    "--dp": ((1,), "data-parallel replicas (ROADMAP Queue 1 item 13)"),
+    "--tp": ((1,), "tensor parallelism (ROADMAP Queue 1 item 12)"),
+    "--dp": ((1,), "data-parallel replicas (ROADMAP Queue 1 item 11)"),
     "--disagg": ((None,), "disaggregated prefill/decode (ROADMAP Queue 1 "
-                          "item 13)"),
-    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 13)"),
-    "--overlap": ((None, False), "the overlap pipeline (ROADMAP Queue 1 "
-                                 "item 6)"),
-    "--temperature": ((0.0,), "sampled decoding (the port decodes "
-                              "greedily)"),
-    "--prefix-cache": ((False,), "the prefix cache (ROADMAP Queue 1 item 9)"),
-    "--shared-prefix": ((0,), "the prefix cache (ROADMAP Queue 1 item 9)"),
+                          "item 11)"),
+    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11)"),
+    "--temperature": ((0.0,), "sampled decoding (ROADMAP Queue 1 item 6)"),
+    "--prefix-cache": ((False,), "the prefix cache (ROADMAP Queue 1 item 4)"),
+    "--shared-prefix": ((0,), "the prefix cache (ROADMAP Queue 1 item 4)"),
     "--frame-groups": ((1,), "encoder-decoder serving (ROADMAP Queue 1 "
-                             "item 11)"),
+                             "item 9)"),
     "--policy": (("fcfs",), "priority and fair policies (ROADMAP Queue 1 "
-                            "item 9)"),
-    "--preemption": ((False,), "preemption (ROADMAP Queue 1 item 9)"),
+                            "item 4)"),
+    "--preemption": ((False,), "preemption (ROADMAP Queue 1 item 4)"),
     "--high-priority-every": ((0,), "priority policies (ROADMAP Queue 1 "
-                                    "item 9)"),
-    "--clients": ((1,), "the fair policy (ROADMAP Queue 1 item 9)"),
+                                    "item 4)"),
+    "--clients": ((1,), "the fair policy (ROADMAP Queue 1 item 4)"),
 }
 
 
@@ -92,8 +89,10 @@ def parse_args(argv=None):
     ap.add_argument("--disagg", default=None, metavar="P:D")
     ap.add_argument("--scale-events", default=None, metavar="T:N[,T:N...]")
     ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
-                    default=None, help="--no-overlap is the port's serial "
-                                       "loop; --overlap is refused")
+                    default=True,
+                    help="plan tick t+1 while tick t's steps run on the card "
+                         "(paged engine; --no-overlap is the serial loop, "
+                         "token-identical either way)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--shared-prefix", type=int, default=0)
@@ -151,7 +150,8 @@ def main(argv=None):
             cfg, plan, args.slots, args.seq_budget, params,
             page_size=args.page_size, n_pages=args.n_pages,
             prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
-            speculative=args.speculative, device=args.device)
+            speculative=args.speculative, overlap=args.overlap,
+            device=args.device)
     else:
         engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
                                rng_seed=args.seed, device=args.device)
@@ -187,6 +187,11 @@ def main(argv=None):
               f"{stats.spec_accepted}/{stats.spec_drafted} drafted "
               f"spec_denied={stats.spec_denied}")
     if engine.paged:
+        print(f"pipeline: overlap={'on' if engine.overlap else 'off'} "
+              f"device_busy_fraction={stats.device_busy_fraction:.2f} "
+              f"plan_ahead_ticks={stats.plan_ahead_ticks} "
+              f"plan_invalidations={stats.plan_invalidations} "
+              f"collect_wait={stats.collect_wait_s * 1e3:.1f}ms")
         print(f"pages_free={engine.allocator.n_free}/"
               f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
     if engine.has_slabs:

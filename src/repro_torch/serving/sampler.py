@@ -1,11 +1,15 @@
 """Token samplers over (possibly vocab-padded) logits: copies of the JAX
 package's ``serving/sampler.py::sample_from_logits`` and
-``speculative_sample`` (host-side numpy)."""
+``speculative_sample`` (host-side numpy), kept for sampled decoding; and
+the greedy path the serving engine runs: ``greedy_ids`` on the device,
+inside the compiled steps, and ``greedy_accept``, the verify emission over
+those ids."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -59,6 +63,29 @@ def speculative_sample(logits: np.ndarray, draft, cfg: SamplerConfig,
     for i in range(len(draft) + 1):
         tok = int(sample_from_logits(logits[i:i + 1], cfg, vocab_size,
                                      rng)[0])
+        out.append(tok)
+        if i < len(draft) and tok != int(draft[i]):
+            break
+    return out
+
+
+def greedy_ids(logits, vocab_size: int):
+    """``sample_from_logits``'s greedy branch on the device: the argmax of
+    each row's first ``vocab_size`` logits, compared in float32 as JAX
+    compares them; ``torch.argmax`` returns the first maximal index, as
+    ``np.argmax`` does.  logits (..., V_pad) -> (...) int32."""
+    return logits[..., :vocab_size].float().argmax(-1).to(torch.int32)
+
+
+def greedy_accept(ids, draft):
+    """``speculative_sample``'s greedy branch over the verify step's greedy
+    ids (taken on the card): ``ids`` (Q,) holds row i's argmax; row i is
+    emitted, and drafting continues past it only while it equals
+    draft[i].  -> emitted tokens (1 <= len <= len(draft) + 1), the tokens
+    ``speculative_sample`` gives on the rows' logits."""
+    out = []
+    for i in range(len(draft) + 1):
+        tok = int(ids[i])
         out.append(tok)
         if i < len(draft) and tok != int(draft[i]):
             break

@@ -284,7 +284,8 @@ def test_int8_engine_greedy_tokens_identical_to_jax(int8_weights, mesh1):
     jeng.run(max_ticks=2000)
     eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                     page_size=PSZ, prefill_chunk=CHUNK,
-                                    n_pages=N_PAGES, device="cpu")
+                                    n_pages=N_PAGES, overlap=False,
+                                    device="cpu")
     assert eng.quant_pools
     treqs = [Request(rid=r, prompt=p, max_new_tokens=m) for r, p, m in reqs]
     for r in treqs:

@@ -60,7 +60,8 @@ def test_greedy_tokens_identical_to_jax_paged_engine(weights, mesh1):
 
     eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                     page_size=PSZ, prefill_chunk=CHUNK,
-                                    n_pages=N_PAGES, device="cpu")
+                                    n_pages=N_PAGES, overlap=False,
+                                    device="cpu")
     treqs = [Request(rid=r, prompt=p, max_new_tokens=m) for r, p, m in reqs]
     for r in treqs:
         eng.submit(r)
@@ -122,7 +123,6 @@ def test_launcher_serves_on_cpu(capsys):
     (["--dp", "2"], "data-parallel replicas"),
     (["--disagg", "1:1"], "disaggregated prefill/decode"),
     (["--scale-events", "8:1"], "elastic replicas"),
-    (["--overlap"], "overlap pipeline"),
     (["--temperature", "0.7"], "sampled decoding"),
     (["--prefix-cache"], "prefix cache"),
     (["--shared-prefix", "4"], "prefix cache"),
@@ -134,8 +134,7 @@ def test_launcher_serves_on_cpu(capsys):
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
     """A value of the JAX launcher's flags that the port cannot serve is
-    refused with the slice it waits for; so is any explicit ``--overlap``
-    (the JAX default), since the port's loop is the serial one."""
+    refused with the slice it waits for."""
     with pytest.raises(SystemExit) as e:
         serve.parse_args(["--arch", "tinyllama-42m", *argv])
     assert e.value.code == 2
@@ -145,7 +144,7 @@ def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
 LAUNCH = ["--arch", "tinyllama-42m", "--smoke", "--requests", "3", "--slots",
           "2", "--seq-budget", "32", "--prompt-len", "12", "--max-new", "3",
           "--kv-dtype", "fp32", "--device", "cpu"]
-JAX_DEFAULTS = [["--tp", "1"], ["--dp", "1"], ["--no-overlap"],
+JAX_DEFAULTS = [["--tp", "1"], ["--dp", "1"], ["--overlap"],
                 ["--temperature", "0"], ["--policy", "fcfs"],
                 ["--shared-prefix", "0"], ["--frame-groups", "1"],
                 ["--high-priority-every", "0"], ["--clients", "1"]]
@@ -173,14 +172,45 @@ def bare_tokens():
         return _served_tokens(LAUNCH, m)
 
 
-@pytest.mark.parametrize("flags", JAX_DEFAULTS + [sum(JAX_DEFAULTS, [])],
-                         ids=[f[0] for f in JAX_DEFAULTS] + ["all"])
+@pytest.mark.parametrize(
+    "flags", JAX_DEFAULTS + [["--no-overlap"], sum(JAX_DEFAULTS, [])],
+    ids=[f[0] for f in JAX_DEFAULTS] + ["--no-overlap", "all"])
 def test_launcher_takes_the_jax_defaults(flags, bare_tokens, monkeypatch):
     """A JAX command line that spells out its defaults runs on the port and
-    serves the same greedy tokens as the bare command."""
+    serves the same greedy tokens as the bare command; overlap is on unless
+    ``--no-overlap`` (the JAX launcher's serial loop)."""
     args = serve.parse_args([*LAUNCH, *flags])
     assert (args.tp, args.dp, args.temperature, args.policy) == \
         (1, 1, 0.0, "fcfs")
-    assert args.overlap in (None, False)
+    assert args.overlap is ("--no-overlap" not in flags)
     got = _served_tokens([*LAUNCH, *flags], monkeypatch)
     assert got == bare_tokens and all(len(t) == 3 for t in got)
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("tinyllama-42m", ["--paged", "--page-size", "8", "--prefill-chunk", "16"]),
+    ("tinyllama-42m", ["--speculative", "2", "--page-size", "8",
+                       "--prefill-chunk", "16"]),
+    ("mamba2-370m", ["--paged", "--page-size", "8", "--prefill-chunk", "8"])],
+    ids=["paged", "speculative", "mamba2-slabs"])
+def test_launcher_overlap_and_no_overlap_serve_identical_tokens(
+        arch, extra, monkeypatch, capsys):
+    """The paged engine's pipelined tick (the default, ``--overlap``) and
+    its serial loop (``--no-overlap``) serve the same greedy tokens, and
+    the launcher prints JAX's ``pipeline:`` line for each: plan-ahead
+    ticks with overlap, none without."""
+    argv = [*LAUNCH, *extra]
+    argv[argv.index("--arch") + 1] = arch
+    runs = {}
+    for flag in ("--overlap", "--no-overlap"):
+        toks = _served_tokens([*argv, flag], monkeypatch)
+        out = capsys.readouterr().out
+        line = next(x for x in out.splitlines() if x.startswith("pipeline:"))
+        ahead = int(line.split("plan_ahead_ticks=")[1].split()[0])
+        runs[flag] = (toks, line, ahead)
+    assert runs["--overlap"][0] == runs["--no-overlap"][0]
+    assert all(len(t) == 3 for t in runs["--overlap"][0])
+    assert "overlap=on" in runs["--overlap"][1] and runs["--overlap"][2] > 0
+    assert "overlap=off" in runs["--no-overlap"][1]
+    assert runs["--no-overlap"][2] == 0
+    assert "plan_invalidations=0" in runs["--overlap"][1]

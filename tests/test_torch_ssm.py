@@ -563,7 +563,7 @@ def test_engine_greedy_tokens_identical_to_jax(ssm_weights, jax_engine_tokens,
     _, plan = _plans(ssm_dtype)
     eng = ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                     page_size=PSZ, prefill_chunk=CHUNK,
-                                    device="cpu")
+                                    overlap=False, device="cpu")
     assert eng.has_slabs and eng.n_slabs == SLOTS + 1 and not eng.quant_pools
     admitted = []
     plan_fn = eng.sched.plan
