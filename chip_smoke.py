@@ -33,7 +33,9 @@ each (and a few detail lines):
             kernel node per call, and a CUDA graph of each entry replayed
             after its length changes in place equal to the eager call; for
             flash attention the prefill chunk at q_offset 0, 96 and 224
-            with and without windows, the offset as an int32 on the card (a
+            with and without windows, and at 37, 213 and 230 (where a chunk
+            resumes after a prefix hit; rows past Skv at 230), the offset
+            as an int32 on the card (a
             graph replayed after it changed in place equals the eager
             call), the contiguous prefill's square Sq =
             Skv in
@@ -71,14 +73,34 @@ each (and a few detail lines):
             equal to the paged engine's on the card) and fixed-scale int8
             lanes; parity-contig-ssm: the contiguous engine on mamba2-370m
             (tokens also equal to the paged engine's on the card).
-4. serve    bfloat16 weights, 8 slots, 16 requests, in eight phases:
+            parity-prefix: the prefix cache, tinyllama requests behind a
+            shared 40-token prefix (mid-page hits: copy-on-write), float
+            pools one-token and int8 pools with speculative=4 (drafts also
+            along the cache's token paths): card against CPU, cache on
+            against off, graphs and overlap on against off, identical
+            greedy tokens, COW copies and skipped prefill tokens, leak-free
+            after drain() and a full evict.  parity-preempt: tinyllama
+            under PriorityScheduler(preemption=True), every 3rd request
+            urgent and arriving while others run (pages donated to the
+            prefix cache), overlap on and off, tokens identical to FCFS
+            without preemption; mamba2-370m from float32 and int8 slabs
+            with preempt(b) forced mid-prefill and mid-decode (slabs
+            stashed on the host and restored), tokens identical to the
+            uninterrupted run.
+4. serve    bfloat16 weights, 8 slots, 16 requests, in nine phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
             mamba2-370m (48 layers) in serve-ssm (float32 state slabs) and
             serve-ssm-int8 (int8 slabs), and tinyllama-42m on the
             contiguous engine in serve-contig (bfloat16 lanes) and
-            serve-contig-int8 (fixed-scale int8 lanes).  Every request
+            serve-contig-int8 (fixed-scale int8 lanes), and serve-prefix
+            (tinyllama, bfloat16 pools, the prefix cache: a shared
+            100-token prefix and 16-64 tokens of each request's own;
+            tokens identical with the cache off in this call, hit rate,
+            skipped prefill tokens, COW copies and the copy graph's nodes
+            printed, and its tok/s, busy share and prefill chunks beside
+            serve's).  Every request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
             set to 0 just before each phase and read just after; the SSD
@@ -526,6 +548,9 @@ def phase_kernels(torch, F):
     # 256-key gathered stream, D 64) at q_offset 0 (every cluster rank past
     # the causal diagonal has no key), 96, 224 and the Pallas default, with
     # a 64- and a 32-key window at 224 (the latter empties the low ranks);
+    # at 37, 213 and 230, no multiple of 16, where a chunk resumes after a
+    # prefix hit (at 230 its last 6 rows lie past Skv: the padding such a
+    # chunk carries past the sequence budget);
     # the contiguous prefill's square prompts Sq = Skv in {23, 130, 160} (no
     # multiple of the 64-key tile); head dims 32 and 128 at the chunk shape
     # and at Sq = Skv = 130.  Every bf16 case runs twice (bitwise-equal
@@ -553,7 +578,7 @@ def phase_kernels(torch, F):
 
     for dt in (torch.float32, torch.bfloat16):
         for q_off, win in ((0, 0), (96, 0), (224, 0), (None, 0), (224, 64),
-                           (224, 32)):
+                           (224, 32), (37, 0), (213, 0), (230, 0)):
             flash_case(dt, 32, 256, 64, q_off, win)
         for S in (23, 130, 160):
             flash_case(dt, S, S, 64, 0, 0)
@@ -585,13 +610,15 @@ def phase_kernels(torch, F):
     print("  flash_attention: a CUDA graph replayed after its device q_offset "
           "changed in place equals the eager call (float32 and bf16)")
     # times (bf16, L2-warm) at the chunk shape at q_offset 0, 96 and 224,
-    # and the whole prompt Sq = Skv = 160; the row of the JSON line is the
-    # chunk at q_offset 224, as before
+    # the whole prompt Sq = Skv = 160, and the prefix-hit offsets 37, 213
+    # and 230; the row of the JSON line is the chunk at q_offset 224, as
+    # before
     # (the offset as the chunk step hands it over: an int32 on the card)
     D = 64
     flash_rows = []
     for Sq, Skv, q_off in ((32, 256, 0), (32, 256, 96), (32, 256, 224),
-                           (160, 160, 0)):
+                           (160, 160, 0), (32, 256, 37), (32, 256, 213),
+                           (32, 256, 230)):
         q, k, v = (randn(H, Sq, D, dtype=torch.bfloat16),
                    randn(H, Skv, D, dtype=torch.bfloat16),
                    randn(H, Skv, D, dtype=torch.bfloat16))
@@ -1145,12 +1172,26 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
     check(all(r.done for r in reqs), f"parity: unfinished requests on {device}")
     check(eng._inflight is None and eng.drain() == 0,
           f"parity: work in flight or slots still admitted on {device}")
-    check(not paged or eng.allocator.n_free ==
-          eng.allocator.n_pages - eng.allocator.n_reserved,
-          f"parity: pool not leak-free after drain() on {device}")
-    check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
-          f"parity: slabs not leak-free after drain() on {device}")
+    leak_check("parity", eng)
     return eng, [r.out_tokens for r in reqs], torch.cat(steps), emitted
+
+
+def leak_check(name, eng):
+    """After ``drain()``: every page free or held by the prefix cache, and
+    free after the cache is evicted whole; every slab free."""
+    if eng.paged:
+        usable = eng.allocator.n_pages - eng.allocator.n_reserved
+        cached = eng.prefix_cache.n_cached_pages if eng.prefix_cache else 0
+        check(eng.allocator.n_free + cached == usable,
+              f"{name}: pool leaked {usable - cached - eng.allocator.n_free} "
+              f"pages on {eng.device}")
+        if eng.prefix_cache:
+            eng.prefix_cache.evict(usable)
+            check(eng.allocator.n_free == usable and
+                  eng.prefix_cache.n_nodes == 0,
+                  f"{name}: pages left after a full evict on {eng.device}")
+    check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
+          f"{name}: slabs not leak-free after drain() on {eng.device}")
 
 
 def _eager_serial(torch, name, want, *args, **kw):
@@ -1458,6 +1499,201 @@ def phase_parity_contig_ssm(torch):
           f"engine on cuda: 4 requests x 16 tokens, {n_distinct} distinct")
 
 
+def _prefix_requests(Request, rng, n, lo, hi, max_new, vocab, shared=100):
+    """Requests behind one shared ``shared``-token prefix, each with its own
+    random suffix of lo to hi tokens: the traffic the prefix cache serves
+    (a system prompt).  A prefix that is not a multiple of the page ends
+    mid-page, so every hit copies that page on write."""
+    import numpy as np
+    head = rng.randint(2, vocab, shared)
+    return [Request(rid=i, prompt=np.concatenate(
+                [head, rng.randint(2, vocab, int(L))]).astype(np.int32),
+                    max_new_tokens=max_new)
+            for i, L in enumerate(rng.randint(lo, hi + 1, n))]
+
+
+def phase_parity_prefix(torch):
+    """The prefix cache at full width, fp32: tinyllama requests behind a
+    shared 40-token prefix (2 pages and 8 tokens: every hit copies a page
+    on write), 2 slots, so later admissions hit what earlier prefills
+    inserted.  Float pools one-token (weights x10) and int8 pools with
+    speculative=4, drafts searched along the cache's token paths (x1.75):
+    the card against the CPU (tokens identical, live logits within
+    tolerance), against the same engine without the cache and against
+    itself with graphs=False, overlap=False (tokens identical); COW copies
+    and skipped prefill tokens on the card; leak-free after drain() and a
+    full evict."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = get_config("tinyllama-42m")
+    base = model.init_params(cfg, ShardingPlan(kv_cache_dtype="float32"),
+                             torch.Generator().manual_seed(0), device="cpu",
+                             dtype="float32")
+
+    def reqs():
+        return _prefix_requests(Request, np.random.RandomState(5), 6, 4, 60,
+                                16, cfg.vocab_size, shared=40)
+
+    for name, kvd, scale, k, tol in (
+            ("parity-prefix", "float32", 10, 0, PARITY_TOL),
+            ("parity-prefix-spec-int8", "int8", 1.75, 4, INT8_PARITY_TOL)):
+        plan = ShardingPlan(kv_cache_dtype=kvd)
+        params = model.tree_map(lambda t, s=scale: t * s, base)
+        kw = dict(slots=2, speculative=k)
+        runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                                 prefix_cache=True, **kw)
+                for dev in ("cuda", "cpu")}
+        err, mx = _same(name, runs["cuda"][1:3], runs["cpu"][1:3], tol)
+        toks = runs["cuda"][1]
+        off = _run_engine(torch, cfg, plan, params, reqs(), "cuda", **kw)[1]
+        check(off == toks, f"{name}: the cache on and off differ on cuda\n  "
+                           f"{toks}\n  {off}")
+        _eager_serial(torch, name, toks, cfg, plan, params, reqs(),
+                      prefix_cache=True, **kw)
+        st = runs["cuda"][0].stats
+        check(st.cow_copies > 0 and st.prefill_tokens_skipped > 0,
+              f"{name}: no prefix reuse on cuda {st}")
+        check(not k or st.spec_accepted > 0, f"{name}: no draft accepted {st}")
+        print(f"{name}: {kvd} pools, speculative={k}, 6 requests behind a "
+              f"40-token prefix, 2 slots, on cuda vs cpu: live logits "
+              f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+              f"{tol['rtol']} atol={tol['atol']}); greedy tokens identical to "
+              f"cpu, to the cache off and to the eager-serial engine on cuda "
+              f"({len({t for r in toks for t in r})} distinct); hits="
+              f"{st.prefix_hits}/{st.prefix_lookups} prefill_tokens_skipped="
+              f"{st.prefill_tokens_skipped} cow_copies={st.cow_copies}"
+              + (f" drafted={st.spec_drafted} accepted={st.spec_accepted}"
+                 if k else ""))
+
+
+def _serve_arrivals(eng, reqs, first, every, preempt=None, max_ticks=3000):
+    """Serve ``reqs`` with arrivals over time: the first ``first`` at
+    once, then one more every ``every`` ticks; ``preempt(eng, tick)`` may
+    evict slots before each tick.  -> each request's tokens."""
+    waiting = list(reqs)
+    tick = 0
+    while waiting or eng.has_pending() or \
+            any(a is not None for a in eng.admissions):
+        check(tick < max_ticks, "serve: ran out of ticks")
+        while waiting and (len(reqs) - len(waiting) < first or
+                           tick >= every * (len(reqs) - len(waiting) -
+                                            first + 1)):
+            eng.submit(waiting.pop(0))
+        if preempt is not None:
+            preempt(eng, tick)
+        eng.tick()
+        tick += 1
+    eng._barrier()
+    check(all(r.done for r in reqs), "serve: unfinished requests")
+    check(eng.drain() == 0, "serve: slots still admitted")
+    leak_check("serve", eng)
+    return [r.out_tokens for r in reqs]
+
+
+def phase_parity_preempt(torch):
+    """Preemption on the card, fp32 at full width.  tinyllama (weights x10):
+    ``PriorityScheduler(preemption=True)`` with every 3rd request urgent,
+    arriving while low-priority requests hold both slots, the victims'
+    pages donated to the prefix cache, overlap on (verdicts deferred past
+    collect) and off: greedy tokens identical to FCFS without preemption,
+    preemptions > 0.  mamba2-370m from float32 and int8 slabs with
+    ``preempt(b)`` forced mid-prefill and mid-decode (each slab stashed on
+    the host and restored): tokens identical to the uninterrupted run,
+    slab_restores > 0."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import (PriorityScheduler, Request,
+                                     ServingEngine)
+    cfg = get_config("tinyllama-42m")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    params = model.tree_map(lambda t: t * 10, model.init_params(
+        cfg, plan, torch.Generator().manual_seed(0), device="cpu",
+        dtype="float32"))
+
+    def reqs():
+        out = _requests(Request, np.random.RandomState(9), 9, 8, 70, 16,
+                        cfg.vocab_size)
+        for r in out:
+            r.priority = 10 if r.rid % 3 == 2 else 0
+        return out
+
+    def engine(**kw):
+        return ServingEngine.build_paged(cfg, plan, 2, 256, params,
+                                         page_size=16, prefill_chunk=32,
+                                         device="cuda", **kw)
+
+    want = _serve_arrivals(engine(), reqs(), 2, 6)
+    for overlap in (True, False):
+        eng = engine(prefix_cache=True, overlap=overlap,
+                     scheduler=functools.partial(PriorityScheduler,
+                                                 preemption=True))
+        got = _serve_arrivals(eng, reqs(), 2, 6)
+        st = eng.stats
+        check(got == want, f"parity-preempt: priority with preemption "
+                           f"(overlap={overlap}) and FCFS differ\n  {got}\n  "
+                           f"{want}")
+        check(st.preemptions > 0, f"parity-preempt: nothing preempted {st}")
+        print(f"parity-preempt: tinyllama-42m float32, priority with "
+              f"preemption, overlap={'on' if overlap else 'off'}: greedy tokens "
+              f"identical to FCFS without preemption (9 requests x 16); "
+              f"preemptions={st.preemptions} plan_invalidations="
+              f"{st.plan_invalidations} prefill_tokens_skipped="
+              f"{st.prefill_tokens_skipped} ticks={st.ticks}")
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), dtype="float32")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu")
+
+    def ssm_reqs():
+        return [Request(rid=i, prompt=np.random.RandomState(7 + i).randint(
+                    2, cfg.vocab_size, L).astype(np.int32), max_new_tokens=16)
+                for i, L in enumerate((23, 77, 40))]
+
+    def force(eng, tick):
+        """Preempt a prefilling slot at tick 2 and a decoding one at ticks
+        8 and 20."""
+        state = {2: "prefill", 8: "decode", 20: "decode"}.get(tick)
+        for b in range(eng.B):
+            if state and eng.slot_state[b] == state:
+                eng.preempt(b)
+                return
+
+    for slabs in ("float32", "int8"):
+        plan_s = ShardingPlan(kv_cache_dtype="float32",
+                              ssm_cache_dtype="int8" if slabs == "int8" else "")
+
+        def engine_s():
+            return ServingEngine.build_paged(cfg, plan_s, 2, 256, params,
+                                             page_size=16, prefill_chunk=32,
+                                             device="cuda")
+
+        want = _serve_arrivals(engine_s(), ssm_reqs(), 3, 1)
+        eng = engine_s()
+        got = _serve_arrivals(eng, ssm_reqs(), 3, 1, preempt=force)
+        st = eng.stats
+        check(got == want, f"parity-preempt[mamba2 {slabs} slabs]: forced "
+                           f"preemption changed tokens\n  {got}\n  {want}")
+        check(st.slab_restores > 0 and st.slab_restores == st.preemptions,
+              f"parity-preempt[mamba2 {slabs} slabs]: {st.preemptions} "
+              f"preemptions, {st.slab_restores} restores")
+        print(f"parity-preempt: mamba2-370m float32, {slabs} slabs, "
+              f"preempt(b) forced mid-prefill and mid-decode: greedy tokens "
+              f"identical to the uninterrupted run "
+              f"({len({t for r in got for t in r})} distinct); preemptions="
+              f"{st.preemptions} slab_restores={st.slab_restores} "
+              f"prefill_tokens_skipped={st.prefill_tokens_skipped}")
+
+
 SERVE_PHASES = {
     # name: (arch, pool dtype, slab dtype, speculative k, prompts)
     "serve": ("tinyllama-42m", "bfloat16", "", 0, "random"),
@@ -1468,6 +1704,7 @@ SERVE_PHASES = {
     "serve-ssm-int8": ("mamba2-370m", "bfloat16", "int8", 0, "random"),
     "serve-contig": ("tinyllama-42m", "bfloat16", "", 0, "random"),
     "serve-contig-int8": ("tinyllama-42m", "int8", "", 0, "random"),
+    "serve-prefix": ("tinyllama-42m", "bfloat16", "", 0, "prefix"),
 }
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
@@ -1483,7 +1720,8 @@ PHASE_MIXER = {"serve": "paged_decode_attention",
                "serve-ssm": "ssd_scan",
                "serve-ssm-int8": "ssd_scan_i8",
                "serve-contig": "decode_attention",
-               "serve-contig-int8": "decode_attention_i8"}
+               "serve-contig-int8": "decode_attention_i8",
+               "serve-prefix": "paged_decode_attention"}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -1495,8 +1733,10 @@ SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
 def _serve_setup(torch, name):
     """Serve phase ``name``'s model, an engine factory and its 16 requests:
     the full-width arch, bfloat16 weights, 8 slots, prompts 16-160 tokens,
-    32 new (random prompts, or repetitive motifs where speculation runs);
-    the contiguous engine for ``CONTIG_PHASES``, else the paged one."""
+    32 new (random prompts, or repetitive motifs where speculation runs;
+    serve-prefix: a shared 100-token prefix and 16-64 tokens of each
+    request's own, served with the prefix cache); the contiguous engine
+    for ``CONTIG_PHASES``, else the paged one."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1508,19 +1748,22 @@ def _serve_setup(torch, name):
     plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
     params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
                                device="cuda")
-    make = _requests if kind == "random" else _motif_requests
+    make = {"random": _requests, "motif": _motif_requests,
+            "prefix": _prefix_requests}[kind]
+    lo, hi = (16, 64) if kind == "prefix" else (16, 160)
 
-    def engine(graphs=True, overlap=True):
+    def engine(graphs=True, overlap=True, prefix_cache=kind == "prefix"):
         if name in CONTIG_PHASES:
             return ServingEngine(cfg, plan, SLOTS, SB, params, graphs=graphs,
                                  device="cuda")
         return ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
                                          page_size=PSZ, prefill_chunk=CH,
                                          speculative=k, overlap=overlap,
+                                         prefix_cache=prefix_cache,
                                          graphs=graphs, device="cuda")
 
     def requests(seed=0, n=16, new=NEW):
-        return make(Request, np.random.RandomState(seed), n, 16, 160, new,
+        return make(Request, np.random.RandomState(seed), n, lo, hi, new,
                     cfg.vocab_size)
 
     return cfg, engine, requests
@@ -1536,9 +1779,10 @@ OUR_KERNELS = ("matmul_mma_kernel", "matmul_simt_kernel", "flash_mma_kernel",
 def graph_report(torch, name, steps, calls):
     """Each captured step graph of an engine, read node by node: kernel
     nodes (the port's kernels by name, which must be the step's counted
-    launches per replay, and PyTorch's, the greedy argmax among them),
-    memcpy and memset nodes, the memory its capture reserved, and the
-    launches of the phase (counted launches x replays)."""
+    launches per replay, and PyTorch's, the greedy argmax among them; the
+    page-copy graph launches none of the port's kernels and takes no
+    argmax), memcpy and memset nodes, the memory its capture reserved, and
+    the launches of the phase (counted launches x replays)."""
     out = {}
     for kind, step in steps.items():
         nodes = read_graph(step.graph, names=True)
@@ -1547,14 +1791,17 @@ def graph_report(torch, name, steps, calls):
         counted = sum(step.launches.values())
         check(ours == counted, f"{name}: the {kind} graph holds {ours} of the "
                                f"port's kernels, its capture counted {counted}")
-        check(any("ArgMax" in n for n in kern),
-              f"{name}: no argmax kernel in the {kind} graph")
+        check((kind == "copy") != any("ArgMax" in n for n in kern),
+              f"{name}: the {kind} graph {'holds' if kind == 'copy' else 'lacks'}"
+              f" an argmax kernel")
         n_copy = sum(k == 1 for k, _ in nodes)
         n_set = sum(k == 2 for k, _ in nodes)
         replays = calls[kind]
-        print(f"  graph[{kind}]: kernel_nodes={len(kern)} (the port's {ours} = "
-              f"counted launches per replay, PyTorch's {len(kern) - ours} "
-              f"with the argmax) memcpy_nodes={n_copy} memset_nodes={n_set} "
+        what = (f"PyTorch's {sorted({n[:80] for n in kern})}" if kind == "copy"
+                else f"the port's {ours} = counted launches per replay, "
+                     f"PyTorch's {len(kern) - ours} with the argmax")
+        print(f"  graph[{kind}]: kernel_nodes={len(kern)} ({what}) "
+              f"memcpy_nodes={n_copy} memset_nodes={n_set} "
               f"other_nodes={len(nodes) - len(kern) - n_copy - n_set} "
               f"pool_MiB={step.pool_bytes / 2**20:.2f} replays={replays} "
               f"launches={counted} x {replays} = {counted * replays}")
@@ -1566,9 +1813,10 @@ def graph_report(torch, name, steps, calls):
 
 def sync_check(torch, name, engine, requests):
     """Serve the phase's requests on a fresh default engine, every tick's
-    plan and dispatch under ``torch.cuda.set_sync_debug_mode("error")``
-    (collect outside it): dispatch never blocks the host, and only
-    collect waits (the JAX engine's async-barrier invariant)."""
+    plan and dispatch (with the preemptions deferred past collect) under
+    ``torch.cuda.set_sync_debug_mode("error")`` (collect outside it):
+    dispatch never blocks the host, and only collect waits (the JAX
+    engine's async-barrier invariant)."""
     eng = engine()
     reqs = requests(seed=2)
     for r in reqs:
@@ -1584,11 +1832,16 @@ def sync_check(torch, name, engine, requests):
         finally:
             torch.cuda.set_sync_debug_mode(0)
 
-    ticks = 0
+    ticks, plan = 0, {}
+
+    def dispatch():
+        eng._run_deferred_preempts(plan["tick"])
+        eng._dispatch_phase(plan["tick"])
+
     while eng.has_pending() or any(a is not None for a in eng.admissions):
-        strict(eng._plan_phase, "plan")
+        strict(lambda: plan.update(tick=eng._plan_phase()), "plan")
         eng._collect_phase()
-        strict(eng._dispatch_phase, "dispatch")
+        strict(dispatch, "dispatch")
         ticks += 1
     eng._barrier()
     check(all(r.done for r in reqs), f"{name}: sync check left requests")
@@ -1654,13 +1907,17 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           f"{name}: token ids out of range")
     check(eng.drain() == 0, f"{name}: slots still admitted after run()")
-    if eng.paged:
-        n_usable = eng.allocator.n_pages - eng.allocator.n_reserved
-        check(eng.allocator.n_free == n_usable,
-              f"{name}: pool leaked {n_usable - eng.allocator.n_free} pages")
-    if eng.has_slabs:
-        check(eng.slab_allocator.n_free == eng.n_slabs - 1,
-              f"{name}: slabs leaked")
+    prefix = ""
+    if eng.prefix_cache is not None:
+        check(stats.cow_copies > 0 and stats.prefill_tokens_skipped > 0,
+              f"{name}: no prefix reuse {stats}")
+        cached = eng.prefix_cache.n_cached_pages
+        prefix = (f"prefix_hit_rate={stats.prefix_hit_rate:.3f} ({stats.prefix_hits}/"
+                  f"{stats.prefix_lookups}) prefill_tokens_skipped="
+                  f"{stats.prefill_tokens_skipped} of "
+                  f"{sum(len(r.prompt) for r in reqs)} cow_copies={stats.cow_copies} "
+                  f"cached_pages={cached} ")
+    leak_check(name, eng)
     steps = [kd for kd in ("decode", "verify") if calls[kd]]
     check(all(per_phase[kd]["matmul"] > 0 for kd in ["prefill"] + steps),
           f"{name}: matmul not launched in every step kind {per_phase}")
@@ -1724,7 +1981,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
                 for kd, c in per_phase.items()}
     step_calls = {"chunk": calls["prefill"], "decode": calls["decode"],
-                  "verify": calls["verify"]}
+                  "verify": calls["verify"], "copy": stats.cow_copies}
     spec = (f"acceptance_rate={stats.spec_accepted / max(stats.spec_drafted, 1):.3f} "
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
@@ -1744,7 +2001,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
           f"dispatch_to_collect_share={stats.device_busy_fraction:.3f} "
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
-          f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}"
+          f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}{prefix}"
           f"launches={ {kn: v for kn, v in launches.items() if v} } "
           f"{'prefill_chunks' if eng.paged else 'prefills'}={calls['prefill']} "
           f"decode_ticks={calls['decode']} "
@@ -1755,9 +2012,21 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         graphs_out = graph_report(torch, name, graph_steps, step_calls)
         if eng.paged:
             sync_check(torch, name, engine, requests)
+    if eng.prefix_cache is not None:
+        # the same requests with the cache off, in this call
+        off = engine(graphs, overlap, prefix_cache=False)
+        off_reqs = requests()
+        for r in off_reqs:
+            off.submit(r)
+        off.run()
+        check([r.out_tokens for r in off_reqs] == [r.out_tokens for r in reqs],
+              f"{name}: greedy tokens differ with the cache off")
+        print(f"  {name}: greedy tokens identical with the cache off "
+              f"({off.stats.ticks} ticks there)")
     return dict(launches=launches, per_call=per_call, wall=wall,
                 ticks=stats.ticks, tokens=stats.decoded_tokens,
-                graphs=graphs_out, tokens_by_request=[r.out_tokens for r in reqs])
+                chunks=calls["prefill"], graphs=graphs_out,
+                tokens_by_request=[r.out_tokens for r in reqs])
 
 
 def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
@@ -1900,6 +2169,8 @@ def main() -> int:
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)
+        timed("parity-prefix", phase_parity_prefix, torch)
+        timed("parity-preempt", phase_parity_preempt, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
         # the same phases with eager steps and the serial loop, in this call
@@ -1923,6 +2194,18 @@ def main() -> int:
                     f"ticks={sv['ticks']} busy_share={pr['busy']:.3f}")
             print(f"ab[{name}]: " + " | ".join(rows_ab) + " (greedy tokens "
                   f"identical)")
+        # serve-prefix beside serve, in this call
+        rows_px = []
+        for name in ("serve", "serve-prefix"):
+            sv = served[name]
+            rows_px.append(
+                f"{name} tok_per_s={sv['tokens'] / sv['wall']:.1f} "
+                f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+                f"ticks={sv['ticks']} busy_share={prof[name]['busy']:.3f} "
+                f"device_ms={prof[name]['device_ms']:.2f} "
+                f"prefill_chunks={sv['chunks']} flash_launches="
+                f"{sv['launches']['flash_attention']}")
+        print("prefix[serve-prefix vs serve]: " + " | ".join(rows_px))
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

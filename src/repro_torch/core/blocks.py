@@ -221,12 +221,18 @@ def _page_write(kv, kg, vg, positions, bt, psz):
     ``.at[].set``).  kg/vg: (B, G, C, D); positions: (B, C) absolute token
     positions (C = 1 for decode).  Negative positions (padded verify
     columns) route to the scratch page 0, whose contents no live slot
-    reads.  int8 pools: each token row is quantized with its own scale
+    reads, and so do positions past the block table (the padding rows of a
+    chunk that resumes mid-prompt after a prefix hit can run past the
+    sequence budget; JAX's gather fills them out of bounds and its scatter
+    drops them).  int8 pools: each token row is quantized with its own scale
     (``_row_quant``), and payload and scale are written in the same step."""
     B, G, C, D = kg.shape
-    safe = positions.clamp_min(0)
+    limit = bt.shape[1] * psz
+    safe = positions.clamp(0, limit - 1)
     pid = torch.gather(bt, 1, (safe // psz).long())              # (B, C)
-    pid = torch.where(positions >= 0, pid, torch.zeros_like(pid))
+    # rows outside [0, limit) go to page 0: as many kernels as the old
+    # test of position >= 0 alone
+    pid = pid * (positions // limit == 0)
     flat_pid = pid.reshape(-1).long()
     flat_off = (safe % psz).reshape(-1).long()
     for name, x in (("k", kg), ("v", vg)):

@@ -14,6 +14,9 @@ captured once into a CUDA graph and replayed:
 - The cache needs no donation and no copy back: every step updates its
   pools, slabs and lanes in place at fixed addresses.  Each step's shapes
   are fixed when it is made, so one graph serves every request mix.
+- The cyclic garbage collector is off while a capture is open: an
+  unreachable engine collected then would destroy its graphs inside the
+  capture, which fails it.
 - A capture that fails raises; nothing falls back to running eagerly.
   ``EagerStep`` is the uncompiled form with the same interface, what the
   engine runs with ``graphs=False`` (the counterpart of
@@ -27,6 +30,8 @@ counts are put back as they were) and each replay adds the captured
 call's counts, per wrapper.  ``CompiledStep.launches`` holds them.
 """
 from __future__ import annotations
+
+import gc
 
 import torch
 
@@ -75,10 +80,21 @@ class CompiledStep:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.device(dev):
-            with torch.cuda.graph(self.graph):
-                self.outputs = tuple(fn(*self.inputs))
-            self.graph.instantiate()
+        # an engine is a reference cycle (its steps call back into it), so
+        # an unreachable one is freed by the cyclic collector, whenever it
+        # runs; destroying its graphs while this capture is open fails the
+        # capture ("operation not permitted when stream is capturing"): no
+        # automatic collection until the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev):
+                with torch.cuda.graph(self.graph):
+                    self.outputs = tuple(fn(*self.inputs))
+                self.graph.instantiate()
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.synchronize(dev)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         after = ops.launch_counts()

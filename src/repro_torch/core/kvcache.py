@@ -180,8 +180,14 @@ class PageAllocator:
     front (prompt + max_new_tokens worth, plus draft headroom when
     speculating) or stays queued — admission control instead of mid-flight
     OOM.  Freed pages return to the pool LIFO, so a steady-state request mix
-    reuses a small working set.  A page returns to the free list when its
-    last reference drops.
+    reuses a small working set.
+
+    Pages carry a reference count so they can be shared: a freshly allocated
+    page has one owner; the radix prefix cache and further serving slots
+    take extra refs (``incref``).  A page returns to the free list only when
+    its last ref drops (``decref``).  Shared pages are immutable by
+    convention: a slot that must append into one first takes a private copy
+    (copy-on-write; ``serving.prefix_cache``).
 
     Every page whose last reference drops (``decref``, and the speculative
     ``trim`` through it) is marked **scale-dirty**, so an engine with int8
@@ -197,10 +203,14 @@ class PageAllocator:
         self._free_set = set(self._free)     # O(1) double-free detection
         self._rc = [0] * n_pages
         self._scale_dirty: set = set()       # freed pages w/ stale scale rows
+        self.total_allocated = 0             # pages ever handed out (stats)
 
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    def refcount(self, page: int) -> int:
+        return self._rc[page]
 
     def alloc(self, n: int):
         """-> list of n page ids (each refcount 1), or None if the pool
@@ -211,7 +221,14 @@ class PageAllocator:
         self._free_set.difference_update(out)
         for p in out:
             self._rc[p] = 1
+        self.total_allocated += n
         return out
+
+    def incref(self, pages):
+        """Add one ref per page (sharing an already-live page)."""
+        for p in pages:
+            assert self._rc[p] > 0, f"incref of unallocated page {p}"
+            self._rc[p] += 1
 
     def decref(self, pages):
         """Drop one ref per page; pages whose last ref drops are freed and

@@ -1,10 +1,10 @@
 """The serving steps: contiguous decode and whole-prompt prefill, and the
-paged decode, speculative verify and prefill chunk.
+paged decode, speculative verify, prefill chunk and page copy.
 
 Port of the JAX package's ``make_decode_step``, ``make_prefill_step``,
-``make_paged_decode_step``, ``make_verify_step`` and
-``make_prefill_chunk_step`` at dp=1.  They are plain callables (PyTorch
-runs eagerly; nothing is compiled).  The contiguous steps take the
+``make_paged_decode_step``, ``make_verify_step``,
+``make_prefill_chunk_step`` and ``make_page_copy_step`` at dp=1.  They are
+plain callables (PyTorch runs eagerly; nothing is compiled).  The contiguous steps take the
 per-slot lanes of ``kvcache.cache_template``; the prefill step takes one
 prompt at its own length.  Each paged step's shapes are fixed when it
 is made — (batch, n_max_pages) for decode, (batch, q_len, n_max_pages) for
@@ -178,6 +178,37 @@ def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
                                            last_idx, cfg, plan, lay, pages)
 
     return chunk_fn
+
+
+def make_page_copy_step(n_pages: int):
+    """-> copy_fn(cache, src (1,), dst (1,)) -> cache, with page ``src``
+    copied onto page ``dst`` in every layer's self-KV pool, in place.
+
+    The mechanism behind copy-on-write: a slot that must append into a
+    page the radix prefix cache shares first duplicates it into a private
+    page (``serving.prefix_cache``), then writes only the copy.  int8 pools
+    copy the payload and its scale rows together (``ksp``/``vsp`` share the
+    page id).  SSM slabs (another id space) are left alone.  ``src`` and
+    ``dst`` are (1,) int32 tensors on the pools' device, read there and
+    never on the host, so one CUDA graph serves every pair; src == dst is
+    the identity.  Plain indexed copies: the JAX package has no kernel for
+    this step either (``make_page_copy_step`` there, one pair per
+    replica); the pools carry their own shapes."""
+
+    def copy_fn(cache, src, dst):
+        _expect("src", src, (1,))
+        _expect("dst", dst, (1,))
+        dst = dst.long()           # index_copy_ takes int64 ids only
+        for group in cache:
+            for entry in group:
+                for pool in entry.get("kv", {}).values():
+                    if pool.shape[1] != n_pages:
+                        raise ValueError(f"pool of {pool.shape[1]} pages, "
+                                         f"step made for {n_pages}")
+                    pool.index_copy_(1, dst, pool.index_select(1, src))
+        return cache
+
+    return copy_fn
 
 
 def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda",

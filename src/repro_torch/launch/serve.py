@@ -11,19 +11,26 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
 ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
-or from state slabs with ``--paged``.  The paged engine pipelines its tick
-(plan the next tick while this one runs on the card) unless
-``--no-overlap``, as the JAX launcher does, and prints the ``pipeline:``
-line; the contiguous engine ignores the flag, as in JAX.  The port runs
-tp=1, dp=1, FCFS and greedy: the JAX launcher's other flags parse with its
-defaults, and a value the port cannot serve (``--tp 2``, ``--temperature
-0.7``, any ``--prefix-cache``, ...) is refused with the slice it waits
-for.  Weights are random, drawn from ``--seed``; prompts are random token
-ids.
+or from state slabs with ``--paged``.  ``--prefix-cache`` (implies
+``--paged``) shares cached prompt prefixes through a radix tree with
+copy-on-write pages and prints the ``prefix_cache:`` line;
+``--shared-prefix N`` prepends a common N-token prefix to every prompt.
+``--policy {fcfs,priority,fair}`` picks the admission policy; ``--policy
+priority --preemption`` (or ``fair``) also evicts running slots (paged
+engine); ``--high-priority-every N`` makes every Nth request urgent and
+splits TTFT by class, ``--clients N`` spreads requests over N client ids.
+The paged engine pipelines its tick (plan the next tick while this one
+runs on the card) unless ``--no-overlap``, as the JAX launcher does, and
+prints the ``pipeline:`` line; the contiguous engine ignores the flag, as
+in JAX.  The port runs tp=1, dp=1 and greedy: the JAX launcher's other
+flags parse with its defaults, and a value the port cannot serve (``--tp
+2``, ``--temperature 0.7``, ...) is refused with the slice it waits for.
+Weights are random, drawn from ``--seed``; prompts are random token ids.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
 import time
 
@@ -38,16 +45,8 @@ LATER = {
                           "item 11)"),
     "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11)"),
     "--temperature": ((0.0,), "sampled decoding (ROADMAP Queue 1 item 6)"),
-    "--prefix-cache": ((False,), "the prefix cache (ROADMAP Queue 1 item 4)"),
-    "--shared-prefix": ((0,), "the prefix cache (ROADMAP Queue 1 item 4)"),
     "--frame-groups": ((1,), "encoder-decoder serving (ROADMAP Queue 1 "
                              "item 9)"),
-    "--policy": (("fcfs",), "priority and fair policies (ROADMAP Queue 1 "
-                            "item 4)"),
-    "--preemption": ((False,), "preemption (ROADMAP Queue 1 item 4)"),
-    "--high-priority-every": ((0,), "priority policies (ROADMAP Queue 1 "
-                                    "item 4)"),
-    "--clients": ((1,), "the fair policy (ROADMAP Queue 1 item 4)"),
 }
 
 
@@ -94,14 +93,25 @@ def parse_args(argv=None):
                          "(paged engine; --no-overlap is the serial loop, "
                          "token-identical either way)")
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--prefix-cache", action="store_true")
-    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix sharing with copy-on-write pages "
+                         "(implies --paged)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a common system-prompt prefix of this "
+                         "many tokens to every request")
     ap.add_argument("--frame-groups", type=int, default=1, metavar="K")
     ap.add_argument("--policy", choices=("fcfs", "priority", "fair"),
-                    default="fcfs")
-    ap.add_argument("--preemption", action="store_true")
-    ap.add_argument("--high-priority-every", type=int, default=0, metavar="N")
-    ap.add_argument("--clients", type=int, default=1)
+                    default="fcfs", help="admission policy "
+                                         "(serving.policies)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="evict running slots for urgent or starved "
+                         "requests (--policy priority or fair, paged "
+                         "engine)")
+    ap.add_argument("--high-priority-every", type=int, default=0, metavar="N",
+                    help="every Nth request gets priority 10 (0 = uniform "
+                         "priority)")
+    ap.add_argument("--clients", type=int, default=1,
+                    help="spread requests over N client ids (fair policy)")
     args = ap.parse_args(argv)
     for flag, (served, slice_) in LATER.items():
         value = getattr(args, flag[2:].replace("-", "_"))
@@ -120,8 +130,13 @@ def parse_args(argv=None):
     if args.speculative and "ssm" in cache_profile(cfg):
         ap.error(f"--speculative is unsupported for arch '{args.arch}': SSM "
                  f"recurrences advance one token per step")
-    if args.prompt_len + args.max_new > args.seq_budget:
-        ap.error("--prompt-len + --max-new must fit --seq-budget")
+    if args.shared_prefix + args.prompt_len + args.max_new > args.seq_budget:
+        ap.error("--shared-prefix + --prompt-len + --max-new must fit "
+                 "--seq-budget")
+    if args.preemption and args.policy not in ("priority", "fair"):
+        ap.error("--preemption requires --policy priority or fair")
+    if args.preemption and not (args.paged or args.prefix_cache):
+        ap.error("--preemption requires the paged engine (--paged)")
     return args
 
 
@@ -132,7 +147,8 @@ def main(argv=None):
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import (FairScheduler, PriorityScheduler,
+                                     Request, ServingEngine)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -145,24 +161,37 @@ def main(argv=None):
     params = model.init_params(cfg, plan,
                                torch.Generator().manual_seed(args.seed),
                                device=args.device)
-    if args.paged or args.speculative:
+    scheduler = None                 # engine default: FCFS
+    if args.policy != "fcfs":
+        scheduler = functools.partial(
+            PriorityScheduler if args.policy == "priority" else FairScheduler,
+            preemption=args.preemption)
+    if args.paged or args.prefix_cache or args.speculative:
         engine = ServingEngine.build_paged(
             cfg, plan, args.slots, args.seq_budget, params,
             page_size=args.page_size, n_pages=args.n_pages,
             prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
-            speculative=args.speculative, overlap=args.overlap,
-            device=args.device)
+            speculative=args.speculative, prefix_cache=args.prefix_cache,
+            scheduler=scheduler, overlap=args.overlap, device=args.device)
     else:
         engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
-                               rng_seed=args.seed, device=args.device)
+                               rng_seed=args.seed, scheduler=scheduler,
+                               device=args.device)
     rng = np.random.RandomState(args.seed)
+    shared = rng.randint(2, cfg.vocab_size,
+                         args.shared_prefix).astype(np.int32)
+    reqs = []
     t0 = time.time()
     for rid in range(args.requests):
         prompt = rng.randint(2, cfg.vocab_size,
                              rng.randint(4, args.prompt_len + 1)
                              ).astype(np.int32)
-        engine.submit(Request(rid=rid, prompt=prompt,
-                              max_new_tokens=args.max_new))
+        hi = args.high_priority_every and rid % args.high_priority_every == 0
+        req = Request(rid=rid, prompt=np.concatenate([shared, prompt]),
+                      max_new_tokens=args.max_new, priority=10 if hi else 0,
+                      client_id=rid % max(args.clients, 1))
+        reqs.append(req)
+        engine.submit(req)
     stats = engine.run()
     dt = time.time() - t0
     where = (torch.cuda.get_device_name(engine.device)
@@ -171,7 +200,7 @@ def main(argv=None):
           f"engine={'paged' if engine.paged else 'contiguous'} "
           f"requests={args.requests} "
           f"ticks={stats.ticks} prefills={stats.prefills} "
-          f"tokens={stats.decoded_tokens}")
+          f"tokens={stats.decoded_tokens} preemptions={stats.preemptions}")
     if stats.ttft_s:
         print(f"throughput={stats.decoded_tokens / dt:.1f} tok/s "
               f"ttft_p50={np.median(stats.ttft_s) * 1e3:.1f}ms "
@@ -179,6 +208,20 @@ def main(argv=None):
               f"tpot_p50={np.median(stats.tpot_s) * 1e3:.1f}ms")
     else:
         print("no tokens emitted")
+    if args.high_priority_every:
+        for label, cls in (("high", 10), ("low", 0)):
+            ts = [stats.request_ttft[r.rid] for r in reqs
+                  if r.priority == cls and r.rid in stats.request_ttft]
+            if ts:
+                print(f"ttft[{label}]: p50={np.median(ts) * 1e3:.1f}ms "
+                      f"p99={np.percentile(ts, 99) * 1e3:.1f}ms n={len(ts)}")
+    if engine.prefix_cache is not None:
+        pc = engine.prefix_cache
+        print(f"prefix_cache: hit_rate={stats.prefix_hit_rate:.2f} "
+              f"({stats.prefix_hits}/{stats.prefix_lookups} lookups) "
+              f"prefill_tokens_skipped={stats.prefill_tokens_skipped} "
+              f"cow_copies={stats.cow_copies} "
+              f"cached_pages={pc.n_cached_pages} evictions={pc.evictions}")
     if args.speculative:
         print(f"speculative(k={args.speculative}): accepted_tokens_per_tick="
               f"{stats.accepted_tokens_per_tick:.2f} draft_hit_rate="
@@ -197,7 +240,8 @@ def main(argv=None):
     if engine.has_slabs:
         print(f"ssm_slabs: slabs={engine.n_slabs - 1} "
               f"allocated={engine.slab_allocator.total_allocated} "
-              f"free={engine.slab_allocator.n_free}")
+              f"free={engine.slab_allocator.n_free} "
+              f"stash_restores={stats.slab_restores}")
     return 0
 
 

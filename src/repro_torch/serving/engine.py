@@ -1,10 +1,12 @@
 """Serving engine: continuous batching over contiguous lanes, or over the
 prefill-chunk and decode steps of the paged cache.
 
-Port of the JAX package's ``serving/engine.py`` for one replica (dp=1),
-FCFS admission and greedy sampling.  The engine is mechanism: it owns the
-cache, block tables and positions and runs the steps; admission and page
-budgeting live in ``serving.scheduler``.
+Port of the JAX package's ``serving/engine.py`` for one replica (dp=1)
+and greedy sampling.  The engine is mechanism: it owns the cache, block
+tables and positions and runs the steps; admission order, page budgeting,
+prefix reuse, eviction and preemption victims live in ``serving.scheduler``
+and ``serving.policies`` (``scheduler=``: FCFS by default, or a
+``PriorityScheduler``/``FairScheduler`` instance or factory).
 
 **Compiled steps and their traffic.**  Every fixed-shape step (the paged
 decode, verify and prefill chunk, the contiguous decode) is captured once
@@ -44,26 +46,48 @@ counted, as in JAX.
 slots.  Each tick is the JAX engine's pipelined plan -> collect ->
 dispatch (``overlap=True``, the default):
 
-- **plan** (host, while the previous tick's steps run on the card): admit
-  what the pool can hold (each admission gets its whole page run up front
-  -- prompt + max_new_tokens -- or waits); zero the new slots' state slabs
-  and the scale rows of pages freed since the last plan, in place, their
-  ids through the same staging.  That device work is enqueued behind the
-  in-flight steps on the one stream, so it needs no fence.
+- **plan** (host, while the previous tick's steps run on the card): the
+  policy's preemption verdicts (applied at once when nothing is in flight,
+  else deferred past collect), then admit what the pool can hold (each
+  admission gets its whole page run up front -- prompt + max_new_tokens --
+  or waits); zero the new slots' state slabs (or restore a preempted
+  request's stash) and the scale rows of pages freed since the last plan,
+  in place, their ids through the same staging.  That device work is
+  enqueued behind the in-flight steps on the one stream, so it needs no
+  fence.
 - **collect** (the tick's only barrier): wait for the previous dispatch's
   ids copy, then emit in dispatch order: prefill completions first (their
   first token), then decode or verify emissions; a slot retired or
-  re-admitted since dispatch is skipped by its (slot, rid) guard.
-- **dispatch** (returns without blocking): advance every prefilling slot
-  by one chunk (one replay each), then run ONE decode (or verify) step
-  over all slots (idle and prefilling lanes point at the scratch page with
-  pos 0), and send the ids home.
+  re-admitted since dispatch is skipped by its (slot, rid) guard.  Then
+  the deferred preemptions: a victim retired at collect is skipped and
+  counted in ``plan_invalidations``.
+- **dispatch** (returns without blocking): the copy-on-write page copies
+  planned this tick (one replay of the copy step each), then advance every
+  prefilling slot by one chunk (one replay each), then run ONE decode (or
+  verify) step over all slots (idle and prefilling lanes point at the
+  scratch page with pos 0), and send the ids home.
 
 ``overlap=False`` collects in the same tick: the serial loop, token-
 identical (greedy outputs do not depend on when a slot is admitted).
-``run()`` and ``drain()`` collect in-flight work first.  Finished slots
-return their pages at collect, before the next dispatch, so the host only
-ever plans pages and slabs that no in-flight step references.
+``run()``, ``drain()`` and ``preempt()`` collect in-flight work first.
+Finished slots return their pages at collect, before the next dispatch, so
+the host only ever plans pages and slabs that no in-flight step
+references.
+
+**Prefix cache** (``prefix_cache=True``, attention-only archs): a radix
+tree maps cached prompt prefixes to refcounted page runs
+(``serving.prefix_cache.RadixPrefixCache``).  Admission maps the longest
+cached prefix into the block table and prefill starts at the first
+uncached token (``Admission.cached_len``, ``stats.prefill_tokens_skipped``);
+a prefix that ends mid-page gets a private copy of that page before the
+slot's first write (``core.steps.make_page_copy_step``, captured like the
+other steps, ``stats.cow_copies``).  A completed prefill inserts its
+prompt's full pages; LRU leaves are evicted under pool pressure.
+
+**Preemption** (``preempt(b)``, or a policy's ``plan_preemptions``): the
+victim's resident full pages are donated to the prefix cache and the
+request re-queues over its effective prompt (prompt + emitted tokens), so
+resume is a prefix hit: its KV is reused, not recomputed.
 
 **Speculative decoding** (``speculative=k``): in dispatch a self-drafting
 source (``serving.prefix_cache.PromptLookupDraft``: n-gram lookup over the
@@ -93,9 +117,14 @@ request; prefill chunks and decode steps read and write it by slab id, and
 idle lanes point at the scratch slab.  A pure-SSM arch has no KV pool and
 budgets no pages.  ``plan.ssm_cache_dtype == "int8"`` stores the slabs as
 int8 with per-(slab, head) scales.  Speculation is refused: an SSM
-recurrence advances one token per step.  The FCFS engine never preempts, so
-the JAX engine's host stash of a preempted slab, its deferred preemptions
-and its copy-on-write and handoff rounds have no counterpart yet.
+recurrence advances one token per step.  The prefix cache is refused: an SSM
+layer's state for a shared prefix is not addressable by pages.  A preempted
+slot's slab (state, conv tails and, for int8 slabs, scales: 48 MiB for a
+float32 mamba2-370m request) is copied to pinned host memory after the
+barrier (``_stash_slot``) and written into the re-admission's new slab
+before its first chunk (``_restore_slot``, ``stats.slab_restores``);
+prefill resumes at the stashed position.  The replica handoff rounds wait
+for ROADMAP Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -114,14 +143,16 @@ from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
                                       cache_profile, pages_needed)
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
-from repro_torch.core.steps import (make_decode_step, make_paged_decode_step,
+from repro_torch.core.steps import (make_decode_step, make_page_copy_step,
+                                    make_paged_decode_step,
                                     make_prefill_chunk_step, make_prefill_step,
                                     make_verify_step, zero_cache_for,
                                     zero_paged_cache_for)
-from repro_torch.serving.prefix_cache import PromptLookupDraft
+from repro_torch.serving.prefix_cache import (PromptLookupDraft,
+                                              RadixPrefixCache)
 from repro_torch.serving.sampler import greedy_accept, greedy_ids
 from repro_torch.serving.scheduler import (Admission, FCFSScheduler,
-                                           effective_prompt)
+                                           Scheduler, effective_prompt)
 
 # consecutive zero-accept verify steps after which a slot stops drafting
 # and returns its draft-headroom pages (the speculation is clearly not
@@ -134,6 +165,8 @@ class Request:
     rid: int
     prompt: np.ndarray                 # (S,) int32
     max_new_tokens: int = 32
+    priority: int = 0                  # higher = more urgent (policies.py)
+    client_id: int = 0                 # fairness accounting key (policies.py)
     seed: Optional[int] = None         # sampling stream seed (default: rid)
     rng: Optional[np.random.RandomState] = None   # set at submit
     out_tokens: list = field(default_factory=list)
@@ -148,11 +181,18 @@ class EngineStats:
     """Counters of a run.  The pipeline's, as in JAX: ``plan_ahead_ticks``
     (plan phases run with a dispatch still in flight), ``collect_wait_s``
     (host time blocked waiting for ids), ``device_busy_s`` (dispatch to
-    collect intervals) and ``plan_invalidations``, which stays 0: the
-    FCFS engine never preempts, so no plan is ever rolled back."""
+    collect intervals) and ``plan_invalidations`` (preemption verdicts
+    deferred past collect whose victim retired there, so they were rolled
+    back)."""
     ticks: int = 0
     prefills: int = 0
     decoded_tokens: int = 0
+    prefill_tokens_skipped: int = 0    # prompt tokens served from the cache
+    cow_copies: int = 0
+    preemptions: int = 0
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    slab_restores: int = 0             # preempted SSM state reloads
     tick_wall_s: float = 0.0           # total wall time inside tick()
     tpot_s: list = field(default_factory=list)
     request_ttft: dict = field(default_factory=dict)   # rid -> seconds
@@ -164,7 +204,7 @@ class EngineStats:
     spec_draft_hits: int = 0           # ... that produced a usable draft
     spec_denied: int = 0               # admissions denied draft headroom
     plan_ahead_ticks: int = 0          # plan phases run with work in flight
-    plan_invalidations: int = 0        # planned entries rolled back (none)
+    plan_invalidations: int = 0        # deferred preemptions rolled back
     collect_wait_s: float = 0.0        # host time blocked at collect points
     device_busy_s: float = 0.0         # dispatch->collect device intervals
 
@@ -192,6 +232,11 @@ class EngineStats:
     def draft_hit_rate(self) -> float:
         return self.spec_draft_hits / self.spec_draft_lookups \
             if self.spec_draft_lookups else 0.0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hits / self.prefix_lookups \
+            if self.prefix_lookups else 0.0
 
 
 class Staging:
@@ -244,12 +289,22 @@ class ServingEngine:
                  *, paged: bool = False, page_size: int = 16,
                  n_pages: int = 0, prefill_chunk: int = 16,
                  eos_id: int = 1, rng_seed: int = 0, speculative: int = 0,
+                 prefix_cache: bool = False, scheduler=None,
                  overlap: bool = True, graphs: bool = True, device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
         if speculative < 0:
             raise ValueError(f"speculative must be >= 0, got {speculative}")
         prof = cache_profile(cfg)
+        if prefix_cache and not paged:
+            raise ValueError("the prefix cache requires the paged engine")
+        if prefix_cache and "ssm" in prof:
+            raise ValueError(
+                f"prefix_cache=True is unsupported for arch "
+                f"'{cfg.name}': its SSM layers hold recurrent state "
+                f"that a token-id prefix cannot address (cache kinds "
+                f"{sorted(prof)}); run it paged without the prefix "
+                f"cache")
         if speculative > 0 and not paged:
             raise ValueError("speculative decoding requires the paged engine")
         if speculative > 0 and prof != {"kv"}:
@@ -279,8 +334,9 @@ class ServingEngine:
         self.speculative = int(speculative)
         self.quant_pools = self.paged and kv_pool_is_quantized(plan) and \
             "kv" in prof
-        self.allocator = self.slab_allocator = None
+        self.allocator = self.slab_allocator = self._prefix_cache = None
         self.verify_fn = self.draft_source = None
+        self._stash: dict = {}         # rid -> preempted SSM checkpoint
         if self.paged:
             n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
             self.page_size = page_size
@@ -289,13 +345,10 @@ class ServingEngine:
             self.allocator = PageAllocator(n_pages)
             if self.has_slabs:
                 self.slab_allocator = SlabAllocator(self.n_slabs)
-            self.sched = FCFSScheduler(seq_budget=seq_budget,
-                                       allocator=self.allocator,
-                                       page_size=page_size,
-                                       spec_tokens=self.speculative,
-                                       stats=self.stats,
-                                       slab_allocator=self.slab_allocator,
-                                       kv_pages="kv" in prof)
+            if prefix_cache:
+                self._prefix_cache = RadixPrefixCache(self.allocator,
+                                                      page_size)
+                self.copy_fn = make_page_copy_step(n_pages)   # COW copies
             self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
                                               self.device, self.n_slabs)
             self.prefill_fn = make_prefill_chunk_step(cfg, plan,
@@ -307,15 +360,27 @@ class ServingEngine:
                 self.verify_fn = make_verify_step(cfg, plan, batch_slots,
                                                   self.speculative + 1,
                                                   self.n_max_pages)
-                self.draft_source = PromptLookupDraft()
+                self.draft_source = PromptLookupDraft(self._prefix_cache)
         else:
-            self.sched = FCFSScheduler(seq_budget=seq_budget,
-                                       stats=self.stats)
             self.cache = zero_cache_for(cfg, plan, batch_slots, seq_budget,
                                         self.device)
             self.prefill_fn = make_prefill_step(cfg, plan, seq_budget)
             self.decode_fn = make_decode_step(cfg, plan, batch_slots,
                                               seq_budget)
+        # ``scheduler`` is a ready instance or a factory (a Scheduler
+        # subclass or a functools.partial of one) that receives the
+        # engine-owned allocator, cache and stats
+        sched = scheduler or FCFSScheduler
+        if isinstance(sched, Scheduler):
+            self.sched = sched
+        else:
+            self.sched = sched(
+                seq_budget=seq_budget, allocator=self.allocator,
+                page_size=page_size if self.paged else 0,
+                prefix_cache=self._prefix_cache, stats=self.stats,
+                slab_allocator=self.slab_allocator,
+                kv_pages=not self.paged or "kv" in prof,
+                spec_tokens=self.speculative)
         self.admissions: List[Optional[Admission]] = [None] * self.B
         self.slot_state: List[Optional[str]] = [None] * self.B
         self.pos = np.zeros(self.B, np.int32)
@@ -332,19 +397,28 @@ class ServingEngine:
                     params, *, page_size: int = 16, n_pages: int = 0,
                     prefill_chunk: int = 16, eos_id: int = 1,
                     rng_seed: int = 0, speculative: int = 0,
+                    prefix_cache: bool = False, scheduler=None,
                     overlap: bool = True, graphs: bool = True,
                     device="cuda"):
         """A paged engine.  ``n_pages`` defaults to full occupancy (every
         slot at budget) plus the scratch page; pass something smaller to
         exercise admission control under memory pressure.
         ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
-        in one step.  ``overlap=False`` is the serial loop; ``graphs=False``
-        runs the steps eagerly."""
+        in one step; ``prefix_cache=True`` shares cached prompt prefixes
+        (radix tree, copy-on-write pages); ``scheduler`` is the policy
+        (FCFS by default).  ``overlap=False`` is the serial loop;
+        ``graphs=False`` runs the steps eagerly."""
         return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
                    rng_seed=rng_seed, speculative=speculative,
+                   prefix_cache=prefix_cache, scheduler=scheduler,
                    overlap=overlap, graphs=graphs, device=device)
+
+    @property
+    def prefix_cache(self) -> Optional[RadixPrefixCache]:
+        """The radix prefix cache (None without one)."""
+        return self._prefix_cache
 
     # -------------------------------------------------------- steps and io
     def _build_io(self):
@@ -364,15 +438,20 @@ class ServingEngine:
                 io["verify"] = [("tokens", (B, self.speculative + 1)),
                                 ("pos", (B,)), ("qlen", (B,)),
                                 ("block_table", (B, nm))]
+            if self._prefix_cache is not None:
+                io["copy"] = [("src", (1,)), ("dst", (1,))]
         else:
             io["prompt"] = [("tokens", (1, self.S))]
-        self.io = {kind: Staging(fields, dev, rows=B if kind == "chunk" else 1)
+        # a chunk or copy round per slot at most in a tick, one row each
+        self.io = {kind: Staging(fields, dev,
+                                 rows=B if kind in ("chunk", "copy") else 1)
                    for kind, fields in io.items()}
         if self.paged:
-            # the chunk graph's static inputs: each round's row is copied
-            # here on the card before its replay
+            # the chunk and copy graphs' static inputs: each round's row is
+            # copied here on the card before its replay
             self._chunk_in = torch.zeros(self.io["chunk"].dev.shape[1],
                                          dtype=torch.int32, device=dev)
+            self._copy_in = torch.zeros(2, dtype=torch.int32, device=dev)
             # ids of slabs to zero and pages whose scale rows to reset
             self.io["plan"] = Staging(
                 [("ids", (self.allocator.n_pages + self.n_slabs,))], dev,
@@ -405,12 +484,18 @@ class ServingEngine:
             io = self.io[kind]
             return tuple(io.split(io.dev[0] if flat is None else flat).values())
 
+        def copy(src, dst):
+            self.copy_fn(self.cache, src, dst)
+            return ()
+
         steps = {"decode": make(run("decode_fn"), inputs("decode"))}
         if self.paged:
             steps["chunk"] = make(run("prefill_fn"),
                                   inputs("chunk", self._chunk_in))
             if self.speculative:
                 steps["verify"] = make(run("verify_fn"), inputs("verify"))
+            if self._prefix_cache is not None:
+                steps["copy"] = make(copy, inputs("copy", self._copy_in))
         return steps
 
     def _send_out(self, inflight: dict):
@@ -461,8 +546,11 @@ class ServingEngine:
     def drain(self) -> int:
         """Abort every in-flight admission, returning its pages and slab
         (paged engine), after collecting in-flight work.  Aborted requests
-        keep ``done=False``; queued requests stay queued.  -> number of
-        slots drained."""
+        keep ``done=False``; queued requests stay queued.  Host stashes of
+        preempted SSM slots are dropped too: a still-queued preempted
+        request that resumes after a drain re-prefills from scratch (exact:
+        admission zeroes its slab), so stash memory cannot outlive the work
+        it checkpoints.  -> number of slots drained."""
         self._barrier()
         n = 0
         for b in range(self.B):
@@ -470,7 +558,69 @@ class ServingEngine:
                 self.sched.on_finish(self.admissions[b])
                 self._clear_slot(b)
                 n += 1
+        self._stash.clear()
         return n
+
+    def preempt(self, b: int):
+        """Evict slot ``b`` mid-flight, after collecting in-flight work.
+        Emitted tokens already live on ``req.out_tokens`` and resume
+        re-admits over the effective prompt (prompt + emitted tokens), so
+        the resident full pages, donated to the prefix cache by
+        ``sched.on_preempt``, come back as a prefix hit: the KV is reused,
+        not recomputed (only the partial tail page is re-prefilled).  An SSM
+        slot's slab is stashed on the host instead."""
+        if not self.paged:
+            raise ValueError("preemption requires the paged engine")
+        if self.admissions[b] is None:
+            raise ValueError(f"slot {b} is idle")
+        self._barrier()               # external preempt: settle first
+        if self.admissions[b] is None:
+            return                    # the slot retired at that collect
+        self._preempt_now(b)
+
+    def _preempt_now(self, b: int):
+        """Immediate eviction: no in-flight step references slot ``b``
+        (nothing is in flight, or its results were just collected)."""
+        adm = self.admissions[b]
+        n = int(self.prefill_done[b]) if self.slot_state[b] == "prefill" \
+            else int(self.pos[b])
+        if self.has_slabs:
+            # recurrent state cannot be re-derived from donated pages:
+            # checkpoint the slab before the scheduler frees it
+            self._stash_slot(adm, n)
+        self.sched.on_preempt(adm, effective_prompt(adm.req)[:n])
+        self._clear_slot(b)
+        self.stats.preemptions += 1
+
+    def _slab_pools(self):
+        """Every SSM layer's slab pools, (reps, n_slabs, ...) each, in
+        cache order."""
+        return [pool for group in self.cache for entry in group
+                for pool in entry.get("ssm", {}).values()]
+
+    def _stash_slot(self, adm: Admission, n: int):
+        """Checkpoint a preempted slot's slab (state after exactly ``n``
+        tokens, conv tails, int8 scales) to host memory: one non-blocking
+        copy per pool into pinned buffers.  The host never reads them: the
+        restore copies them back on the same stream, after these copies.
+        (A pure-SSM arch holds no KV pages; JAX also stashes a hybrid's KV
+        pages, and the port serves no hybrid.)"""
+        pin = self.device.type == "cuda"
+        host = []
+        for pool in self._slab_pools():
+            h = torch.empty(pool[:, adm.slab].shape, dtype=pool.dtype,
+                            pin_memory=pin)
+            h.copy_(pool[:, adm.slab], non_blocking=True)
+            host.append(h)
+        self._stash[adm.req.rid] = {"n": n, "ssm": host}
+
+    def _restore_slot(self, adm: Admission, stash: dict):
+        """Write a stashed checkpoint into the re-admission's fresh slab;
+        prefill then continues at token ``stash["n"]``: nothing resident is
+        recomputed."""
+        for pool, h in zip(self._slab_pools(), stash["ssm"], strict=True):
+            pool[:, adm.slab].copy_(h, non_blocking=True)
+        self.stats.slab_restores += 1
 
     # ----------------------------------------------------------------- tick
     def tick(self):
@@ -527,36 +677,64 @@ class ServingEngine:
     def _tick_paged(self):
         """One pipelined tick: plan (host; overlaps the previous dispatch
         on the card), collect (the tick's one barrier: the previous
-        dispatch's ids), dispatch this tick's steps.  ``overlap=False``
-        collects the fresh dispatch at once: the serial loop."""
-        self._plan_phase()
+        dispatch's ids), the preemptions deferred past it, dispatch this
+        tick's steps.  ``overlap=False`` collects the fresh dispatch at
+        once: the serial loop."""
+        tick_plan = self._plan_phase()
         self._collect_phase()
-        self._dispatch_phase()
+        self._run_deferred_preempts(tick_plan)
+        self._dispatch_phase(tick_plan)
         if not self.overlap:
             self._collect_phase()
 
     # ------------------------------------------------------------ plan phase
-    def _plan_phase(self):
-        """Admissions, and in-place zeroing of the new slots' slabs and of
-        the scale rows of pages freed since the last plan.  Freed pages and
-        slabs were released at a collect, so no in-flight step reads them;
-        the zeroing rides the stream behind the in-flight steps."""
+    def _plan_phase(self) -> dict:
+        """Preemption verdicts, admissions and the COW rounds of this tick,
+        and in place: the new slots' slabs zeroed (or restored from a
+        preempted request's stash) and the scale rows of pages freed since
+        the last plan zeroed.  Verdicts against slots with work in flight
+        are deferred past collect (their emissions may retire the victim
+        first); with nothing in flight they apply at once, as in the serial
+        loop.  Freed pages and slabs were released at a collect, so no
+        in-flight step reads them; the device work rides the stream behind
+        the in-flight steps.  -> the tick's plan: {"preempts": [(slot,
+        rid)], "cow": [admission]}."""
+        tick_plan = {"preempts": [], "cow": []}
         if self._inflight is not None:
             self.stats.plan_ahead_ticks += 1
+        active = [a for a in self.admissions if a is not None]
+        for adm in self.sched.plan_preemptions(active, self.B - len(active)):
+            if self._inflight is None:
+                self._preempt_now(adm.slot)
+            else:
+                tick_plan["preempts"].append((adm.slot, adm.req.rid))
         slabs = []
         for adm in self.sched.plan([b for b in range(self.B)
                                     if self.admissions[b] is None]):
             b = adm.slot
             self.admissions[b] = adm
             self.slot_state[b] = "prefill"
-            self.prefill_done[b] = 0
+            if adm.cow is not None:
+                tick_plan["cow"].append(adm)
+            # prefix-cached tokens are resident: prefill resumes at the
+            # first uncached position (for a preempted request, its donated
+            # progress: reused, not recomputed)
+            self.prefill_done[b] = adm.cached_len
+            self.stats.prefill_tokens_skipped += adm.cached_len
             self.pos[b] = 0
             self.last_token[b] = 0
             if self.has_slabs:
-                slabs.append(adm.slab)
+                stash = self._stash.pop(adm.req.rid, None)
+                if stash is None:
+                    slabs.append(adm.slab)
+                else:
+                    self._restore_slot(adm, stash)
+                    self.prefill_done[b] = stash["n"]
+                    self.stats.prefill_tokens_skipped += stash["n"]
         pids = self.allocator.take_scale_dirty() if self.quant_pools else []
         if slabs or pids:
             self._zero_rows(slabs, pids)
+        return tick_plan
 
     def _zero_rows(self, slabs, pids):
         """Zero, in place, slabs ``slabs`` of every SSM layer (state, conv
@@ -640,15 +818,44 @@ class ServingEngine:
                     self.spec_miss[b] = 0 if emitted > 1 \
                         else self.spec_miss[b] + 1
 
+    def _run_deferred_preempts(self, tick_plan: dict):
+        """Apply the preemption verdicts deferred past collect.  A victim
+        that retired at collect is skipped, so no release fires twice
+        (``plan_invalidations`` counts it)."""
+        for b, rid in tick_plan["preempts"]:
+            adm = self.admissions[b]
+            if adm is None or adm.req.rid != rid:
+                self.stats.plan_invalidations += 1
+                continue
+            self._preempt_now(b)
+
     # -------------------------------------------------------- dispatch phase
-    def _dispatch_phase(self):
-        """Enqueue this tick's steps and return without blocking: a chunk
-        round per prefilling slot, then the decode-or-verify step, then the
-        ids' copy home."""
+    def _dispatch_phase(self, tick_plan: dict):
+        """Enqueue this tick's steps and return without blocking: the COW
+        page copies, a chunk round per prefilling slot, then the
+        decode-or-verify step, then the ids' copy home."""
+        self._dispatch_cow(tick_plan["cow"])
         pf = self._dispatch_prefill()
         step = self._dispatch_step()
         if pf or step is not None:
             self._send_out({"pf": pf, "step": step})
+
+    def _dispatch_cow(self, adms: List[Admission]):
+        """Each admission's copy-on-write page: every round's (src, dst) in
+        one copy, then one replay of the copy step per round, before any
+        chunk writes into the copy; the source's pin is released after."""
+        if not adms:
+            return
+        io = self.io["copy"]
+        host = io.host()
+        for i, adm in enumerate(adms):
+            host[i] = adm.cow
+        io.send(len(adms) * io.dev.shape[1])
+        for i, adm in enumerate(adms):
+            self._copy_in.copy_(io.dev[i])
+            self.steps["copy"]()
+            self.sched.on_cow_done(adm)
+            self.stats.cow_copies += 1
 
     def _slab_id(self, b: int, active: bool = True) -> int:
         adm = self.admissions[b]

@@ -1,16 +1,223 @@
-"""Draft source for speculative decoding: the JAX package's
-``serving/prefix_cache.py::PromptLookupDraft`` without its radix corpus.
+"""The radix prefix cache and the speculative draft source: a copy of the
+JAX package's ``serving/prefix_cache.py`` without its enc-dec
+``CrossKVCache`` (ROADMAP Queue 1 item 9) and its replica ``HostSpillStore``
+(item 11).
 
-The port has no radix prefix cache yet (ROADMAP Queue 1 item 9), so the
-draft corpus is the request's own context, as in the JAX package when it
-runs without a prefix cache.  The search along cached token paths comes
-back with the prefix cache.
+Radix prefix cache: token-id sequences -> refcounted page runs in the
+engine's ``PageAllocator`` id space.  KV already resident in the page pool
+is never recomputed or re-stored: completed prefills insert their prompt's
+full pages into a radix tree; admission looks up the longest cached prefix
+and maps those pages straight into the new slot's block table, so chunked
+prefill starts at the first uncached token.  The cache deals only in page
+ids, so int8 pools need nothing extra here: a page's payload and its scale
+rows share the id, and the engine's page-copy step copies both.
+
+Invariants (as in the JAX package, held against it by
+``tests/test_torch_prefix_cache.py``):
+
+- page alignment: every node key length is a positive multiple of
+  ``page_size`` and ``node.pages`` holds ``len(key) / page_size`` ids;
+  children are keyed by their first page of tokens, so sequences that
+  diverge mid-page live in sibling nodes;
+- cache refs: the tree holds one allocator ref per page it references;
+  pages are released only by eviction;
+- immutability: inserted pages hold KV of fully prefilled positions only
+  and are never written again (the engine inserts only a prompt's full
+  pages; the partial tail stays slot-private);
+- copy-on-write: a lookup matching into the middle of a page maps the
+  matched full pages and returns the partial page as the source of a
+  private copy (``core.steps.make_page_copy_step``) made before the slot
+  writes;
+- LRU eviction: leaf runs go oldest first, and only when no live slot
+  shares their pages (refcount 1), so each eviction frees exactly
+  ``len(node.pages)`` pages.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional, Tuple
 
 MAX_NGRAM = 3    # longest trailing n-gram matched, as in the JAX package
+
+
+def _common_len(a, b) -> int:
+    n = min(len(a), len(b))
+    for i in range(n):
+        if a[i] != b[i]:
+            return i
+    return n
+
+
+class RadixNode:
+    __slots__ = ("key", "pages", "children", "parent", "last_access")
+
+    def __init__(self, key: tuple, pages: List[int],
+                 parent: Optional["RadixNode"]):
+        self.key = key
+        self.pages = pages
+        self.children: dict = {}
+        self.parent = parent
+        self.last_access = 0
+
+
+class RadixPrefixCache:
+    """Radix tree over token ids; holds allocator refs on cached pages."""
+
+    def __init__(self, allocator, page_size: int):
+        self.allocator = allocator
+        self.psz = page_size
+        self.root = RadixNode((), [], None)
+        self._clock = 0          # logical LRU clock (deterministic)
+        self.evictions = 0
+
+    # ------------------------------------------------------------- queries
+    @property
+    def n_cached_pages(self) -> int:
+        return sum(len(n.pages) for n in self._nodes())
+
+    @property
+    def n_nodes(self) -> int:
+        return sum(1 for _ in self._nodes())
+
+    @property
+    def n_evictable_pages(self) -> int:
+        """Pages eviction could eventually free: nodes whose whole subtree
+        is unshared (refcount 1 everywhere).  A pinned descendant keeps its
+        ancestors resident because only leaves are ever evicted."""
+        total = 0
+
+        def clean(node):
+            nonlocal total
+            ok = all(self.allocator.refcount(p) == 1 for p in node.pages)
+            for ch in node.children.values():
+                ok &= clean(ch)           # no short-circuit: count siblings
+            if ok and node is not self.root:
+                total += len(node.pages)
+            return ok
+
+        clean(self.root)
+        return total
+
+    def _nodes(self):
+        stack = list(self.root.children.values())
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            yield n
+
+    def entries(self):
+        """Yield (token_path, pages) per *leaf*, root-to-leaf accumulated:
+        leaves subsume every interior node's prefix, so they are the whole
+        resident corpus (the speculative drafts search their paths)."""
+        stack = [((), [], self.root)]
+        while stack:
+            prefix, ppages, node = stack.pop()
+            path = prefix + node.key
+            pages = ppages + node.pages
+            if not node.children and node is not self.root:
+                yield path, pages
+            stack.extend((path, pages, ch) for ch in node.children.values())
+
+    # -------------------------------------------------------------- lookup
+    def lookup(self, tokens) -> Tuple[int, List[int]]:
+        """Longest cached prefix of ``tokens`` -> (match_len, pages).
+
+        ``pages`` covers ``ceil(match_len / page_size)`` pages along the
+        matched path; when ``match_len`` is not page-aligned the last entry
+        is the partially matched page (copy-on-write source).  Takes no
+        refs: the caller pins what it keeps before any eviction can run."""
+        toks = [int(t) for t in tokens]
+        self._clock += 1
+        node, pages, matched = self.root, [], 0
+        while matched < len(toks):
+            rem = toks[matched:]
+            child = node.children.get(tuple(rem[:self.psz]))
+            if child is None:
+                # no full-page match: scan for a mid-page partial match
+                best, best_c = None, 0
+                for ch in node.children.values():
+                    c = _common_len(ch.key, rem)
+                    if c > best_c:
+                        best, best_c = ch, c
+                if best is not None:
+                    best.last_access = self._clock
+                    pages.append(best.pages[0])
+                    matched += best_c
+                break
+            c = _common_len(child.key, rem)
+            child.last_access = self._clock
+            n_full = c // self.psz
+            pages.extend(child.pages[:n_full])
+            if c % self.psz:
+                pages.append(child.pages[n_full])
+            matched += c
+            if c < len(child.key):
+                break
+            node = child
+        return matched, pages
+
+    # -------------------------------------------------------------- insert
+    def insert(self, tokens, pages: List[int]) -> int:
+        """Cache ``pages`` (full pages of a prefilled prompt) under
+        ``tokens``; len(tokens) must equal len(pages) * page_size.
+
+        Prefix parts already cached keep their existing pages (the caller's
+        duplicates stay slot-owned and die with the slot); only the new
+        suffix takes cache refs.  -> number of newly referenced pages."""
+        toks = [int(t) for t in tokens]
+        assert len(toks) == len(pages) * self.psz, (len(toks), len(pages))
+        self._clock += 1
+        node, i = self.root, 0
+        while i < len(toks):
+            rem = toks[i:]
+            child = node.children.get(tuple(rem[:self.psz]))
+            if child is None:
+                leaf = RadixNode(tuple(rem), list(pages[i // self.psz:]),
+                                 node)
+                leaf.last_access = self._clock
+                self.allocator.incref(leaf.pages)
+                node.children[tuple(rem[:self.psz])] = leaf
+                return len(leaf.pages)
+            c = _common_len(child.key, rem)
+            cp = (c // self.psz) * self.psz   # split at a page boundary
+            child.last_access = self._clock
+            if cp < len(child.key):
+                self._split(child, cp)
+            i += cp
+            node = child
+        return 0
+
+    def _split(self, node: RadixNode, cp: int):
+        """Split ``node`` so its key ends at page-aligned offset ``cp``."""
+        tail = RadixNode(node.key[cp:], node.pages[cp // self.psz:], node)
+        tail.children = node.children
+        tail.last_access = node.last_access
+        for gc in tail.children.values():
+            gc.parent = tail
+        node.key = node.key[:cp]
+        node.pages = node.pages[:cp // self.psz]
+        node.children = {tail.key[:self.psz]: tail}
+
+    # ------------------------------------------------------------ eviction
+    def evict(self, n_pages: int) -> int:
+        """Evict LRU leaf runs until >= ``n_pages`` pages return to the
+        pool (or nothing evictable remains).  -> pages actually freed."""
+        freed = 0
+        while freed < n_pages:
+            victim = None
+            for n in self._nodes():
+                if n.children:
+                    continue                  # leaves only: children first
+                if any(self.allocator.refcount(p) > 1 for p in n.pages):
+                    continue                  # shared with a live slot
+                if victim is None or n.last_access < victim.last_access:
+                    victim = n
+            if victim is None:
+                break
+            self.allocator.decref(victim.pages)
+            freed += len(victim.pages)
+            del victim.parent.children[victim.key[:self.psz]]
+            self.evictions += 1
+        return freed
 
 
 class PromptLookupDraft:
@@ -18,12 +225,17 @@ class PromptLookupDraft:
 
     Prompt-lookup (n-gram) drafting: the longest trailing n-gram of the
     slot's context (prompt + emitted tokens) is matched against its most
-    recent earlier occurrence in that context; the k tokens that followed
-    that occurrence become the draft.  Drafts are proposals only — the
-    verify step scores them against the real model and rejection keeps
-    outputs token-identical — so a bad draft costs pages, never accuracy.
-    An empty return means "no guess": the engine falls back to the
-    one-token decode path for that slot this tick."""
+    recent earlier occurrence, first within the context itself, then along
+    the radix prefix cache's stored token paths (other requests' prompts,
+    when the engine runs one); the k tokens that followed that occurrence
+    become the draft.  Drafts are proposals only — the verify step scores
+    them against the real model and rejection keeps outputs token-identical
+    — so a bad draft costs pages, never accuracy.  An empty return means
+    "no guess": the engine falls back to the one-token decode path for that
+    slot this tick."""
+
+    def __init__(self, prefix_cache: Optional[RadixPrefixCache] = None):
+        self.prefix_cache = prefix_cache
 
     def draft(self, context, k: int) -> List[int]:
         """Propose up to ``k`` continuation tokens for ``context``."""
@@ -32,9 +244,29 @@ class PromptLookupDraft:
         toks = [int(t) for t in context]
         for n in range(min(MAX_NGRAM, len(toks) - 1), 0, -1):
             gram = toks[-n:]
+            # most recent earlier occurrence within the context itself
             for i in range(len(toks) - n - 1, -1, -1):
                 if toks[i:i + n] == gram:
                     out = toks[i + n:i + n + k]
                     if out:
                         return out
+            # then along cached token paths (other requests' prompts)
+            best: List[int] = []
+            for path in self._cache_paths():
+                for i in range(len(path) - n, -1, -1):
+                    if list(path[i:i + n]) == gram:
+                        out = [int(t) for t in path[i + n:i + n + k]]
+                        if len(out) > len(best):
+                            best = out
+                        break
+            if best:
+                return best
         return []
+
+    def _cache_paths(self):
+        """Root-to-leaf token sequences of the radix cache (leaves subsume
+        every interior path, so they are the whole searchable corpus)."""
+        if self.prefix_cache is None:
+            return
+        for path, _ in self.prefix_cache.entries():
+            yield path

@@ -1,22 +1,37 @@
 """Scheduling policy for the serving engine (policy/mechanism split).
 
-A copy of the part of the JAX package's ``serving/scheduler.py`` that FCFS
-serving without a prefix cache needs: the ``Scheduler`` interface,
-``Admission`` records, ``FCFSScheduler``'s all-or-nothing budgeting of
-pages and state slabs and its speculative draft headroom.  Without a page
-allocator (``allocator=None``, the contiguous engine) it only orders the
-queue: every slot owns a whole lane, so a free slot admits the head.  The
-engine executes admissions and reports lifecycle events back
-(``on_prefill_complete``, ``on_finish``, ``on_spec_trim``).
+A copy of the JAX package's ``serving/scheduler.py`` for one replica
+(dp=1): the ``Scheduler`` interface, ``Admission`` records and
+``FCFSScheduler``, the stock policy and the machinery base: page and slab
+budgeting, radix prefix lookup, copy-on-write planning, cache eviction,
+rollback and page release.  Subclasses override only the queue-discipline
+hooks (``_enqueue`` / ``_select_next`` / ``_put_back`` /
+``_requeue_preempted`` / ``_clear_queue``) plus, for preemptive policies,
+``plan_preemptions`` (``serving.policies``).  Without a page allocator
+(``allocator=None``, the contiguous engine) it only orders the queue.  The
+engine executes admissions (COW page copies, chunked prefill from the first
+uncached token) and reports lifecycle events back (``on_cow_done``,
+``on_prefill_complete``, ``on_finish``, ``on_preempt``, ``on_spec_trim``).
+The enc-dec cross-KV budget waits for ROADMAP Queue 1 item 9, the handoff,
+migration and role methods for item 11.
 
-Invariant: leak freedom — every page and every slab is free after
-    ``run()``/``drain()`` retire all admissions.
+Preemption contract: the engine calls ``plan_preemptions`` each tick and
+evicts the returned victims; ``on_preempt`` donates the victim's resident
+full pages to the radix prefix cache (so resume re-admits as a prefix hit
+and the KV is never recomputed), releases the slot's page refs and slab,
+and re-queues the request.  A resumed request's admission plans over its
+*effective prompt* (original prompt plus the tokens it already generated).
+An SSM arch carries no prefix cache: the engine stashes its slab on the
+host instead.
+
+Invariant: leak freedom — every page is free or radix-cached, and every
+    slab is free, after ``run()``/``drain()`` retire all admissions.
 """
 from __future__ import annotations
 
 import collections
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -24,9 +39,11 @@ from repro_torch.core.kvcache import pages_needed
 
 
 def effective_prompt(req) -> np.ndarray:
-    """Tokens an admission must make resident: the original prompt plus
-    everything the request already generated (non-empty only for a request
-    that re-enters after preemption, which a later slice ports)."""
+    """Tokens a (re-)admission must make resident: the original prompt plus
+    everything the request already generated.  For a fresh request this is
+    just the prompt; a preempted request re-prefills its own output, which
+    the prefix cache turns into a hit on the pages donated at preemption
+    (``on_preempt``): reuse, not recompute."""
     out = getattr(req, "out_tokens", None)
     if not out:
         return np.asarray(req.prompt, np.int32)
@@ -35,147 +52,305 @@ def effective_prompt(req) -> np.ndarray:
 
 
 def remaining_new_tokens(req) -> int:
-    """Decode budget still owed to ``req``."""
+    """Decode budget still owed to ``req`` (shrinks across preemptions, so
+    effective_prompt + remaining is the constant submit-time budget)."""
     out = getattr(req, "out_tokens", None)
     return req.max_new_tokens - (len(out) if out else 0)
 
 
 @dataclass
 class Admission:
-    """One scheduler decision: place ``req`` into engine slot ``slot`` with
-    the block-table page run ``pages`` (prompt + max_new_tokens worth).
-    spec: the run includes draft headroom (+spec_tokens of coverage), so the
-    engine may run the verify step on the slot; False means speculation was
-    denied at admission (pool pressure) and the slot decodes one token per
-    tick.  slab: the slot's recurrent-state slab id (SSM archs)."""
+    """One scheduler decision: place ``req`` into engine slot ``slot``.
+
+    pages: the slot's full block-table page run (None for the contiguous
+    engine).  cached_len: prompt tokens already resident through prefix
+    sharing; chunked prefill starts at this offset.  cow: the (src, dst)
+    page pair the engine must copy before the slot's first write
+    (divergence out of a shared partial page).  seq: global admission
+    order stamp (preemptive policies pick the victim with the least sunk
+    work by it).  slab: the slot's recurrent-state slab id (SSM archs).
+    spec: the run includes draft headroom (+spec_tokens of coverage), so
+    the engine may run the verify step on the slot; False means
+    speculation was denied at admission (pool pressure) and the slot
+    decodes one token per tick."""
     slot: int
     req: object
     pages: Optional[List[int]] = None
-    spec: bool = False
+    cached_len: int = 0
+    cow: Optional[Tuple[int, int]] = None
+    seq: int = 0
     slab: Optional[int] = None
+    spec: bool = False
 
 
 class Scheduler:
     """Policy interface the engine drives.  Implementations own the wait
-    queue and all allocator traffic."""
+    queue and (for the paged engine) all allocator and prefix-cache
+    traffic."""
 
     def submit(self, req) -> None:
         raise NotImplementedError
 
     def has_pending(self) -> bool:
+        raise NotImplementedError
+
+    def pending_requests(self) -> List:
+        """Queued (not yet admitted) requests, in no particular order."""
         raise NotImplementedError
 
     def plan(self, free_slots: List[int]) -> List[Admission]:
         """Admissions for this tick; at most one per free slot."""
         raise NotImplementedError
 
+    def plan_preemptions(self, active: List[Admission],
+                         n_free: int) -> List[Admission]:
+        """Victims to evict this tick (before admission planning).  The
+        engine preempts each returned admission's slot; default: none."""
+        return []
+
+    def on_cow_done(self, adm: Admission) -> None:
+        """The engine copied adm.cow: release the pin on the source."""
+
     def on_prefill_complete(self, adm: Admission) -> None:
-        """adm's prompt is fully resident."""
+        """adm's prompt is fully resident (cache-insertion hook)."""
 
     def on_finish(self, adm: Admission) -> None:
-        """adm's request retired — release its resources."""
+        """adm's request retired: release its resources."""
+
+    def on_preempt(self, adm: Admission, resident_tokens) -> None:
+        """adm was evicted mid-flight with ``resident_tokens`` computed:
+        salvage its pages and re-queue the request."""
+        raise NotImplementedError
 
     def on_spec_trim(self, adm: Admission, keep: int) -> None:
-        """The engine stopped speculating on adm's slot — return the draft
+        """The engine stopped speculating on adm's slot: return the draft
         headroom pages past block-table index ``keep``."""
 
 
 class FCFSScheduler(Scheduler):
-    """First-come-first-served admission with all-or-nothing budgeting: the
-    head request either gets its full page budget (prompt +
-    max_new_tokens) and, for SSM archs, a state slab, or the whole queue
-    waits (no mid-flight OOM, no starvation by overtaking).  A pure-SSM
-    arch has no KV pool (``kv_pages=False``): its page demand is zero and
-    its state lives entirely in the slab.  With no ``allocator`` (the
-    contiguous engine) nothing is budgeted.  With ``spec_tokens`` > 0 an
-    admission also tries for +spec_tokens of page coverage, so the verify
-    step can write drafted positions past prompt + max_new_tokens: all or
-    nothing, and a request denied it (``stats.spec_denied``) is still
-    admitted, with ``spec=False``."""
+    """First-come-first-served admission.
+
+    Paged mode adds all-or-nothing budgeting: the head request either gets
+    its full page budget (prompt + max_new_tokens) and, for SSM archs, a
+    state slab, or the whole queue waits (no mid-flight OOM, no starvation
+    by overtaking).  A pure-SSM arch has no KV pool (``kv_pages=False``):
+    its page demand is zero and its state lives in the slab.  With a
+    ``prefix_cache`` admission maps the longest cached prefix into the
+    block table, duplicating a partially shared page copy-on-write, and
+    evicts LRU cache runs when the pool cannot cover the remainder.  With
+    ``spec_tokens`` > 0 an admission also tries for +spec_tokens of page
+    coverage, all or nothing, never evicting; a request denied it
+    (``stats.spec_denied``) is still admitted, with ``spec=False``."""
 
     def __init__(self, *, seq_budget: int, allocator=None, page_size: int = 0,
-                 spec_tokens: int = 0, stats=None, slab_allocator=None,
-                 kv_pages: bool = True):
+                 prefix_cache=None, stats=None, slab_allocator=None,
+                 kv_pages: bool = True, spec_tokens: int = 0):
         self.queue: collections.deque = collections.deque()
         self.seq_budget = seq_budget
         self.allocator = allocator
         self.psz = page_size
+        self.prefix_cache = prefix_cache
+        self.kv_pages = kv_pages
+        self.slab_allocator = slab_allocator      # SSM archs
         self.spec_tokens = spec_tokens
         self.stats = stats
-        self.slab_allocator = slab_allocator      # SSM archs
-        self.kv_pages = kv_pages
+        self._round = 0      # logical clock: one tick per plan() call
+        self._adm_seq = 0    # admission order stamp
+        # page demand of the queued backlog, kept at every enqueue and
+        # dequeue (submit / admission / put-back / requeue)
+        self.backlog_pages = 0
 
     @property
     def paged(self) -> bool:
         return self.allocator is not None
 
+    # ------------------------------------------------- queue discipline hooks
+    def _enqueue(self, req) -> None:
+        self.queue.append(req)
+
+    def _select_next(self):
+        """Next request to try admitting, or None."""
+        return self.queue.popleft() if self.queue else None
+
+    def _put_back(self, req) -> None:
+        """The selected request could not be admitted (page pressure): it
+        stays head-of-line so nothing overtakes it."""
+        self.queue.appendleft(req)
+
+    def _requeue_preempted(self, req) -> None:
+        """A preempted request returns to the queue; FCFS resumes it
+        first."""
+        self.queue.appendleft(req)
+
+    def _clear_queue(self) -> None:
+        self.queue.clear()
+
+    # ------------------------------------------------------------- intake
     def submit(self, req) -> None:
         if len(req.prompt) == 0:
             raise RuntimeError(f"request {req.rid} has an empty prompt")
-        if not self.paged:
-            if len(req.prompt) >= self.seq_budget:
-                # the contiguous lane needs room past the prompt for decode
+        if self.paged:
+            if len(req.prompt) + req.max_new_tokens > self.seq_budget:
                 raise RuntimeError(
-                    f"request {req.rid} prompt ({len(req.prompt)} tokens) "
-                    f"exceeds the sequence budget {self.seq_budget}")
-            self.queue.append(req)
-            return
-        if len(req.prompt) + req.max_new_tokens > self.seq_budget:
+                    f"request {req.rid} needs {len(req.prompt)} prompt + "
+                    f"{req.max_new_tokens} new tokens; the sequence budget "
+                    f"is {self.seq_budget}")
+            need = self._req_pages(req)
+            usable = self.allocator.n_pages - self.allocator.n_reserved
+            if need > usable:       # reject now, not mid-run at admission
+                raise RuntimeError(f"request {req.rid} needs {need} pages; "
+                                   f"the pool only has {usable} usable")
+        elif len(req.prompt) >= self.seq_budget:
+            # the contiguous lane needs room past the prompt for decode
             raise RuntimeError(
-                f"request {req.rid} needs {len(req.prompt)} prompt + "
-                f"{req.max_new_tokens} new tokens; the sequence budget "
-                f"is {self.seq_budget}")
-        need = self._req_pages(req)
-        usable = self.allocator.n_pages - self.allocator.n_reserved
-        if need > usable:       # reject now, not mid-run at admission
-            raise RuntimeError(f"request {req.rid} needs {need} pages; the "
-                               f"pool only has {usable} usable")
-        self.queue.append(req)
+                f"request {req.rid} prompt ({len(req.prompt)} tokens) "
+                f"exceeds the sequence budget {self.seq_budget}")
+        self._enqueue(req)
+        self.backlog_pages += self._req_pages(req)
 
     def has_pending(self) -> bool:
         return bool(self.queue)
 
+    def pending_requests(self) -> List:
+        return list(self.queue)
+
     def _req_pages(self, req) -> int:
+        """Page demand of one queued request.  Constant while it waits
+        (out_tokens only grow while admitted), so the backlog counter's add
+        and subtract stay symmetric across put-backs and requeues."""
         if not self.paged or not self.kv_pages:
             return 0
         return pages_needed(len(effective_prompt(req)) +
                             remaining_new_tokens(req), self.psz)
 
+    def _evictable_pages(self) -> int:
+        """Pages eviction could eventually reclaim."""
+        return self.prefix_cache.n_evictable_pages \
+            if self.prefix_cache is not None else 0
+
+    def _reclaim(self, shortfall: int) -> None:
+        """Evict cached runs (radix leaves, LRU first) until ``shortfall``
+        pages are freed."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.evict(shortfall)
+
+    def _admissible_without_eviction(self, req) -> bool:
+        """True if a free slot could serve ``req`` right now, pool pages and
+        state slabs included.  A free slot whose pool is exhausted must not
+        suppress preemption: evicting a victim is what frees the pages (and
+        its slab)."""
+        if not self.paged:
+            return True
+        if self.slab_allocator is not None and \
+                self.slab_allocator.n_free == 0:
+            return False
+        return self.allocator.n_free + self._evictable_pages() \
+            >= self._req_pages(req)
+
+    # ---------------------------------------------------------- admission
     def plan(self, free_slots: List[int]) -> List[Admission]:
+        self._round += 1
         out = []
         for slot in free_slots:
-            if not self.queue:
+            req = self._select_next()
+            if req is None:
                 break
-            if not self.paged:
-                out.append(Admission(slot=slot, req=self.queue.popleft()))
-                continue
-            req = self.queue[0]
-            slab = None
-            if self.slab_allocator is not None:
-                slab = self.slab_allocator.alloc()
-                if slab is None:        # every slab busy: the head waits
+            self.backlog_pages -= self._req_pages(req)
+            if self.paged:
+                adm = self._plan_paged(slot, req)
+                if adm is None:     # blocked: wait for reclamation
+                    self._put_back(req)
+                    self.backlog_pages += self._req_pages(req)
                     break
-            total = self._req_pages(req)
-            pages = self.allocator.alloc(total)
-            if pages is None:           # blocked: the head waits for pages
-                if slab is not None:
-                    self.slab_allocator.free(slab)
-                break
-            self.queue.popleft()
-            out.append(Admission(slot=slot, req=req, pages=pages,
-                                 spec=self._draft_headroom(req, total, pages),
-                                 slab=slab))
+            else:
+                adm = Admission(slot=slot, req=req)
+            adm.seq = self._adm_seq
+            self._adm_seq += 1
+            out.append(adm)
         return out
 
-    def _draft_headroom(self, req, total: int, pages: List[int]) -> bool:
-        """Append the speculative headroom to ``pages`` if the pool covers
-        it; never evicts.  -> whether it was granted."""
-        if self.spec_tokens <= 0:
+    def _can_reclaim(self, need: int) -> bool:
+        """True if evicting cache runs can cover a ``need``-page
+        allocation (free pages + eventually-evictable cached pages)."""
+        ev = self._evictable_pages()
+        return ev > 0 and self.allocator.n_free + ev >= need
+
+    def _plan_paged(self, slot: int, req) -> Optional[Admission]:
+        prompt = effective_prompt(req)
+        L = len(prompt)
+        total = pages_needed(L + remaining_new_tokens(req), self.psz) \
+            if self.kv_pages else 0
+        alloc = self.allocator
+        # ---- recurrent-state slab (SSM): all-or-nothing with pages
+        slab = None
+        if self.slab_allocator is not None:
+            slab = self.slab_allocator.alloc()
+            if slab is None:        # every slab busy: wait
+                return None
+        cached_len, run = 0, []
+        if self.prefix_cache is not None:
+            matched, run = self.prefix_cache.lookup(prompt)
+            # always prefill >= 1 token: the final prompt position's logits
+            # seed the first decode
+            cached_len = min(matched, max(L - 1, 0))
+        n_full = cached_len // self.psz
+        shared = run[:n_full]
+        cow_src = run[n_full] if cached_len % self.psz else None
+        # pin the reused pages before eviction (below) can touch them
+        alloc.incref(shared)
+        if cow_src is not None:
+            alloc.incref([cow_src])
+        need = total - n_full
+        fresh = alloc.alloc(need)
+        if fresh is None and self._can_reclaim(need):
+            # evict only when it covers the shortfall: a futile eviction
+            # would wipe hot prefixes and still leave us blocked
+            self._reclaim(need - alloc.n_free)
+            fresh = alloc.alloc(need)
+        if fresh is None and (shared or cow_src is not None):
+            # prefix reuse itself can block admission: the pins make the
+            # matched run unevictable, and the leftover need may exceed
+            # what eviction can reclaim, forever if no other slot is in
+            # flight.  Degrade to a cold prefill: drop the pins (the run
+            # becomes evictable), reclaim, take the budget fresh.
+            alloc.decref(shared)
+            if cow_src is not None:
+                alloc.decref([cow_src])
+            shared, cow_src, cached_len, n_full = [], None, 0, 0
+            need = total
+            if alloc.n_free < need and self._can_reclaim(need):
+                self._reclaim(need - alloc.n_free)
+            fresh = alloc.alloc(need)
+        if fresh is None:           # roll the pins back; the head blocks
+            alloc.decref(shared)
+            if cow_src is not None:
+                alloc.decref([cow_src])
+            if slab is not None:
+                self.slab_allocator.free(slab)
+            return None
+        spec = self._draft_headroom(req, L, total, fresh)
+        # count on admission only: a blocked head-of-line request is
+        # re-planned every tick and must not inflate the hit rates
+        if self.prefix_cache is not None and self.stats is not None:
+            self.stats.prefix_lookups += 1
+            self.stats.prefix_hits += cached_len > 0
+        # fresh[0] sits at block-table index n_full: exactly where the COW
+        # copy of the partial page belongs
+        cow = (cow_src, fresh[0]) if cow_src is not None else None
+        return Admission(slot=slot, req=req, pages=shared + fresh,
+                         cached_len=cached_len, cow=cow, slab=slab,
+                         spec=spec)
+
+    def _draft_headroom(self, req, L: int, total: int,
+                        pages: List[int]) -> bool:
+        """Append the speculative headroom (+spec_tokens of coverage) to
+        ``pages`` if the pool covers it; never evicts (hot resident
+        prefixes outrank draft room).  -> whether it was granted."""
+        if self.spec_tokens <= 0 or not self.kv_pages:
             return False
         n_max = self.seq_budget // self.psz
-        extra = min(pages_needed(len(effective_prompt(req)) +
-                                 remaining_new_tokens(req) + self.spec_tokens,
-                                 self.psz), n_max) - total
+        extra = min(pages_needed(L + remaining_new_tokens(req) +
+                                 self.spec_tokens, self.psz), n_max) - total
         more = self.allocator.alloc(extra)
         if more is None:
             if self.stats is not None:
@@ -184,17 +359,53 @@ class FCFSScheduler(Scheduler):
         pages.extend(more)
         return True
 
-    def on_finish(self, adm: Admission) -> None:
-        if not self.paged:
+    # ------------------------------------------------------------- events
+    def on_cow_done(self, adm: Admission) -> None:
+        self.allocator.decref([adm.cow[0]])
+
+    def on_prefill_complete(self, adm: Admission) -> None:
+        if self.prefix_cache is None:
             return
+        prompt = effective_prompt(adm.req)
+        n_full = len(prompt) // self.psz    # the partial tail stays private
+        if n_full:
+            self.prefix_cache.insert(prompt[:n_full * self.psz],
+                                     adm.pages[:n_full])
+
+    def _release(self, adm: Admission) -> None:
+        """Drop every resource an admission holds (pages, slab)."""
         self.allocator.decref(adm.pages)
         if adm.slab is not None:
             self.slab_allocator.free(adm.slab)
 
+    def on_finish(self, adm: Admission) -> None:
+        if self.paged:
+            self._release(adm)
+
     def on_spec_trim(self, adm: Admission, keep: int) -> None:
-        """Return the headroom pages past block-table index ``keep``: drop
-        the slot's reference to each (``allocator.trim``), never assume it
-        was the only one."""
+        """Return the headroom pages past block-table index ``keep``.  A
+        tail page may be shared with the prefix cache by the time the trim
+        runs (a preemption donated it, or an identical prompt was
+        inserted), so this drops the slot's reference per page
+        (``allocator.trim``), never assumes it was the only one."""
         self.allocator.trim(adm.pages[keep:])
         del adm.pages[keep:]
         adm.spec = False
+
+    def on_preempt(self, adm: Admission, resident_tokens) -> None:
+        """Salvage an evicted slot: donate its resident *full* pages to the
+        prefix cache (resume finds them as a prefix hit: the victim's KV is
+        reused, never recomputed), drop the slot's page refs and slab (SSM
+        state travels through the engine's host stash instead), and
+        re-queue the request.  The partial tail page is slot-private KV and
+        is freed; resume re-prefills those few tokens."""
+        if self.paged:
+            if self.prefix_cache is not None:
+                n_full = len(resident_tokens) // self.psz
+                if n_full:
+                    self.prefix_cache.insert(
+                        resident_tokens[:n_full * self.psz],
+                        adm.pages[:n_full])
+            self._release(adm)
+        self._requeue_preempted(adm.req)
+        self.backlog_pages += self._req_pages(adm.req)

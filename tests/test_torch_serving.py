@@ -124,13 +124,7 @@ def test_launcher_serves_on_cpu(capsys):
     (["--disagg", "1:1"], "disaggregated prefill/decode"),
     (["--scale-events", "8:1"], "elastic replicas"),
     (["--temperature", "0.7"], "sampled decoding"),
-    (["--prefix-cache"], "prefix cache"),
-    (["--shared-prefix", "4"], "prefix cache"),
     (["--frame-groups", "2"], "encoder-decoder"),
-    (["--policy", "fair"], "priority and fair policies"),
-    (["--preemption"], "preemption"),
-    (["--high-priority-every", "2"], "priority policies"),
-    (["--clients", "2"], "fair policy"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
     """A value of the JAX launcher's flags that the port cannot serve is
