@@ -18,11 +18,13 @@ each (and a few detail lines):
             attention over contiguous float or fixed-scale int8 lanes)
             against its plain PyTorch
             version on the card, at the main paths' shapes plus ragged cases
-            (for the norm family T in {8, 32, 160}, E 512 and 1024, the
+            (for rmsnorm also qwen3's qk-norm rows, E 128 at T 128 and
+            512, and its E 1024 at T 8, with random scales; for the norm
+            family T in {8, 32, 160}, E 512 and 1024, the
             residual variant's sum bitwise x + r and its norm bitwise
             ops.rmsnorm(x + r), the gated one over n = 2048 with y, z and
             the output each float32 or bf16, one kernel node per call;
-            (for matmul every product of both models at M in {8, 32, 33,
+            (for matmul every product of the three models at M in {8, 32, 33,
             40, 160}, K or N off a multiple of 8, two bf16 calls bitwise
             equal, one kernel node per call in a CUDA graph, and times per
             shape beside torch.matmul's;
@@ -49,11 +51,21 @@ each (and a few detail lines):
             with D 32 and 128 and an idle lane, NaN in every float key and
             value past a row's length, two bf16 calls bitwise equal, one
             kernel node per call and a graph replayed after `length`
-            changes equal to the eager call), with the stated tolerance; median
+            changes equal to the eager call), with the stated tolerance;
+            then GQA at qwen3's shapes (16 q over 8 kv heads, D 128; float32
+            and bf16): flash over the chunk at q_offset 0, 96, 224 and 230
+            (an int32 on the card) and whole prompts of 23 and 160, paged
+            decode and verify at Q 5 and 8 (R Q = 16) over float and int8
+            pools (B 8, pages of 16, ragged lengths, graphs replayed after
+            length changes), the contiguous decode over float and int8
+            lanes at S 256 and 1024, and verify refusing R Q = 18 before
+            any launch; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
-            computes the same function where there is one (a yardstick
-            only; the port never calls it).
+            computes the same function where there is one (SDPA, with
+            enable_gqa=True for GQA, is_causal=True for a whole prompt and
+            a mask for the offset chunk, checked against the plain version;
+            a yardstick only; the port never calls it).
 3. parity   full-width tinyllama-42m in float32, engines on the card
             (kernels; steps in CUDA graphs, the pipelined tick) against
             engines on the CPU (plain versions), and every card engine's
@@ -65,7 +77,13 @@ each (and a few detail lines):
             tolerance, leak-free after drain(); each speculative engine's
             tokens equal its one-token engine's on the card, with drafts
             accepted; the int8 pools' logit drift against float pools is
-            printed.  parity-ssm: full-width mamba2-370m in float32, card
+            printed.  parity-qwen3: full-width, full-depth qwen3-0.6b in
+            float32 (GQA, qk-norm with random scales), card against
+            CPU: float pools (also
+            against the eager-serial engine), int8 pools with
+            speculative=4 and the contiguous engine, identical greedy
+            tokens and live logits within the tinyllama tolerances.
+            parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
             tolerance, slabs leak-free after drain().  parity-contig: the
@@ -87,7 +105,7 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in nine phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in ten phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
@@ -100,7 +118,9 @@ each (and a few detail lines):
             tokens identical with the cache off in this call, hit rate,
             skipped prefill tokens, COW copies and the copy graph's nodes
             printed, and its tok/s, busy share and prefill chunks beside
-            serve's).  Every request
+            serve's), and serve-qwen3 (full-width qwen3-0.6b, 28 layers,
+            bfloat16 pools, random prompts; no eager-serial run).  Every
+            request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
             set to 0 just before each phase and read just after; the SSD
@@ -110,9 +130,10 @@ each (and a few detail lines):
             decode tick and in no paged phase, flash attention once per
             layer in every whole-prompt prefill, no paged kernel in a
             contiguous phase; the norm family once per norm of the model
-            in every step: one plain norm, the rest with the residual add
-            fused in, mamba2's gated norm in every layer; 10L + 2 counted
-            kernels per tinyllama decode tick, 8L + 2 per mamba2 tick).
+            in every step: one plain norm (and qwen3's q and k norms in every
+            layer), the rest with the residual add fused in, mamba2's gated
+            norm in every layer; 10L + 2 counted kernels per tinyllama
+            decode tick, 12L + 2 per qwen3 tick, 8L + 2 per mamba2 tick).
             Launches are counted where a wrapper launches its kernel and at
             every replay of a step's graph (the kernels its capture
             recorded).  Each step graph is read node by node
@@ -348,7 +369,7 @@ def ptxas_usage(log):
     return found
 
 
-# Every matmul of the two models' main paths: (name, K, N, trans_b).
+# Every matmul of the three models' main paths: (name, K, N, trans_b).
 MATMULS = (("tinyllama wq/wk/wv/wo", 512, 512, False),
            ("tinyllama w_gate/w_up", 512, 2048, False),
            ("tinyllama w_down", 2048, 512, False),
@@ -357,7 +378,13 @@ MATMULS = (("tinyllama wq/wk/wv/wo", 512, 512, False),
            ("mamba2 in_dt", 1024, 32, False),
            ("mamba2 in_B/in_C", 1024, 128, False),
            ("mamba2 out", 2048, 1024, False),
-           ("mamba2 LM head", 1024, 50280, True))
+           ("mamba2 LM head", 1024, 50280, True),
+           ("qwen3 wq", 1024, 2048, False),
+           ("qwen3 wk/wv", 1024, 1024, False),
+           ("qwen3 wo", 2048, 1024, False),
+           ("qwen3 w_gate/w_up", 1024, 3072, False),
+           ("qwen3 w_down", 3072, 1024, False),
+           ("qwen3 LM head", 1024, 151936, True))
 MATMULS_RAGGED = (("ragged K", 1004, 520, False), ("ragged K", 1004, 300, True),
                   ("ragged N", 512, 50, False))
 
@@ -390,12 +417,15 @@ def phase_kernels(torch, F):
                             f"not one kernel node")
         n_graphs += 1
 
-    # ---- rmsnorm: T = 8 decode rows / 32 chunk rows, E = 512; each call one
-    # kernel node in a CUDA graph
+    # ---- rmsnorm: T = 8 decode rows / 32 chunk rows at E = 512; qwen3's
+    # qk-norm, rows of head_dim 128 (8 slots x 16 heads a decode tick, a
+    # 32-token chunk's 512) and its plain first-layer norm at E = 1024; each
+    # call one kernel node in a CUDA graph
     for dt in (torch.float32, torch.bfloat16):
-        for T in (8, 32, 33):
-            x, s = randn(T, 512, dtype=dt), 0.1 * randn(512, dtype=dt)
-            case = f"T={T} {dtype_name(dt)}"
+        for T, E in ((8, 512), (32, 512), (33, 512), (128, 128), (512, 128),
+                     (8, 1024)):
+            x, s = randn(T, E, dtype=dt), 0.1 * randn(E, dtype=dt)
+            case = f"T={T} E={E} {dtype_name(dt)}"
             note("rmsnorm", case,
                  compare("rmsnorm", ops.rmsnorm(x, s), ref.ref_rmsnorm(x, s),
                          dt, torch))
@@ -457,6 +487,30 @@ def phase_kernels(torch, F):
         library_ms=(time_ms(lambda: F.rms_norm(x, (512,), w1, 1e-6), torch)
                     if hasattr(F, "rms_norm") else None),
         bound_ms=b_ms, bound_by=b_by)
+    # qwen3's shapes: qk-norm rows of head_dim 128 (a decode tick's 8 slots
+    # x 16 heads, a 32-token chunk's 512) and its E = 1024 norm
+    rows["rmsnorm"]["by_shape"] = [dict(rows["rmsnorm"])]
+    for T, E in ((128, 128), (512, 128), (8, 1024)):
+        xq = randn(T, E, dtype=torch.bfloat16)
+        sq = 0.1 * randn(E, dtype=torch.bfloat16)
+        wq = (1.0 + sq.float()).to(torch.bfloat16)
+        b_ms, b_by = bound(2 * (xq.numel() * 2) + sq.numel() * 2,
+                           5 * xq.numel(), torch.float32)
+        r = dict(shape=f"x ({T}, {E}) bf16",
+                 max_abs_err=compare("rmsnorm", ops.rmsnorm(xq, sq),
+                                     ref.ref_rmsnorm(xq, sq), torch.bfloat16,
+                                     torch),
+                 ms=time_ms(lambda: ops.rmsnorm(xq, sq), torch),
+                 plain_ms=time_ms(lambda: ref.ref_rmsnorm(xq, sq), torch),
+                 library_ms=(time_ms(lambda: F.rms_norm(xq, (E,), wq, 1e-6),
+                                     torch)
+                             if hasattr(F, "rms_norm") else None),
+                 bound_ms=b_ms, bound_by=b_by)
+        rows["rmsnorm"]["by_shape"].append(r)
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  rmsnorm time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.3f} "
+              f"plain_us={1e3 * r['plain_ms']:.2f} library_us={lib}")
     # the fused variants at the serve shapes: the residual norm over
     # tinyllama's (8, 512) bf16 rows (x and r read, s and y written); the
     # gated norm over mamba2's (8, 2048) decode rows in serve's dtypes (y in
@@ -486,7 +540,7 @@ def phase_kernels(torch, F):
                          torch),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
-    # ---- matmul: every main-path product of both models at the rows a step
+    # ---- matmul: every main-path product of the three models at the rows a step
     # hands over (8 decode, 32 paged chunk, 33 ragged, 40 k=4 verify, 160 a
     # whole prompt), plus K or N off a multiple of 8 (chunks gathered element
     # by element); weights at the models' init scale (0.02), as the main
@@ -1070,6 +1124,8 @@ def phase_kernels(torch, F):
             by_shape.append(r)
         rows[kname] = dict(by_shape[0], by_shape=by_shape)
 
+    _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -1078,6 +1134,268 @@ def phase_kernels(torch, F):
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"max_abs_err={r['max_abs_err_all_cases']:.3e}")
     return rows
+
+
+# qwen3-0.6b's attention: 16 q heads over 8 kv heads (R = 2), head_dim 128
+GQA_HQ, GQA_HK, GQA_D = 16, 8, 128
+
+
+def _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
+    """The four attention kernels and both int8 variants at qwen3's GQA
+    shapes (R = 2, D 128), float32 and bf16, against their plain versions:
+    flash over the prefill chunk (Sq 32 over a 256-key stream, q_offset an
+    int32 on the card, at 0, 96, 224 and 230) and whole prompts (Sq = Skv
+    23 and 160); paged decode (B 8, pages of 16, ragged lengths, an idle
+    lane) and verify at Q 5 and 8 (R Q = 16, the m16 full) over float and
+    int8 pools; the contiguous decode over float and int8 lanes at S 256
+    and 1024.  Every bf16 case runs twice (bitwise-equal outputs), every
+    case is one kernel node in a CUDA graph, a graph of each paged entry
+    replayed after `length` changes equals the eager call, and verify
+    refuses R Q = 18 before any launch.  Times (bf16, L2-warm) beside the
+    bound, the plain version and, where one call computes the same,
+    SDPA with enable_gqa=True; appended to each kernel's ``by_shape``."""
+    from repro_torch.core import attention as core_attn
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import ops, ref
+    Hq, Hk, D = GQA_HQ, GQA_HK, GQA_D
+    R = Hq // Hk
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def twice(kname, case, dt, call, got):
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+
+    # ---- flash: the chunk at four offsets (230: rows past Skv) and whole
+    # prompts, q_offset as the chunk step hands it over (an int32 on the card)
+    for dt in (torch.float32, bf):
+        for Sq, Skv, q_off in ((32, 256, 0), (32, 256, 96), (32, 256, 224),
+                               (32, 256, 230), (23, 23, 0), (160, 160, 0)):
+            q, k, v = (randn(Hq, Sq, D, dtype=dt), randn(Hk, Skv, D, dtype=dt),
+                       randn(Hk, Skv, D, dtype=dt))
+            off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+
+            def call():
+                return ops.flash_attention(q, k, v, q_offset=off)
+
+            case = (f"GQA {Hq}/{Hk} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} "
+                    f"{dtype_name(dt)}")
+            got = call()
+            note("flash_attention", case, compare(
+                "flash_attention", got,
+                ref.ref_flash_attention(q, k, v, q_offset=q_off), dt, torch))
+            twice("flash_attention", case, dt, call, got)
+    for Sq, Skv, q_off in ((32, 256, 224), (160, 160, 0)):
+        q, k, v = (randn(Hq, Sq, D, dtype=bf), randn(Hk, Skv, D, dtype=bf),
+                   randn(Hk, Skv, D, dtype=bf))
+        off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+        mask = (torch.arange(Skv, device="cuda")[None, :]
+                <= torch.arange(Sq, device="cuda")[:, None] + q_off)
+        pairs, kv_read = int(mask.sum()), int(mask.any(0).sum())
+        b_ms, b_by = bound((2 * q.numel() + 2 * Hk * kv_read * D) * 2,
+                           4 * D * Hq * pairs, bf)
+        if q_off == 0 and Sq == Skv:        # a whole prompt: plain causal
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True, enable_gqa=True)
+        else:                               # is_causal cannot say q_offset
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask[None, None],
+                    enable_gqa=True)
+        compare(f"SDPA yardstick Sq={Sq} q_offset={q_off}", sdpa()[0],
+                ref.ref_flash_attention(q, k, v, q_offset=q_off), bf, torch)
+        p = _fl.plan(Hq, Sq, Skv, D, bf, 0, R)
+        rb = _fl.heads_per_block(R)
+        add("flash_attention", dict(
+            shape=f"GQA Hq={Hq} Hk={Hk} Sq={Sq} Skv={Skv} D={D} "
+                  f"q_offset={q_off} bf16",
+            max_abs_err=compare("flash_attention",
+                                ops.flash_attention(q, k, v, q_offset=off),
+                                ref.ref_flash_attention(q, k, v, q_offset=q_off),
+                                bf, torch),
+            plan=f"wq={p.wq} split={p.split} blocks="
+                 f"{p.split * (Hq // rb) * -(-Sq // (16 * p.wq // rb))}",
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, q_offset=off), torch),
+            plain_ms=time_ms(lambda: ref.ref_flash_attention(q, k, v,
+                                                             q_offset=q_off),
+                             torch),
+            library_ms=time_ms(sdpa, torch),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # ---- paged decode and verify: 8 slots over a shuffled pool of pages of
+    # 16, ragged lengths, the last slot an idle lane on scratch page 0
+    B, psz, n_max = 8, 16, 16
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(3)) + 1
+    bt_full = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    bt_full[-1] = 0
+
+    def table(lengths, nq):
+        out = bt_full.clone()
+        for b, L in enumerate(lengths):
+            out[b, min(-(-(L + nq - 1) // psz), n_max):] = 0
+        return out
+
+    def pools(dt, quant):
+        if not quant:
+            return (randn(n_pages, Hk, psz, D, dtype=dt),
+                    randn(n_pages, Hk, psz, D, dtype=dt)), {}
+        kq, vq = (torch.randint(-127, 128, (n_pages, Hk, psz, D), generator=gen,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+                  for _ in range(2))
+        return (kq, vq), dict(k_scale=ks, v_scale=vs)
+
+    lengths = [1, 15, 16, 17, 100, 250, 248, 1]
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for nq in (1, 5, 8):
+        bt = table(lengths, nq)
+        for dt in (torch.float32, bf):
+            for quant in (False, True):
+                (kp, vp), sc = pools(dt, quant)
+                q = randn(B, Hq, D, dtype=dt) if nq == 1 else \
+                    randn(B, Hq, nq, D, dtype=dt)
+                fn, plain = (ops.paged_decode_attention,
+                             ref.ref_paged_decode_attention) if nq == 1 else \
+                    (ops.paged_verify_attention, ref.ref_paged_verify_attention)
+                kname = ("paged_decode_attention" if nq == 1 else
+                         "paged_verify_attention") + ("_i8" if quant else "")
+
+                def call():
+                    return fn(q, kp, vp, bt, length, **sc)
+
+                case = (f"GQA {Hq}/{Hk} Q={nq} D={D} psz={psz} lengths={lengths} "
+                        f"q {dtype_name(dt)}{', int8 pools' if quant else ''}")
+                got = call()
+                note(kname, case, compare(kname, got,
+                                          plain(q, kp, vp, bt, length, **sc),
+                                          dt, torch))
+                twice(kname, case, dt, call, got)
+                if dt == bf and nq in (1, 8):
+                    len_ = length.clone()
+                    replay_check(kname, f"GQA Q={nq}",
+                                 lambda: fn(q, kp, vp, bt_full, len_, **sc), len_,
+                                 [40, 3, 200, 16, 1, 129, 64, 1])
+                if dt == bf:
+                    n_kv = [min(L + nq - 1, n_max * psz) for L in lengths]
+                    pairs = sum(min(L + i, n_max * psz) for L in lengths
+                                for i in range(nq))
+                    elt = 1 if quant else 2
+                    io = 2 * q.numel() * 2 + bt.numel() * 4 + B * 4
+                    kv = 2 * Hk * sum(n_kv) * D * elt + \
+                        (2 * sum(n_kv) * 4 if quant else 0)
+                    b_ms, b_by = bound(io + kv, 4 * D * Hq * pairs +
+                                       (2 * D * Hq * sum(n_kv) if quant else 0),
+                                       torch.int8 if quant else bf)
+                    p = _dec.plan(B, Hq, nq, D, psz, n_max, bf, quant, R)
+                    add(kname, dict(
+                        shape=f"GQA B={B} Hq={Hq} Hk={Hk} Q={nq} D={D} psz={psz} "
+                              f"n_max={n_max} lengths={lengths} q bf16, "
+                              f"{'int8' if quant else 'bf16'} pools",
+                        max_abs_err=compare(kname, call(),
+                                            plain(q, kp, vp, bt, length, **sc),
+                                            bf, torch),
+                        plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
+                        ms=time_ms(call, torch),
+                        plain_ms=time_ms(lambda: plain(q, kp, vp, bt, length,
+                                                       **sc), torch),
+                        library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    # R x Q past the m16 (R 3 x Q 6 = 18 rows; R 2 x Q 9 on the core route)
+    # is refused before any launch, naming both
+    (kp, vp), _ = pools(bf, False)
+    q18 = randn(B, 3 * Hk, 6, D, dtype=bf)
+    before = ops.launch_counts()
+    for what, fn in (
+            ("kernel wrapper", lambda: ops.paged_verify_attention(
+                q18, kp, vp, table(lengths, 6), length)),
+            ("core route", lambda: core_attn.paged_verify_attention(
+                randn(B, Hk, 2, 9, D, dtype=bf), kp, vp, table(lengths, 9),
+                length - 1))):
+        try:
+            fn()
+        except ValueError as e:
+            check("18" in str(e) and "q heads per kv head" in str(e),
+                  f"paged_verify_attention: the R x Q = 18 refusal names "
+                  f"neither: {e}")
+        else:
+            raise SmokeFailure(f"paged_verify_attention ({what}) took R x Q = "
+                               f"18 query rows")
+    check(ops.launch_counts() == before, "paged_verify_attention: a refused "
+                                         "call counted a launch")
+    print("  paged_verify_attention: R x Q = 18 refused before any launch "
+          "(kernel wrapper and core route)")
+
+    # ---- contiguous decode over float and fixed-scale int8 lanes
+    DQ = 1.0 / 16.0
+    for S in (256, 1024):
+        lens = [S, 1, 13, 31, S - 1, 0, S // 2 + 7, 1]
+        lc = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for dt in (torch.float32, bf):
+            for quant in (False, True):
+                qc = randn(B, Hq, D, dtype=dt)
+                if quant:
+                    kc, vc = (torch.randint(-127, 128, (B, Hk, S, D), generator=gen,
+                                            device="cuda", dtype=torch.int8)
+                              for _ in range(2))
+                    kname = "decode_attention_i8"
+                    call = lambda: ops.decode_attention_i8(qc, kc, vc, lc, DQ)  # noqa: E731
+                    plain = lambda: ref.ref_decode_attention_i8(qc, kc, vc, lc, DQ)  # noqa: E731
+                else:
+                    kc, vc = randn(B, Hk, S, D, dtype=dt), randn(B, Hk, S, D, dtype=dt)
+                    kname = "decode_attention"
+                    call = lambda: ops.decode_attention(qc, kc, vc, lc)  # noqa: E731
+                    plain = lambda: ref.ref_decode_attention(qc, kc, vc, lc)  # noqa: E731
+                case = (f"GQA {Hq}/{Hk} B={B} S={S} D={D} lengths={lens} "
+                        f"q {dtype_name(dt)}{', int8 lanes' if quant else ''}")
+                got = call()
+                note(kname, case, compare(kname, got, plain(), dt, torch))
+                twice(kname, case, dt, call, got)
+        for quant in (False, True):
+            qc = randn(B, Hq, D, dtype=bf)
+            full = torch.full((B,), S, dtype=torch.int32, device="cuda")
+            if quant:
+                kc, vc = (torch.randint(-127, 128, (B, Hk, S, D), generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kname = "decode_attention_i8"
+                call = lambda: ops.decode_attention_i8(qc, kc, vc, full, DQ)  # noqa: E731
+                plain = lambda: ref.ref_decode_attention_i8(qc, kc, vc, full, DQ)  # noqa: E731
+                lib = None
+            else:
+                kc, vc = randn(B, Hk, S, D, dtype=bf), randn(B, Hk, S, D, dtype=bf)
+                kname = "decode_attention"
+                call = lambda: ops.decode_attention(qc, kc, vc, full)  # noqa: E731
+                plain = lambda: ref.ref_decode_attention(qc, kc, vc, full)  # noqa: E731
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qc[:, :, None], kc, vc, enable_gqa=True)
+            toks = B * S
+            elt = 1 if quant else 2
+            b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * Hk * toks * D * elt + B * 4,
+                               (6 if quant else 4) * D * Hq * toks,
+                               torch.int8 if quant else bf)
+            p = _dec.contiguous_plan(B, Hq, S, D, bf, quant, R)
+            add(kname, dict(
+                shape=f"GQA B={B} Hq={Hq} Hk={Hk} S={S} D={D} lengths all {S} "
+                      f"q bf16, {'int8' if quant else 'bf16'} lanes",
+                max_abs_err=compare(kname, call(), plain(), bf, torch),
+                plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
+                ms=time_ms(call, torch), plain_ms=time_ms(plain, torch),
+                library_ms=None if lib is None else time_ms(lib, torch),
+                bound_ms=b_ms, bound_by=b_by))
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"sdpa_gqa_us={lib} [{r['plan']}]")
 
 
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
@@ -1335,6 +1653,95 @@ def phase_parity(torch):
           f"one-token int8-pool engine on "
           f"cuda; verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
           f"accepted={st.spec_accepted}")
+
+
+def phase_parity_qwen3(torch):
+    """Full-width, full-depth qwen3-0.6b (28 layers, 16 q over 8 kv heads,
+    head_dim 128, qk-norm, vocab 151936) in float32, engines on the card
+    (the GQA kernels, qk-norm through the norm kernel) against engines on
+    the CPU (plain versions): float pools (weights x10, also against the
+    eager-serial engine on the card), int8 pools with speculative=4 on
+    repetitive prompts and the contiguous engine (weights x10), all with
+    random q_norm/k_norm scales (0.3 randn; the init's are zeros).  The
+    speculative run keeps the init scale: there greedy decoding repeats
+    (the tied head favours the input token), so prompt lookup drafts and
+    the verify kernel runs; at x1.75 it drafted nothing.  Identical
+    greedy tokens, live logits of every step within the
+    tolerances of the tinyllama phases, leak-free after drain()."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = get_config("qwen3-0.6b")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu", dtype="float32")
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    def spec_reqs():
+        return _motif_requests(Request, np.random.RandomState(11), 3, 24, 48,
+                               16, cfg.vocab_size)
+
+    # the init's q_norm/k_norm scales are zeros, under which the norm
+    # kernel's scale term at head_dim 128 is never compared: random ones
+    def qk_scales(tree, seed):
+        g = torch.Generator().manual_seed(seed)
+        tree = model.tree_map(lambda t: t, tree)
+        for group in tree["stacks"]:
+            for layer in group:
+                for name in ("q_norm", "k_norm"):
+                    t = layer["attn"][name]
+                    layer["attn"][name] = (0.3 * torch.randn(
+                        t.shape, generator=g)).to(t.dtype)
+        return tree
+
+    base = qk_scales(base, 1)
+    x10 = qk_scales(model.tree_map(lambda t: t * 10, base), 2)
+    runs = {dev: _run_engine(torch, cfg, plan, x10, reqs(), dev)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-qwen3", runs["cuda"][1:3], runs["cpu"][1:3],
+                    PARITY_TOL)
+    toks = runs["cuda"][1]
+    _eager_serial(torch, "parity-qwen3", toks, cfg, plan, x10, reqs())
+    print(f"parity-qwen3: qwen3-0.6b float32, float pools, engine on cuda vs "
+          f"cpu: live logits of every step ({runs['cuda'][2].numel()} values) "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{PARITY_TOL['rtol']} atol={PARITY_TOL['atol']}); greedy tokens "
+          f"identical, and to the eager-serial engine on cuda: 3 requests x 16 "
+          f"tokens, {len({t for r in toks for t in r})} distinct")
+    del runs
+
+    spec = {dev: _run_engine(torch, cfg, plan_i8, base, spec_reqs(), dev,
+                             speculative=4) for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-qwen3[int8, spec]", spec["cuda"][1:3],
+                    spec["cpu"][1:3], INT8_PARITY_TOL)
+    st = spec["cuda"][0].stats
+    check(st.spec_steps > 0, f"parity-qwen3[int8, spec]: the verify step "
+                             f"never ran {st}")
+    toks = spec["cuda"][1]
+    print(f"parity-qwen3: int8 pools, speculative=4, engine on cuda vs cpu: "
+          f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+          f"{INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); greedy "
+          f"tokens identical ({len({t for r in toks for t in r})} distinct); "
+          f"verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
+          f"accepted={st.spec_accepted}")
+    del spec
+
+    contig = {dev: _run_engine(torch, cfg, plan, x10, reqs(), dev, paged=False)
+              for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-qwen3[contiguous]", contig["cuda"][1:3],
+                    contig["cpu"][1:3], PARITY_TOL)
+    print(f"parity-qwen3: contiguous engine, float32 lanes, on cuda vs cpu: "
+          f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy "
+          f"tokens identical")
 
 
 def phase_parity_ssm(torch):
@@ -1705,6 +2112,7 @@ SERVE_PHASES = {
     "serve-contig": ("tinyllama-42m", "bfloat16", "", 0, "random"),
     "serve-contig-int8": ("tinyllama-42m", "int8", "", 0, "random"),
     "serve-prefix": ("tinyllama-42m", "bfloat16", "", 0, "prefix"),
+    "serve-qwen3": ("qwen3-0.6b", "bfloat16", "", 0, "random"),
 }
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
@@ -1721,7 +2129,8 @@ PHASE_MIXER = {"serve": "paged_decode_attention",
                "serve-ssm-int8": "ssd_scan_i8",
                "serve-contig": "decode_attention",
                "serve-contig-int8": "decode_attention_i8",
-               "serve-prefix": "paged_decode_attention"}
+               "serve-prefix": "paged_decode_attention",
+               "serve-qwen3": "paged_decode_attention"}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -1924,19 +2333,22 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     mixer = PHASE_MIXER[name]
     n_layers = cfg.n_layers
     # every step runs the norm family once per norm of the model: the plain
-    # norm for the first layer's input, every later norm with the residual
-    # add before it fused in (tinyllama 2L of them, mamba2 L), and mamba2's
-    # gated norm in every layer; each decode tick launches as many counted
-    # kernels as before the fusion (tinyllama 10L + 2, mamba2 8L + 2)
+    # norm for the first layer's input (and qwen3's qk-norm, q and k in
+    # every layer), every later norm with the residual add before it fused
+    # in (tinyllama and qwen3 2L of them, mamba2 L), and mamba2's gated norm
+    # in every layer; each decode tick launches as many counted kernels as
+    # before the fusion (tinyllama 10L + 2, qwen3 12L + 2, mamba2 8L + 2)
     ssm = arch.startswith("mamba2")
-    per_norm = {"rmsnorm": 1, "rmsnorm_residual": n_layers * (1 if ssm else 2),
+    qk = 2 if cfg.qk_norm else 0
+    per_norm = {"rmsnorm": 1 + qk * n_layers,
+                "rmsnorm_residual": n_layers * (1 if ssm else 2),
                 "rmsnorm_gated": n_layers if ssm else 0}
     for kd in ["prefill"] + steps:
         got = {kn: per_phase[kd][kn] for kn in NORMS}
         check(got == {kn: v * calls[kd] for kn, v in per_norm.items()},
               f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
               f"{per_norm} per step")
-    per_tick = (8 if ssm else 10) * n_layers + 2
+    per_tick = (8 if ssm else 10 + qk) * n_layers + 2
     check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
           f"{name}: {sum(per_phase['decode'].values())} kernels in "
           f"{calls['decode']} decode ticks, not {per_tick} per tick")
@@ -2166,6 +2578,7 @@ def main() -> int:
         smi_line = timed("env", phase_env, torch, build)
         rows = timed("kernels", phase_kernels, torch, F)
         timed("parity", phase_parity, torch)
+        timed("parity-qwen3", phase_parity_qwen3, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)

@@ -192,7 +192,8 @@ def get_config(name: str) -> ModelConfig:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from repro_torch.configs import mamba2_370m, paper_models  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        mamba2_370m, paper_models, qwen3)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -9,9 +9,11 @@ Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
 
 On CPU tensors these are plain PyTorch (the oracle the tests hold against
 JAX).  On CUDA tensors every function here launches a Hopper kernel
-through ``kernels.ops``; the kernels take one kv head per q head (R == 1)
-and no sliding window in decode or verify, and anything else raises until
-the slice that ports GQA and windows.
+through ``kernels.ops``, q's (G, R) heads flattened to G R heads, so q head
+g R + r reads kv head g, as the grouping here does.  The decode and verify
+kernels take no sliding window (ROADMAP Queue 1 item 5), and verify at
+most 16 query rows (R x Q) per kv head, which the kernel's plan enforces;
+anything else raises.
 
 Convention: these functions take the INCLUSIVE position ``cur_pos`` of the
 current token (query i of verify sits at ``cur_pos + i`` and sees
@@ -54,16 +56,15 @@ def flash_attention(q, k, v, *, causal=True, window=0, scale=None,
     B, G, R, Sq, D = q.shape
     Skv = k.shape[2]
     if q.is_cuda:
-        if B != 1 or R != 1 or kv_offset != 0:
+        if B != 1 or kv_offset != 0:
             raise NotImplementedError(
-                f"the flash-attention kernel takes one sequence with one kv "
-                f"head per q head and kv_offset 0 (got B={B}, R={R}, "
-                f"kv_offset={kv_offset}); GQA comes with a later slice")
-        out = ops.flash_attention(q[0, :, 0].contiguous(), k[0].contiguous(),
-                                  v[0].contiguous(), causal=causal,
-                                  window=window, scale=scale,
+                f"the flash-attention kernel takes one sequence and "
+                f"kv_offset 0 (got B={B}, kv_offset={kv_offset})")
+        out = ops.flash_attention(q[0].reshape(G * R, Sq, D).contiguous(),
+                                  k[0].contiguous(), v[0].contiguous(),
+                                  causal=causal, window=window, scale=scale,
                                   q_offset=q_offset)
-        return out[None, :, None]
+        return out.reshape(1, G, R, Sq, D)
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bgrsd,bgcd->bgrsc", q.float(), k.float()) * scale
     q_pos = q_offset + torch.arange(Sq, device=q.device)
@@ -87,11 +88,12 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
     ``kv_scale``; the plain path takes caches in q's dtype."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        _card_layout("decode-attention", R, window)
-        out = ops.decode_attention(q[:, :, 0].contiguous(), k_cache, v_cache,
+        _card_layout("decode-attention", window)
+        out = ops.decode_attention(q.reshape(B, G * R, D).contiguous(),
+                                   k_cache, v_cache,
                                    (cur_pos + 1).to(torch.int32), scale=scale,
                                    kv_scale=kv_scale)
-        return out[:, :, None]
+        return out.reshape(B, G, R, D)
     if kv_scale is not None:
         raise ValueError("decode_attention: the plain path takes caches "
                          "dequantized to q's dtype, not kv_scale")
@@ -136,12 +138,13 @@ def gather_kv(k_pool, v_pool, block_table, dtype, k_scale=None, v_scale=None):
     return gather_pages(k_pool, block_table), gather_pages(v_pool, block_table)
 
 
-def _card_layout(kernel, R, window):
-    if R != 1 or window > 0:
+def _card_layout(kernel, window):
+    """What the card's decode and verify kernels take: no sliding window.
+    (The R x Q query rows per kv head are the kernel plan's to check.)"""
+    if window > 0:
         raise NotImplementedError(
-            f"the {kernel} kernel takes one kv head per q head and no "
-            f"window (got R={R}, window={window}); GQA and windows come "
-            f"with a later slice")
+            f"the {kernel} kernel takes no sliding window (got window="
+            f"{window}); windows come with ROADMAP Queue 1 item 5")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, cur_pos, *,
@@ -152,12 +155,12 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, cur_pos, *,
     ((n_pages, psz) float32): int8 pools, dequantized on read."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        _card_layout("paged-decode", R, window)
+        _card_layout("paged-decode", window)
         out = ops.paged_decode_attention(
-            q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
+            q.reshape(B, G * R, D).contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
             v_scale=v_scale)
-        return out[:, :, None]
+        return out.reshape(B, G, R, D)
     L = block_table.shape[1] * k_pool.shape[2]
     kv_pos = torch.arange(L, dtype=torch.int32, device=q.device).expand(B, L)
     kf, vf = gather_kv(k_pool, v_pool, block_table, q.dtype, k_scale, v_scale)
@@ -174,12 +177,12 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, cur_pos, *,
     ``paged_decode_attention``; cur_pos: (B,) -> (B, G, R, Q, D)."""
     B, G, R, Q, D = q.shape
     if q.is_cuda:
-        _card_layout("paged-verify", R, window)
+        _card_layout("paged-verify", window)
         out = ops.paged_verify_attention(
-            q[:, :, 0].contiguous(), k_pool, v_pool, block_table,
+            q.reshape(B, G * R, Q, D).contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
             v_scale=v_scale)
-        return out[:, :, None]
+        return out.reshape(B, G, R, Q, D)
     scale = scale if scale is not None else D ** -0.5
     L = block_table.shape[1] * k_pool.shape[2]
     kf, vf = gather_kv(k_pool, v_pool, block_table, q.dtype, k_scale, v_scale)

@@ -28,7 +28,7 @@ from repro_torch.core.attention import (decode_attention, flash_attention,
                                         gather_kv, paged_decode_attention,
                                         paged_verify_attention)
 from repro_torch.core.layers import activation, apply_norm, apply_rope, \
-    gated_rmsnorm
+    gated_rmsnorm, rmsnorm
 from repro_torch.kernels import ops
 
 KVQ = {"scale": 16.0}  # fixed-point int8 scale of the contiguous KV lanes
@@ -75,8 +75,15 @@ def _mm(x, w):
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def _project_qkv(xn, pa):
-    return _mm(xn, pa["wq"]), _mm(xn, pa["wk"]), _mm(xn, pa["wv"])
+def _project_qkv(xn, pa, cfg):
+    """q (B, S, H, D), k and v (B, S, G, D); with qk-norm, q and k are
+    RMS-normed per head over head_dim (``layers.rmsnorm``, the norm kernel
+    on the card), before RoPE, as JAX's ``_project_qkv``."""
+    q, k, v = _mm(xn, pa["wq"]), _mm(xn, pa["wk"]), _mm(xn, pa["wv"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, pa["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, pa["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def _rope_qk(q, k, positions, cfg):
@@ -120,7 +127,7 @@ def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
             f"attn_mixer mode '{mode}' over a "
             f"{'paged' if paged else 'contiguous'} cache is not ported")
     window = cfg.window_for(spec)
-    q, k, v = _project_qkv(xn, pa)
+    q, k, v = _project_qkv(xn, pa, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
     qg = _group_q(q, lay)                            # (B, G, R, S, D)
     kg = k.transpose(1, 2)                           # (B, G, S, D)
@@ -371,7 +378,7 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     else:
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "
-            f"comes with hymba-1.5b, ROADMAP Queue 1 item 10)")
+            f"comes with hymba-1.5b, ROADMAP Queue 1 item 5)")
     if spec.ffn == FFN_NONE:
         return (x, partial), cache
     x, h = apply_norm(x, p["ln2"], cfg, partial)

@@ -13,7 +13,8 @@ the JAX tree's paths, with the tp axis stripped (what the JAX package's
 with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
 
 - attention layers: ``attn`` ``{"wq": (reps, E, H, D), "wk"/"wv": (reps,
-  E, n_kv_loc, D), "wo": (reps, H, D, E)}``, ``ln2`` and ``ffn``
+  E, n_kv_loc, D), "wo": (reps, H, D, E)}`` (with qk-norm also
+  ``"q_norm"``/``"k_norm"``: (reps, D)), ``ln2`` and ``ffn``
   ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F, E)}``, or
 - SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
   H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
@@ -51,21 +52,21 @@ class ParamSpec:
 
 
 def check_supported(cfg: ModelConfig):
-    """The port serves dense attention-only decoders with RMSNorm, a gated
-    SiLU FFN and tied embeddings, and pure-SSM (mamba2) decoders; the rest
-    waits for its slice."""
+    """The port serves dense attention-only decoders (GQA, optional
+    qk-norm) with RMSNorm, a gated SiLU FFN and tied embeddings, and
+    pure-SSM (mamba2) decoders; the rest waits for its slice."""
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
-        ("qk_norm", cfg.qk_norm), ("sandwich_norm", cfg.sandwich_norm),
+        ("sandwich_norm", cfg.sandwich_norm),
         ("scale_embed", cfg.scale_embed), ("layernorm", cfg.norm != "rmsnorm"),
         ("untied LM head", not cfg.tie_embeddings),
         ("a plain (ungated) or non-silu FFN",
          not cfg.gated_ffn or cfg.act != "silu"),
-        ("encoder-decoder (ROADMAP Queue 1 item 11)", cfg.is_encdec),
+        ("encoder-decoder (ROADMAP Queue 1 item 9)", cfg.is_encdec),
         ("frontend", cfg.frontend),
         ("hybrid attention + SSM layers (hymba-1.5b, ROADMAP Queue 1 item "
-         "10)", any(s.mixer == MIX_HYBRID for s in specs)),
-        ("MoE layers (ROADMAP Queue 1 item 12)",
+         "5)", any(s.mixer == MIX_HYBRID for s in specs)),
+        ("MoE layers (ROADMAP Queue 1 item 10)",
          any(s.ffn == FFN_MOE for s in specs))) if bad]
     if missing:
         raise NotImplementedError(
@@ -104,6 +105,9 @@ def layer_template(cfg, spec, n_layers_total):
                      "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
                      "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
                      "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)}
+        if cfg.qk_norm:
+            t["attn"]["q_norm"] = ParamSpec((d,), "zeros")
+            t["attn"]["k_norm"] = ParamSpec((d,), "zeros")
     elif spec.mixer == MIX_SSM:
         t["ssm"] = _ssm_template(cfg, out_scale)
     if spec.ffn == FFN_DENSE:

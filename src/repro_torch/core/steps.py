@@ -3,16 +3,17 @@ paged decode, speculative verify, prefill chunk and page copy.
 
 Port of the JAX package's ``make_decode_step``, ``make_prefill_step``,
 ``make_paged_decode_step``, ``make_verify_step``,
-``make_prefill_chunk_step`` and ``make_page_copy_step`` at dp=1.  They are
-plain callables (PyTorch runs eagerly; nothing is compiled).  The contiguous steps take the
-per-slot lanes of ``kvcache.cache_template``; the prefill step takes one
-prompt at its own length.  Each paged step's shapes are fixed when it
-is made — (batch, n_max_pages) for decode, (batch, q_len, n_max_pages) for
-verify, (chunk, n_max_pages) for a prefill chunk — and every request
-length reaches them only as data (block tables, positions, live-column
-counts), never as a shape, as in the JAX engine.  Paged models with SSM
-layers take one more input, ``slab_ids``: each row's state slab (scratch
-slab 0 for idle lanes).
+``make_prefill_chunk_step`` and ``make_page_copy_step`` at dp=1.  Each is
+a plain callable that runs eagerly; the engine captures every fixed-shape
+one in a CUDA graph on the card (``core.graphs``), where JAX jits it.  The
+contiguous steps take the per-slot lanes of ``kvcache.cache_template``; the
+prefill step takes one prompt at its own length.  Each paged step's shapes
+are fixed when it is made — (batch, n_max_pages) for decode, (batch, q_len,
+n_max_pages) for verify, (chunk, n_max_pages) for a prefill chunk — and
+every request length reaches them only as data (block tables, positions,
+live-column counts), never as a shape, as in the JAX engine.  Paged models
+with SSM layers take one more input, ``slab_ids``: each row's state slab
+(scratch slab 0 for idle lanes).
 """
 from __future__ import annotations
 
@@ -66,8 +67,8 @@ def make_decode_step(cfg, plan, batch: int, budget: int):
             raise NotImplementedError(
                 f"arch '{cfg.name}': {n_short} layer patterns keep KV rings "
                 f"shorter than the budget {budget}, and the decode-attention "
-                f"kernel masks by prefix length; windows come with a later "
-                f"slice")
+                f"kernel masks by prefix length; windows come with ROADMAP "
+                f"Queue 1 item 5")
         return model.forward_decode(params, cache, tokens, pos, cfg, plan,
                                     lay)
 

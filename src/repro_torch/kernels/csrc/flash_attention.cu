@@ -1,5 +1,6 @@
-// Flash attention for Hopper: q (H, Sq, D), k/v (H, Skv, D) -> o (H, Sq, D),
-// one kv head per q head.  Query row i sits at position q_offset + i, key j
+// Flash attention for Hopper: q (H, Sq, D), k/v (H / R, Skv, D) -> o (H, Sq,
+// D); R q heads share one kv head, q head h reading kv head h / R (GQA, the
+// JAX model path's grouping).  Query row i sits at position q_offset + i, key j
 // at position j; a key is valid when j < Skv, j <= q_pos (causal) and
 // j > q_pos - window (window > 0).  Online softmax in float32; a row with no
 // valid key gives 0.
@@ -33,10 +34,16 @@
 //    ring (the next tile in flight while this one multiplies), rows at an
 //    odd stride of 16-byte chunks so the 8 rows one ldmatrix phase reads
 //    fall in 8 distinct bank groups; keys past Skv are zero-filled.
+//  - GQA: a block serves rb q heads of one kv head (rb the largest divisor
+//    of R up to 4), `wr` warps of 16 query rows each (wq = rb wr <= 4
+//    warps; wr = min(ceil(Sq / 16), 4 / rb)), so every K/V tile a block
+//    loads feeds its rb heads: at R <= 4 (and 6, 8, 12, ...: R / rb
+//    blocks) K and V are read once per kv head (or R / rb times), not once
+//    per q head.
 //  - Enough blocks: the key tiles are dealt out over the `split` <= 8
 //    blocks of a thread-block cluster (tile t to rank t % split; grid x =
-//    split, cluster (split, 1, 1); grid y = head x row tile of up to 4
-//    warps).  Each rank skips the tiles above the causal diagonal and left
+//    split, cluster (split, 1, 1); grid y = group of rb q heads x row tile
+//    of wr warps' rows).  Each rank skips the tiles above the causal diagonal and left
 //    of the window of its rows itself, so the launch depends only on the
 //    shapes, never on the value of q_offset.  The ranks' (m, l, O) meet
 //    through distributed shared memory in the same launch: each pushes its
@@ -45,14 +52,13 @@
 //    workspace, no atomics: bitwise repeatable.  A rank with no valid key
 //    for a row left m = NEG and l = 0 there; it gets weight 0 without
 //    forming exp(NEG - NEG), and a row no rank saw gives 0.
-//  The warps of a block share each K/V tile, so R > 1 query heads per kv
-//  head (GQA) map onto warps of one block without a new layout.
 //  kernels/flash_attention.py::plan picks wq and split from the shapes and
 //  the C entry refuses a plan whose shared memory differs from smem_bytes.
 //
 // float32 keeps a CUDA-core kernel (its 1e-4 tolerance excludes bf16 and
-// TF32 products): one block per (head, 16-query tile), four warps of four
-// rows, each 64-key tile (32 for D = 128) of K and V staged as float.
+// TF32 products): one block per (q head h, 16-query tile) over kv head
+// h / R, four warps of four rows, each 64-key tile (32 for D = 128) of K and
+// V staged as float.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -81,7 +87,8 @@ constexpr int WQ_MAX = 4;     // warps per block, 16 query rows each
 constexpr int KV_STAGES = 2;  // ring depth of K/V tiles
 
 // Geometry of a launch, shared by the kernel and the host check; mirrored
-// by kernels/flash_attention.py (_smem_bytes).  A stored K or V row holds
+// by kernels/flash_attention.py (_smem_bytes and plan).  wq is the block's
+// warps, rb q heads x wr row warps.  A stored K or V row holds
 // D / 8 chunks of 16 bytes at an odd stride; the inbox holds, for each of
 // the `split` ranks, the owner's rows_per rows of D floats and their m and
 // l, then the owner's weights (split per row) and 1 / L (one per row).
@@ -90,19 +97,33 @@ __host__ __device__ constexpr int rows_per(int wq, int split) {
   return (16 * wq + split - 1) / split;
 }
 __host__ __device__ constexpr int ring_bytes(int d) { return KV_STAGES * 2 * KV_TILE * kv_stride(d) * 16; }
+__host__ __device__ constexpr int heads_per_block(int r) {  // the largest divisor of R <= WQ_MAX
+  int rb = 1;
+  for (int d = 2; d <= WQ_MAX; ++d)
+    if (r % d == 0) rb = d;
+  return rb;
+}
+__host__ __device__ constexpr int row_warps(int sq, int rb) {
+  return (sq + 15) / 16 < WQ_MAX / rb ? (sq + 15) / 16 : WQ_MAX / rb;
+}
 __host__ __device__ constexpr int smem_bytes(int d, int wq, int split) {
   return ring_bytes(d) +
          (split > 1 ? 4 * (split * rows_per(wq, split) * (d + 2) + (split + 1) * rows_per(wq, split))
                     : 0);
 }
 
-// Grid (split, H x row tiles), cluster (split, 1, 1), wq warps.
-template <int D>
+// Grid (split, H / rb head groups x row tiles), cluster (split, 1, 1),
+// wq = rb wr warps: warp w serves q head hb rb + w / wr (kv head hb rb / R),
+// rows (w % wr) 16 of the tile.  GROUPED is R > 1; at R = 1 the kernel
+// keeps the one-head forms (no head arithmetic, the epilogue indexed by
+// element): the grouped forms cost ~0.3 us of a 7 us call there
+// (scripts/torch_kernel_ab.py, H100).
+template <int D, bool GROUPED>
 __global__ void __launch_bounds__(WQ_MAX * 32)
 flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                  const bf16* __restrict__ V, bf16* __restrict__ O, int Sq, int Skv,
                  const int* __restrict__ q_off, int causal, int window, float scale_log2,
-                 int wq, int split, int row_tiles) {
+                 int R, int rb, int wr, int split, int row_tiles) {
   constexpr int KS = kv_stride(D);      // chunks per stored K/V row
   constexpr int DK = D / 16;            // k steps of Q K^T
   constexpr int NS = KV_TILE / 8;       // score tiles (8 keys) per key tile
@@ -113,15 +134,17 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   float* inbox = reinterpret_cast<float*>(smem + ring_bytes(D));
 
   const int rank = blockIdx.x;          // grid x == split: the cluster rank
-  const int rt = blockIdx.y % row_tiles, h = blockIdx.y / row_tiles;
+  const int rt = blockIdx.y % row_tiles, h0 = blockIdx.y / row_tiles * rb;
+  const int hk = GROUPED ? h0 / R : h0; // the block's kv head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = wq * 32;
+  const int wq = rb * wr, nthreads = wq * 32;
   const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = rt * 16 * wq;          // the block's first query row
-  const int r0 = q0 + warp * 16;        // the warp's
+  const int h = GROUPED ? h0 + warp / wr : h0;  // the warp's q head
+  const int q0 = rt * 16 * wr;          // the block's first query row (of every head)
+  const int r0 = q0 + (GROUPED ? warp % wr : warp) * 16;  // the warp's
   const bf16* q = Q + (size_t)h * Sq * D;
-  const bf16* k = K + (size_t)h * Skv * D;
-  const bf16* v = V + (size_t)h * Skv * D;
+  const bf16* k = K + (size_t)hk * Skv * D;
+  const bf16* v = V + (size_t)hk * Skv * D;
   if (split > 1) cluster_arrive();      // this block has started
 
   // the key tiles the block's rows can see, and this rank's share of them.
@@ -152,7 +175,7 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   const bool early = window <= 0 && t_first < n_tiles;
   if (early) issue(0);
 
-  const int pos_hi = q_offset + min(q0 + 16 * wq, Sq) - 1;
+  const int pos_hi = q_offset + min(q0 + 16 * wr, Sq) - 1;
   int t_end = n_tiles;
   if (causal) t_end = pos_hi < 0 ? 0 : min(n_tiles, pos_hi / KV_TILE + 1);
   const int my_n = t_first < t_end ? (t_end - 1 - t_first) / split + 1 : 0;
@@ -284,8 +307,9 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     return;
   }
 
-  // split > 1: block row e belongs to rank e / rp.  Each rank stores its
-  // unnormalised rows and their (m, l) into the owner's inbox, slot `rank`.
+  // split > 1: block row e (warp w's rows are 16 w .. 16 w + 15) belongs to
+  // rank e / rp.  Each rank stores its unnormalised rows and their (m, l)
+  // into the owner's inbox, slot `rank`.
   const int rp = rows_per(wq, split);
   const int slot = rp * (D + 2);
   cg::cluster_group cluster = cg::this_cluster();
@@ -319,30 +343,63 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     wts[rp * split + e] = L > 0.f ? 1.f / L : 0.f;
   }
   __syncthreads();
-  const int rows_mine = min(rp, min(16 * wq, Sq - q0) - rank * rp);
-  for (int e = tid; e < rows_mine * D; e += nthreads) {
-    const int ro = e / D, d = e % D;
-    float acc = 0.f;
-    for (int j = 0; j < split; ++j) acc += wts[ro * split + j] * inbox[j * slot + ro * (D + 2) + d];
-    O[((size_t)h * Sq + q0 + rank * rp + ro) * D + d] = __float2bfloat16_rn(acc * wts[rp * split + ro]);
+  if constexpr (!GROUPED) {             // one head: block row e is query row q0 + e
+    const int rows_mine = min(rp, min(16 * wq, Sq - q0) - rank * rp);
+    for (int e = tid; e < rows_mine * D; e += nthreads) {
+      const int ro = e / D, d = e % D;
+      float acc = 0.f;
+      for (int j = 0; j < split; ++j) acc += wts[ro * split + j] * inbox[j * slot + ro * (D + 2) + d];
+      O[((size_t)h * Sq + q0 + rank * rp + ro) * D + d] =
+          __float2bfloat16_rn(acc * wts[rp * split + ro]);
+    }
+    return;
+  }
+  // The rank's rows are block rows br = rank rp + ro: q head h0 + br / (16
+  // wr), query row q0 + br % (16 wr).  A thread walks its rows in order and
+  // steps (head, row) along, so the loop divides by nothing at run time: in
+  // a call this small, with two or four warps on an SM, each such division
+  // per element cost ~0.1 us (scripts/torch_kernel_ab.py, H100).  With
+  // nthreads a multiple of D
+  // above it, a pass covers nthreads / D rows at one column a thread.
+  const int rows_h = 16 * wr;           // block rows of one q head
+  const bool multi = nthreads > D && nthreads % D == 0;
+  const int step = multi ? nthreads / D : 1, ro0 = multi ? tid / D : 0;
+  const int col = multi ? tid % D : tid;
+  int hq = h0 + (rank * rp + ro0) / rows_h, row = q0 + (rank * rp + ro0) % rows_h;
+  for (int ro = ro0; ro < rp; ro += step) {
+    if (row < Sq) {
+      bf16* dst = O + ((size_t)hq * Sq + row) * D;
+      for (int d = col; d < D; d += nthreads) {
+        float acc = 0.f;
+        for (int j = 0; j < split; ++j) acc += wts[ro * split + j] * inbox[j * slot + ro * (D + 2) + d];
+        dst[d] = __float2bfloat16_rn(acc * wts[rp * split + ro]);
+      }
+    }
+    row += step;
+    if (row >= q0 + rows_h) {           // step <= 4 < 16 <= rows_h: one wrap at most
+      row -= rows_h;
+      ++hq;
+    }
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int H, int Sq, int Skv,
-               const int* q_offset, int causal, int window, float scale, int wq, int split,
-               int smem, cudaStream_t stream) {
-  auto kernel = flash_mma_kernel<D>;
-  static int granted = 48 * 1024;       // dynamic shared memory allowed so far
-  if (smem > granted) {
+int launch_mma(const void* q, const void* k, const void* v, void* o, int H, int R, int Sq,
+               int Skv, const int* q_offset, int causal, int window, float scale, int wq,
+               int split, int smem, cudaStream_t stream) {
+  const bool grouped = R > 1;
+  auto kernel = grouped ? flash_mma_kernel<D, true> : flash_mma_kernel<D, false>;
+  static int granted[2] = {48 * 1024, 48 * 1024};  // dynamic shared memory allowed so far
+  if (smem > granted[grouped]) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    granted = smem;
+    granted[grouped] = smem;
   }
-  const int row_tiles = (Sq + 16 * wq - 1) / (16 * wq);
+  const int rb = heads_per_block(R), wr = wq / rb;
+  const int row_tiles = (Sq + 16 * wr - 1) / (16 * wr);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, H * row_tiles, 1);
+  cfg.gridDim = dim3(split, H / rb * row_tiles, 1);
   cfg.blockDim = dim3(wq * 32, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
@@ -355,7 +412,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int H, int 
   cfg.numAttrs = split > 1 ? 1 : 0;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, Sq,
-                     Skv, q_offset, causal, window, scale_log2, wq, split, row_tiles);
+                     Skv, q_offset, causal, window, scale_log2, R, rb, wr, split, row_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -368,7 +425,7 @@ template <int D>
 __global__ void __launch_bounds__(NW * 32)
 flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                   const float* __restrict__ V, float* __restrict__ O, int Sq, int Skv,
-                  const int* __restrict__ q_off, int causal, int window, float scale) {
+                  const int* __restrict__ q_off, int causal, int window, float scale, int R) {
   constexpr int BKV = D <= 64 ? 64 : 32;  // keys per tile
   constexpr int KPL = BKV / 32;           // keys per lane
   constexpr int DPL = D / 32;             // output columns per lane
@@ -376,12 +433,12 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   __shared__ float Ks[BKV][D + 1];        // +1: lanes read different rows
   __shared__ float Vs[BKV][D];
 
-  const int h = blockIdx.y;
+  const int h = blockIdx.y;             // q head h reads kv head h / R
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const float* q = Q + (size_t)h * Sq * D;
-  const float* k = K + (size_t)h * Skv * D;
-  const float* v = V + (size_t)h * Skv * D;
+  const float* k = K + (size_t)(h / R) * Skv * D;
+  const float* v = V + (size_t)(h / R) * Skv * D;
   float* o = O + (size_t)h * Sq * D;
 
   for (int i = threadIdx.x; i < BQ * D; i += NW * 32) {
@@ -481,49 +538,59 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 }
 
 template <int D>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int Sq, int Skv,
-                const int* q_offset, int causal, int window, float scale, cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int R, int Sq,
+                int Skv, const int* q_offset, int causal, int window, float scale,
+                cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H);
   flash_simt_kernel<D><<<grid, NW * 32, 0, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv, q_offset, causal,
-      window, scale);
+      window, scale, R);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch of the plan kernels/flash_attention.py::plan chose.  dtype: 0 =
-// float32 (CUDA cores: wq 4, split 1, smem 0), 1 = bfloat16 (tensor cores:
-// wq = min(4, ceil(Sq / 16)) warps of 16 rows, split 1, 2, 4 or 8, smem as
-// smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128}.  All
+// One launch of the plan kernels/flash_attention.py::plan chose.  H q heads
+// over H / R kv heads (R >= 1, H % R == 0).  dtype: 0 = float32 (CUDA
+// cores: wq 4, split 1, smem 0), 1 = bfloat16 (tensor cores: wq = rb
+// row_warps(Sq, rb) warps of 16 rows, rb = heads_per_block(R), split 1, 2,
+// 4 or 8, smem as smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128}.  All
 // tensors contiguous row-major; q_offset points at one int32 on the device.
 // Returns a CUDA error code: a plan that does not fit the shape is
 // cudaErrorInvalidValue, never a launch.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                     int H, int Sq, int Skv, int D, const int* q_offset,
+                                     int H, int R, int Sq, int Skv, int D, const int* q_offset,
                                      int causal, int window, float scale, int dtype,
                                      int wq, int split, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128) || q_offset == nullptr)
+  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128) || q_offset == nullptr ||
+      R < 1 || H % R)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (wq != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
     switch (D) {
-      case 32: return launch_simt<32>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, s);
-      case 64: return launch_simt<64>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, s);
-      default: return launch_simt<128>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, s);
+      case 32:
+        return launch_simt<32>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
+      case 64:
+        return launch_simt<64>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
+      default:
+        return launch_simt<128>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
     }
   }
-  const int wq_want = (Sq + 15) / 16 < WQ_MAX ? (Sq + 15) / 16 : WQ_MAX;
-  if (dtype != 1 || wq != wq_want || split < 1 || split > 8 || (split & (split - 1)) ||
-      smem != smem_bytes(D, wq, split) || (long long)H * ((Sq + 16 * wq - 1) / (16 * wq)) > 65535)
+  const int rb = heads_per_block(R), wr = row_warps(Sq, rb);
+  if (dtype != 1 || wq != rb * wr || split < 1 || split > 8 || (split & (split - 1)) ||
+      smem != smem_bytes(D, wq, split) ||
+      (long long)(H / rb) * ((Sq + 16 * wr - 1) / (16 * wr)) > 65535)
     return (int)cudaErrorInvalidValue;
   switch (D) {
     case 32:
-      return launch_mma<32>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, wq, split, smem, s);
+      return launch_mma<32>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
+                            smem, s);
     case 64:
-      return launch_mma<64>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, wq, split, smem, s);
+      return launch_mma<64>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
+                            smem, s);
     default:
-      return launch_mma<128>(q, k, v, o, H, Sq, Skv, q_offset, causal, window, scale, wq, split, smem, s);
+      return launch_mma<128>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
+                             smem, s);
   }
 }

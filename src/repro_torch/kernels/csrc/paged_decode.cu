@@ -5,11 +5,13 @@
 // decode over a contiguous cache (two more variants, float lanes and
 // fixed-scale int8 lanes; see "Contiguous lanes" below).
 //
-//   q (B, H, nq, D) (decode: nq = 1, q (B, H, D)); k/v pools (n_pages, H,
-//   psz, D); int8 scales k_scale/v_scale (n_pages, psz) float32;
+//   q (B, H, nq, D) (decode: nq = 1, q (B, H, D)); k/v pools (n_pages,
+//   H / R, psz, D); int8 scales k_scale/v_scale (n_pages, psz) float32;
 //   block_table (B, n_max) int32; length (B,) int32, the count of valid
 //   tokens ahead of query 0 (the engine's inclusive pos + 1)
 //   -> o (B, H, nq, D) in q's dtype.
+// GQA: R query heads share one kv head, q head h reading kv head h / R (the
+// JAX model path's grouping, repro.core.attention's (G, R) layout).
 // Query i sits at position length - 1 + i and sees keys kpos < length + i
 // (the drafts' own KV is already in the pool); pages past n_max are never
 // read (keys are clamped to n_max * psz).  Online softmax in float32; a
@@ -28,7 +30,7 @@
 //
 // Design of the bfloat16 kernel (q in bf16, pools in bf16 or int8), and
 // what each choice does about that:
-//  - Enough blocks: a (head, slot) pair is one thread-block cluster of
+//  - Enough blocks: a (kv head, slot) pair is one thread-block cluster of
 //    `split` <= 8 blocks of `nw` <= 4 warps.  The keys are cut into 16-key
 //    tiles; tile t goes to rank t % split and, of that rank's tiles, to warp
 //    (t / split) % nw (t_first, my_n below: the one dealing formula).  Each
@@ -46,15 +48,15 @@
 //    gathered copy of the cache is ever made: the paper's minimal off-chip
 //    traffic.  Rows sit at an odd stride of 16-byte chunks, so the 8 rows
 //    one ldmatrix phase reads fall in 8 distinct bank groups.
-//  - Tensor cores, FA2-style: the m16 of mma.sync m16n8k16 holds the slot's
-//    query rows (nq <= 8; the rest are zero and see no key).  S = Q K^T
+//  - Tensor cores, FA2-style: the m16 of mma.sync m16n8k16 holds the query
+//    rows of the kv head's R q heads, row r nq + i for q head r and query i
+//    (R nq <= 16; the rest are zero and see no key), so each K/V tile is
+//    read from the pool once for all R heads.  S = Q K^T
 //    takes K through ldmatrix; the online softmax runs on the accumulator
 //    fragments in the log2 domain; P stays in registers as the A fragment
 //    of P V, with V through ldmatrix.trans.  P is rounded to bf16 only for
 //    that product, as the Pallas kernels cast p to v's dtype; the row sum l
-//    adds the float32 p.  The layout stays open for GQA: R query heads x
-//    nq rows of one kv head fit the m16 as they are (rows g and g + 8 of a
-//    lane's fragments), with no new layout.
+//    adds the float32 p.
 //  - int8 pools without a float dequant pass: int8 values in [-127, 127]
 //    are exact in bf16, so K and V fragments are built from the int8 rows
 //    with no rounding; k_scale multiplies each score column after Q K^T in
@@ -71,15 +73,15 @@
 //
 // float32 q keeps a CUDA-core kernel (its 1e-4 tolerance excludes bf16 and
 // TF32 products), over float32 or int8 pools: one block of four warps per
-// (head, slot), the warps taking pages in turn, each K/V row loaded once
-// into registers (int8 rows dequantised through the row's scale) and
-// scored against every query that may see it; the warps' states merge
-// through shared memory.
+// (q head h, slot), reading kv head h / R, the warps taking pages in turn,
+// each K/V row loaded once into registers (int8 rows dequantised through
+// the row's scale) and scored against every query that may see it; the
+// warps' states merge through shared memory.
 //
 // Contiguous lanes (repro_decode_attention, repro_decode_attention_i8):
-//   q (B, H, D); k/v (B, H, S, D) in q's dtype, or int8 whose values times
-//   one float `dq` are the keys and values (the engine's fixed-scale lanes,
-//   dq = 1/16); length (B,) int32 -> o (B, H, D) in q's dtype; key j of row
+//   q (B, H, D); k/v (B, H / R, S, D) in q's dtype, or int8 whose values
+//   times one float `dq` are the keys and values (the engine's fixed-scale
+//   lanes, dq = 1/16); length (B,) int32 -> o (B, H, D) in q's dtype; key j of row
 //   b is valid when j < length[b] (clamped to S), and no key at or past it
 //   is read.
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention
@@ -91,8 +93,9 @@
 // Design: a lane set (B, H, S, D) is a pool of B pages of psz = S rows in
 //   which row b's one page is page b (n_max = 1), so the bfloat16 kernel
 //   above serves it with a contiguous addressing policy (template CONTIG):
-//   key j of row b is row (b H + h) S + j, computed, with no block table
-//   read (one dependent round trip fewer).  Its plan is the paged plan at
+//   key j of row b is row (b H / R + h) S + j for kv head h, computed, with
+//   no block table read (one dependent round trip fewer); the kv head's R
+//   q heads are the m16's rows, as in the paged policy.  Its plan is the paged plan at
 //   nq 1, psz S, n_max 1 (kernels/decode_attention.py::contiguous_plan),
 //   so the tiles of a long lane are dealt over the cluster as a long page's
 //   are.  int8 lanes enter the tensor cores exactly; dq, a power of two,
@@ -100,8 +103,9 @@
 //   result is that of the bf16 kernel on the dequantised lanes, up to the
 //   order of accumulation, with no dequantised copy of the cache ever made.
 //   float32 q keeps the CUDA-core kernel of the first contiguous port
-//   (contig_simt_kernel): eight warps taking 32-key tiles of [0, length),
-//   one key a lane, int8 lanes dequantised on load.
+//   (contig_simt_kernel): eight warps per (q head, row) taking 32-key tiles
+//   of [0, length) of kv head h / R, one key a lane, int8 lanes dequantised
+//   on load.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <type_traits>
@@ -136,7 +140,8 @@ constexpr int NW_MAX = 4;     // warps per block
 constexpr int KV_STAGES = 2;  // ring depth of each warp's K/V tiles
 
 // Geometry of a launch, shared by the kernel and the host check; mirrored
-// by kernels/decode_attention.py (_smem_bytes).  A stored K or V row holds
+// by kernels/decode_attention.py (_smem_bytes).  `rows` is the m16's query
+// rows, R nq.  A stored K or V row holds
 // the pool row's 16-byte chunks (D / 8 in bf16, D / 16 in int8) at an odd
 // stride; an int8 stage adds the tile's k and v scales.  Each warp has
 // KV_STAGES stages; then the inbox holds, for each of the nw * split warps
@@ -148,13 +153,16 @@ __host__ __device__ constexpr int row_chunks(int d, bool quant) {
 __host__ __device__ constexpr int stage_bytes(int d, bool quant) {
   return 2 * KT * row_chunks(d, quant) * 16 + (quant ? 2 * KT * 4 : 0);
 }
-__host__ __device__ constexpr int rows_per(int nq, int split) { return (nq + split - 1) / split; }
+__host__ __device__ constexpr int rows_per(int rows, int split) {
+  return (rows + split - 1) / split;
+}
 __host__ __device__ constexpr int ring_bytes(int d, bool quant, int nw) {
   return nw * KV_STAGES * stage_bytes(d, quant);
 }
-__host__ __device__ constexpr int smem_bytes(int d, bool quant, int nq, int nw, int split) {
+__host__ __device__ constexpr int smem_bytes(int d, bool quant, int rows, int nw, int split) {
   return ring_bytes(d, quant, nw) +
-         4 * (nw * split * rows_per(nq, split) * (d + 2) + (nw * split + 1) * rows_per(nq, split));
+         4 * (nw * split * rows_per(rows, split) * (d + 2) +
+              (nw * split + 1) * rows_per(rows, split));
 }
 
 // Two int8 values at p, p + step (bytes), as one packed bf16 pair: exact.
@@ -162,7 +170,8 @@ __device__ __forceinline__ unsigned pack_i8(const int8_t* p, int step) {
   return pack_bf16((float)p[0], (float)p[step]);
 }
 
-// Grid (split, H, B), cluster (split, 1, 1), nw warps.  PT: the pools'
+// Grid (split, H kv heads, B), cluster (split, 1, 1), nw warps; the R q
+// heads of kv head h are q heads h R .. h R + R - 1.  PT: the pools'
 // element type, bf16 or int8 (then KS/VS hold the rows' scales).  CONTIG:
 // contiguous lanes, a pool of B pages of psz = S rows, row b's page being
 // b (n_max 1; BT, KS and VS unused; int8 lanes dequantised by dq).
@@ -171,8 +180,8 @@ __global__ void __launch_bounds__(NW_MAX * 32)
 paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
                  const PT* __restrict__ VP, const float* __restrict__ KS,
                  const float* __restrict__ VS, const int* __restrict__ BT,
-                 const int* __restrict__ LEN, bf16* __restrict__ O, int H, int nq, int psz,
-                 int n_max, float scale_log2, float dq, int nw, int split) {
+                 const int* __restrict__ LEN, bf16* __restrict__ O, int H, int R, int nq,
+                 int psz, int n_max, float scale_log2, float dq, int nw, int split) {
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   constexpr int EPC = 16 / sizeof(PT);          // pool elements per 16-byte chunk
   constexpr int CPR = D / EPC;                  // chunks per pool row
@@ -188,6 +197,7 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
+  const int nr = R * nq;                        // query rows: q head r, query i at r nq + i
   unsigned char* ring = smem + warp * KV_STAGES * STAGE;
   float* inbox = reinterpret_cast<float*>(smem + ring_bytes(D, QUANT, nw));
   if (split > 1) cluster_arrive();              // this block has started
@@ -227,25 +237,33 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   };
   if (my_n > 0) issue(0);
 
-  // Q fragments of the slot's query rows (zeros past nq), loaded once
-  const bf16* q = Q + ((size_t)b * H + h) * nq * D;
+  // Q fragments of the kv head's query rows (zeros past nr), loaded once:
+  // its R q heads' rows are contiguous in q (B, H R, nq, D)
+  const bf16* q = Q + ((size_t)b * H + h) * nr * D;
   unsigned qf[DK][4];
 #pragma unroll
   for (int kk = 0; kk < DK; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
-      qf[kk][i] = row < nq ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+      qf[kk][i] = row < nr ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
     }
 
   // per lane: rows g and g + 8 (index r), each seeing keys kpos < see[r]
-  // (none past nq), log2-domain max m, partial row sum l over the lane's
-  // columns (summed over the quad at the end), and output columns
-  // 8 nt + 2 t4 (+1)
+  // (row e is query e % nq; none past nr), log2-domain max m, partial row
+  // sum l over the lane's columns (summed over the quad at the end), and
+  // output columns 8 nt + 2 t4 (+1)
+  // e % nq without a division (e < R nq: at most R - 1 steps; none at R =
+  // 1, where a runtime % per row cost ~0.07 us of a 6.7 us verify on an
+  // H100, scripts/torch_kernel_ab.py)
   int see[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
-    see[r] = g + 8 * r < nq ? min(length + g + 8 * r, n_max * psz) : 0;
+  for (int r = 0; r < 2; ++r) {
+    const int e = g + 8 * r;
+    int i = e;
+    for (int k = 1; k < R && i >= nq; ++k) i -= nq;
+    see[r] = e < nr ? min(length + i, n_max * psz) : 0;
+  }
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   float o[NO][4];
 #pragma unroll
@@ -360,14 +378,14 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
 
   // Query row e belongs to rank e / rp.  Each warp stores its unnormalised
   // rows and their (m, l) into the owner's inbox, slot rank * nw + warp.
-  const int rp = rows_per(nq, split);
+  const int rp = rows_per(nr, split);
   const int slot = rp * (D + 2);
   const int parts = nw * split;
   if (split > 1) cluster_wait();                // every block of the cluster has started
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = g + 8 * r;
-    if (row >= nq) continue;
+    if (row >= nr) continue;
     const int owner = row / rp;
     float* box = split > 1 ? cg::this_cluster().map_shared_rank(inbox, owner) : inbox;
     float* dst = box + (rank * nw + warp) * slot + (row - owner * rp) * (D + 2);
@@ -387,7 +405,7 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
     __syncthreads();
   }
   const int nthreads = nw * 32;
-  const int rows_mine = min(rp, nq - rank * rp);
+  const int rows_mine = min(rp, nr - rank * rp);
   float* wts = inbox + parts * slot;            // [rp][parts] weights, then [rp] 1 / L
   for (int e = tid; e < rows_mine; e += nthreads) {
     float M = NEG;
@@ -402,7 +420,7 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
     wts[rp * parts + e] = L > 0.f ? 1.f / L : 0.f;
   }
   __syncthreads();
-  bf16* out = O + (((size_t)b * H + h) * nq + rank * rp) * D;
+  bf16* out = O + (((size_t)b * H + h) * nr + rank * rp) * D;
   for (int e = tid; e < rows_mine * D; e += nthreads) {
     const int ro = e / D, d = e % D;
     float acc = 0.f;
@@ -413,8 +431,8 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
 
 template <int D, typename PT, bool CONTIG>
 int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
-               const void* bt, const void* len, void* o, int B, int H, int nq, int psz,
-               int n_max, float scale, float dq, int nw, int split, int smem,
+               const void* bt, const void* len, void* o, int B, int H, int R, int nq,
+               int psz, int n_max, float scale, float dq, int nw, int split, int smem,
                cudaStream_t stream) {
   auto kernel = paged_mma_kernel<D, PT, CONTIG>;
   static int granted = 48 * 1024;               // dynamic shared memory allowed so far
@@ -425,7 +443,7 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, co
     granted = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(split, H, B);
+  cfg.gridDim = dim3(split, H / R, B);              // one cluster per (kv head, slot)
   cfg.blockDim = dim3(nw * 32, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
@@ -439,34 +457,35 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, co
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const PT*)kp, (const PT*)vp,
                      (const float*)ks, (const float*)vs, (const int*)bt, (const int*)len,
-                     (bf16*)o, H, nq, psz, n_max, scale_log2, dq, nw, split);
+                     (bf16*)o, H / R, R, nq, psz, n_max, scale_log2, dq, nw, split);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel at head dim D in {32, 64, 128}.
+// The tensor-core kernel at head dim D in {32, 64, 128}; H q heads, R of
+// them per kv head.
 template <typename PT, bool CONTIG>
 int launch_mma_d(int D, const void* q, const void* kp, const void* vp, const void* ks,
                  const void* vs, const void* bt, const void* len, void* o, int B, int H,
-                 int nq, int psz, int n_max, float scale, float dq, int nw, int split,
+                 int R, int nq, int psz, int n_max, float scale, float dq, int nw, int split,
                  int smem, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch_mma<32, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
+      return launch_mma<32, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
                                         scale, dq, nw, split, smem, stream);
     case 64:
-      return launch_mma<64, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
+      return launch_mma<64, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
                                         scale, dq, nw, split, smem, stream);
     default:
-      return launch_mma<128, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max,
-                                         scale, dq, nw, split, smem, stream);
+      return launch_mma<128, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz,
+                                         n_max, scale, dq, nw, split, smem, stream);
   }
 }
 
-// A tensor-core plan the kernel takes: 1 <= nw <= 4 warps, split 1, 2, 4
-// or 8, smem as smem_bytes().
-bool mma_plan_fits(int D, bool quant, int nq, int nw, int split, int smem) {
-  return nw >= 1 && nw <= NW_MAX && split >= 1 && split <= 8 && !(split & (split - 1)) &&
-         smem == smem_bytes(D, quant, nq, nw, split);
+// A tensor-core plan the kernel takes: `rows` = R nq query rows in the
+// m16, 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
+bool mma_plan_fits(int D, bool quant, int rows, int nw, int split, int smem) {
+  return rows >= 1 && rows <= 16 && nw >= 1 && nw <= NW_MAX && split >= 1 && split <= 8 &&
+         !(split & (split - 1)) && smem == smem_bytes(D, quant, rows, nw, split);
 }
 
 // ------------------------------------------------ float32: CUDA cores
@@ -477,14 +496,15 @@ __global__ void __launch_bounds__(NW * 32)
 paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
                   const PT* __restrict__ VP, const float* __restrict__ KS,
                   const float* __restrict__ VS, const int* __restrict__ BT,
-                  const int* __restrict__ LEN, float* __restrict__ O, int H, int nq, int psz,
-                  int n_max, float scale) {
+                  const int* __restrict__ LEN, float* __restrict__ O, int H, int R, int nq,
+                  int psz, int n_max, float scale) {
   constexpr int DPL = D / 32;
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   __shared__ float sm[NW][NQ], sl[NW][NQ];
   __shared__ float sacc[NW][NQ][D];
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.y;   // q head h reads kv head h / R
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int Hk = H / R, hk = h / R;
   const int length = LEN[b];
   const int n_kv = length + nq - 1;          // keys the deepest query sees
   const int n_used = n_kv <= 0 ? 0 : min((n_kv + psz - 1) / psz, n_max);
@@ -504,8 +524,8 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
 
   for (int pi = warp; pi < n_used; pi += NW) {
     const size_t page = (size_t)BT[(size_t)b * n_max + pi];
-    const PT* kpage = KP + (page * H + h) * psz * D;
-    const PT* vpage = VP + (page * H + h) * psz * D;
+    const PT* kpage = KP + (page * Hk + hk) * psz * D;
+    const PT* vpage = VP + (page * Hk + hk) * psz * D;
     const int n_tok = min(psz, n_kv - pi * psz);
     for (int t = 0; t < n_tok; ++t) {
       const int kpos = pi * psz + t;
@@ -573,13 +593,13 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
 
 template <typename PT, int NQ>
 int launch_simt(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
-                const void* bt, const void* len, void* o, int B, int H, int nq, int D, int psz,
-                int n_max, float scale, cudaStream_t stream) {
+                const void* bt, const void* len, void* o, int B, int H, int R, int nq, int D,
+                int psz, int n_max, float scale, cudaStream_t stream) {
   const dim3 grid(H, B), block(NW * 32);
 #define REPRO_PAGED_SIMT(DIM)                                                             \
   paged_simt_kernel<PT, DIM, NQ><<<grid, block, 0, stream>>>(                             \
       (const float*)q, (const PT*)kp, (const PT*)vp, (const float*)ks, (const float*)vs,  \
-      (const int*)bt, (const int*)len, (float*)o, H, nq, psz, n_max, scale)
+      (const int*)bt, (const int*)len, (float*)o, H, R, nq, psz, n_max, scale)
   switch (D) {
     case 32: REPRO_PAGED_SIMT(32); break;
     case 64: REPRO_PAGED_SIMT(64); break;
@@ -589,28 +609,30 @@ int launch_simt(const void* q, const void* kp, const void* vp, const void* ks, c
   return (int)cudaGetLastError();
 }
 
-// Check the plan against the shape and launch it.  dtype 0 (float32 q;
-// float32 or int8 pools): the CUDA-core kernel, nw 4, split 1, smem 0.
-// dtype 1 (bfloat16 q; bfloat16 or int8 pools): the tensor-core kernel
-// with 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
+// Check the plan against the shape and launch it.  H q heads, R of them
+// per kv head (H % R == 0, R nq <= 16).  dtype 0 (float32 q; float32 or
+// int8 pools): the CUDA-core kernel, nw 4, split 1, smem 0.  dtype 1
+// (bfloat16 q; bfloat16 or int8 pools): the tensor-core kernel with
+// 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
 template <bool QUANT, int NQ>
 int run(int dtype, const void* q, const void* kp, const void* vp, const void* ks,
-        const void* vs, const void* bt, const void* len, void* o, int B, int H, int nq,
+        const void* vs, const void* bt, const void* len, void* o, int B, int H, int R, int nq,
         int D, int psz, int n_max, float scale, int nw, int split, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || nq < 1 || nq > NQ || psz <= 0 ||
-      n_max <= 0 || (D != 32 && D != 64 && D != 128))
+      n_max <= 0 || (D != 32 && D != 64 && D != 128) || R < 1 || H % R || R * nq > 16)
     return (int)cudaErrorInvalidValue;
   using FP = typename std::conditional<QUANT, int8_t, float>::type;
   using BP = typename std::conditional<QUANT, int8_t, bf16>::type;
   if (dtype == 0) {
     if (nw != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
-    return launch_simt<FP, NQ>(q, kp, vp, ks, vs, bt, len, o, B, H, nq, D, psz, n_max, scale, s);
+    return launch_simt<FP, NQ>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, D, psz, n_max, scale,
+                               s);
   }
-  if (dtype != 1 || !mma_plan_fits(D, QUANT, nq, nw, split, smem))
+  if (dtype != 1 || !mma_plan_fits(D, QUANT, R * nq, nw, split, smem))
     return (int)cudaErrorInvalidValue;
-  return launch_mma_d<BP, false>(D, q, kp, vp, ks, vs, bt, len, o, B, H, nq, psz, n_max, scale,
-                                 1.f, nw, split, smem, s);
+  return launch_mma_d<BP, false>(D, q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
+                                 scale, 1.f, nw, split, smem, s);
 }
 
 // ------------------------------ float32 over contiguous lanes: CUDA cores
@@ -633,17 +655,17 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   for (int i = 0; i < 16; ++i) out[i] = (float)c[i];
 }
 
-// One block per (head, row), eight warps taking 32-key tiles of
-// [0, length) in turn; in a tile each lane scores one key (its row by
-// 16-byte loads, dotted with q staged in shared memory), the warp takes one
-// max and one sum over its 32 scores and accumulates the tile's value rows
-// one at a time, each lane holding D / 32 output columns; the warps merge
-// through shared memory.  KV float (dq unused) or int8 (values times dq).
+// One block per (q head h, row), reading kv head h / R's lane, eight warps
+// taking 32-key tiles of [0, length) in turn; in a tile each lane scores one
+// key (its row by 16-byte loads, dotted with q staged in shared memory), the
+// warp takes one max and one sum over its 32 scores and accumulates the
+// tile's value rows one at a time, each lane holding D / 32 output columns;
+// the warps merge through shared memory.  KV float (dq unused) or int8 (values times dq).
 template <typename KV, int D>
 __global__ void __launch_bounds__(CONTIG_NW * 32)
 contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
                    const KV* __restrict__ V, const int* __restrict__ LEN, float* __restrict__ O,
-                   int H, int S, float scale, float dq) {
+                   int H, int R, int S, float scale, float dq) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
   constexpr int DPL = D / 32;                    // output columns per lane
   constexpr int VEC = 16 / sizeof(KV);           // elements per 16-byte load
@@ -654,8 +676,9 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n = max(0, min(LEN[b], S));          // valid keys of this row
   const size_t bh = (size_t)b * H + h;
-  const KV* krow = K + bh * S * D;
-  const KV* vrow = V + bh * S * D;
+  const size_t lane_kv = (size_t)b * (H / R) + h / R;   // the kv head's lane
+  const KV* krow = K + lane_kv * S * D;
+  const KV* vrow = V + lane_kv * S * D;
   auto deq = [&](float x) { return QUANT ? x * dq : x; };
 
   for (int d = threadIdx.x; d < D; d += CONTIG_NW * 32) sq[d] = Q[bh * D + d];
@@ -720,12 +743,13 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
 
 template <typename KV>
 int launch_contig_simt(const void* q, const void* k, const void* v, const void* len, void* o,
-                       int B, int H, int S, int D, float scale, float dq, cudaStream_t stream) {
+                       int B, int H, int R, int S, int D, float scale, float dq,
+                       cudaStream_t stream) {
   const dim3 grid(H, B), block(CONTIG_NW * 32);
 #define REPRO_CONTIG_SIMT(DIM)                                                              \
   contig_simt_kernel<KV, DIM><<<grid, block, 0, stream>>>(                                  \
-      (const float*)q, (const KV*)k, (const KV*)v, (const int*)len, (float*)o, H, S, scale, \
-      dq)
+      (const float*)q, (const KV*)k, (const KV*)v, (const int*)len, (float*)o, H, R, S,    \
+      scale, dq)
   switch (D) {
     case 32: REPRO_CONTIG_SIMT(32); break;
     case 64: REPRO_CONTIG_SIMT(64); break;
@@ -735,27 +759,28 @@ int launch_contig_simt(const void* q, const void* k, const void* v, const void* 
   return (int)cudaGetLastError();
 }
 
-// Check the plan against the shape and launch it.  dtype 0 (float32 q;
-// float32 or int8 lanes): the CUDA-core kernel, nw 8, split 1, smem 0.
-// dtype 1 (bfloat16 q; bfloat16 or int8 lanes): the tensor-core kernel
-// with the contiguous policy, its plan that of nq 1, psz S, n_max 1.
+// Check the plan against the shape and launch it.  H q heads, R of them
+// per kv head (H % R == 0, R <= 16).  dtype 0 (float32 q; float32 or int8
+// lanes): the CUDA-core kernel, nw 8, split 1, smem 0.  dtype 1 (bfloat16
+// q; bfloat16 or int8 lanes): the tensor-core kernel with the contiguous
+// policy, its plan that of nq 1, psz S, n_max 1 (R rows in the m16).
 template <bool QUANT>
 int run_contig(int dtype, const void* q, const void* k, const void* v, const void* len, void* o,
-               int B, int H, int S, int D, float scale, float dq, int nw, int split, int smem,
-               void* stream) {
+               int B, int H, int R, int S, int D, float scale, float dq, int nw, int split,
+               int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || S <= 0 ||
-      (D != 32 && D != 64 && D != 128))
+      (D != 32 && D != 64 && D != 128) || R < 1 || H % R || R > 16)
     return (int)cudaErrorInvalidValue;
   using FK = typename std::conditional<QUANT, int8_t, float>::type;
   using BK = typename std::conditional<QUANT, int8_t, bf16>::type;
   if (dtype == 0) {
     if (nw != CONTIG_NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
-    return launch_contig_simt<FK>(q, k, v, len, o, B, H, S, D, scale, dq, s);
+    return launch_contig_simt<FK>(q, k, v, len, o, B, H, R, S, D, scale, dq, s);
   }
-  if (dtype != 1 || !mma_plan_fits(D, QUANT, 1, nw, split, smem))
+  if (dtype != 1 || !mma_plan_fits(D, QUANT, R, nw, split, smem))
     return (int)cudaErrorInvalidValue;
-  return launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, len, o, B, H, 1, S, 1,
+  return launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, len, o, B, H, R, 1, S, 1,
                                 scale, dq, nw, split, smem, s);
 }
 
@@ -764,65 +789,69 @@ int run_contig(int dtype, const void* q, const void* k, const void* v, const voi
 // The four C entries, each one launch of the plan
 // kernels/decode_attention.py::plan chose (nw, split, smem; see run()).
 // dtype: 0 = float32, 1 = bfloat16 (q and output; the pools too in the
-// float variants); head_dim D in {32, 64, 128}; verify takes 1 <= nq <= 8.
+// float variants); H q heads over H / R kv heads of the pools, R nq <= 16;
+// head_dim D in {32, 64, 128}; verify takes 1 <= nq <= 8.
 // All tensors contiguous; bf16 q and pools 16-byte aligned.  Each returns a
 // CUDA error code: a plan that does not fit the shape is
 // cudaErrorInvalidValue, never a launch; else cudaGetLastError() after it.
 extern "C" int repro_paged_decode(const void* q, const void* kp, const void* vp,
                                   const void* block_table, const void* length, void* o,
-                                  int B, int H, int D, int psz, int n_max, float scale,
-                                  int dtype, int nw, int split, int smem, void* stream) {
-  return run<false, 1>(dtype, q, kp, vp, nullptr, nullptr, block_table, length, o, B, H, 1, D,
-                       psz, n_max, scale, nw, split, smem, stream);
+                                  int B, int H, int R, int D, int psz, int n_max,
+                                  float scale, int dtype, int nw, int split, int smem,
+                                  void* stream) {
+  return run<false, 1>(dtype, q, kp, vp, nullptr, nullptr, block_table, length, o, B, H, R, 1,
+                       D, psz, n_max, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_decode_i8(const void* q, const void* kp, const void* vp,
                                      const void* k_scale, const void* v_scale,
                                      const void* block_table, const void* length, void* o,
-                                     int B, int H, int D, int psz, int n_max, float scale,
-                                     int dtype, int nw, int split, int smem, void* stream) {
-  return run<true, 1>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H, 1, D,
-                      psz, n_max, scale, nw, split, smem, stream);
+                                     int B, int H, int R, int D, int psz, int n_max,
+                                     float scale, int dtype, int nw, int split, int smem,
+                                     void* stream) {
+  return run<true, 1>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H, R, 1,
+                      D, psz, n_max, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_verify(const void* q, const void* kp, const void* vp,
                                   const void* block_table, const void* length, void* o,
-                                  int B, int H, int nq, int D, int psz, int n_max,
+                                  int B, int H, int R, int nq, int D, int psz, int n_max,
                                   float scale, int dtype, int nw, int split, int smem,
                                   void* stream) {
   return run<false, MAX_NQ>(dtype, q, kp, vp, nullptr, nullptr, block_table, length, o, B, H,
-                            nq, D, psz, n_max, scale, nw, split, smem, stream);
+                            R, nq, D, psz, n_max, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_verify_i8(const void* q, const void* kp, const void* vp,
                                      const void* k_scale, const void* v_scale,
                                      const void* block_table, const void* length, void* o,
-                                     int B, int H, int nq, int D, int psz, int n_max,
-                                     float scale, int dtype, int nw, int split, int smem,
-                                     void* stream) {
+                                     int B, int H, int R, int nq, int D, int psz,
+                                     int n_max, float scale, int dtype,
+                                     int nw, int split, int smem, void* stream) {
   return run<true, MAX_NQ>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H,
-                           nq, D, psz, n_max, scale, nw, split, smem, stream);
+                           R, nq, D, psz, n_max, scale, nw, split, smem, stream);
 }
 
 // Decode over contiguous lanes, each one launch of the plan
 // kernels/decode_attention.py::contiguous_plan chose (see run_contig()).
 // dtype: 0 = float32, 1 = bfloat16 (q, output, and the lanes of
 // repro_decode_attention; repro_decode_attention_i8 takes int8 lanes whose
-// values times dq are the keys and values); head_dim D in {32, 64, 128}.
+// values times dq are the keys and values); H q heads over H / R kv heads
+// of the lanes (B, H / R, S, D); head_dim D in {32, 64, 128}.
 // All tensors contiguous; q and the lanes 16-byte aligned.  Each returns a
 // CUDA error code, as the paged entries do.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
-                                      const void* length, void* o, int B, int H, int S, int D,
-                                      float scale, int dtype, int nw, int split, int smem,
-                                      void* stream) {
-  return run_contig<false>(dtype, q, k, v, length, o, B, H, S, D, scale, 1.f, nw, split, smem,
-                           stream);
+                                      const void* length, void* o, int B, int H, int R, int S,
+                                      int D, float scale, int dtype, int nw, int split,
+                                      int smem, void* stream) {
+  return run_contig<false>(dtype, q, k, v, length, o, B, H, R, S, D, scale, 1.f, nw, split,
+                           smem, stream);
 }
 
 extern "C" int repro_decode_attention_i8(const void* q, const void* k, const void* v,
-                                         const void* length, void* o, int B, int H, int S,
-                                         int D, float scale, float dq, int dtype, int nw,
-                                         int split, int smem, void* stream) {
-  return run_contig<true>(dtype, q, k, v, length, o, B, H, S, D, scale, dq, nw, split, smem,
+                                         const void* length, void* o, int B, int H, int R,
+                                         int S, int D, float scale, float dq, int dtype,
+                                         int nw, int split, int smem, void* stream) {
+  return run_contig<true>(dtype, q, k, v, length, o, B, H, R, S, D, scale, dq, nw, split, smem,
                           stream);
 }

@@ -21,7 +21,9 @@ call's counts (``add_launches``), so the counts stay the kernels that ran.
 (``k_scale``/``v_scale`` given) to their ``_i8`` twins, and
 ``decode_attention`` int8 lanes (``kv_scale`` given) to
 ``decode_attention_i8``; ``ssd_scan_i8`` takes the int8 state slab and its
-per-head scales.
+per-head scales.  The attention wrappers take GQA: H q heads over Hk kv
+heads of k/v, the pools or the lanes (Hk dividing H), q head h reading kv
+head h // (H // Hk).
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def matmul(a, b, *, trans_b: bool = False):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=None, q_offset=None):
-    """q: (H, Sq, D); k/v: (H, Skv, D) -> (H, Sq, D); query i at position
+    """q: (H, Sq, D); k/v: (Hk, Skv, D) -> (H, Sq, D); query i at position
     ``q_offset + i`` (default ``Skv - Sq``: queries are the kv suffix).
     ``q_offset``: an int, or a one-element int32 tensor on q's device (the
     prefill chunk's per-tick offset, which the kernel reads there)."""
@@ -95,7 +97,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
                            scale=None, k_scale=None, v_scale=None):
-    """q: (B, H, D) over pools (n_pages, H, psz, D) through block_table
+    """q: (B, H, D) over pools (n_pages, Hk, psz, D) through block_table
     (B, n_max); ``length`` (B,) counts valid tokens -> (B, H, D).  Pools
     in q's dtype, or int8 with ``k_scale``/``v_scale`` (n_pages, psz)."""
     if k_scale is not None:
@@ -130,8 +132,9 @@ def paged_decode_attention_i8(q, k_pages, v_pages, block_table, length,
 def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
                            scale=None, k_scale=None, v_scale=None):
     """q: (B, H, Q, D), query i at ``length - 1 + i`` seeing positions
-    ``< length + i``; pools, scales, block_table and length as in
-    ``paged_decode_attention`` -> (B, H, Q, D)."""
+    ``< length + i``, (H // Hk) x Q <= 16 on the card; pools, scales,
+    block_table and length as in ``paged_decode_attention`` -> (B, H, Q,
+    D)."""
     if k_scale is not None:
         return paged_verify_attention_i8(q, k_pages, v_pages, block_table,
                                          length, k_scale, v_scale,
@@ -185,7 +188,7 @@ def ssd_scan_i8(x, dt, B, C, A, state0, state0_scale):
 
 
 def decode_attention(q, k, v, length, *, scale=None, kv_scale=None):
-    """q: (B, H, D) over a contiguous cache k/v (B, H, S, D) in q's dtype,
+    """q: (B, H, D) over a contiguous cache k/v (B, Hk, S, D) in q's dtype,
     or int8 lanes read at the fixed dequantization scale ``kv_scale``;
     ``length`` (B,) int32 counts valid keys (``pos + 1``) -> (B, H, D)."""
     if kv_scale is not None:
@@ -199,7 +202,7 @@ def decode_attention(q, k, v, length, *, scale=None, kv_scale=None):
 
 
 def decode_attention_i8(q, k, v, length, kv_scale, *, scale=None):
-    """``decode_attention`` over int8 lanes k/v (B, H, S, D) whose values
+    """``decode_attention`` over int8 lanes k/v (B, Hk, S, D) whose values
     times ``kv_scale`` (a float) are the keys and values."""
     if q.device.type == "cpu":
         return ref.ref_decode_attention_i8(q, k, v, length, kv_scale, scale)

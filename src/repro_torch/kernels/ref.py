@@ -5,6 +5,10 @@ kernel's contract and shapes, and no tiling.  ``kernels.ops`` runs these on
 CPU tensors; ``chip_smoke.py`` holds every kernel against them on the card.
 All arithmetic is float32, cast back to the input dtype at the end.  A row
 with no valid key (fully masked) yields zeros, as the kernels do.
+
+The attention versions take GQA as their kernels do: H q heads over Hk kv
+heads (Hk dividing H), q head h reading kv head h // (H // Hk), the
+grouping of the JAX model path (``repro.core.attention``'s (G, R) layout).
 """
 from __future__ import annotations
 
@@ -42,6 +46,15 @@ def ref_rmsnorm_gated(y, z, scale, eps: float = 1e-6, out_dtype=None):
     return ref_rmsnorm(g, scale, eps).to(out_dtype or torch.float32)
 
 
+def _kv_heads(kv, H: int, axis: int):
+    """kv with its head ``axis`` repeated to H q heads: q head h reads kv
+    head h // R, R = H // kv heads."""
+    Hk = kv.shape[axis]
+    if Hk == 0 or H % Hk:
+        raise ValueError(f"{Hk} kv heads do not divide {H} q heads")
+    return kv if Hk == H else kv.repeat_interleave(H // Hk, dim=axis)
+
+
 def _masked_softmax_av(s, mask, v):
     """softmax over the last axis restricted to ``mask``, times v; rows with
     no valid entry give zeros."""
@@ -54,7 +67,7 @@ def _masked_softmax_av(s, mask, v):
 
 def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0,
                         scale=None, q_offset=None):
-    """q: (H, Sq, D), k/v: (H, Skv, D) -> (H, Sq, D).
+    """q: (H, Sq, D), k/v: (Hk, Skv, D) -> (H, Sq, D).
 
     Query row i sits at position ``q_offset + i`` and key j at position j.
     ``q_offset`` (an int or a one-element tensor) defaults to ``Skv - Sq``:
@@ -64,6 +77,7 @@ def ref_flash_attention(q, k, v, causal: bool = True, window: int = 0,
     Skv = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     q_offset = Skv - Sq if q_offset is None else q_offset
+    k, v = _kv_heads(k, H, 0), _kv_heads(v, H, 0)
     s = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * scale
     qp = torch.arange(Sq, device=q.device)[:, None] + q_offset
     kp = torch.arange(Skv, device=q.device)[None, :]
@@ -85,7 +99,7 @@ def ref_paged_verify_attention(q, k_pages, v_pages, block_table, length,
                                scale=None, k_scale=None, v_scale=None):
     """Q queries per (slot, head) over the slot's block-table pages.
 
-    q: (B, H, Q, D); k_pages/v_pages: (n_pages, H, psz, D), float or int8
+    q: (B, H, Q, D); k_pages/v_pages: (n_pages, Hk, psz, D), float or int8
     with ``k_scale``/``v_scale`` (n_pages, psz) float32 (dequantised in
     float32, as the Pallas i8 kernels do); block_table: (B, n_max) int32
     page ids; length: (B,) int32 count of valid tokens ahead of query 0.
@@ -100,8 +114,10 @@ def ref_paged_verify_attention(q, k_pages, v_pages, block_table, length,
         v_pages = ref_dequant_pool(v_pages, v_scale)
 
     def gather(pool):                                 # -> (B, H, n_max*psz, D)
-        g = pool[ids].reshape(B, n_max, H, psz, D)
-        return g.permute(0, 2, 1, 3, 4).reshape(B, H, n_max * psz, D)
+        Hk = pool.shape[1]
+        g = pool[ids].reshape(B, n_max, Hk, psz, D)
+        g = g.permute(0, 2, 1, 3, 4).reshape(B, Hk, n_max * psz, D)
+        return _kv_heads(g, H, 1)
 
     k, v = gather(k_pages), gather(v_pages)
     s = torch.einsum("bhqd,bhsd->bhqs", q.float(), k.float()) * scale
@@ -123,13 +139,14 @@ def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
 
 def ref_decode_attention(q, k, v, length, scale=None):
     """One query per (row, head) over a contiguous cache, keys at positions
-    < length.  q: (B, H, D); k/v: (B, H, S, D); length: (B,) int32 valid-key
+    < length.  q: (B, H, D); k/v: (B, Hk, S, D); length: (B,) int32 valid-key
     counts -> (B, H, D) in q's dtype.  A row with length 0 gives zeros, as
     the Pallas kernel does (JAX's ``ref_decode_attention`` returns the mean
     of V there: its softmax runs over all-masked scores)."""
     B, H, D = q.shape
     S = k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    k, v = _kv_heads(k, H, 1), _kv_heads(v, H, 1)
     s = torch.einsum("bhd,bhsd->bhs", q.float(), k.float())[:, :, None] * scale
     mask = torch.arange(S, device=q.device)[None, :] < \
         length.to(q.device).long()[:, None]                      # (B, S)
@@ -137,7 +154,7 @@ def ref_decode_attention(q, k, v, length, scale=None):
 
 
 def ref_decode_attention_i8(q, k, v, length, kv_scale, scale=None):
-    """``ref_decode_attention`` over int8 lanes k/v (B, H, S, D) at one
+    """``ref_decode_attention`` over int8 lanes k/v (B, Hk, S, D) at one
     fixed dequantization scale ``kv_scale`` (a float), dequantized in
     float32."""
     return ref_decode_attention(q, k.float() * kv_scale, v.float() * kv_scale,

@@ -34,6 +34,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import attention, blocks, steps
 from repro_torch.core.partition import ShardingPlan
+from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
 from repro_torch.serving import Request, ServingEngine
@@ -414,8 +415,19 @@ def test_contiguous_entry_points_refuse_cuda_without_a_card(tiny, monkeypatch):
 
 @pytest.mark.parametrize("R,window", [(2, 0), (1, 64)])
 def test_card_decode_refuses_gqa_and_windows(R, window):
-    """The card's layout check the decode-attention route makes before it
-    launches: GQA and windows wait for their slice, never a quiet detour
-    through the plain version."""
-    with pytest.raises(NotImplementedError, match="decode-attention kernel"):
-        attention._card_layout("decode-attention", R, window)
+    """What the card's decode and verify routes refuse before they launch:
+    a window (the route's layout check: it waits for its slice), and a
+    group too wide for the kernel's m16 (the kernel's plan: R = 2 q heads
+    per kv head x 9 verify queries = 18 rows), never a quiet detour
+    through the plain version.  R q heads per kv head alone are served."""
+    attention._card_layout("decode-attention", 0)
+    k_decode.contiguous_plan(8, 8 * R, 256, 64, torch.bfloat16, False, R)
+    k_decode.plan(8, 8 * R, 1, 64, 16, 16, torch.bfloat16, False, R)
+    if window:
+        with pytest.raises(NotImplementedError,
+                           match="decode-attention kernel takes no sliding"):
+            attention._card_layout("decode-attention", window)
+    else:
+        with pytest.raises(ValueError, match=f"{R} q heads per kv head x 9 "
+                                             f"queries = {9 * R}"):
+            k_decode.plan(8, 8 * R, 9, 64, 16, 16, torch.bfloat16, False, R)

@@ -643,9 +643,9 @@ def test_contiguous_plan_mirrors_the_kernel_source():
     assert re.search(rf"constexpr int CONTIG_NW = "
                      rf"{k_decode._CONTIG_SIMT_WARPS};", src)
     body = re.search(r"int run_contig\(.+?\n}\n", src, re.S).group(0)
-    assert "mma_plan_fits(D, QUANT, 1, nw, split, smem)" in body
+    assert "mma_plan_fits(D, QUANT, R, nw, split, smem)" in body
     assert "launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, " \
-           "len, o, B, H, 1, S, 1," in " ".join(body.split())
+           "len, o, B, H, R, 1, S, 1," in " ".join(body.split())
     assert not (Path(k_decode.__file__).parent / "csrc" /
                 "decode_attention.cu").exists()
 

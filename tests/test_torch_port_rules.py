@@ -56,11 +56,11 @@ def test_unported_architectures_are_refused():
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
     cfg = reduced(get_config("tinyllama-42m"))
-    with pytest.raises(NotImplementedError, match="qk_norm"):
-        model.init_params(dataclasses.replace(cfg, qk_norm=True),
+    with pytest.raises(NotImplementedError, match="sandwich_norm"):
+        model.init_params(dataclasses.replace(cfg, sandwich_norm=True),
                           ShardingPlan(), device="cpu")
     with pytest.raises(KeyError, match="tinyllama-42m"):
-        get_config("qwen3-0.6b")
+        get_config("gemma3-12b")
     with pytest.raises(NotImplementedError, match="int8"):
         model.init_params(cfg, ShardingPlan(weight_dtype="int8"), device="cpu")
 

@@ -643,9 +643,9 @@ def test_speculation_is_refused_for_ssm_archs(ssm_weights, capsys):
 
 
 @pytest.mark.parametrize("change,slice_", [
-    (dict(family="hybrid", ssm_state=16), "hymba-1.5b, ROADMAP Queue 1 item 10"),
+    (dict(family="hybrid", ssm_state=16), "hymba-1.5b, ROADMAP Queue 1 item 5"),
     (dict(n_experts=4, top_k=2, moe_d_ff=64), "MoE layers (ROADMAP Queue 1 "
-                                              "item 12)"),
+                                              "item 10)"),
 ])
 def test_hybrid_and_moe_archs_name_their_slice(change, slice_):
     cfg = dataclasses.replace(reduced(get_config("tinyllama-42m")), **change)
