@@ -59,7 +59,16 @@ each (and a few detail lines):
             pools (B 8, pages of 16, ragged lengths, graphs replayed after
             length changes), the contiguous decode over float and int8
             lanes at S 256 and 1024, and verify refusing R Q = 18 before
-            any launch; median
+            any launch; then sliding windows and head_dim 256 at gemma3's
+            shapes (16 q over 8 kv heads): paged decode and verify (Q 5)
+            with windows of 64 and 1024 at D 64, 128 and 256 (B 8, pages of
+            16, n_max 128, lengths 100-2000), float32 and bf16 over float
+            and int8 pools, graphs replayed as lengths cross the window; the
+            contiguous decode at D 256 over a 1024-slot ring past its wrap;
+            flash at D 256 over a 128-row chunk at q_offset 1400 in 2048 keys
+            with and without the window of 1024 and a 512-token prompt;
+            rmsnorm at E 3840 and 256; matmul at every gemma3 projection
+            and the 262,144-row tied head; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (SDPA, with
@@ -83,6 +92,13 @@ each (and a few detail lines):
             against the eager-serial engine), int8 pools with
             speculative=4 and the contiguous engine, identical greedy
             tokens and live logits within the tinyllama tolerances.
+            parity-gemma3: gemma3-12b with its features and kernel shapes
+            (16 q over 8 kv heads x 256, qk-norm, sandwich norms, the scaled
+            embedding, gelu, 5 window layers to 1 global) cut to d_model
+            1024, d_ff 4096, vocab 32000, 6 layers and a window of 64, in
+            float32, card against CPU: float pools, int8 pools with
+            speculative=4 and the contiguous engine at budget 256 (rings
+            of 64), 80-200 prompt tokens, identical greedy tokens.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -105,7 +121,7 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in ten phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in eleven phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
@@ -119,7 +135,11 @@ each (and a few detail lines):
             skipped prefill tokens, COW copies and the copy graph's nodes
             printed, and its tok/s, busy share and prefill chunks beside
             serve's), and serve-qwen3 (full-width qwen3-0.6b, 28 layers,
-            bfloat16 pools, random prompts; no eager-serial run).  Every
+            bfloat16 pools, random prompts; no eager-serial run), and
+            serve-gemma3 (full-width, full-depth gemma3-12b, 48 layers,
+            weights drawn on the card, bfloat16 pools, a 2048-token budget,
+            chunks of 128, prompts of 512-1536 tokens and the count of
+            decode rows whose window is shorter than their prefix).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
@@ -132,8 +152,9 @@ each (and a few detail lines):
             contiguous phase; the norm family once per norm of the model
             in every step: one plain norm (and qwen3's q and k norms in every
             layer), the rest with the residual add fused in, mamba2's gated
-            norm in every layer; 10L + 2 counted kernels per tinyllama
-            decode tick, 12L + 2 per qwen3 tick, 8L + 2 per mamba2 tick).
+            norm in every layer, gemma3's post-sublayer norms; 10L + 2
+            counted kernels per tinyllama decode tick, 12L + 2 per qwen3
+            tick, 14L + 2 per gemma3 tick, 8L + 2 per mamba2 tick).
             Launches are counted where a wrapper launches its kernel and at
             every replay of a step's graph (the kernels its capture
             recorded).  Each step graph is read node by node
@@ -1125,6 +1146,7 @@ def phase_kernels(torch, F):
         rows[kname] = dict(by_shape[0], by_shape=by_shape)
 
     _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+    _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -1396,6 +1418,339 @@ def _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
         print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
               f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
               f"sdpa_gqa_us={lib} [{r['plan']}]")
+
+
+# gemma3-12b's attention: 16 q heads over 8 kv heads (R = 2), head_dim 256,
+# sliding windows of 1024 keys on 5 of every 6 layers
+G3_HQ, G3_HK, G3_D, G3_E, G3_WIN = 16, 8, 256, 3840, 1024
+# every matmul of gemma3-12b's main path: (name, K, N, trans_b)
+G3_MATMULS = (("gemma3 wq", 3840, 4096, False),
+              ("gemma3 wk/wv", 3840, 2048, False),
+              ("gemma3 wo", 4096, 3840, False),
+              ("gemma3 w_gate/w_up", 3840, 15360, False),
+              ("gemma3 w_down", 15360, 3840, False),
+              ("gemma3 LM head", 3840, 262144, True))
+
+
+def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
+    """The window and head_dim 256 cases at gemma3-12b's shapes (16 q over
+    8 kv heads), against their plain versions: paged decode and verify (Q
+    5) with windows of 64 and 1024 at D 64, 128 and 256 (B 8, pages of 16,
+    n_max 128, lengths 100-2000, on both sides of each window), float32
+    and bf16 q over float and int8 pools, and a graph of each bf16 entry
+    at D 256 replayed after the lengths cross the window; the contiguous
+    decode at D 256 over float and int8 lanes of a 1024-slot ring past its
+    wrap (lengths clamped to the ring); flash at D 256 over a prefill chunk
+    of 128 at q_offset 1400 in 2048 gathered keys with the window of 1024,
+    without a window (the global layers), and a 512-token prompt with and
+    without it; rmsnorm at E 3840 and the qk-norm rows of 256; matmul at
+    every gemma3 projection and the 262,144-row tied head.  Every bf16 case
+    runs twice (bitwise-equal outputs), every case is one kernel node in a
+    CUDA graph.  Times (bf16, L2-warm) beside the bound, the plain version
+    and the library call where one computes the same (SDPA with a window
+    mask, ``torch.matmul``, ``F.rms_norm``); appended to each kernel's
+    ``by_shape``."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import matmul as _mm
+    from repro_torch.kernels import ops, ref
+    Hq, Hk, E = G3_HQ, G3_HK, G3_E
+    Rg = Hq // Hk
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def twice(kname, case, dt, call, got):
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+
+    # ---- paged decode and verify with windows: 8 slots over a shuffled
+    # pool of 1025 pages of 16 (n_max 128, the serve phase's 2048 budget)
+    B, psz, n_max = 8, 16, 128
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(4)) + 1
+    bt = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    lengths = [100, 513, 1023, 1024, 1025, 1500, 1777, 2000]
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+    def pools(dt, quant, D):
+        if not quant:
+            return (randn(n_pages, Hk, psz, D, dtype=dt),
+                    randn(n_pages, Hk, psz, D, dtype=dt)), {}
+        kq, vq = (torch.randint(-127, 128, (n_pages, Hk, psz, D), generator=gen,
+                                device="cuda", dtype=torch.int8) for _ in range(2))
+        ks, vs = (0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+                  for _ in range(2))
+        return (kq, vq), dict(k_scale=ks, v_scale=vs)
+
+    def entry(nq, quant):
+        fn, plain = (ops.paged_decode_attention, ref.ref_paged_decode_attention) \
+            if nq == 1 else (ops.paged_verify_attention, ref.ref_paged_verify_attention)
+        kname = ("paged_decode_attention" if nq == 1 else
+                 "paged_verify_attention") + ("_i8" if quant else "")
+        return kname, fn, plain
+
+    for D in (64, 128, G3_D):
+        for dt in (torch.float32, bf):
+            for quant in (False, True):
+                (kp, vp), sc = pools(dt, quant, D)
+                for win in (64, G3_WIN):
+                    for nq in (1, 5):
+                        kname, fn, plain = entry(nq, quant)
+                        q = randn(B, Hq, D, dtype=dt) if nq == 1 else \
+                            randn(B, Hq, nq, D, dtype=dt)
+
+                        def call():
+                            return fn(q, kp, vp, bt, length, window=win, **sc)
+
+                        case = (f"gemma3 {Hq}/{Hk} window={win} Q={nq} D={D} "
+                                f"n_max={n_max} lengths={lengths} q "
+                                f"{dtype_name(dt)}{', int8 pools' if quant else ''}")
+                        got = call()
+                        note(kname, case, compare(
+                            kname, got, plain(q, kp, vp, bt, length, window=win,
+                                              **sc), dt, torch))
+                        twice(kname, case, dt, call, got)
+                        if dt == bf and D == G3_D and win == G3_WIN:
+                            len_ = length.clone()
+                            replay_check(kname, f"gemma3 window={win} Q={nq}",
+                                         lambda: fn(q, kp, vp, bt, len_,
+                                                    window=win, **sc), len_,
+                                         [40, 1030, 2040, 16, 1, 1200, 64, 900])
+                del kp, vp, sc
+    print("  paged attention: windows of 64 and 1024 at D 64, 128 and 256 "
+          "against the plain versions; graphs replayed across the window")
+
+    # times at gemma3's decode (D 256, window 1024 and the global layers'
+    # none) and verify Q 5 (window 1024), bf16 q, bf16 and int8 pools
+    D = G3_D
+    for quant in (False, True):
+        (kp, vp), sc = pools(bf, quant, D)
+        for nq, win in ((1, G3_WIN), (1, 0), (5, G3_WIN)):
+            kname, fn, plain = entry(nq, quant)
+            q = randn(B, Hq, D, dtype=bf) if nq == 1 else randn(B, Hq, nq, D, dtype=bf)
+            # keys some query of a slot sees: [max(0, L - win), L + nq - 1)
+            kv = [min(L + nq - 1, n_max * psz) - (max(0, L - win) if win else 0)
+                  for L in lengths]
+            pairs = sum(min(L + i, n_max * psz) - (max(0, L + i - win) if win else 0)
+                        for L in lengths for i in range(nq))
+            elt = 1 if quant else 2
+            io = 2 * q.numel() * 2 + bt.numel() * 4 + B * 4
+            b_ms, b_by = bound(io + 2 * Hk * sum(kv) * D * elt +
+                               (2 * sum(kv) * 4 if quant else 0),
+                               4 * D * Hq * pairs + (2 * D * Hq * sum(kv) if quant else 0),
+                               torch.int8 if quant else bf)
+            p = _dec.plan(B, Hq, nq, D, psz, n_max, bf, quant, Rg, win)
+
+            def call():
+                return fn(q, kp, vp, bt, length, window=win, **sc)
+
+            add(kname, dict(
+                shape=f"gemma3 B={B} Hq={Hq} Hk={Hk} Q={nq} D={D} psz={psz} "
+                      f"n_max={n_max} window={win} lengths={lengths} q bf16, "
+                      f"{'int8' if quant else 'bf16'} pools",
+                max_abs_err=compare(kname, call(), plain(q, kp, vp, bt, length,
+                                                         window=win, **sc), bf, torch),
+                plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
+                ms=time_ms(call, torch),
+                plain_ms=time_ms(lambda: plain(q, kp, vp, bt, length, window=win,
+                                               **sc), torch),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del kp, vp, sc
+
+    # ---- contiguous decode at D 256 over a ring of 1024 slots (a window
+    # layer's lane): positions past the wrap read min(pos + 1, 1024) slots
+    S, DQ = G3_WIN, 1.0 / 16.0
+    positions = [1500, 1023, 2000, 300, 1024, 5000, 1100, 0]
+    lc = torch.tensor([min(p + 1, S) for p in positions], dtype=torch.int32,
+                      device="cuda")
+
+    def contig(dt, quant):
+        qc = randn(B, Hq, D, dtype=dt)
+        if quant:
+            kc, vc = (torch.randint(-127, 128, (B, Hk, S, D), generator=gen,
+                                    device="cuda", dtype=torch.int8) for _ in range(2))
+            return ("decode_attention_i8", qc, kc, vc,
+                    lambda len_: ops.decode_attention_i8(qc, kc, vc, len_, DQ),
+                    lambda len_: ref.ref_decode_attention_i8(qc, kc, vc, len_, DQ))
+        kc, vc = randn(B, Hk, S, D, dtype=dt), randn(B, Hk, S, D, dtype=dt)
+        return ("decode_attention", qc, kc, vc,
+                lambda len_: ops.decode_attention(qc, kc, vc, len_),
+                lambda len_: ref.ref_decode_attention(qc, kc, vc, len_))
+
+    for dt in (torch.float32, bf):
+        for quant in (False, True):
+            kname, qc, kc, vc, call, plain = contig(dt, quant)
+            case = (f"gemma3 ring S={S} D={D} positions={positions} q "
+                    f"{dtype_name(dt)}{', int8 lanes' if quant else ''}")
+            got = call(lc)
+            note(kname, case, compare(kname, got, plain(lc), dt, torch))
+            twice(kname, case, dt, lambda: call(lc), got)
+    full = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    for quant in (False, True):
+        kname, qc, kc, vc, call, plain = contig(bf, quant)
+        elt = 1 if quant else 2
+        b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * Hk * B * S * D * elt + B * 4,
+                           (6 if quant else 4) * D * Hq * B * S,
+                           torch.int8 if quant else bf)
+        p = _dec.contiguous_plan(B, Hq, S, D, bf, quant, Rg)
+        add(kname, dict(
+            shape=f"gemma3 ring B={B} Hq={Hq} Hk={Hk} S={S} D={D} lengths all "
+                  f"{S} q bf16, {'int8' if quant else 'bf16'} lanes",
+            max_abs_err=compare(kname, call(full), plain(full), bf, torch),
+            plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
+            ms=time_ms(lambda: call(full), torch),
+            plain_ms=time_ms(lambda: plain(full), torch),
+            library_ms=None if quant else time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qc[:, :, None], kc, vc, enable_gqa=True), torch),
+            bound_ms=b_ms, bound_by=b_by))
+        del kc, vc
+
+    # ---- flash at D 256: the serve phase's prefill chunk (Sq 128 at
+    # q_offset 1400 over the 2048-key gathered stream) with the window and
+    # without (a global layer), and a 512-token prompt with and without
+    # it; q_offset as the chunk step hands it over (an int32 on the card)
+    for dt in (torch.float32, bf):
+        for Sq, Skv, q_off, win in ((128, 2048, 1400, G3_WIN), (128, 2048, 1400, 0),
+                                    (512, 512, 0, G3_WIN), (512, 512, 0, 0),
+                                    (128, 2048, 0, G3_WIN)):
+            q, k, v = (randn(Hq, Sq, D, dtype=dt), randn(Hk, Skv, D, dtype=dt),
+                       randn(Hk, Skv, D, dtype=dt))
+            off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+
+            def call():
+                return ops.flash_attention(q, k, v, window=win, q_offset=off)
+
+            case = (f"gemma3 {Hq}/{Hk} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} "
+                    f"window={win} {dtype_name(dt)}")
+            got = call()
+            note("flash_attention", case, compare(
+                "flash_attention", got, ref.ref_flash_attention(
+                    q, k, v, window=win, q_offset=q_off), dt, torch))
+            twice("flash_attention", case, dt, call, got)
+    for Sq, Skv, q_off, win in ((128, 2048, 1400, G3_WIN), (128, 2048, 1400, 0),
+                                (512, 512, 0, G3_WIN), (512, 512, 0, 0)):
+        q, k, v = (randn(Hq, Sq, D, dtype=bf), randn(Hk, Skv, D, dtype=bf),
+                   randn(Hk, Skv, D, dtype=bf))
+        off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+        qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
+        kpos = torch.arange(Skv, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if win:
+            mask &= kpos > qpos - win
+        pairs, kv_read = int(mask.sum()), int(mask.any(0).sum())
+        b_ms, b_by = bound((2 * q.numel() + 2 * Hk * kv_read * D) * 2,
+                           4 * D * Hq * pairs, bf)
+        if q_off == 0 and Sq == Skv and not win:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True, enable_gqa=True)
+        else:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask[None, None],
+                    enable_gqa=True)
+        compare(f"SDPA yardstick Sq={Sq} q_offset={q_off} window={win}", sdpa()[0],
+                ref.ref_flash_attention(q, k, v, window=win, q_offset=q_off), bf,
+                torch)
+        p = _fl.plan(Hq, Sq, Skv, D, bf, win, Rg)
+        rb = _fl.heads_per_block(Rg)
+        add("flash_attention", dict(
+            shape=f"gemma3 Hq={Hq} Hk={Hk} Sq={Sq} Skv={Skv} D={D} "
+                  f"q_offset={q_off} window={win} bf16",
+            max_abs_err=compare("flash_attention",
+                                ops.flash_attention(q, k, v, window=win, q_offset=off),
+                                ref.ref_flash_attention(q, k, v, window=win,
+                                                        q_offset=q_off), bf, torch),
+            plan=f"wq={p.wq} split={p.split} blocks="
+                 f"{p.split * (Hq // rb) * -(-Sq // (16 * p.wq // rb))}",
+            ms=time_ms(lambda: ops.flash_attention(q, k, v, window=win,
+                                                   q_offset=off), torch),
+            plain_ms=time_ms(lambda: ref.ref_flash_attention(
+                q, k, v, window=win, q_offset=q_off), torch),
+            library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
+
+    # ---- rmsnorm: a decode tick's and a chunk's rows at E 3840 (ln1/ln2,
+    # post_ln1/post_ln2, the final norm) and the qk-norm rows of 256 (8
+    # slots x 16 heads a tick, a 128-token chunk's 2048), random scales
+    for dt in (torch.float32, bf):
+        for T, En in ((8, E), (128, E), (128, G3_D), (2048, G3_D)):
+            x, s = randn(T, En, dtype=dt), 0.1 * randn(En, dtype=dt)
+            case = f"gemma3 T={T} E={En} {dtype_name(dt)}"
+            got = ops.rmsnorm(x, s)
+            note("rmsnorm", case, compare("rmsnorm", got, ref.ref_rmsnorm(x, s),
+                                          dt, torch))
+            twice("rmsnorm", case, dt, lambda: ops.rmsnorm(x, s), got)
+            if dt == bf:
+                r = randn(T, En, dtype=dt)
+                xs, y = ops.rmsnorm_residual(x, r, s)
+                check(torch.equal(xs, x + r) and torch.equal(y, ops.rmsnorm(x + r, s)),
+                      f"rmsnorm_residual {case}: not bitwise the unfused ops")
+                note("rmsnorm_residual", case, compare(
+                    "rmsnorm_residual", y, ref.ref_rmsnorm_residual(x, r, s)[1],
+                    dt, torch))
+                one_kernel("rmsnorm_residual", case,
+                           lambda: ops.rmsnorm_residual(x, r, s))
+    for T, En in ((8, E), (128, G3_D)):
+        x, s = randn(T, En, dtype=bf), 0.1 * randn(En, dtype=bf)
+        w1 = (1.0 + s.float()).to(bf)
+        b_ms, b_by = bound(2 * x.numel() * 2 + s.numel() * 2, 5 * x.numel(),
+                           torch.float32)
+        add("rmsnorm", dict(
+            shape=f"gemma3 x ({T}, {En}) bf16",
+            max_abs_err=compare("rmsnorm", ops.rmsnorm(x, s), ref.ref_rmsnorm(x, s),
+                                bf, torch),
+            ms=time_ms(lambda: ops.rmsnorm(x, s), torch),
+            plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, s), torch),
+            library_ms=(time_ms(lambda: F.rms_norm(x, (En,), w1, 1e-6), torch)
+                        if hasattr(F, "rms_norm") else None),
+            bound_ms=b_ms, bound_by=b_by, plan="-"))
+
+    # ---- matmul at every gemma3 projection (M 8 a decode tick, 128 a
+    # chunk) and the tied head (M 8 a tick, 1 a chunk's last row); weights
+    # at the init scale; float32 at M 8 for the projections
+    for tag, K, N, nt in G3_MATMULS:
+        b = (0.02 * (randn(N, K) if nt else randn(K, N))).to(bf)
+        for M in ((8, 1) if nt else (8, 128)):
+            a = randn(M, K, dtype=bf)
+            case = f"{tag} M={M} K={K} N={N}{' NT' if nt else ''} bf16"
+            got = ops.matmul(a, b, trans_b=nt)
+            note("matmul", case, compare("matmul", got, ref.ref_matmul(a, b, nt),
+                                         bf, torch))
+            twice("matmul", case, bf, lambda: ops.matmul(a, b, trans_b=nt), got)
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf)
+            p = _mm.plan(M, N, K, bf, nt)
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ {'(%d, %d)^T' % (N, K) if nt else '(%d, %d)' % (K, N)} bf16",
+                M=M, K=K, N=N, trans_b=nt, max_abs_err=compare(
+                    "matmul", got, ref.ref_matmul(a, b, nt), bf, torch),
+                plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} blocks={p.blocks}",
+                ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
+                plain_ms=time_ms(lambda: ref.ref_matmul(a, b, nt), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b), torch),
+                bound_ms=b_ms, bound_by=b_by))
+        if not nt:
+            bf32, a32 = b.float(), randn(8, K)
+            case = f"{tag} M=8 K={K} N={N} float32"
+            note("matmul", case, compare("matmul", ops.matmul(a32, bf32),
+                                         ref.ref_matmul(a32, bf32), torch.float32,
+                                         torch))
+            one_kernel("matmul", case, lambda: ops.matmul(a32, bf32))
+            del bf32
+        del b
+    torch.cuda.empty_cache()
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
 
 
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
@@ -1742,6 +2097,114 @@ def phase_parity_qwen3(torch):
     print(f"parity-qwen3: contiguous engine, float32 lanes, on cuda vs cpu: "
           f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy "
           f"tokens identical")
+
+
+# parity-gemma3: gemma3-12b's features and kernel shapes (16 q over 8 kv
+# heads x 256, qk-norm, sandwich norms, the scaled embedding, gelu, 5 window
+# layers to 1 global) at a width a host CPU runs in float32 (PERF.md §4)
+G3_PARITY_CUT = dict(n_layers=6, d_model=1024, d_ff=4096, vocab_size=32000,
+                     sliding_window=64)
+
+
+def phase_parity_gemma3(torch):
+    """gemma3-12b cut to d_model 1024, d_ff 4096, vocab 32000, 6 layers and
+    a window of 64 (``G3_PARITY_CUT``), everything else as published, in
+    float32: engines on the card (the windowed paged kernels, head_dim 256
+    everywhere) against engines on the CPU (plain versions), 3 requests of
+    80-200 prompt tokens plus 16 new, so every window bites: float pools
+    (also against the eager-serial engine on the card), int8 pools with
+    speculative=4 on repetitive prompts, and the contiguous engine at
+    budget 256, whose window layers keep rings of 64 (read by a clamped
+    prefix length on the card), its tokens also equal to the paged
+    engine's.  Weights at the init scale, q_norm/k_norm and post-norm
+    scales 0.3 randn (the init's zeros would leave the norms' scale terms
+    uncompared).  Greedy decoding repeats a few tokens here (each
+    sublayer's output is normed to unit RMS, and flat attention makes it
+    the context's average); sharper attention (q_norm/k_norm scales near
+    9) gave more distinct tokens but logits that move by 0.16 under a
+    3e-7 relative change of the weights on the CPU alone, no test of the
+    kernels.  Identical greedy tokens, live logits of every step within
+    the tinyllama tolerances, leak-free after drain()."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(get_config("gemma3-12b"), name="gemma3-12b-parity",
+                              **G3_PARITY_CUT)
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu", dtype="float32")
+    g = torch.Generator().manual_seed(1)
+    for group in params["stacks"]:
+        for layer in group:
+            for name in ("q_norm", "k_norm"):
+                t = layer["attn"][name]
+                layer["attn"][name] = 0.3 * torch.randn(t.shape, generator=g)
+            for name in ("post_ln1", "post_ln2"):
+                t = layer[name]["scale"]
+                layer[name]["scale"] = 0.3 * torch.randn(t.shape, generator=g)
+    win = cfg.sliding_window
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((80, 137, 200))]
+    check(min(len(p) for p in prompts) > win, "parity-gemma3: a prompt inside "
+                                              "the window")
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-gemma3", runs["cuda"][1:3], runs["cpu"][1:3],
+                    PARITY_TOL)
+    toks = runs["cuda"][1]
+    _eager_serial(torch, "parity-gemma3", toks, cfg, plan, params, reqs())
+    print(f"parity-gemma3: gemma3-12b cut to {G3_PARITY_CUT} float32, float "
+          f"pools, engine on cuda vs cpu: live logits of every step "
+          f"({runs['cuda'][2].numel()} values) max_abs_err={err:.3e} (|logit| "
+          f"max {mx:.2f}, tol rtol={PARITY_TOL['rtol']} atol="
+          f"{PARITY_TOL['atol']}); greedy tokens identical, and to the "
+          f"eager-serial engine on cuda: 3 requests x 16 tokens, "
+          f"{len({t for r in toks for t in r})} distinct")
+    del runs
+
+    def spec_reqs():
+        return _motif_requests(Request, np.random.RandomState(11), 3, 80, 200,
+                               16, cfg.vocab_size)
+
+    spec = {dev: _run_engine(torch, cfg, plan_i8, params, spec_reqs(), dev,
+                             speculative=4) for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-gemma3[int8, spec]", spec["cuda"][1:3],
+                    spec["cpu"][1:3], INT8_PARITY_TOL)
+    st = spec["cuda"][0].stats
+    check(st.spec_steps > 0, f"parity-gemma3[int8, spec]: the verify step "
+                             f"never ran {st}")
+    print(f"parity-gemma3: int8 pools, speculative=4 (R 2 x Q 5 = 10 rows), "
+          f"engine on cuda vs cpu: live logits max_abs_err={err:.3e} (|logit| "
+          f"max {mx:.2f}, tol rtol={INT8_PARITY_TOL['rtol']} atol="
+          f"{INT8_PARITY_TOL['atol']}); greedy tokens identical; verify "
+          f"slot-steps={st.spec_steps} drafted={st.spec_drafted} "
+          f"accepted={st.spec_accepted}")
+    del spec
+
+    contig = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                               paged=False) for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-gemma3[contiguous]", contig["cuda"][1:3],
+                    contig["cpu"][1:3], PARITY_TOL)
+    check(contig["cuda"][1] == toks, f"parity-gemma3: contiguous and paged "
+          f"engines differ on cuda\n  {contig['cuda'][1]}\n  {toks}")
+    ring = contig["cuda"][0].cache[0][0]["kv"]["k"].shape[3]
+    check(ring == win, f"parity-gemma3: a window layer's ring holds {ring} "
+                       f"slots, not {win}")
+    print(f"parity-gemma3: contiguous engine (budget 256, window layers' rings "
+          f"of {ring} slots), float32 lanes, on cuda vs cpu: live logits "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy tokens "
+          f"identical, and to the paged engine on cuda")
 
 
 def phase_parity_ssm(torch):
@@ -2113,6 +2576,7 @@ SERVE_PHASES = {
     "serve-contig-int8": ("tinyllama-42m", "int8", "", 0, "random"),
     "serve-prefix": ("tinyllama-42m", "bfloat16", "", 0, "prefix"),
     "serve-qwen3": ("qwen3-0.6b", "bfloat16", "", 0, "random"),
+    "serve-gemma3": ("gemma3-12b", "bfloat16", "", 0, "long"),
 }
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
@@ -2130,13 +2594,42 @@ PHASE_MIXER = {"serve": "paged_decode_attention",
                "serve-contig": "decode_attention",
                "serve-contig-int8": "decode_attention_i8",
                "serve-prefix": "paged_decode_attention",
-               "serve-qwen3": "paged_decode_attention"}
+               "serve-qwen3": "paged_decode_attention",
+               "serve-gemma3": "paged_decode_attention"}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
 
 
 SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
+# serve-gemma3: a 2048-token budget, chunks of 128, prompts of 512-1536
+# tokens (half past the window of 1024), weights drawn on the card
+LONG = dict(sb=2048, ch=128, lo=512, hi=1536)
+
+
+def _phase_shape(name):
+    """(seq_budget, prefill chunk) of serve phase ``name``."""
+    kind = SERVE_PHASES[name][4]
+    return (LONG["sb"], LONG["ch"]) if kind == "long" else (SB, CH)
+
+
+def _long_requests(Request, rng, n, lo, hi, max_new, vocab):
+    """Random prompts of ``lo``-``hi`` tokens, half of them past gemma3's
+    window of 1024, in a shuffled order."""
+    import numpy as np
+    lens = np.concatenate([rng.randint(lo, G3_WIN + 1, n // 2),
+                           rng.randint(G3_WIN + 1, hi + 1, n - n // 2)])
+    rng.shuffle(lens)
+    return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
+                    max_new_tokens=max_new) for i, L in enumerate(lens)]
+
+
+def _free_card(torch):
+    """Release what the previous phase left on the card (its model,
+    pools and graph memory) before the next one draws its own."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _serve_setup(torch, name):
@@ -2144,8 +2637,10 @@ def _serve_setup(torch, name):
     the full-width arch, bfloat16 weights, 8 slots, prompts 16-160 tokens,
     32 new (random prompts, or repetitive motifs where speculation runs;
     serve-prefix: a shared 100-token prefix and 16-64 tokens of each
-    request's own, served with the prefix cache); the contiguous engine
-    for ``CONTIG_PHASES``, else the paged one."""
+    request's own, served with the prefix cache; serve-gemma3: full-width
+    gemma3-12b drawn on the card, a 2048-token budget, chunks of 128,
+    prompts of 512-1536 tokens, ``LONG``); the contiguous engine for
+    ``CONTIG_PHASES``, else the paged one."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2155,18 +2650,21 @@ def _serve_setup(torch, name):
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     cfg = get_config(arch)
     plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
-    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
-                               device="cuda")
+    # full-width gemma3 (11.8 B parameters) draws on the card
+    gen = torch.Generator(device="cuda" if kind == "long" else "cpu")
+    params = model.init_params(cfg, plan, gen.manual_seed(0), device="cuda")
     make = {"random": _requests, "motif": _motif_requests,
-            "prefix": _prefix_requests}[kind]
-    lo, hi = (16, 64) if kind == "prefix" else (16, 160)
+            "prefix": _prefix_requests, "long": _long_requests}[kind]
+    lo, hi = {"prefix": (16, 64), "long": (LONG["lo"], LONG["hi"])}.get(
+        kind, (16, 160))
+    sb, ch = _phase_shape(name)
 
     def engine(graphs=True, overlap=True, prefix_cache=kind == "prefix"):
         if name in CONTIG_PHASES:
-            return ServingEngine(cfg, plan, SLOTS, SB, params, graphs=graphs,
+            return ServingEngine(cfg, plan, SLOTS, sb, params, graphs=graphs,
                                  device="cuda")
-        return ServingEngine.build_paged(cfg, plan, SLOTS, SB, params,
-                                         page_size=PSZ, prefill_chunk=CH,
+        return ServingEngine.build_paged(cfg, plan, SLOTS, sb, params,
+                                         page_size=PSZ, prefill_chunk=ch,
                                          speculative=k, overlap=overlap,
                                          prefix_cache=prefix_cache,
                                          graphs=graphs, device="cuda")
@@ -2269,7 +2767,9 @@ def phase_serve(torch, name, graphs=True, overlap=True):
 
     from repro_torch.kernels import ops
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
+    _free_card(torch)                         # the previous phase's model
     cfg, engine, requests = _serve_setup(torch, name)
+    sb, ch = _phase_shape(name)
     variant = "graphed-overlap" if graphs else "eager-serial"
     warm = engine(graphs, overlap)                     # first-call costs
     for r in requests(seed=1, n=2, new=4):
@@ -2333,14 +2833,17 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     mixer = PHASE_MIXER[name]
     n_layers = cfg.n_layers
     # every step runs the norm family once per norm of the model: the plain
-    # norm for the first layer's input (and qwen3's qk-norm, q and k in
-    # every layer), every later norm with the residual add before it fused
-    # in (tinyllama and qwen3 2L of them, mamba2 L), and mamba2's gated norm
-    # in every layer; each decode tick launches as many counted kernels as
-    # before the fusion (tinyllama 10L + 2, qwen3 12L + 2, mamba2 8L + 2)
+    # norm for the first layer's input (and qwen3's and gemma3's qk-norm, q
+    # and k in every layer, and gemma3's post_ln1 and post_ln2), every
+    # later norm with the residual add before it fused in (tinyllama, qwen3
+    # and gemma3 2L of them, mamba2 L), and mamba2's gated norm in every
+    # layer; each decode tick launches as many counted kernels as before
+    # the fusion (tinyllama 10L + 2, qwen3 12L + 2, gemma3 14L + 2, mamba2
+    # 8L + 2)
     ssm = arch.startswith("mamba2")
     qk = 2 if cfg.qk_norm else 0
-    per_norm = {"rmsnorm": 1 + qk * n_layers,
+    post = 2 if cfg.sandwich_norm else 0
+    per_norm = {"rmsnorm": 1 + (qk + post) * n_layers,
                 "rmsnorm_residual": n_layers * (1 if ssm else 2),
                 "rmsnorm_gated": n_layers if ssm else 0}
     for kd in ["prefill"] + steps:
@@ -2348,7 +2851,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         check(got == {kn: v * calls[kd] for kn, v in per_norm.items()},
               f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
               f"{per_norm} per step")
-    per_tick = (8 if ssm else 10 + qk) * n_layers + 2
+    per_tick = (8 if ssm else 10 + qk + post) * n_layers + 2
     check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
           f"{name}: {sum(per_phase['decode'].values())} kernels in "
           f"{calls['decode']} decode ticks, not {per_tick} per tick")
@@ -2386,6 +2889,18 @@ def phase_serve(torch, name, graphs=True, overlap=True):
               f"{name}: the contiguous decode attention launched in a paged phase")
     if k:
         check(stats.spec_accepted > 0, f"{name}: no draft accepted")
+    window = ""
+    if cfg.sliding_window:
+        # decode row j of a request (j = 0 after the prefill's token) sits
+        # at position len(prompt) + j and sees len(prompt) + j + 1 keys; a
+        # window layer reads the last sliding_window of them
+        rows = [len(r.prompt) + j + 1 for r in reqs
+                for j in range(len(r.out_tokens) - 1)]
+        bite = sum(n > cfg.sliding_window for n in rows)
+        check(bite > 0, f"{name}: no decode row reached past the window")
+        window = (f"window_rows={bite} of {len(rows)} decode rows read a "
+                  f"window of {cfg.sliding_window} shorter than their prefix "
+                  f"(up to {max(rows)} keys) ")
     for kn in ("rmsnorm", "rmsnorm_residual", "matmul", mixer) + \
             (("rmsnorm_gated",) if ssm else ()):
         check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
@@ -2400,9 +2915,9 @@ def phase_serve(torch, name, graphs=True, overlap=True):
             if k else "")
     store = (f"{ssmd or 'float32'} slabs" if eng.has_slabs else
              f"{kvd} {'pools' if eng.paged else 'lanes'}")
-    layout = f"page={PSZ} chunk={CH}" if eng.paged else "contiguous"
+    layout = f"page={PSZ} chunk={ch}" if eng.paged else "contiguous"
     print(f"{name}: [{variant}] {arch} bf16 weights, {store}, speculative={k}, "
-          f"{kind} prompts, slots={SLOTS} seq_budget={SB} {layout} "
+          f"{kind} prompts, slots={SLOTS} seq_budget={sb} {layout} "
           f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
           f"wall_per_tick_ms={1e3 * wall / stats.ticks:.3f} "
@@ -2414,6 +2929,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}{prefix}"
+          f"{window}"
           f"launches={ {kn: v for kn, v in launches.items() if v} } "
           f"{'prefill_chunks' if eng.paged else 'prefills'}={calls['prefill']} "
           f"decode_ticks={calls['decode']} "
@@ -2451,6 +2967,7 @@ def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
+    _free_card(torch)
     _, engine, requests = _serve_setup(torch, name)
     tag = name if graphs else f"{name}, eager-serial"
     eng = engine(graphs, overlap)
@@ -2579,6 +3096,7 @@ def main() -> int:
         rows = timed("kernels", phase_kernels, torch, F)
         timed("parity", phase_parity, torch)
         timed("parity-qwen3", phase_parity_qwen3, torch)
+        timed("parity-gemma3", phase_parity_gemma3, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)

@@ -10,10 +10,10 @@ Port of the JAX package's ``core/attention.py``, same grouped-GQA layout:
 On CPU tensors these are plain PyTorch (the oracle the tests hold against
 JAX).  On CUDA tensors every function here launches a Hopper kernel
 through ``kernels.ops``, q's (G, R) heads flattened to G R heads, so q head
-g R + r reads kv head g, as the grouping here does.  The decode and verify
-kernels take no sliding window (ROADMAP Queue 1 item 5), and verify at
-most 16 query rows (R x Q) per kv head, which the kernel's plan enforces;
-anything else raises.
+g R + r reads kv head g, as the grouping here does.  Flash, paged decode
+and verify take the sliding window as the plain versions do; verify takes
+at most 16 query rows (R x Q) per kv head, which the kernel's plan
+enforces; anything else raises.
 
 Convention: these functions take the INCLUSIVE position ``cur_pos`` of the
 current token (query i of verify sits at ``cur_pos + i`` and sees
@@ -21,11 +21,15 @@ current token (query i of verify sits at ``cur_pos + i`` and sees
 tokens ``length = cur_pos + 1``.  The conversion happens here and nowhere
 else.
 
-The contiguous decode kernel masks by that prefix length, not by the
-lane's ``slot_pos``: the two agree while slot s holds position s for every
-s <= cur_pos, which holds when the lane's ring is as long as the sequence
-budget and the engine retires a slot before its position reaches it
-(``steps.make_decode_step`` refuses a shorter ring on the card).
+The contiguous decode kernel masks by a prefix length, not by the lane's
+``slot_pos``; the two agree for a ring of W slots (the budget, or a
+sliding window shorter than it) with length ``min(cur_pos + 1, W)``:
+before the ring wraps, slots [0, cur_pos] hold positions 0..cur_pos of
+this request; after it, the W slots hold exactly (cur_pos - W, cur_pos],
+all inside a window of W; and a ring of the budget never wraps, the
+engine retiring a slot before its position reaches it (so a window longer
+than the ring never bites).  Only the order of the softmax sum differs
+from JAX's.
 """
 from __future__ import annotations
 
@@ -83,16 +87,16 @@ def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, window=0,
                      scale=None, kv_scale=None):
     """q: (B, G, R, D); caches: (B, G, S_slots, D); slot_pos: (B, S_slots)
     absolute position held by each slot (-1 = empty); cur_pos: (B,).  On the
-    card the kernel reads slots [0, cur_pos] (module docstring), and takes
-    int8 caches as they are stored, with their fixed dequantization scale
-    ``kv_scale``; the plain path takes caches in q's dtype."""
+    card the kernel reads slots [0, min(cur_pos + 1, S_slots)) (module
+    docstring: a window's ring needs no more), and takes int8 caches as
+    they are stored, with their fixed dequantization scale ``kv_scale``;
+    the plain path takes caches in q's dtype."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        _card_layout("decode-attention", window)
+        length = torch.clamp(cur_pos + 1, max=k_cache.shape[2])
         out = ops.decode_attention(q.reshape(B, G * R, D).contiguous(),
-                                   k_cache, v_cache,
-                                   (cur_pos + 1).to(torch.int32), scale=scale,
-                                   kv_scale=kv_scale)
+                                   k_cache, v_cache, length.to(torch.int32),
+                                   scale=scale, kv_scale=kv_scale)
         return out.reshape(B, G, R, D)
     if kv_scale is not None:
         raise ValueError("decode_attention: the plain path takes caches "
@@ -138,28 +142,19 @@ def gather_kv(k_pool, v_pool, block_table, dtype, k_scale=None, v_scale=None):
     return gather_pages(k_pool, block_table), gather_pages(v_pool, block_table)
 
 
-def _card_layout(kernel, window):
-    """What the card's decode and verify kernels take: no sliding window.
-    (The R x Q query rows per kv head are the kernel plan's to check.)"""
-    if window > 0:
-        raise NotImplementedError(
-            f"the {kernel} kernel takes no sliding window (got window="
-            f"{window}); windows come with ROADMAP Queue 1 item 5")
-
-
 def paged_decode_attention(q, k_pool, v_pool, block_table, cur_pos, *,
                            window=0, scale=None, k_scale=None, v_scale=None):
     """Decode attention through a block table.  q: (B, G, R, D); pools:
     (n_pages, G, psz, D); block_table: (B, n_max); cur_pos: (B,) the
-    INCLUSIVE position of the current token.  ``k_scale``/``v_scale``
+    INCLUSIVE position of the current token, seeing ``kv_pos <= cur_pos``
+    (and ``> cur_pos - window`` with a window).  ``k_scale``/``v_scale``
     ((n_pages, psz) float32): int8 pools, dequantized on read."""
     B, G, R, D = q.shape
     if q.is_cuda:
-        _card_layout("paged-decode", window)
         out = ops.paged_decode_attention(
             q.reshape(B, G * R, D).contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, window=window)
         return out.reshape(B, G, R, D)
     L = block_table.shape[1] * k_pool.shape[2]
     kv_pos = torch.arange(L, dtype=torch.int32, device=q.device).expand(B, L)
@@ -177,11 +172,10 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, cur_pos, *,
     ``paged_decode_attention``; cur_pos: (B,) -> (B, G, R, Q, D)."""
     B, G, R, Q, D = q.shape
     if q.is_cuda:
-        _card_layout("paged-verify", window)
         out = ops.paged_verify_attention(
             q.reshape(B, G * R, Q, D).contiguous(), k_pool, v_pool, block_table,
             (cur_pos + 1).to(torch.int32), scale=scale, k_scale=k_scale,
-            v_scale=v_scale)
+            v_scale=v_scale, window=window)
         return out.reshape(B, G, R, Q, D)
     scale = scale if scale is not None else D ** -0.5
     L = block_table.shape[1] * k_pool.shape[2]

@@ -359,7 +359,10 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     ``delta`` (None before the first layer): each residual add is fused
     into the norm after it (``layers.add_rmsnorm``), so the layer opens
     with the norm of ``x + delta``, and the add of its last sublayer's
-    output is left pending for the next layer or the final norm.
+    output is left pending for the next layer or the final norm.  With
+    sandwich norms (gemma3) each sublayer's output goes through its
+    ``post_ln1``/``post_ln2`` (the plain norm kernel) before it becomes
+    the pending delta, as JAX normalizes it before the residual add.
     -> ((x, delta), cache updated in place); ``x + delta`` is the layer's
     output."""
     x, h = apply_norm(x, p["ln1"], cfg, delta)
@@ -379,7 +382,12 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
         raise NotImplementedError(
             f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "
             f"comes with hymba-1.5b, ROADMAP Queue 1 item 5)")
+    if cfg.sandwich_norm:
+        partial = rmsnorm(partial, p["post_ln1"]["scale"], cfg.norm_eps)
     if spec.ffn == FFN_NONE:
         return (x, partial), cache
     x, h = apply_norm(x, p["ln2"], cfg, partial)
-    return (x, dense_ffn(h, p["ffn"], cfg)), cache
+    out = dense_ffn(h, p["ffn"], cfg)
+    if cfg.sandwich_norm:
+        out = rmsnorm(out, p["post_ln2"]["scale"], cfg.norm_eps)
+    return (x, out), cache

@@ -51,8 +51,10 @@ def apply_norm(x, p, cfg, delta=None):
 
 
 def activation(x, kind: str):
-    if kind != "silu":
-        raise NotImplementedError(f"activation '{kind}' is not ported yet")
+    """``gelu``: the tanh approximation, JAX's ``jax.nn.gelu(x,
+    approximate=True)``; otherwise SiLU, as JAX's ``activation``."""
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
     return F.silu(x)
 
 
@@ -87,9 +89,22 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def embed(tokens, table):
-    """tokens: (B, S) int; table: (V, E) -> (B, S, E)."""
-    return F.embedding(tokens, table)
+def rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` and back: the Python number a tensor
+    of that dtype multiplies by exactly as by JAX's ``jnp.asarray(value,
+    dtype)`` (a host number: a captured step copies nothing to the card)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def embed(tokens, table, scale: float = 0.0):
+    """tokens: (B, S) int; table: (V, E) -> (B, S, E), times ``scale``
+    (when nonzero) rounded to the table's dtype first, as JAX's
+    ``emb * jnp.asarray(scale, emb.dtype)`` does (gemma3's sqrt(E): 61.97
+    is 62.0 in bf16)."""
+    emb = F.embedding(tokens, table)
+    if scale:
+        emb = emb * rounded(scale, table.dtype)
+    return emb
 
 
 def logits(x, head):

@@ -2,7 +2,8 @@
 cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
-decoders and pure-SSM (mamba2) decoders at tp=1.  The parameter tree has
+decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN)
+and pure-SSM (mamba2) decoders at tp=1.  The parameter tree has
 the JAX tree's paths, with the tp axis stripped (what the JAX package's
 ``blocks._lo`` returns) and the stacked ``reps`` axis kept:
 
@@ -15,7 +16,9 @@ with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
 - attention layers: ``attn`` ``{"wq": (reps, E, H, D), "wk"/"wv": (reps,
   E, n_kv_loc, D), "wo": (reps, H, D, E)}`` (with qk-norm also
   ``"q_norm"``/``"k_norm"``: (reps, D)), ``ln2`` and ``ffn``
-  ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F, E)}``, or
+  ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F, E)}`` (with
+  sandwich norms also ``post_ln1`` and ``post_ln2``, ``{"scale": (reps,
+  E)}``), or
 - SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
   H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
   "conv_B"/"conv_C": (reps, N, K), "A_log"/"D"/"dt_bias": (reps, H),
@@ -53,17 +56,20 @@ class ParamSpec:
 
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders (GQA, optional
-    qk-norm) with RMSNorm, a gated SiLU FFN and tied embeddings, and
-    pure-SSM (mamba2) decoders; the rest waits for its slice."""
+    qk-norm, sliding windows, sandwich norms, a scaled embedding) with
+    RMSNorm, a gated SiLU or gelu FFN and tied embeddings, and pure-SSM
+    (mamba2) decoders; the rest waits for its slice."""
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
-        ("sandwich_norm", cfg.sandwich_norm),
-        ("scale_embed", cfg.scale_embed), ("layernorm", cfg.norm != "rmsnorm"),
-        ("untied LM head", not cfg.tie_embeddings),
-        ("a plain (ungated) or non-silu FFN",
-         not cfg.gated_ffn or cfg.act != "silu"),
+        ("layernorm (ROADMAP Queue 1 item 9)", cfg.norm != "rmsnorm"),
+        ("an untied LM head (ROADMAP Queue 1 item 5)",
+         not cfg.tie_embeddings),
+        ("a plain (ungated) FFN (ROADMAP Queue 1 item 9)",
+         not cfg.gated_ffn),
+        ("an FFN activation other than silu or gelu",
+         cfg.act not in ("silu", "gelu")),
         ("encoder-decoder (ROADMAP Queue 1 item 9)", cfg.is_encdec),
-        ("frontend", cfg.frontend),
+        ("a frontend (ROADMAP Queue 1 items 5 and 9)", cfg.frontend),
         ("hybrid attention + SSM layers (hymba-1.5b, ROADMAP Queue 1 item "
          "5)", any(s.mixer == MIX_HYBRID for s in specs)),
         ("MoE layers (ROADMAP Queue 1 item 10)",
@@ -110,11 +116,15 @@ def layer_template(cfg, spec, n_layers_total):
             t["attn"]["k_norm"] = ParamSpec((d,), "zeros")
     elif spec.mixer == MIX_SSM:
         t["ssm"] = _ssm_template(cfg, out_scale)
+    if cfg.sandwich_norm:
+        t["post_ln1"] = {"scale": ParamSpec((E,), "zeros")}
     if spec.ffn == FFN_DENSE:
         t["ln2"] = {"scale": ParamSpec((E,), "zeros")}
         t["ffn"] = {"w_up": ParamSpec((E, spec.d_ff)),
                     "w_down": ParamSpec((spec.d_ff, E), scale=out_scale),
                     "w_gate": ParamSpec((E, spec.d_ff))}
+        if cfg.sandwich_norm:
+            t["post_ln2"] = {"scale": ParamSpec((E,), "zeros")}
     return t
 
 
@@ -172,11 +182,15 @@ def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
     """Scaled-normal init with the JAX package's scheme (``model.py``:
     ``scale * normal`` per leaf, zeros for norm scales, wo/w_down/out scaled
     by ``0.02 / sqrt(2 * n_layers)``, the SSD heads' ``A_log``/``D``/
-    ``dt_bias`` deterministic), one draw per random leaf and repetition
-    from ``generator`` (a CPU ``torch.Generator``; seed 0 when None).  The
-    draws are made on the CPU, so one seed gives the same weights on every
-    device.  The numbers differ from JAX's (another generator): tests that
-    compare with JAX load JAX's weights through ``bridge.params_from_jax``."""
+    ``dt_bias`` deterministic), one float32 draw per random leaf and
+    repetition from ``generator`` (seed 0 on the CPU when None), each
+    written into its leaf in the weight dtype as it is drawn.  A CPU
+    generator draws on the CPU, so one seed gives the same weights on
+    every device; a CUDA generator (``torch.Generator(device="cuda")``)
+    draws on the card, the same scheme with other numbers, which is what
+    full-width models need (gemma3-12b's 11.8 B draws).  The numbers differ
+    from JAX's (another generator): tests that compare with JAX load JAX's
+    weights through ``bridge.params_from_jax``."""
     dev = resolve_device(device)
     dt = torch_dtype(dtype or plan.weight_dtype or cfg.dtype)
     if not dt.is_floating_point:
@@ -185,23 +199,33 @@ def init_params(cfg, plan: ShardingPlan, generator=None, device="cuda",
             f"ported yet: the port stores float weights")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    kv_map = torch.tensor(model_layout(cfg, plan).attn.kv_map)
+    gdev = generator.device
+    kv_map = torch.tensor(model_layout(cfg, plan).attn.kv_map, device=gdev)
 
     def one(spec):
         if spec.init == "zeros":
-            full = torch.zeros(spec.full)
+            full = torch.zeros(spec.full, device=gdev)
         elif spec.init == "normal":
-            full = spec.scale * torch.randn(spec.full, generator=generator)
+            full = spec.scale * torch.randn(spec.full, generator=generator,
+                                            device=gdev)
         else:
             full = _deterministic_init(spec)
         if spec.kv_heads:
-            full = full.index_select(1, kv_map)
+            full = full.index_select(1, kv_map.to(full.device))
         return full
 
     def mk(spec, reps):
-        t = torch.stack([one(spec) for _ in range(reps)]) if reps else one(spec)
         keep_f32 = spec.init in ("a_log", "dt_bias")
-        return t.to(device=dev, dtype=torch.float32 if keep_f32 else dt)
+        out_dt = torch.float32 if keep_f32 else dt
+        if not reps:
+            return one(spec).to(device=dev, dtype=out_dt)
+        first = one(spec)
+        t = torch.empty((reps,) + tuple(first.shape), dtype=out_dt,
+                        device=dev)
+        t[0] = first
+        for r in range(1, reps):
+            t[r] = one(spec)
+        return t
 
     return map_template(cfg, mk)
 
@@ -270,8 +294,11 @@ def final_norm(params, x, delta, cfg):
     return apply_norm(x, params["final_norm"], cfg, delta)[1]
 
 
-def embed_tokens(params, tokens):
-    return embed(tokens, params["embed"]["table"])
+def embed_tokens(params, tokens, cfg):
+    """The token embeddings, times sqrt(d_model) rounded to the table's
+    dtype when the config scales them (gemma3), as JAX's ``embed_tokens``."""
+    return embed(tokens, params["embed"]["table"],
+                 math.sqrt(cfg.d_model) if cfg.scale_embed else 0.0)
 
 
 def final_logits(params, x):
@@ -288,7 +315,7 @@ def forward_prefill(params, tokens, cache, cfg, plan, lay):
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device,
                              dtype=torch.int32).expand(B, S)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "prefill", positions,
                                    cache=cache)
@@ -300,7 +327,7 @@ def forward_decode(params, cache, tokens, pos, cfg, plan, lay, pages=None):
     """One decode step over contiguous lanes (``pages`` None) or the page
     pools.  tokens: (B, 1); pos: (B,) -> (logits (B, V), cache)."""
     positions = pos[:, None]
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "decode", positions,
                                    pos=pos, cache=cache, pages=pages)
@@ -323,7 +350,7 @@ def forward_verify(params, cache, tokens, pos, qlen, cfg, plan, lay, pages):
     positions = torch.where(cols[None, :] < qlen[:, None],
                             pos[:, None] + cols[None, :],
                             torch.full_like(cols, -1)[None, :])
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "verify", positions,
                                    pos=pos, cache=cache, pages=pages)
@@ -348,7 +375,7 @@ def forward_prefill_chunk(params, cache, tokens, chunk_start, last_idx, cfg,
     positions = chunk_start.reshape(1, 1) + torch.arange(
         C, device=tokens.device, dtype=torch.int32).expand(B, C)
     pages = {**pages, "chunk_start": chunk_start, "last_idx": last_idx}
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "prefill", positions,
                                    cache=cache, pages=pages)

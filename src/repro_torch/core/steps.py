@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.core import model
 from repro_torch.core.kvcache import (cache_profile, cache_template,
-                                      kv_window, paged_cache_template,
-                                      zero_cache, zero_paged_cache)
+                                      paged_cache_template, zero_cache,
+                                      zero_paged_cache)
 from repro_torch.core.partition import model_layout
 
 
@@ -52,23 +52,14 @@ def make_decode_step(cfg, plan, batch: int, budget: int):
     V), cache updated in place), over the contiguous lanes of
     ``zero_cache_for(cfg, plan, batch, budget)``.  ``pos`` is the inclusive
     position of each row's token; idle rows run with token 0 and pos 0.
-    On the card the decode kernel reads each lane's slots [0, pos] (see
-    ``core.attention``), so a layer whose ring is shorter than the budget
-    (a sliding window) is refused there."""
+    On the card the decode kernel reads each lane's first ``min(pos + 1,
+    W)`` slots of its ring of W (the budget, or a sliding window shorter
+    than it: ``core.attention``)."""
     lay = model_layout(cfg, plan)
-    n_short = sum(1 for g in cfg.layer_groups() for spec in g.pattern
-                  if "kv" in spec.cache_kinds()
-                  and kv_window(cfg, spec, budget) < budget)
 
     def decode_fn(params, cache, tokens, pos):
         _expect("tokens", tokens, (batch, 1))
         _expect("pos", pos, (batch,))
-        if n_short and tokens.is_cuda:
-            raise NotImplementedError(
-                f"arch '{cfg.name}': {n_short} layer patterns keep KV rings "
-                f"shorter than the budget {budget}, and the decode-attention "
-                f"kernel masks by prefix length; windows come with ROADMAP "
-                f"Queue 1 item 5")
         return model.forward_decode(params, cache, tokens, pos, cfg, plan,
                                     lay)
 

@@ -52,13 +52,20 @@
 //    workspace, no atomics: bitwise repeatable.  A rank with no valid key
 //    for a row left m = NEG and l = 0 there; it gets weight 0 without
 //    forming exp(NEG - NEG), and a row no rank saw gives 0.
+//  - head_dim 256 (gemma3): a warp's 16 output rows are 128 float registers
+//    a thread, so its Q fragments (64 more) are staged in shared memory
+//    (each warp its own 16 rows, odd chunk stride) and read by ldmatrix at
+//    every k step, and the key tiles are 32 keys (kv_tile): the ring of two
+//    64-key stages alone would be 135 KB, and with Q and a split's inbox
+//    past the 227 KB a block may hold.  D <= 128 keeps 64-key tiles and Q
+//    in registers, the instantiations' code unchanged.
 //  kernels/flash_attention.py::plan picks wq and split from the shapes and
 //  the C entry refuses a plan whose shared memory differs from smem_bytes.
 //
 // float32 keeps a CUDA-core kernel (its 1e-4 tolerance excludes bf16 and
 // TF32 products): one block per (q head h, 16-query tile) over kv head
-// h / R, four warps of four rows, each 64-key tile (32 for D = 128) of K and
-// V staged as float.
+// h / R, four warps of four rows, each 64-key tile (32 for D >= 128) of K and
+// V staged as float (in dynamic shared memory at D = 256: 81 KB).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -83,6 +90,7 @@ using repro::warp_sum;
 
 // ------------------------------------------------- bfloat16: tensor cores
 constexpr int KV_TILE = 64;   // keys per tile
+constexpr int KV_TILE_WIDE = 32;  // keys per tile at head_dim > 128
 constexpr int WQ_MAX = 4;     // warps per block, 16 query rows each
 constexpr int KV_STAGES = 2;  // ring depth of K/V tiles
 
@@ -93,10 +101,16 @@ constexpr int KV_STAGES = 2;  // ring depth of K/V tiles
 // the `split` ranks, the owner's rows_per rows of D floats and their m and
 // l, then the owner's weights (split per row) and 1 / L (one per row).
 __host__ __device__ constexpr int kv_stride(int d) { return d / 8 + 1; }
+__host__ __device__ constexpr int kv_tile(int d) { return d > 128 ? KV_TILE_WIDE : KV_TILE; }
 __host__ __device__ constexpr int rows_per(int wq, int split) {
   return (16 * wq + split - 1) / split;
 }
-__host__ __device__ constexpr int ring_bytes(int d) { return KV_STAGES * 2 * KV_TILE * kv_stride(d) * 16; }
+__host__ __device__ constexpr int ring_bytes(int d) { return KV_STAGES * 2 * kv_tile(d) * kv_stride(d) * 16; }
+// head_dim > 128: each warp's 16 query rows staged in bf16, between the
+// ring and the inbox
+__host__ __device__ constexpr int q_stage_bytes(int d, int wq) {
+  return d > 128 ? wq * 16 * kv_stride(d) * 16 : 0;
+}
 __host__ __device__ constexpr int heads_per_block(int r) {  // the largest divisor of R <= WQ_MAX
   int rb = 1;
   for (int d = 2; d <= WQ_MAX; ++d)
@@ -107,7 +121,7 @@ __host__ __device__ constexpr int row_warps(int sq, int rb) {
   return (sq + 15) / 16 < WQ_MAX / rb ? (sq + 15) / 16 : WQ_MAX / rb;
 }
 __host__ __device__ constexpr int smem_bytes(int d, int wq, int split) {
-  return ring_bytes(d) +
+  return ring_bytes(d) + q_stage_bytes(d, wq) +
          (split > 1 ? 4 * (split * rows_per(wq, split) * (d + 2) + (split + 1) * rows_per(wq, split))
                     : 0);
 }
@@ -124,20 +138,23 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                  const bf16* __restrict__ V, bf16* __restrict__ O, int Sq, int Skv,
                  const int* __restrict__ q_off, int causal, int window, float scale_log2,
                  int R, int rb, int wr, int split, int row_tiles) {
+  constexpr int KT = kv_tile(D);        // keys per tile
   constexpr int KS = kv_stride(D);      // chunks per stored K/V row
   constexpr int DK = D / 16;            // k steps of Q K^T
-  constexpr int NS = KV_TILE / 8;       // score tiles (8 keys) per key tile
+  constexpr int NS = KT / 8;            // score tiles (8 keys) per key tile
   constexpr int NO = D / 8;             // output tiles (8 columns)
-  constexpr int TILE = KV_TILE * KS * 8;  // bf16 elements of one stored tile
+  constexpr int TILE = KT * KS * 8;     // bf16 elements of one stored tile
+  constexpr bool QSMEM = D > 128;       // Q fragments from shared memory
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stage][K, V][KV_TILE][KS * 8]
-  float* inbox = reinterpret_cast<float*>(smem + ring_bytes(D));
+  bf16* ring = reinterpret_cast<bf16*>(smem);   // [stage][K, V][KT][KS * 8]
 
   const int rank = blockIdx.x;          // grid x == split: the cluster rank
   const int rt = blockIdx.y % row_tiles, h0 = blockIdx.y / row_tiles * rb;
   const int hk = GROUPED ? h0 / R : h0; // the block's kv head
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wq = rb * wr, nthreads = wq * 32;
+  bf16* qstage = reinterpret_cast<bf16*>(smem + ring_bytes(D));   // QSMEM: [warp][16][KS * 8]
+  float* inbox = reinterpret_cast<float*>(smem + ring_bytes(D) + q_stage_bytes(D, wq));
   const int g = lane >> 2, t4 = lane & 3;
   const int h = GROUPED ? h0 + warp / wr : h0;  // the warp's q head
   const int q0 = rt * 16 * wr;          // the block's first query row (of every head)
@@ -152,18 +169,18 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
   // tile does not depend on it, so that tile is requested while the
   // offset's load is still in flight
   const int q_offset = __ldg(q_off);
-  const int n_tiles = (Skv + KV_TILE - 1) / KV_TILE;
+  const int n_tiles = (Skv + KT - 1) / KT;
   int t_begin = 0;
   if (window > 0) {
     const int first = q_offset + q0 - window + 1;  // the first key row q0 can see
-    t_begin = first <= 0 ? 0 : min(n_tiles, first / KV_TILE);
+    t_begin = first <= 0 ? 0 : min(n_tiles, first / KT);
   }
   const int t_first = t_begin + ((rank - t_begin % split) % split + split) % split;
 
   auto issue = [&](int i) {             // the rank's i-th tile into stage i % 2
     bf16* ks = ring + (i % KV_STAGES) * 2 * TILE;
-    const int key0 = (t_first + i * split) * KV_TILE;
-    for (int c = tid; c < KV_TILE * (D / 8); c += nthreads) {
+    const int key0 = (t_first + i * split) * KT;
+    for (int c = tid; c < KT * (D / 8); c += nthreads) {
       const int r = c / (D / 8), cc = c % (D / 8);
       const bool in = key0 + r < Skv;
       const size_t off = in ? (size_t)(key0 + r) * D + cc * 8 : 0;
@@ -177,20 +194,32 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 
   const int pos_hi = q_offset + min(q0 + 16 * wr, Sq) - 1;
   int t_end = n_tiles;
-  if (causal) t_end = pos_hi < 0 ? 0 : min(n_tiles, pos_hi / KV_TILE + 1);
+  if (causal) t_end = pos_hi < 0 ? 0 : min(n_tiles, pos_hi / KT + 1);
   const int my_n = t_first < t_end ? (t_end - 1 - t_first) / split + 1 : 0;
   if (!early && my_n > 0) issue(0);
   if (early && my_n == 0) cp_async_wait<0>();   // a tile the rank does not use
 
-  // Q fragments of the warp's 16 rows (zeros past Sq), loaded once
-  unsigned qf[DK][4];
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
-      qf[kk][i] = row < Sq ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+  // Q fragments of the warp's 16 rows (zeros past Sq), loaded once (head
+  // dim > 128: staged in the warp's own rows of shared memory instead)
+  unsigned qf[QSMEM ? 1 : DK][4];
+  bf16* qs = qstage + warp * 16 * KS * 8;
+  if constexpr (QSMEM) {
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int row = c / (D / 8), cc = c % (D / 8);
+      *reinterpret_cast<uint4*>(qs + (row * KS + cc) * 8) =
+          r0 + row < Sq ? *reinterpret_cast<const uint4*>(q + (size_t)(r0 + row) * D + cc * 8)
+                        : make_uint4(0u, 0u, 0u, 0u);
     }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
+        qf[kk][i] = row < Sq ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+      }
+  }
 
   // per lane: rows g and g + 8 of the warp's 16 (index r), log2-domain max
   // m, partial row sum l over the lane's columns (summed over the quad at
@@ -214,7 +243,7 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     __syncthreads();
     const bf16* ks = ring + (i % KV_STAGES) * 2 * TILE;
     const bf16* vs = ks + TILE;
-    const int key0 = (t_first + i * split) * KV_TILE;
+    const int key0 = (t_first + i * split) * KT;
 
     float s[NS][4];
 #pragma unroll
@@ -222,14 +251,22 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
+    for (int kk = 0; kk < DK; ++kk) {
+      unsigned qa[4];                   // QSMEM: A fragment, rows (mat & 1) 8 + mrow, k half mat >> 1
+      if constexpr (QSMEM) ldsm_x4(qa, qs + (((mat & 1) * 8 + mrow) * KS + kk * 2 + (mat >> 1)) * 8);
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {   // 16 keys: two score tiles
         unsigned b[4];
         ldsm_x4(b, ks + ((np * 16 + (mat >> 1) * 8 + mrow) * KS + kk * 2 + (mat & 1)) * 8);
-        mma_bf16(s[2 * np], qf[kk], b);
-        mma_bf16(s[2 * np + 1], qf[kk], b + 2);
+        if constexpr (QSMEM) {
+          mma_bf16(s[2 * np], qa, b);
+          mma_bf16(s[2 * np + 1], qa, b + 2);
+        } else {
+          mma_bf16(s[2 * np], qf[kk], b);
+          mma_bf16(s[2 * np + 1], qf[kk], b + 2);
+        }
       }
+    }
 
     // mask, running max, correction
     float mx[2] = {m[0], m[1]};
@@ -270,7 +307,7 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
       }
     // O += bf16(P) V, 16 keys per step
 #pragma unroll
-    for (int kk = 0; kk < KV_TILE / 16; ++kk) {
+    for (int kk = 0; kk < KT / 16; ++kk) {
       unsigned a[4];
       a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
       a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
@@ -429,9 +466,14 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   constexpr int BKV = D <= 64 ? 64 : 32;  // keys per tile
   constexpr int KPL = BKV / 32;           // keys per lane
   constexpr int DPL = D / 32;             // output columns per lane
-  __shared__ float Qs[BQ][D];
-  __shared__ float Ks[BKV][D + 1];        // +1: lanes read different rows
-  __shared__ float Vs[BKV][D];
+  constexpr bool DYN = D > 128;           // tiles past static shared memory's 48 KB
+  // Qs [BQ][D], Ks [BKV][D + 1] (+1: lanes read different rows), Vs [BKV][D]
+  __shared__ float st_smem[DYN ? 1 : BQ * D + BKV * (D + 1) + BKV * D];
+  extern __shared__ float dyn_smem[];
+  float* base = DYN ? dyn_smem : st_smem;
+  auto Qs = reinterpret_cast<float (*)[D]>(base);
+  auto Ks = reinterpret_cast<float (*)[D + 1]>(base + BQ * D);
+  auto Vs = reinterpret_cast<float (*)[D]>(base + BQ * D + BKV * (D + 1));
 
   const int h = blockIdx.y;             // q head h reads kv head h / R
   const int q0 = blockIdx.x * BQ;
@@ -542,7 +584,14 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int
                 int Skv, const int* q_offset, int causal, int window, float scale,
                 cudaStream_t stream) {
   dim3 grid((Sq + BQ - 1) / BQ, H);
-  flash_simt_kernel<D><<<grid, NW * 32, 0, stream>>>(
+  constexpr int BKV = D <= 64 ? 64 : 32;
+  const int dyn = D > 128 ? (BQ * D + BKV * (2 * D + 1)) * 4 : 0;
+  if (dyn > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_simt_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+  }
+  flash_simt_kernel<D><<<grid, NW * 32, dyn, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Skv, q_offset, causal,
       window, scale, R);
   return (int)cudaGetLastError();
@@ -554,7 +603,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int
 // over H / R kv heads (R >= 1, H % R == 0).  dtype: 0 = float32 (CUDA
 // cores: wq 4, split 1, smem 0), 1 = bfloat16 (tensor cores: wq = rb
 // row_warps(Sq, rb) warps of 16 rows, rb = heads_per_block(R), split 1, 2,
-// 4 or 8, smem as smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128}.  All
+// 4 or 8, smem as smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128,
+// 256}.  All
 // tensors contiguous row-major; q_offset points at one int32 on the device.
 // Returns a CUDA error code: a plan that does not fit the shape is
 // cudaErrorInvalidValue, never a launch.
@@ -563,8 +613,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int causal, int window, float scale, int dtype,
                                      int wq, int split, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128) || q_offset == nullptr ||
-      R < 1 || H % R)
+  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128 && D != 256) ||
+      q_offset == nullptr || R < 1 || H % R)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (wq != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
@@ -573,8 +623,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
         return launch_simt<32>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
       case 64:
         return launch_simt<64>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
-      default:
+      case 128:
         return launch_simt<128>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
+      default:
+        return launch_simt<256>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
     }
   }
   const int rb = heads_per_block(R), wr = row_warps(Sq, rb);
@@ -589,8 +641,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
     case 64:
       return launch_mma<64>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
                             smem, s);
-    default:
+    case 128:
       return launch_mma<128>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
+                             smem, s);
+    default:
+      return launch_mma<256>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
                              smem, s);
   }
 }

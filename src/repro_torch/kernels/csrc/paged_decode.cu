@@ -3,7 +3,8 @@
 // (nq <= 8 queries per slot), each over float pools (in q's dtype) or int8
 // pools with one float32 scale per token row.  The same kernel serves
 // decode over a contiguous cache (two more variants, float lanes and
-// fixed-scale int8 lanes; see "Contiguous lanes" below).
+// fixed-scale int8 lanes; see "Contiguous lanes" below).  Head dims 32, 64,
+// 128 and 256.
 //
 //   q (B, H, nq, D) (decode: nq = 1, q (B, H, D)); k/v pools (n_pages,
 //   H / R, psz, D); int8 scales k_scale/v_scale (n_pages, psz) float32;
@@ -13,9 +14,11 @@
 // GQA: R query heads share one kv head, q head h reading kv head h / R (the
 // JAX model path's grouping, repro.core.attention's (G, R) layout).
 // Query i sits at position length - 1 + i and sees keys kpos < length + i
-// (the drafts' own KV is already in the pool); pages past n_max are never
-// read (keys are clamped to n_max * psz).  Online softmax in float32; a
-// query with no valid key gives 0.
+// (the drafts' own KV is already in the pool); with a sliding window
+// (window > 0) only keys kpos > length - 1 + i - window (JAX's rule,
+// repro.core.attention); pages past n_max are never read (keys are clamped
+// to n_max * psz).  Online softmax in float32; a query with no valid key
+// gives 0.
 //
 // Replaces: src/repro/kernels/decode_attention.py::paged_decode_attention
 //   (_paged_decode_kernel, _paged_decode_kernel_i8; pallas_call at :237)
@@ -32,11 +35,16 @@
 // what each choice does about that:
 //  - Enough blocks: a (kv head, slot) pair is one thread-block cluster of
 //    `split` <= 8 blocks of `nw` <= 4 warps.  The keys are cut into 16-key
-//    tiles; tile t goes to rank t % split and, of that rank's tiles, to warp
-//    (t / split) % nw (t_first, my_n below: the one dealing formula).  Each
+//    tiles; tile t_lo + j goes to rank j % split and, of that rank's tiles,
+//    to warp (j / split) % nw (t_first, my_n below: the one dealing
+//    formula), t_lo being 0, or with a window the tile that holds query 0's
+//    first key, length - window: the tiles below it are never read.  Each
 //    warp computes its own tiles from length on the card, so the launch
-//    depends only on the shapes (kernels/decode_attention.py::plan), never
-//    on length: a CUDA graph of a step captures one launch for every tick.
+//    depends only on the shapes and the window
+//    (kernels/decode_attention.py::plan sizes the split from the window's
+//    span), never on length: a CUDA graph of a step captures one launch for
+//    every tick.  A rank or warp left with no tile still meets the cluster
+//    barrier and pushes empty rows (m = NEG, l = 0).
 //  - Memory-level parallelism: each warp streams its tiles through its own
 //    two-stage ring in shared memory by 16-byte cp.async (the next tile in
 //    flight while this one is scored; every warp of every rank loads at
@@ -50,7 +58,9 @@
 //    one ldmatrix phase reads fall in 8 distinct bank groups.
 //  - Tensor cores, FA2-style: the m16 of mma.sync m16n8k16 holds the query
 //    rows of the kv head's R q heads, row r nq + i for q head r and query i
-//    (R nq <= 16; the rest are zero and see no key), so each K/V tile is
+//    (R nq <= 16; the rest are zero and see no key), each row with its own
+//    bounds [lo, see) (lo only with a window: the WINDOW instantiations;
+//    without one the kernel is the window-free code), so each K/V tile is
 //    read from the pool once for all R heads.  S = Q K^T
 //    takes K through ldmatrix; the online softmax runs on the accumulator
 //    fragments in the log2 domain; P stays in registers as the A fragment
@@ -63,6 +73,11 @@
 //    float32, and v_scale is folded into P before P V.  The one rounding
 //    the Pallas i8 kernels do not make is that of P * v_scale to bf16 for
 //    the product (tests/test_torch_kernels.py emulates it).
+//  - head_dim 256 (gemma3): the output rows alone are 128 float registers a
+//    thread, so the Q fragments (64 more) are not kept in registers there:
+//    the block stages its 16 query rows once in shared memory (odd chunk
+//    stride) and each warp reads them by ldmatrix at every k step.  At D <=
+//    128 Q stays in registers, the instantiations' code unchanged.
 //  - The warps' (m, l, O) rows meet in the owner rank's inbox through
 //    distributed shared memory in the same launch (local shared memory when
 //    split is 1): each warp pushes its rows to the rank that owns them, and
@@ -83,7 +98,10 @@
 //   times one float `dq` are the keys and values (the engine's fixed-scale
 //   lanes, dq = 1/16); length (B,) int32 -> o (B, H, D) in q's dtype; key j of row
 //   b is valid when j < length[b] (clamped to S), and no key at or past it
-//   is read.
+//   is read.  A sliding window's ring (S = the window W) needs no window
+//   here: after the write of position p the ring holds exactly positions
+//   (p - W, p], and before it wraps slots [0, p] hold positions 0..p, so
+//   the caller passes length min(p + 1, W) (repro_torch/core/attention.py).
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention
 //   (_decode_kernel; pallas_call at :72).
 // Bound on this card: each (row, head) reads its valid keys and values
@@ -159,8 +177,11 @@ __host__ __device__ constexpr int rows_per(int rows, int split) {
 __host__ __device__ constexpr int ring_bytes(int d, bool quant, int nw) {
   return nw * KV_STAGES * stage_bytes(d, quant);
 }
+// head_dim 256: the block's 16 query rows staged in bf16 at an odd stride
+// of 16-byte chunks, between the ring and the inbox (none at d <= 128)
+__host__ __device__ constexpr int q_stage_bytes(int d) { return d > 128 ? 16 * (d / 8 + 1) * 16 : 0; }
 __host__ __device__ constexpr int smem_bytes(int d, bool quant, int rows, int nw, int split) {
-  return ring_bytes(d, quant, nw) +
+  return ring_bytes(d, quant, nw) + q_stage_bytes(d) +
          4 * (nw * split * rows_per(rows, split) * (d + 2) +
               (nw * split + 1) * rows_per(rows, split));
 }
@@ -175,14 +196,18 @@ __device__ __forceinline__ unsigned pack_i8(const int8_t* p, int step) {
 // element type, bf16 or int8 (then KS/VS hold the rows' scales).  CONTIG:
 // contiguous lanes, a pool of B pages of psz = S rows, row b's page being
 // b (n_max 1; BT, KS and VS unused; int8 lanes dequantised by dq).
-template <int D, typename PT, bool CONTIG>
+// WINDOW: a sliding window of `window` > 0 keys (paged only).
+template <int D, typename PT, bool CONTIG, bool WINDOW>
 __global__ void __launch_bounds__(NW_MAX * 32)
 paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
                  const PT* __restrict__ VP, const float* __restrict__ KS,
                  const float* __restrict__ VS, const int* __restrict__ BT,
                  const int* __restrict__ LEN, bf16* __restrict__ O, int H, int R, int nq,
-                 int psz, int n_max, float scale_log2, float dq, int nw, int split) {
+                 int psz, int n_max, int window, float scale_log2, float dq, int nw,
+                 int split) {
+  static_assert(!(CONTIG && WINDOW), "a contiguous ring needs no window");
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
+  constexpr bool QSMEM = D > 128;               // Q from shared memory (head_dim 256)
   constexpr int EPC = 16 / sizeof(PT);          // pool elements per 16-byte chunk
   constexpr int CPR = D / EPC;                  // chunks per pool row
   constexpr int RS = row_chunks(D, QUANT);      // chunks per stored row (odd)
@@ -191,6 +216,7 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   constexpr int STAGE = stage_bytes(D, QUANT);
   constexpr int DK = D / 16;                    // k steps of Q K^T
   constexpr int NO = D / 8;                     // output tiles (8 columns)
+  constexpr int QRB = (D / 8 + 1) * 16;         // bytes per staged Q row (odd chunk stride)
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int rank = blockIdx.x;                  // grid x == split: the cluster rank
@@ -199,13 +225,17 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   const int g = lane >> 2, t4 = lane & 3;
   const int nr = R * nq;                        // query rows: q head r, query i at r nq + i
   unsigned char* ring = smem + warp * KV_STAGES * STAGE;
-  float* inbox = reinterpret_cast<float*>(smem + ring_bytes(D, QUANT, nw));
+  unsigned char* qstage = smem + ring_bytes(D, QUANT, nw);   // QSMEM only
+  float* inbox = reinterpret_cast<float*>(qstage + q_stage_bytes(D));
   if (split > 1) cluster_arrive();              // this block has started
 
   const int length = LEN[b];
   const int n_kv = min(length + nq - 1, n_max * psz);   // keys the deepest query sees
   const int n_tiles = (max(n_kv, 0) + KT - 1) / KT;
-  const int t_first = rank + split * warp;
+  // query 0's first key (the lowest of the rows' window starts) and its tile
+  const int k_lo = WINDOW ? max(0, length - window) : 0;
+  const int t_lo = k_lo / KT;
+  const int t_first = t_lo + rank + split * warp;
   const int my_n = t_first < n_tiles ? (n_tiles - 1 - t_first) / (split * nw) + 1 : 0;
   const int* bt = CONTIG ? nullptr : BT + (size_t)b * n_max;
   // the pool row holding key kpos (< n_kv): row b's own lane, or its page
@@ -238,16 +268,27 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   if (my_n > 0) issue(0);
 
   // Q fragments of the kv head's query rows (zeros past nr), loaded once:
-  // its R q heads' rows are contiguous in q (B, H R, nq, D)
+  // its R q heads' rows are contiguous in q (B, H R, nq, D).  Head dim 256:
+  // the rows are staged once in shared memory instead (read by ldmatrix)
   const bf16* q = Q + ((size_t)b * H + h) * nr * D;
-  unsigned qf[DK][4];
-#pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
-      qf[kk][i] = row < nr ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+  unsigned qf[QSMEM ? 1 : DK][4];
+  if constexpr (QSMEM) {
+    for (int c = tid; c < 16 * (D / 8); c += nw * 32) {
+      const int row = c / (D / 8), cc = c % (D / 8);
+      *reinterpret_cast<uint4*>(qstage + row * QRB + cc * 16) =
+          row < nr ? *reinterpret_cast<const uint4*>(q + (size_t)row * D + cc * 8)
+                   : make_uint4(0u, 0u, 0u, 0u);
     }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
+        qf[kk][i] = row < nr ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+      }
+  }
 
   // per lane: rows g and g + 8 (index r), each seeing keys kpos < see[r]
   // (row e is query e % nq; none past nr), log2-domain max m, partial row
@@ -256,13 +297,16 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   // e % nq without a division (e < R nq: at most R - 1 steps; none at R =
   // 1, where a runtime % per row cost ~0.07 us of a 6.7 us verify on an
   // H100, scripts/torch_kernel_ab.py)
-  int see[2];
+  // With a window, row e also sees only keys kpos >= lo[r] = length + i -
+  // window (JAX's kpos > pos_i - window, pos_i = length - 1 + i).
+  int see[2], lo[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int e = g + 8 * r;
     int i = e;
     for (int k = 1; k < R && i >= nq; ++k) i -= nq;
     see[r] = e < nr ? min(length + i, n_max * psz) : 0;
+    lo[r] = WINDOW ? length + i - window : 0;
   }
   float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
   float o[NO][4];
@@ -303,8 +347,15 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
       } else {
         ldsm_x4(bk, ks + ((mat >> 1) * 8 + mrow) * RB + (kk * 2 + (mat & 1)) * 16);
       }
-      mma_bf16(s[0], qf[kk], bk);
-      mma_bf16(s[1], qf[kk], bk + 2);
+      if constexpr (QSMEM) {                    // A fragment: rows (mat & 1) 8 + mrow, k half mat >> 1
+        unsigned qa[4];
+        ldsm_x4(qa, qstage + ((mat & 1) * 8 + mrow) * QRB + (kk * 2 + (mat >> 1)) * 16);
+        mma_bf16(s[0], qa, bk);
+        mma_bf16(s[1], qa, bk + 2);
+      } else {
+        mma_bf16(s[0], qf[kk], bk);
+        mma_bf16(s[1], qf[kk], bk + 2);
+      }
     }
 
     // scale (int8: each key's k_scale, or the lanes' dq), mask, running
@@ -316,7 +367,8 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
       for (int e = 0; e < 4; ++e) {
         const int key = nt * 8 + 2 * t4 + (e & 1);
         const float x = QUANT ? s[nt][e] * (CONTIG ? dq : kscale[key]) : s[nt][e];
-        s[nt][e] = key0 + key < see[e >> 1] ? x * scale_log2 : NEG;
+        const bool ok = key0 + key < see[e >> 1] && (!WINDOW || key0 + key >= lo[e >> 1]);
+        s[nt][e] = ok ? x * scale_log2 : NEG;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
       }
     float corr[2];
@@ -429,12 +481,12 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   }
 }
 
-template <int D, typename PT, bool CONTIG>
+template <int D, typename PT, bool CONTIG, bool WINDOW>
 int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                const void* bt, const void* len, void* o, int B, int H, int R, int nq,
-               int psz, int n_max, float scale, float dq, int nw, int split, int smem,
-               cudaStream_t stream) {
-  auto kernel = paged_mma_kernel<D, PT, CONTIG>;
+               int psz, int n_max, int window, float scale, float dq, int nw, int split,
+               int smem, cudaStream_t stream) {
+  auto kernel = paged_mma_kernel<D, PT, CONTIG, WINDOW>;
   static int granted = 48 * 1024;               // dynamic shared memory allowed so far
   if (smem > granted) {
     const cudaError_t e =
@@ -457,29 +509,43 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, co
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaLaunchKernelEx(&cfg, kernel, (const bf16*)q, (const PT*)kp, (const PT*)vp,
                      (const float*)ks, (const float*)vs, (const int*)bt, (const int*)len,
-                     (bf16*)o, H / R, R, nq, psz, n_max, scale_log2, dq, nw, split);
+                     (bf16*)o, H / R, R, nq, psz, n_max, window, scale_log2, dq, nw, split);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel at head dim D in {32, 64, 128}; H q heads, R of
-// them per kv head.
+// The tensor-core kernel at head dim D in {32, 64, 128, 256}; H q heads, R
+// of them per kv head; WINDOW: window > 0.
+template <typename PT, bool CONTIG, bool WINDOW>
+int launch_mma_dw(int D, const void* q, const void* kp, const void* vp, const void* ks,
+                  const void* vs, const void* bt, const void* len, void* o, int B, int H,
+                  int R, int nq, int psz, int n_max, int window, float scale, float dq, int nw,
+                  int split, int smem, cudaStream_t stream) {
+#define REPRO_PAGED_MMA(DIM)                                                              \
+  launch_mma<DIM, PT, CONTIG, WINDOW>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max, \
+                                      window, scale, dq, nw, split, smem, stream)
+  switch (D) {
+    case 32: return REPRO_PAGED_MMA(32);
+    case 64: return REPRO_PAGED_MMA(64);
+    case 128: return REPRO_PAGED_MMA(128);
+    default: return REPRO_PAGED_MMA(256);
+  }
+#undef REPRO_PAGED_MMA
+}
+
 template <typename PT, bool CONTIG>
 int launch_mma_d(int D, const void* q, const void* kp, const void* vp, const void* ks,
                  const void* vs, const void* bt, const void* len, void* o, int B, int H,
-                 int R, int nq, int psz, int n_max, float scale, float dq, int nw, int split,
-                 int smem, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch_mma<32, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
-                                        scale, dq, nw, split, smem, stream);
-    case 64:
-      return launch_mma<64, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
-                                        scale, dq, nw, split, smem, stream);
-    default:
-      return launch_mma<128, PT, CONTIG>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz,
-                                         n_max, scale, dq, nw, split, smem, stream);
-  }
+                 int R, int nq, int psz, int n_max, int window, float scale, float dq, int nw,
+                 int split, int smem, cudaStream_t stream) {
+  if constexpr (!CONTIG)
+    if (window > 0)
+      return launch_mma_dw<PT, false, true>(D, q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz,
+                                          n_max, window, scale, dq, nw, split, smem, stream);
+  return launch_mma_dw<PT, CONTIG, false>(D, q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz,
+                                          n_max, 0, scale, dq, nw, split, smem, stream);
 }
+
+bool head_dim_ok(int D) { return D == 32 || D == 64 || D == 128 || D == 256; }
 
 // A tensor-core plan the kernel takes: `rows` = R nq query rows in the
 // m16, 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
@@ -497,7 +563,7 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
                   const PT* __restrict__ VP, const float* __restrict__ KS,
                   const float* __restrict__ VS, const int* __restrict__ BT,
                   const int* __restrict__ LEN, float* __restrict__ O, int H, int R, int nq,
-                  int psz, int n_max, float scale) {
+                  int psz, int n_max, int window, float scale) {
   constexpr int DPL = D / 32;
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   __shared__ float sm[NW][NQ], sl[NW][NQ];
@@ -508,6 +574,8 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
   const int length = LEN[b];
   const int n_kv = length + nq - 1;          // keys the deepest query sees
   const int n_used = n_kv <= 0 ? 0 : min((n_kv + psz - 1) / psz, n_max);
+  // with a window, pages below the one holding query 0's first key are skipped
+  const int p_lo = window > 0 ? max(0, length - window) / psz : 0;
   const size_t qrow = ((size_t)b * H + h) * nq;
 
   float q[NQ][DPL], acc[NQ][DPL], m[NQ], l[NQ];
@@ -522,7 +590,7 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
     }
   }
 
-  for (int pi = warp; pi < n_used; pi += NW) {
+  for (int pi = p_lo + warp; pi < n_used; pi += NW) {
     const size_t page = (size_t)BT[(size_t)b * n_max + pi];
     const PT* kpage = KP + (page * Hk + hk) * psz * D;
     const PT* vpage = VP + (page * Hk + hk) * psz * D;
@@ -545,7 +613,9 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
       }
 #pragma unroll
       for (int i = 0; i < NQ; ++i) {
-        if (i >= nq || kpos >= length + i) continue;   // uniform over the warp
+        if (i >= nq || kpos >= length + i ||            // uniform over the warp
+            (window > 0 && kpos < length + i - window))
+          continue;
         float s = 0.f;
 #pragma unroll
         for (int c = 0; c < DPL; ++c) s = fmaf(q[i][c], kr[c], s);
@@ -594,45 +664,48 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
 template <typename PT, int NQ>
 int launch_simt(const void* q, const void* kp, const void* vp, const void* ks, const void* vs,
                 const void* bt, const void* len, void* o, int B, int H, int R, int nq, int D,
-                int psz, int n_max, float scale, cudaStream_t stream) {
+                int psz, int n_max, int window, float scale, cudaStream_t stream) {
   const dim3 grid(H, B), block(NW * 32);
 #define REPRO_PAGED_SIMT(DIM)                                                             \
   paged_simt_kernel<PT, DIM, NQ><<<grid, block, 0, stream>>>(                             \
       (const float*)q, (const PT*)kp, (const PT*)vp, (const float*)ks, (const float*)vs,  \
-      (const int*)bt, (const int*)len, (float*)o, H, R, nq, psz, n_max, scale)
+      (const int*)bt, (const int*)len, (float*)o, H, R, nq, psz, n_max, window, scale)
   switch (D) {
     case 32: REPRO_PAGED_SIMT(32); break;
     case 64: REPRO_PAGED_SIMT(64); break;
-    default: REPRO_PAGED_SIMT(128); break;
+    case 128: REPRO_PAGED_SIMT(128); break;
+    default: REPRO_PAGED_SIMT(256); break;
   }
 #undef REPRO_PAGED_SIMT
   return (int)cudaGetLastError();
 }
 
 // Check the plan against the shape and launch it.  H q heads, R of them
-// per kv head (H % R == 0, R nq <= 16).  dtype 0 (float32 q; float32 or
-// int8 pools): the CUDA-core kernel, nw 4, split 1, smem 0.  dtype 1
-// (bfloat16 q; bfloat16 or int8 pools): the tensor-core kernel with
-// 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
+// per kv head (H % R == 0, R nq <= 16); window 0 (none) or > 0 keys.
+// dtype 0 (float32 q; float32 or int8 pools): the CUDA-core kernel, nw 4,
+// split 1, smem 0.  dtype 1 (bfloat16 q; bfloat16 or int8 pools): the
+// tensor-core kernel with 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as
+// smem_bytes().
 template <bool QUANT, int NQ>
 int run(int dtype, const void* q, const void* kp, const void* vp, const void* ks,
         const void* vs, const void* bt, const void* len, void* o, int B, int H, int R, int nq,
-        int D, int psz, int n_max, float scale, int nw, int split, int smem, void* stream) {
+        int D, int psz, int n_max, int window, float scale, int nw, int split, int smem,
+        void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || nq < 1 || nq > NQ || psz <= 0 ||
-      n_max <= 0 || (D != 32 && D != 64 && D != 128) || R < 1 || H % R || R * nq > 16)
+      n_max <= 0 || !head_dim_ok(D) || R < 1 || H % R || R * nq > 16 || window < 0)
     return (int)cudaErrorInvalidValue;
   using FP = typename std::conditional<QUANT, int8_t, float>::type;
   using BP = typename std::conditional<QUANT, int8_t, bf16>::type;
   if (dtype == 0) {
     if (nw != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
-    return launch_simt<FP, NQ>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, D, psz, n_max, scale,
-                               s);
+    return launch_simt<FP, NQ>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, D, psz, n_max,
+                               window, scale, s);
   }
   if (dtype != 1 || !mma_plan_fits(D, QUANT, R * nq, nw, split, smem))
     return (int)cudaErrorInvalidValue;
   return launch_mma_d<BP, false>(D, q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max,
-                                 scale, 1.f, nw, split, smem, s);
+                                 window, scale, 1.f, nw, split, smem, s);
 }
 
 // ------------------------------ float32 over contiguous lanes: CUDA cores
@@ -753,7 +826,8 @@ int launch_contig_simt(const void* q, const void* k, const void* v, const void* 
   switch (D) {
     case 32: REPRO_CONTIG_SIMT(32); break;
     case 64: REPRO_CONTIG_SIMT(64); break;
-    default: REPRO_CONTIG_SIMT(128); break;
+    case 128: REPRO_CONTIG_SIMT(128); break;
+    default: REPRO_CONTIG_SIMT(256); break;
   }
 #undef REPRO_CONTIG_SIMT
   return (int)cudaGetLastError();
@@ -769,8 +843,8 @@ int run_contig(int dtype, const void* q, const void* k, const void* v, const voi
                int B, int H, int R, int S, int D, float scale, float dq, int nw, int split,
                int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || S <= 0 ||
-      (D != 32 && D != 64 && D != 128) || R < 1 || H % R || R > 16)
+  if (B <= 0 || H <= 0 || B > 65535 || H > 65535 || S <= 0 || !head_dim_ok(D) || R < 1 ||
+      H % R || R > 16)
     return (int)cudaErrorInvalidValue;
   using FK = typename std::conditional<QUANT, int8_t, float>::type;
   using BK = typename std::conditional<QUANT, int8_t, bf16>::type;
@@ -781,7 +855,7 @@ int run_contig(int dtype, const void* q, const void* k, const void* v, const voi
   if (dtype != 1 || !mma_plan_fits(D, QUANT, R, nw, split, smem))
     return (int)cudaErrorInvalidValue;
   return launch_mma_d<BK, true>(D, q, k, v, nullptr, nullptr, nullptr, len, o, B, H, R, 1, S, 1,
-                                scale, dq, nw, split, smem, s);
+                                0, scale, dq, nw, split, smem, s);
 }
 
 }  // namespace
@@ -790,46 +864,47 @@ int run_contig(int dtype, const void* q, const void* k, const void* v, const voi
 // kernels/decode_attention.py::plan chose (nw, split, smem; see run()).
 // dtype: 0 = float32, 1 = bfloat16 (q and output; the pools too in the
 // float variants); H q heads over H / R kv heads of the pools, R nq <= 16;
-// head_dim D in {32, 64, 128}; verify takes 1 <= nq <= 8.
+// head_dim D in {32, 64, 128, 256}; verify takes 1 <= nq <= 8; window 0
+// (none) or the sliding window's keys.
 // All tensors contiguous; bf16 q and pools 16-byte aligned.  Each returns a
 // CUDA error code: a plan that does not fit the shape is
 // cudaErrorInvalidValue, never a launch; else cudaGetLastError() after it.
 extern "C" int repro_paged_decode(const void* q, const void* kp, const void* vp,
                                   const void* block_table, const void* length, void* o,
                                   int B, int H, int R, int D, int psz, int n_max,
-                                  float scale, int dtype, int nw, int split, int smem,
-                                  void* stream) {
+                                  int window, float scale, int dtype,
+                                  int nw, int split, int smem, void* stream) {
   return run<false, 1>(dtype, q, kp, vp, nullptr, nullptr, block_table, length, o, B, H, R, 1,
-                       D, psz, n_max, scale, nw, split, smem, stream);
+                       D, psz, n_max, window, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_decode_i8(const void* q, const void* kp, const void* vp,
                                      const void* k_scale, const void* v_scale,
                                      const void* block_table, const void* length, void* o,
                                      int B, int H, int R, int D, int psz, int n_max,
-                                     float scale, int dtype, int nw, int split, int smem,
-                                     void* stream) {
+                                     int window, float scale, int dtype,
+                                     int nw, int split, int smem, void* stream) {
   return run<true, 1>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H, R, 1,
-                      D, psz, n_max, scale, nw, split, smem, stream);
+                      D, psz, n_max, window, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_verify(const void* q, const void* kp, const void* vp,
                                   const void* block_table, const void* length, void* o,
                                   int B, int H, int R, int nq, int D, int psz, int n_max,
-                                  float scale, int dtype, int nw, int split, int smem,
-                                  void* stream) {
+                                  int window, float scale, int dtype,
+                                  int nw, int split, int smem, void* stream) {
   return run<false, MAX_NQ>(dtype, q, kp, vp, nullptr, nullptr, block_table, length, o, B, H,
-                            R, nq, D, psz, n_max, scale, nw, split, smem, stream);
+                            R, nq, D, psz, n_max, window, scale, nw, split, smem, stream);
 }
 
 extern "C" int repro_paged_verify_i8(const void* q, const void* kp, const void* vp,
                                      const void* k_scale, const void* v_scale,
                                      const void* block_table, const void* length, void* o,
                                      int B, int H, int R, int nq, int D, int psz,
-                                     int n_max, float scale, int dtype,
+                                     int n_max, int window, float scale, int dtype,
                                      int nw, int split, int smem, void* stream) {
   return run<true, MAX_NQ>(dtype, q, kp, vp, k_scale, v_scale, block_table, length, o, B, H,
-                           R, nq, D, psz, n_max, scale, nw, split, smem, stream);
+                           R, nq, D, psz, n_max, window, scale, nw, split, smem, stream);
 }
 
 // Decode over contiguous lanes, each one launch of the plan
@@ -837,7 +912,7 @@ extern "C" int repro_paged_verify_i8(const void* q, const void* kp, const void* 
 // dtype: 0 = float32, 1 = bfloat16 (q, output, and the lanes of
 // repro_decode_attention; repro_decode_attention_i8 takes int8 lanes whose
 // values times dq are the keys and values); H q heads over H / R kv heads
-// of the lanes (B, H / R, S, D); head_dim D in {32, 64, 128}.
+// of the lanes (B, H / R, S, D); head_dim D in {32, 64, 128, 256}.
 // All tensors contiguous; q and the lanes 16-byte aligned.  Each returns a
 // CUDA error code, as the paged entries do.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,

@@ -23,13 +23,14 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
              + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
              + [ctypes.c_void_p])
 
 SMS = 132                # H100 SXM
 KV_TILE = 64             # keys per tile (csrc/flash_attention.cu)
+KV_TILE_WIDE = 32        # keys per tile at head_dim > 128
 KV_STAGES = 2            # ring depth of K/V tiles
 WQ_MAX = 4               # warps per block, 16 query rows each
 SPLITS = (1, 2, 4, 8)    # blocks of a cluster sharing one row tile's keys
@@ -69,12 +70,21 @@ def row_warps(Sq: int, rb: int) -> int:
     return min(_cdiv(Sq, 16), WQ_MAX // rb)
 
 
+def kv_tile(d: int) -> int:
+    """csrc/flash_attention.cu::kv_tile: keys per K/V tile, 32 at head_dim
+    256 (its registers and shared memory), else 64."""
+    return KV_TILE_WIDE if d > 128 else KV_TILE
+
+
 def _smem_bytes(d: int, wq: int, split: int) -> int:
-    """csrc/flash_attention.cu::smem_bytes: the K/V ring (rows of d / 8 + 1
-    chunks of 16 bytes), and with a split the inbox: per rank the owner's
-    rows of d floats with their m and l, then a weight per (row, rank) and
-    1 / L per row."""
-    ring = KV_STAGES * 2 * KV_TILE * (d // 8 + 1) * 16
+    """csrc/flash_attention.cu::smem_bytes: the K/V ring (``kv_tile(d)``
+    rows of d / 8 + 1 chunks of 16 bytes), at head_dim 256 each warp's 16
+    query rows in bf16 at the same stride, and with a split the inbox: per
+    rank the owner's rows of d floats with their m and l, then a weight per
+    (row, rank) and 1 / L per row."""
+    ring = KV_STAGES * 2 * kv_tile(d) * (d // 8 + 1) * 16
+    if d > 128:
+        ring += wq * 16 * (d // 8 + 1) * 16
     if split == 1:
         return ring
     rp = _rows_per(wq, split)
@@ -92,9 +102,9 @@ def plan(H: int, Sq: int, Skv: int, D: int, dtype: torch.dtype,
     split over a cluster of up to 8 blocks,
     doubling while fewer blocks than SMs run and the rows can see that many
     tiles (all of them; with a window, as many as the window and the
-    block's rows span).  float32: the CUDA-core kernel, 16 rows of one q
-    head a block, no split.  Raises ValueError for shapes no kernel
-    takes."""
+    block's rows span); tiles of ``kv_tile(D)`` keys.  float32: the
+    CUDA-core kernel, 16 rows of one q head a block, no split.  Raises
+    ValueError for shapes no kernel takes."""
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {D} not in {HEAD_DIMS}")
     if H <= 0 or Sq <= 0 or Skv < 0:
@@ -103,7 +113,8 @@ def plan(H: int, Sq: int, Skv: int, D: int, dtype: torch.dtype,
     if group < 1 or H % group:
         raise ValueError(f"flash_attention: {H} q heads do not split into "
                          f"groups of {group} per kv head")
-    n_tiles = _cdiv(Skv, KV_TILE)
+    kt = kv_tile(D)
+    n_tiles = _cdiv(Skv, kt)
     if dtype == torch.float32:
         return Plan("simt", 4, 1, 0)
     if dtype != torch.bfloat16:
@@ -118,7 +129,7 @@ def plan(H: int, Sq: int, Skv: int, D: int, dtype: torch.dtype,
                          f"{row_tiles} row tiles exceed the grid")
     span = n_tiles
     if window > 0:
-        span = min(n_tiles, (window + 16 * wr - 2) // KV_TILE + 2)
+        span = min(n_tiles, (window + 16 * wr - 2) // kt + 2)
     split = 1
     for s in SPLITS[1:]:
         if s <= span and heads * row_tiles * split < SMS:

@@ -23,7 +23,7 @@ call's counts (``add_launches``), so the counts stay the kernels that ran.
 ``decode_attention_i8``; ``ssd_scan_i8`` takes the int8 state slab and its
 per-head scales.  The attention wrappers take GQA: H q heads over Hk kv
 heads of k/v, the pools or the lanes (Hk dividing H), q head h reading kv
-head h // (H // Hk).
+head h // (H // Hk); the flash and paged ones a sliding ``window``.
 """
 from __future__ import annotations
 
@@ -96,69 +96,74 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, length, *,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, k_scale=None, v_scale=None, window=0):
     """q: (B, H, D) over pools (n_pages, Hk, psz, D) through block_table
-    (B, n_max); ``length`` (B,) counts valid tokens -> (B, H, D).  Pools
-    in q's dtype, or int8 with ``k_scale``/``v_scale`` (n_pages, psz)."""
+    (B, n_max); ``length`` (B,) counts valid tokens, of which a ``window``
+    > 0 keeps the last ``window`` -> (B, H, D).  Pools in q's dtype, or
+    int8 with ``k_scale``/``v_scale`` (n_pages, psz)."""
     if k_scale is not None:
         return paged_decode_attention_i8(q, k_pages, v_pages, block_table,
                                          length, k_scale, v_scale,
-                                         scale=scale)
+                                         scale=scale, window=window)
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pages, v_pages,
-                                              block_table, length, scale)
+                                              block_table, length, scale,
+                                              window=window)
     out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
-                                         length, scale=scale)
+                                         length, scale=scale, window=window)
     if out.numel():
         paged_decode_attention.launches += 1
     return out
 
 
 def paged_decode_attention_i8(q, k_pages, v_pages, block_table, length,
-                              k_scale, v_scale, *, scale=None):
+                              k_scale, v_scale, *, scale=None, window=0):
     """``paged_decode_attention`` over int8 pools, dequantised on read."""
     if q.device.type == "cpu":
         return ref.ref_paged_decode_attention(q, k_pages, v_pages,
                                               block_table, length, scale,
-                                              k_scale, v_scale)
+                                              k_scale, v_scale, window)
     out = _decode.paged_decode_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale,
-                                         k_scale=k_scale, v_scale=v_scale)
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         window=window)
     if out.numel():
         paged_decode_attention_i8.launches += 1
     return out
 
 
 def paged_verify_attention(q, k_pages, v_pages, block_table, length, *,
-                           scale=None, k_scale=None, v_scale=None):
+                           scale=None, k_scale=None, v_scale=None, window=0):
     """q: (B, H, Q, D), query i at ``length - 1 + i`` seeing positions
-    ``< length + i``, (H // Hk) x Q <= 16 on the card; pools, scales,
-    block_table and length as in ``paged_decode_attention`` -> (B, H, Q,
-    D)."""
+    ``< length + i`` (and with a ``window`` > 0 ``>= length + i -
+    window``), (H // Hk) x Q <= 16 on the card; pools, scales, block_table
+    and length as in ``paged_decode_attention`` -> (B, H, Q, D)."""
     if k_scale is not None:
         return paged_verify_attention_i8(q, k_pages, v_pages, block_table,
                                          length, k_scale, v_scale,
-                                         scale=scale)
+                                         scale=scale, window=window)
     if q.device.type == "cpu":
         return ref.ref_paged_verify_attention(q, k_pages, v_pages,
-                                              block_table, length, scale)
+                                              block_table, length, scale,
+                                              window=window)
     out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
-                                         length, scale=scale)
+                                         length, scale=scale, window=window)
     if out.numel():
         paged_verify_attention.launches += 1
     return out
 
 
 def paged_verify_attention_i8(q, k_pages, v_pages, block_table, length,
-                              k_scale, v_scale, *, scale=None):
+                              k_scale, v_scale, *, scale=None, window=0):
     """``paged_verify_attention`` over int8 pools, dequantised on read."""
     if q.device.type == "cpu":
         return ref.ref_paged_verify_attention(q, k_pages, v_pages,
                                               block_table, length, scale,
-                                              k_scale, v_scale)
+                                              k_scale, v_scale, window)
     out = _decode.paged_verify_attention(q, k_pages, v_pages, block_table,
                                          length, scale=scale,
-                                         k_scale=k_scale, v_scale=v_scale)
+                                         k_scale=k_scale, v_scale=v_scale,
+                                         window=window)
     if out.numel():
         paged_verify_attention_i8.launches += 1
     return out

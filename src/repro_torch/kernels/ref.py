@@ -96,14 +96,17 @@ def ref_dequant_pool(pool, scales):
 
 
 def ref_paged_verify_attention(q, k_pages, v_pages, block_table, length,
-                               scale=None, k_scale=None, v_scale=None):
+                               scale=None, k_scale=None, v_scale=None,
+                               window=0):
     """Q queries per (slot, head) over the slot's block-table pages.
 
     q: (B, H, Q, D); k_pages/v_pages: (n_pages, Hk, psz, D), float or int8
     with ``k_scale``/``v_scale`` (n_pages, psz) float32 (dequantised in
     float32, as the Pallas i8 kernels do); block_table: (B, n_max) int32
     page ids; length: (B,) int32 count of valid tokens ahead of query 0.
-    Query i sees positions < length + i -> (B, H, Q, D) in q's dtype."""
+    Query i, at position length - 1 + i, sees positions < length + i, and
+    with a sliding ``window`` > 0 only those > length - 1 + i - window
+    (JAX's rule) -> (B, H, Q, D) in q's dtype."""
     B, H, Q, D = q.shape
     psz = k_pages.shape[2]
     n_max = block_table.shape[1]
@@ -124,17 +127,21 @@ def ref_paged_verify_attention(q, k_pages, v_pages, block_table, length,
     kpos = torch.arange(n_max * psz, device=q.device)
     see = length.to(q.device).long()[:, None] + \
         torch.arange(Q, device=q.device)[None, :]               # (B, Q)
-    mask = (kpos[None, None, :] < see[:, :, None])[:, None]     # (B, 1, Q, L)
-    return _masked_softmax_av(s, mask, v).to(q.dtype)
+    mask = kpos[None, None, :] < see[:, :, None]                # (B, Q, L)
+    if window > 0:
+        mask &= kpos[None, None, :] >= see[:, :, None] - window
+    return _masked_softmax_av(s, mask[:, None], v).to(q.dtype)
 
 
 def ref_paged_decode_attention(q, k_pages, v_pages, block_table, length,
-                               scale=None, k_scale=None, v_scale=None):
+                               scale=None, k_scale=None, v_scale=None,
+                               window=0):
     """One query per (slot, head): ``ref_paged_verify_attention`` with
-    Q = 1.  q: (B, H, D) -> (B, H, D); positions < length attend."""
+    Q = 1.  q: (B, H, D) -> (B, H, D); positions < length attend (with a
+    ``window`` > 0, only the last ``window`` of them)."""
     return ref_paged_verify_attention(q[:, :, None], k_pages, v_pages,
                                       block_table, length, scale, k_scale,
-                                      v_scale)[:, :, 0]
+                                      v_scale, window)[:, :, 0]
 
 
 def ref_decode_attention(q, k, v, length, scale=None):

@@ -11,7 +11,10 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
 ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
-or from state slabs with ``--paged``.  ``--prefix-cache`` (implies
+or from state slabs with ``--paged``; ``--arch qwen3-0.6b`` a GQA decoder
+with qk-norm, ``--arch gemma3-12b`` gemma3 (sliding windows on 5 of
+every 6 layers, head_dim 256, sandwich norms, a gelu FFN; 23.5 GB of bf16
+weights at full width).  ``--prefix-cache`` (implies
 ``--paged``) shares cached prompt prefixes through a radix tree with
 copy-on-write pages and prints the ``prefix_cache:`` line;
 ``--shared-prefix N`` prepends a common N-token prefix to every prompt.
@@ -25,7 +28,9 @@ prints the ``pipeline:`` line; the contiguous engine ignores the flag, as
 in JAX.  The port runs tp=1, dp=1 and greedy: the JAX launcher's other
 flags parse with its defaults, and a value the port cannot serve (``--tp
 2``, ``--temperature 0.7``, ...) is refused with the slice it waits for.
-Weights are random, drawn from ``--seed``; prompts are random token ids.
+Weights are random, drawn from ``--seed`` on the serving device (a CUDA
+generator on the card: full-width draws stay there); prompts are random
+token ids.
 """
 from __future__ import annotations
 
@@ -146,6 +151,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config, reduced
     from repro_torch.core import model
+    from repro_torch.core.device import resolve_device
     from repro_torch.core.partition import ShardingPlan
     from repro_torch.serving import (FairScheduler, PriorityScheduler,
                                      Request, ServingEngine)
@@ -158,9 +164,11 @@ def main(argv=None):
     plan = ShardingPlan(kv_cache_dtype=kvd,
                         ssm_cache_dtype="int8" if args.kv_dtype == "int8"
                         else "")
+    dev = resolve_device(args.device)
     params = model.init_params(cfg, plan,
-                               torch.Generator().manual_seed(args.seed),
-                               device=args.device)
+                               torch.Generator(device=dev).manual_seed(
+                                   args.seed),
+                               device=dev)
     scheduler = None                 # engine default: FCFS
     if args.policy != "fcfs":
         scheduler = functools.partial(

@@ -416,18 +416,17 @@ def test_contiguous_entry_points_refuse_cuda_without_a_card(tiny, monkeypatch):
 @pytest.mark.parametrize("R,window", [(2, 0), (1, 64)])
 def test_card_decode_refuses_gqa_and_windows(R, window):
     """What the card's decode and verify routes refuse before they launch:
-    a window (the route's layout check: it waits for its slice), and a
-    group too wide for the kernel's m16 (the kernel's plan: R = 2 q heads
-    per kv head x 9 verify queries = 18 rows), never a quiet detour
-    through the plain version.  R q heads per kv head alone are served."""
-    attention._card_layout("decode-attention", 0)
-    k_decode.contiguous_plan(8, 8 * R, 256, 64, torch.bfloat16, False, R)
-    k_decode.plan(8, 8 * R, 1, 64, 16, 16, torch.bfloat16, False, R)
-    if window:
-        with pytest.raises(NotImplementedError,
-                           match="decode-attention kernel takes no sliding"):
-            attention._card_layout("decode-attention", window)
-    else:
-        with pytest.raises(ValueError, match=f"{R} q heads per kv head x 9 "
-                                             f"queries = {9 * R}"):
-            k_decode.plan(8, 8 * R, 9, 64, 16, 16, torch.bfloat16, False, R)
+    a group too wide for the kernel's m16 (the kernel's plan: R = 2 q heads
+    per kv head x 9 verify queries = 18 rows) and more than 8 queries a
+    slot, with or without a window, never a quiet detour through the plain
+    version.  R q heads per kv head and sliding windows are served: the
+    contiguous plan takes a window's ring (S = the window), the paged plan
+    the window itself."""
+    k_decode.contiguous_plan(8, 8 * R, window or 256, 64, torch.bfloat16,
+                             False, R)
+    k_decode.plan(8, 8 * R, 1, 64, 16, 16, torch.bfloat16, False, R, window)
+    with pytest.raises(ValueError, match=(
+            f"{R} q heads per kv head x 9 queries = {9 * R}" if R > 1
+            else "9 queries per slot, not 1 to 8")):
+        k_decode.plan(8, 8 * R, 9, 64, 16, 16, torch.bfloat16, False, R,
+                      window)

@@ -178,7 +178,7 @@ def _unfused_forward(params, tokens, cache, cfg, plan, lay, mode, pos=None):
         positions = torch.arange(S, dtype=torch.int32).expand(B, S)
     else:
         positions = pos[:, None]
-    x = model.embed_tokens(params, tokens)
+    x = model.embed_tokens(params, tokens, cfg)
     for group, gparams, gcache in zip(cfg.layer_groups(), params["stacks"],
                                       cache, strict=True):
         for r in range(group.n_reps):

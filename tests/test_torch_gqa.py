@@ -233,14 +233,15 @@ def test_core_card_route_flattens_groups_as_the_plain_path(entry,
 @pytest.mark.parametrize("R_,Q,window,err,match", [
     (2, 9, 0, ValueError, "2 q heads per kv head x 9 queries = 18"),
     (3, 6, 0, ValueError, "3 q heads per kv head x 6 queries = 18"),
-    (2, 4, 64, NotImplementedError, "window"),
+    (2, 9, 64, ValueError, "2 q heads per kv head x 9 queries = 18"),
 ])
 def test_card_verify_route_refuses_what_no_kernel_takes(R_, Q, window, err,
                                                         match, monkeypatch):
-    """R x Q query rows past the m16's 16 (the verify wrapper's plan) and
-    any window (the route's layout check) raise before a launch, naming
-    what is missing; R x Q = 16 reaches the kernel's C entry.  The wrapper
-    runs here with the device check and the kernel build taken out."""
+    """R x Q query rows past the m16's 16 (the verify wrapper's plan)
+    raise before a launch, with or without a sliding window, naming what
+    is missing; R x Q = 16 reaches the kernel's C entry, the window with
+    it.  The wrapper runs here with the device check and the kernel build
+    taken out."""
     reached = []
 
     def check(t, name, ndim, dtypes):
@@ -259,14 +260,11 @@ def test_card_verify_route_refuses_what_no_kernel_takes(R_, Q, window, err,
                  for _ in range(2)]
         return k_decode.paged_verify_attention(
             q, *pools, torch.zeros(2, 2, dtype=torch.int32),
-            torch.ones(2, dtype=torch.int32))
+            torch.ones(2, dtype=torch.int32), window=window)
 
     with pytest.raises(err, match=match):
-        if window:
-            tattn._card_layout("paged-verify", window)
         verify(R_, Q)
     assert reached == []
-    tattn._card_layout("paged-verify", 0)
     verify(2, 8)
     assert reached == ["repro_paged_verify"]
 

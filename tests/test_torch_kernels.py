@@ -4,6 +4,7 @@ run in interpret mode, and against its ``kernels/ref.py`` oracles, on the
 same numpy inputs.  Tolerances are ``tests/test_kernels.py``'s: fp32 1e-4,
 bf16 2e-2.  The Hopper kernels themselves run only on the card, where
 ``chip_smoke.py`` holds each against these plain versions."""
+import functools
 import re
 from pathlib import Path
 
@@ -408,15 +409,52 @@ def test_paged_plan_limits_at_main_shapes(b, h, psz, nq, d, quant):
         assert (p.split, p.nw) == (4, 4)
 
 
+@functools.lru_cache(maxsize=None)
 def _paged_dealing_formulas():
+    """The kernel's lines n_kv, n_tiles, k_lo (its windowed form), t_lo,
+    t_first and my_n, compiled as Python expressions."""
     src = (Path(k_decode.__file__).parent / "csrc" /
            "paged_decode.cu").read_text()
     lines = [re.search(rf"const int {v} = (.+?);", src).group(1)
-             for v in ("n_kv", "n_tiles", "t_first")]
+             for v in ("n_kv", "n_tiles")]
+    k_lo = re.search(r"const int k_lo = WINDOW \? (.+?) : 0;", src).group(1)
+    lines += [k_lo] + [re.search(rf"const int {v} = (.+?);", src).group(1)
+                       for v in ("t_lo", "t_first")]
     count = re.search(r"const int my_n = t_first < n_tiles \? (.+?) : 0;",
                       src).group(1)
-    assert "KT" in lines[1]
+    assert "KT" in lines[1] and "KT" in lines[3] and "window" in k_lo
     return [compile(e, "paged_decode.cu", "eval") for e in lines + [count]]
+
+
+def _paged_dealt(split, psz, n_max, nw, nq, length, window):
+    """Evaluate the kernel's dealing lines for one slot: -> (n_kv, k_lo,
+    tiles dealt, keys read, {page: ranks})."""
+    n_kv_e, n_tiles_e, k_lo_e, t_lo_e, first_e, count_e = \
+        _paged_dealing_formulas()
+    env = {"min": lambda a, b: _CInt(min(a, b)),
+           "max": lambda a, b: _CInt(max(a, b)),
+           "KT": _CInt(16), "psz": _CInt(psz), "n_max": _CInt(n_max),
+           "split": _CInt(split), "nw": _CInt(nw), "nq": _CInt(nq),
+           "length": _CInt(length), "window": _CInt(window)}
+    env["n_kv"] = n_kv = eval(n_kv_e, {}, env)
+    env["n_tiles"] = n_tiles = eval(n_tiles_e, {}, env)
+    env["k_lo"] = k_lo = eval(k_lo_e, {}, env) if window > 0 else _CInt(0)
+    env["t_lo"] = eval(t_lo_e, {}, env)
+    tiles, keys, pages = [], [], {}
+    for rank in range(split):
+        for warp in range(nw):
+            env.update(rank=_CInt(rank), warp=_CInt(warp))
+            env["t_first"] = t_first = eval(first_e, {}, env)
+            my_n = eval(count_e, {}, env) if t_first < n_tiles else 0
+            for i in range(my_n):
+                t = t_first + i * split * nw
+                assert (t - env["t_lo"]) % split == rank
+                tiles.append(t)
+                kp = [k for k in range(16 * t, 16 * t + 16) if k < n_kv]
+                keys += kp
+                for k in kp:
+                    pages.setdefault(k // psz, set()).add(rank)
+    return n_kv, k_lo, tiles, keys, pages
 
 
 @pytest.mark.parametrize("psz", [8, 16])
@@ -429,40 +467,42 @@ def test_paged_kernel_deals_each_visible_page_once(split, psz):
     no other (keys past n_max * psz never), tile t on rank t % split; so
     every visible page goes to exactly one rank (a 16-key tile holds one
     page of 16 or two of 8)."""
-    n_kv_e, n_tiles_e, first_e, count_e = _paged_dealing_formulas()
     n_max = 4
-    env0 = {"min": lambda a, b: _CInt(min(a, b)),
-            "max": lambda a, b: _CInt(max(a, b)),
-            "KT": _CInt(16), "psz": _CInt(psz), "n_max": _CInt(n_max),
-            "split": _CInt(split)}
     for nw in range(1, 5):
         for nq in range(1, 9):
             for length in range(n_max * psz + 8):
-                env = dict(env0, nw=_CInt(nw), nq=_CInt(nq),
-                           length=_CInt(length))
-                env["n_kv"] = n_kv = eval(n_kv_e, {}, env)
-                env["n_tiles"] = n_tiles = eval(n_tiles_e, {}, env)
-                tiles, keys, pages = [], [], {}
-                for rank in range(split):
-                    for warp in range(nw):
-                        env.update(rank=_CInt(rank), warp=_CInt(warp))
-                        env["t_first"] = t_first = eval(first_e, {}, env)
-                        my_n = eval(count_e, {}, env) \
-                            if t_first < n_tiles else 0
-                        for i in range(my_n):
-                            t = t_first + i * split * nw
-                            assert t % split == rank
-                            tiles.append(t)
-                            kp = [k for k in range(16 * t, 16 * t + 16)
-                                  if k < n_kv]
-                            keys += kp
-                            for k in kp:
-                                pages.setdefault(k // psz, set()).add(rank)
+                _, _, tiles, keys, pages = _paged_dealt(split, psz, n_max, nw,
+                                                        nq, length, 0)
                 want = min(length + nq - 1, n_max * psz)
                 assert sorted(tiles) == list(range(-(-max(want, 0) // 16)))
                 assert sorted(keys) == list(range(max(want, 0)))
                 assert sorted(pages) == list(range(-(-max(want, 0) // psz)))
                 assert all(len(r) == 1 for r in pages.values())
+
+
+@pytest.mark.parametrize("psz", [8, 16])
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_paged_kernel_deals_a_windows_tiles_once(split, psz):
+    """With a sliding window, the same lines deal the tiles from the one
+    holding query 0's first key, ``length - window``, to the deepest
+    query's last: every key some query's window holds is read exactly
+    once, tile t on rank (t - t_lo) % split, and no tile wholly below the
+    lowest window start is read."""
+    n_max = 4
+    for window in (1, 5, 16, 17, 40):
+        for nw in (1, 3, 4):
+            for nq in (1, 2, 5, 8):
+                for length in range(1, n_max * psz + 1):
+                    n_kv, k_lo, tiles, keys, pages = _paged_dealt(
+                        split, psz, n_max, nw, nq, length, window)
+                    seen = {k for i in range(nq)
+                            for k in range(max(0, length + i - window),
+                                           min(length + i, n_max * psz))}
+                    assert k_lo == max(0, length - window) == min(seen)
+                    assert sorted(tiles) == list(range(k_lo // 16,
+                                                       -(-n_kv // 16)))
+                    assert len(keys) == len(set(keys)) and seen <= set(keys)
+                    assert all(len(r) == 1 for r in pages.values())
 
 
 def test_paged_plan_reads_no_length():

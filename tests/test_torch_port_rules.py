@@ -56,11 +56,14 @@ def test_unported_architectures_are_refused():
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
     cfg = reduced(get_config("tinyllama-42m"))
-    with pytest.raises(NotImplementedError, match="sandwich_norm"):
-        model.init_params(dataclasses.replace(cfg, sandwich_norm=True),
+    with pytest.raises(NotImplementedError, match="untied LM head"):
+        model.init_params(dataclasses.replace(cfg, tie_embeddings=False),
                           ShardingPlan(), device="cpu")
-    with pytest.raises(KeyError, match="tinyllama-42m"):
-        get_config("gemma3-12b")
+    with pytest.raises(NotImplementedError, match="hybrid attention"):
+        model.init_params(dataclasses.replace(cfg, family="hybrid"),
+                          ShardingPlan(), device="cpu")
+    with pytest.raises(KeyError, match="gemma3-12b"):
+        get_config("hymba-1.5b")
     with pytest.raises(NotImplementedError, match="int8"):
         model.init_params(cfg, ShardingPlan(weight_dtype="int8"), device="cpu")
 
