@@ -68,7 +68,15 @@ each (and a few detail lines):
             flash at D 256 over a 128-row chunk at q_offset 1400 in 2048 keys
             with and without the window of 1024 and a 512-token prompt;
             rmsnorm at E 3840 and 256; matmul at every gemma3 projection
-            and the 262,144-row tied head; median
+            and the 262,144-row tied head; then hymba-1.5b's shapes (25 q
+            heads over 25 kv slots, group 1, D 64): paged decode with the
+            window of 1024 and without over bf16 and int8 pools (B 8, pages
+            of 16, n_max 128, lengths 100-2000), the contiguous decode over
+            a 1024-slot ring, flash over the 128-row chunk at q_offset 1400
+            in 2048 keys, the SSD scan at H 50, P 64, N 16 over 128 rows
+            from a zero, float32 and int8 state, the gated norm over 3200
+            channels, rmsnorm at E 1600, matmul at every hymba projection
+            (in_dt's N 50, in_B/in_C's N 16) and the 32,001-row head; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (SDPA, with
@@ -99,6 +107,15 @@ each (and a few detail lines):
             float32, card against CPU: float pools, int8 pools with
             speculative=4 and the contiguous engine at budget 256 (rings
             of 64), 80-200 prompt tokens, identical greedy tokens.
+            parity-hymba: hymba-1.5b cut to 5 layers (full attention at
+            0, 2 and 4) and a window of 64, every width as published
+            (d_model 1600, 25/5 heads x 64 stored as 25 kv slots, 50 SSD
+            heads of state 16, d_ff 5504, vocab 32001), float32, card
+            against CPU: float pools and slabs (logits within 1e-4), int8
+            pools and slabs, the contiguous engine at budget 256 (logits
+            within 1e-4, tokens equal to the paged engine's), and int8
+            pools and slabs with preempt(b) forced (KV pages and the slab
+            stashed and restored), identical greedy tokens.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -121,12 +138,13 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in eleven phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in twelve phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
-            mamba2-370m (48 layers) in serve-ssm (float32 state slabs) and
-            serve-ssm-int8 (int8 slabs), and tinyllama-42m on the
+            mamba2-370m cut to 24 of its 48 layers (``SERVE_DEPTH``) in
+            serve-ssm (float32 state slabs) and serve-ssm-int8 (int8
+            slabs), and tinyllama-42m on the
             contiguous engine in serve-contig (bfloat16 lanes) and
             serve-contig-int8 (fixed-scale int8 lanes), and serve-prefix
             (tinyllama, bfloat16 pools, the prefix cache: a shared
@@ -139,22 +157,29 @@ each (and a few detail lines):
             serve-gemma3 (full-width, full-depth gemma3-12b, 48 layers,
             weights drawn on the card, bfloat16 pools, a 2048-token budget,
             chunks of 128, prompts of 512-1536 tokens and the count of
-            decode rows whose window is shorter than their prefix).  Every
+            decode rows whose window is shorter than their prefix), and
+            serve-hymba (full-width, full-depth hymba-1.5b, 32 hybrid
+            layers, the same long mix, bfloat16 pools and float32 slabs;
+            flash attention and the SSD scan in every layer of every
+            chunk, the paged decode kernel in every layer of every decode
+            tick).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
             set to 0 just before each phase and read just after; the SSD
-            scan 48 times per prefill chunk, never in a decode tick; the
+            scan once per layer in every prefill chunk, never in a decode
+            tick; the
             contiguous decode kernel (its int8 variant in
             serve-contig-int8) once per layer in every contiguous
             decode tick and in no paged phase, flash attention once per
             layer in every whole-prompt prefill, no paged kernel in a
             contiguous phase; the norm family once per norm of the model
             in every step: one plain norm (and qwen3's q and k norms in every
-            layer), the rest with the residual add fused in, mamba2's gated
-            norm in every layer, gemma3's post-sublayer norms; 10L + 2
-            counted kernels per tinyllama decode tick, 12L + 2 per qwen3
-            tick, 14L + 2 per gemma3 tick, 8L + 2 per mamba2 tick).
+            layer), the rest with the residual add fused in, mamba2's and
+            hymba's gated norm in every layer, gemma3's post-sublayer
+            norms; 10L + 2 counted kernels per tinyllama decode tick, 12L +
+            2 per qwen3 tick, 14L + 2 per gemma3 tick, 8L + 2 per mamba2
+            tick, 17L + 2 per hymba tick).
             Launches are counted where a wrapper launches its kernel and at
             every replay of a step's graph (the kernels its capture
             recorded).  Each step graph is read node by node
@@ -272,6 +297,13 @@ def time_ms(fn, torch, reps=10, iters=20):
         end.synchronize()
         samples.append(start.elapsed_time(end) / (iters * reps))
     return statistics.median(samples)
+
+
+def time_plain(fn, torch):
+    """``time_ms`` with 2 calls a graph and 5 replays a sample: for the plain
+    versions at gemma3's and hymba's shapes (up to 5 ms a call), timed
+    beside their kernels, not in the way of the run."""
+    return time_ms(fn, torch, reps=2, iters=5)
 
 
 def read_graph(graph, names=False):
@@ -1147,6 +1179,7 @@ def phase_kernels(torch, F):
 
     _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+    _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -1559,7 +1592,7 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
                                                          window=win, **sc), bf, torch),
                 plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
                 ms=time_ms(call, torch),
-                plain_ms=time_ms(lambda: plain(q, kp, vp, bt, length, window=win,
+                plain_ms=time_plain(lambda: plain(q, kp, vp, bt, length, window=win,
                                                **sc), torch),
                 library_ms=None, bound_ms=b_ms, bound_by=b_by))
         del kp, vp, sc
@@ -1606,7 +1639,7 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
             max_abs_err=compare(kname, call(full), plain(full), bf, torch),
             plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
             ms=time_ms(lambda: call(full), torch),
-            plain_ms=time_ms(lambda: plain(full), torch),
+            plain_ms=time_plain(lambda: plain(full), torch),
             library_ms=None if quant else time_ms(
                 lambda: F.scaled_dot_product_attention(
                     qc[:, :, None], kc, vc, enable_gqa=True), torch),
@@ -1673,7 +1706,7 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
                  f"{p.split * (Hq // rb) * -(-Sq // (16 * p.wq // rb))}",
             ms=time_ms(lambda: ops.flash_attention(q, k, v, window=win,
                                                    q_offset=off), torch),
-            plain_ms=time_ms(lambda: ref.ref_flash_attention(
+            plain_ms=time_plain(lambda: ref.ref_flash_attention(
                 q, k, v, window=win, q_offset=q_off), torch),
             library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
 
@@ -1708,7 +1741,7 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
             max_abs_err=compare("rmsnorm", ops.rmsnorm(x, s), ref.ref_rmsnorm(x, s),
                                 bf, torch),
             ms=time_ms(lambda: ops.rmsnorm(x, s), torch),
-            plain_ms=time_ms(lambda: ref.ref_rmsnorm(x, s), torch),
+            plain_ms=time_plain(lambda: ref.ref_rmsnorm(x, s), torch),
             library_ms=(time_ms(lambda: F.rms_norm(x, (En,), w1, 1e-6), torch)
                         if hasattr(F, "rms_norm") else None),
             bound_ms=b_ms, bound_by=b_by, plan="-"))
@@ -1733,7 +1766,7 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
                     "matmul", got, ref.ref_matmul(a, b, nt), bf, torch),
                 plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} blocks={p.blocks}",
                 ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
-                plain_ms=time_ms(lambda: ref.ref_matmul(a, b, nt), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b, nt), torch),
                 library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b), torch),
                 bound_ms=b_ms, bound_by=b_by))
         if not nt:
@@ -1745,6 +1778,366 @@ def _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows):
             one_kernel("matmul", case, lambda: ops.matmul(a32, bf32))
             del bf32
         del b
+    torch.cuda.empty_cache()
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
+
+
+# hymba-1.5b: 25 q heads over 25 kv slots (at tp=1 each of its 5 kv heads is
+# stored once per q head: group 1), head_dim 64, windows of 1024 on 29 of
+# its 32 layers; 50 SSD heads of 64 with state 16; d_model 1600
+HY_H, HY_D, HY_E, HY_WIN = 25, 64, 1600, 1024
+HY_SSD_H, HY_SSD_P, HY_SSD_N = 50, 64, 16
+# every matmul shape of hymba-1.5b's main path: (name, K, N, trans_b); wq,
+# wk and wv are (1600, 1600) as wo is, in_z and in_x (1600, 3200), out
+# (3200, 1600)
+HY_MATMULS = (("hymba wq/wk/wv/wo", 1600, 1600, False),
+              ("hymba in_z/in_x", 1600, 3200, False),
+              ("hymba in_dt", 1600, 50, False),
+              ("hymba in_B/in_C", 1600, 16, False),
+              ("hymba out", 3200, 1600, False),
+              ("hymba w_gate/w_up", 1600, 5504, False),
+              ("hymba w_down", 5504, 1600, False),
+              ("hymba LM head", 1600, 32001, True))
+# the shapes timed (the rest are checked only)
+HY_TIMED = ("hymba in_dt", "hymba in_B/in_C", "hymba w_gate/w_up",
+            "hymba w_down", "hymba LM head")
+
+
+def _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows):
+    """The kernel cases at hymba-1.5b's shapes, against their plain
+    versions: paged decode over bf16 and int8 pools (B 8, 25 heads at group
+    1, D 64, pages of 16, n_max 128, lengths 100-2000) with the window of
+    1024 and without (its 3 global layers), float32 and bf16 q; the
+    contiguous decode over a 1024-slot ring past its wrap, float and int8
+    lanes; flash over the prefill chunk (Sq 128 at q_offset 1400 in 2048
+    gathered keys) with the window and without; the SSD scan at Bt 1, S
+    128, H 50, P 64, N 16 (float32 and bf16, from a zero, a float32 and an
+    int8 state, with and without trailing dt = 0 rows); the gated norm
+    over 3200 channels and the norm at E 1600; matmul at every hymba
+    projection (in_dt's N 50 takes the plans without 16-byte weight loads,
+    in_B/in_C's N 16 the narrowest) and the 32,001-row tied head.  Every
+    bf16 case runs twice (bitwise-equal outputs) and every case is one
+    kernel node in a CUDA graph.  Times
+    (bf16, L2-warm) beside the bound, the plain version (``time_plain``)
+    and the library call where one computes the same (SDPA, with a mask
+    for a window or an offset; ``torch.matmul``; ``F.rms_norm``); appended
+    to each kernel's ``by_shape``."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import matmul as _mm
+    from repro_torch.kernels import ops, ref
+    H, D = HY_H, HY_D
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def twice(kname, case, dt, call, got):
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+
+    # ---- paged decode: 8 slots over a shuffled pool of 1025 pages of 16
+    B, psz, n_max = 8, 16, 128
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(5)) + 1
+    bt = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    lengths = [100, 513, 1023, 1024, 1025, 1500, 1777, 2000]
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for quant in (False, True):
+        if quant:
+            kp, vp = (torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
+                                    device="cuda", dtype=torch.int8) for _ in range(2))
+            sc = dict(k_scale=0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda"),
+                      v_scale=0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda"))
+        else:
+            kp, vp, sc = randn(n_pages, H, psz, D, dtype=bf), randn(n_pages, H, psz, D,
+                                                                   dtype=bf), {}
+        kname = "paged_decode_attention" + ("_i8" if quant else "")
+        for dt in (torch.float32, bf):
+            for win in (HY_WIN, 0):
+                q = randn(B, H, D, dtype=dt)
+                pools = (kp, vp) if quant else (kp.to(dt), vp.to(dt))
+
+                def call():
+                    return ops.paged_decode_attention(q, *pools, bt, length,
+                                                      window=win, **sc)
+
+                def plain():
+                    return ref.ref_paged_decode_attention(q, *pools, bt, length,
+                                                          window=win, **sc)
+
+                case = (f"hymba {H}/{H} window={win} D={D} n_max={n_max} "
+                        f"lengths={lengths} q {dtype_name(dt)}"
+                        f"{', int8 pools' if quant else ''}")
+                got = call()
+                err = compare(kname, got, plain(), dt, torch)
+                note(kname, case, err)
+                twice(kname, case, dt, call, got)
+                if dt != bf:
+                    continue
+                kv = [L - (max(0, L - win) if win else 0) for L in lengths]
+                elt = 1 if quant else 2
+                b_ms, b_by = bound(2 * q.numel() * 2 + bt.numel() * 4 + B * 4 +
+                                   2 * H * sum(kv) * D * elt +
+                                   (2 * sum(kv) * 4 if quant else 0),
+                                   4 * D * H * sum(kv) + (2 * D * H * sum(kv) if quant else 0),
+                                   torch.int8 if quant else bf)
+                p = _dec.plan(B, H, 1, D, psz, n_max, bf, quant, 1, win)
+                add(kname, dict(
+                    shape=f"hymba B={B} H={H} group 1 D={D} psz={psz} n_max={n_max} "
+                          f"window={win} lengths={lengths} q bf16, "
+                          f"{'int8' if quant else 'bf16'} pools",
+                    max_abs_err=err,
+                    plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+                    ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del kp, vp, sc
+    print("  paged decode attention: hymba's 25 heads at group 1, windows of "
+          "1024 and none, float and int8 pools, against the plain versions")
+
+    # ---- the contiguous decode over a window layer's ring of 1024 slots:
+    # positions past the wrap read min(pos + 1, 1024) slots
+    S, DQ = HY_WIN, 1.0 / 16.0
+    positions = [1500, 1023, 2000, 300, 1024, 5000, 1100, 0]
+    lc = torch.tensor([min(p_ + 1, S) for p_ in positions], dtype=torch.int32,
+                      device="cuda")
+    full = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    for quant in (False, True):
+        kname = "decode_attention" + ("_i8" if quant else "")
+        for dt in (torch.float32, bf):
+            qc = randn(B, H, D, dtype=dt)
+            if quant:
+                kc, vc = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
+                                        device="cuda", dtype=torch.int8) for _ in range(2))
+
+                def call(len_):
+                    return ops.decode_attention_i8(qc, kc, vc, len_, DQ)
+
+                def plain(len_):
+                    return ref.ref_decode_attention_i8(qc, kc, vc, len_, DQ)
+            else:
+                kc, vc = randn(B, H, S, D, dtype=dt), randn(B, H, S, D, dtype=dt)
+
+                def call(len_):
+                    return ops.decode_attention(qc, kc, vc, len_)
+
+                def plain(len_):
+                    return ref.ref_decode_attention(qc, kc, vc, len_)
+            case = (f"hymba ring S={S} D={D} positions={positions} q "
+                    f"{dtype_name(dt)}{', int8 lanes' if quant else ''}")
+            got = call(lc)
+            note(kname, case, compare(kname, got, plain(lc), dt, torch))
+            twice(kname, case, dt, lambda: call(lc), got)
+            if dt != bf:
+                continue
+            elt = 1 if quant else 2
+            b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * H * B * S * D * elt + B * 4,
+                               (6 if quant else 4) * D * H * B * S,
+                               torch.int8 if quant else bf)
+            p = _dec.contiguous_plan(B, H, S, D, bf, quant, 1)
+            add(kname, dict(
+                shape=f"hymba ring B={B} H={H} group 1 S={S} D={D} lengths all "
+                      f"{S} q bf16, {'int8' if quant else 'bf16'} lanes",
+                max_abs_err=compare(kname, call(full), plain(full), bf, torch),
+                plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+                ms=time_ms(lambda: call(full), torch),
+                plain_ms=time_plain(lambda: plain(full), torch),
+                library_ms=None if quant else time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qc[:, :, None], kc, vc), torch),
+                bound_ms=b_ms, bound_by=b_by))
+            del kc, vc
+
+    # ---- flash over the serve phase's prefill chunk: Sq 128 at q_offset
+    # 1400 in the 2048-key gathered stream, with the window and without (a
+    # global layer); q_offset as the chunk step hands it over (an int32 on
+    # the card)
+    Sq, Skv, q_off = 128, 2048, 1400
+    off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+    qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
+    kpos = torch.arange(Skv, device="cuda")[None, :]
+    for dt in (torch.float32, bf):
+        for win in (HY_WIN, 0):
+            q, k, v = (randn(H, Sq, D, dtype=dt), randn(H, Skv, D, dtype=dt),
+                       randn(H, Skv, D, dtype=dt))
+
+            def call():
+                return ops.flash_attention(q, k, v, window=win, q_offset=off)
+
+            def plain():
+                return ref.ref_flash_attention(q, k, v, window=win, q_offset=q_off)
+
+            case = (f"hymba {H}/{H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} "
+                    f"window={win} {dtype_name(dt)}")
+            got = call()
+            err = compare("flash_attention", got, plain(), dt, torch)
+            note("flash_attention", case, err)
+            twice("flash_attention", case, dt, call, got)
+            if dt != bf:
+                continue
+            mask = kpos <= qpos
+            if win:
+                mask &= kpos > qpos - win
+            pairs, kv_read = int(mask.sum()), int(mask.any(0).sum())
+            b_ms, b_by = bound((2 * q.numel() + 2 * H * kv_read * D) * 2,
+                               4 * D * H * pairs, bf)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                      attn_mask=mask[None, None])
+
+            compare(f"SDPA yardstick hymba window={win}", sdpa()[0], plain(), bf,
+                    torch)
+            p = _fl.plan(H, Sq, Skv, D, bf, win, 1)
+            add("flash_attention", dict(
+                shape=f"hymba H={H} group 1 Sq={Sq} Skv={Skv} D={D} "
+                      f"q_offset={q_off} window={win} bf16",
+                max_abs_err=err, plan=f"wq={p.wq} split={p.split}",
+                ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
+
+    # ---- the SSD scan at hymba's heads: a 128-token chunk (two of the
+    # kernel's 64-row chunks), H 50, P 64, N 16, from a zero, a float32 and
+    # an int8 state (one head's scale 0), with and without 37 trailing
+    # dt = 0 rows (a prompt's last chunk); y and the final state
+    Hs, Ps, Ns, S = HY_SSD_H, HY_SSD_P, HY_SSD_N, 128
+
+    def ssd_inputs(dt_, pad):
+        x = randn(1, S, Hs, Ps, dtype=dt_)
+        dtv = 0.1 * randn(1, S, Hs).abs()
+        if pad:
+            dtv[:, -pad:] = 0.0
+        A = -(randn(Hs).abs() + 0.5)
+        return x, dtv, randn(1, S, Ns, dtype=dt_), randn(1, S, Ns, dtype=dt_), A
+
+    def int8_state():
+        q = torch.randint(-127, 128, (1, Hs, Ps, Ns), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        scale = 0.02 * torch.rand(1, Hs, generator=gen, device="cuda")
+        scale[0, 7] = 0.0
+        return q, scale
+
+    def ssd_call(name, inputs, s0):
+        return ops.ssd_scan(*inputs, s0) if name == "ssd_scan" else \
+            ops.ssd_scan_i8(*inputs, *s0)
+
+    def ssd_plain(name, inputs, s0):
+        return ref.ref_ssd_scan(*inputs, s0) if name == "ssd_scan" else \
+            ref.ref_ssd_scan(*inputs, ref.ref_dequant_state(*s0))
+
+    state_elems = Hs * Ps * Ns
+    io_bytes = (2 * S * Hs * Ps + 2 * S * Ns) * 2 + S * Hs * 4 + Hs * 4
+    for dt_ in (torch.float32, bf):
+        for pad in (0, 37):
+            inputs = ssd_inputs(dt_, pad)
+            for name, s0, s0_bytes, what in (
+                    ("ssd_scan", None, 0, "zero"),
+                    ("ssd_scan", randn(1, Hs, Ps, Ns), 4 * state_elems, "float32"),
+                    ("ssd_scan_i8", int8_state(), state_elems + 4 * Hs, "int8")):
+                case = (f"hymba Bt=1 S={S} H={Hs} P={Ps} N={Ns} trailing dt=0 "
+                        f"rows={pad} {dtype_name(dt_)}, {what} state")
+                (y, st), (wy, wst) = ssd_call(name, inputs, s0), ssd_plain(name, inputs, s0)
+                err = max(compare(name, y, wy, dt_, torch, SSD_TOL[dtype_name(dt_)]),
+                          compare(f"{name} final state", st, wst, torch.float32,
+                                  torch, SSD_TOL["float32"]))
+                note(name, case, err)
+                if dt_ == bf:
+                    y2, st2 = ssd_call(name, inputs, s0)
+                    check(torch.equal(y, y2) and torch.equal(st, st2),
+                          f"{name} {case}: two calls differ")
+                one_kernel(name, case, lambda n=name, s=s0: ssd_call(n, inputs, s))
+                if dt_ != bf or pad:
+                    continue
+                # the chunked form's products on bf16 tensor cores, per 64-row
+                # chunk: C h^T and the update (2 + 2 ops per token and state
+                # element), C B^T and W x on and below the diagonal
+                tri = 2 * (64 * 65 // 2)
+                b_ms, b_by = bound(io_bytes + s0_bytes + 4 * state_elems,
+                                   4 * S * state_elems + 2 * tri * Hs * (Ns + Ps), bf)
+                add(name, dict(
+                    shape=f"hymba Bt=1 S={S} H={Hs} P={Ps} N={Ns} x/B/C bf16, "
+                          f"{what} state0",
+                    max_abs_err=err, plan="-",
+                    ms=time_ms(lambda n=name, s=s0: ssd_call(n, inputs, s), torch),
+                    plain_ms=time_plain(lambda n=name, s=s0: ssd_plain(n, inputs, s),
+                                        torch),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # ---- the norms: the gated norm over d_inner 3200 (y and z bf16 as the
+    # SSD heads give them, out bf16), ln1/ln2/final at E 1600; a decode
+    # tick's 8 rows and a chunk's 128
+    for T in (8, 128):
+        y, z = randn(T, 2 * HY_E, dtype=bf), 2.0 * randn(T, 2 * HY_E, dtype=bf)
+        sg = 0.1 * randn(2 * HY_E, dtype=bf)
+        case = f"hymba T={T} n={2 * HY_E} bf16"
+        got = ops.rmsnorm_gated(y, z, sg, out_dtype=bf)
+        note("rmsnorm_gated", case, compare(
+            "rmsnorm_gated", got, ref.ref_rmsnorm_gated(y, z, sg, out_dtype=bf), bf,
+            torch))
+        twice("rmsnorm_gated", case, bf,
+              lambda: ops.rmsnorm_gated(y, z, sg, out_dtype=bf), got)
+        x, s = randn(T, HY_E, dtype=bf), 0.1 * randn(HY_E, dtype=bf)
+        case = f"hymba T={T} E={HY_E} bf16"
+        got = ops.rmsnorm(x, s)
+        note("rmsnorm", case, compare("rmsnorm", got, ref.ref_rmsnorm(x, s), bf, torch))
+        twice("rmsnorm", case, bf, lambda: ops.rmsnorm(x, s), got)
+        if T == 8:
+            b_ms, b_by = bound(3 * y.numel() * 2 + sg.numel() * 2, 8 * y.numel(),
+                               torch.float32)
+            add("rmsnorm_gated", dict(
+                shape=f"hymba y, z ({T}, {2 * HY_E}) bf16, out bf16",
+                max_abs_err=compare("rmsnorm_gated",
+                                    ops.rmsnorm_gated(y, z, sg, out_dtype=bf),
+                                    ref.ref_rmsnorm_gated(y, z, sg, out_dtype=bf),
+                                    bf, torch),
+                plan="-", ms=time_ms(lambda: ops.rmsnorm_gated(y, z, sg, out_dtype=bf),
+                                     torch),
+                plain_ms=time_plain(lambda: ref.ref_rmsnorm_gated(y, z, sg,
+                                                                  out_dtype=bf), torch),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # ---- matmul at every hymba projection (M 8 a decode tick, 128 a
+    # chunk) and the tied head (M 8 a tick, 1 a chunk's last row); weights
+    # at the init scale; float32 at M 8 (the parity phase's)
+    for tag, K, N, nt in HY_MATMULS:
+        b = (0.02 * (randn(N, K) if nt else randn(K, N))).to(bf)
+        for M in ((8, 1) if nt else (8, 128)):
+            a = randn(M, K, dtype=bf)
+            case = f"{tag} M={M} K={K} N={N}{' NT' if nt else ''} bf16"
+            got = ops.matmul(a, b, trans_b=nt)
+            err = compare("matmul", got, ref.ref_matmul(a, b, nt), bf, torch)
+            note("matmul", case, err)
+            twice("matmul", case, bf, lambda: ops.matmul(a, b, trans_b=nt), got)
+            if tag not in HY_TIMED:
+                continue
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf)
+            p = _mm.plan(M, N, K, bf, nt)
+            w = f"({N}, {K})^T" if nt else f"({K}, {N})"
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ {w} bf16",
+                M=M, K=K, N=N, trans_b=nt, max_abs_err=err,
+                plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} blocks={p.blocks} "
+                     f"vec={p.vec}",
+                ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b, nt), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b), torch),
+                bound_ms=b_ms, bound_by=b_by))
+        bf32, a32 = b.float(), randn(8, K)
+        case = f"{tag} M=8 K={K} N={N}{' NT' if nt else ''} float32"
+        note("matmul", case, compare("matmul", ops.matmul(a32, bf32, trans_b=nt),
+                                     ref.ref_matmul(a32, bf32, nt), torch.float32,
+                                     torch))
+        one_kernel("matmul", case, lambda: ops.matmul(a32, bf32, trans_b=nt))
+        del b, bf32
     torch.cuda.empty_cache()
     for name, r in timed:
         lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
@@ -2207,6 +2600,130 @@ def phase_parity_gemma3(torch):
           f"identical, and to the paged engine on cuda")
 
 
+# parity-hymba: hymba-1.5b cut in depth (5 layers: full attention at {0, 2,
+# 4}) and window (1024 -> 64), every width as published
+HY_PARITY_CUT = dict(n_layers=5, sliding_window=64)
+# float32 logits, card against CPU, 5 hybrid layers at init scale: held to
+# 1e-4 absolute
+HY_PARITY_TOL = dict(rtol=0.0, atol=1e-4)
+
+
+def phase_parity_hymba(torch):
+    """hymba-1.5b cut to 5 layers (full attention at {0, 2, 4}) and a
+    window of 64 (``HY_PARITY_CUT``), every width as published (d_model
+    1600, 25 q over 5 kv heads of 64 stored as 25 kv slots, 50 SSD heads
+    of 64 with state 16, d_ff 5504, vocab 32001), in float32 with weights
+    at the init scale: engines on the card (every kernel at hymba's
+    shapes) against engines on the CPU (plain versions), 3 requests of
+    80-200 prompt tokens plus 16 new, so every window bites.  Float pools
+    and float32 slabs (also against the eager-serial engine on the card),
+    int8 pools and int8 slabs, the contiguous engine at budget 256 (the
+    window layers' rings of 64; tokens also equal to the paged engine's),
+    and int8 pools and slabs with ``preempt(b)`` forced mid-prefill and
+    mid-decode (the KV pages and the slab stashed on the host and
+    restored: tokens identical to the uninterrupted run).  Identical greedy
+    tokens; live logits of every step within 1e-4 (float, contiguous) or
+    the int8 tolerance; leak-free after drain()."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), name="hymba-1.5b-parity",
+                              dtype="float32", **HY_PARITY_CUT)
+    check([i for i, s in enumerate(cfg.layer_specs()) if s.attn == "full"] ==
+          [0, 2, 4], "parity-hymba: full attention not at layers 0, 2 and 4")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8", ssm_cache_dtype="int8")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu")
+    win = cfg.sliding_window
+    prompts = [np.random.RandomState(17 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((80, 137, 200))]
+    check(min(len(p) for p in prompts) > win, "parity-hymba: a prompt inside "
+                                              "the window")
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev)
+            for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-hymba", runs["cuda"][1:3], runs["cpu"][1:3],
+                    HY_PARITY_TOL)
+    toks = runs["cuda"][1]
+    _eager_serial(torch, "parity-hymba", toks, cfg, plan, params, reqs())
+    print(f"parity-hymba: hymba-1.5b cut to {HY_PARITY_CUT} float32, float "
+          f"pools and float32 slabs, engine on cuda vs cpu: live logits of "
+          f"every step ({runs['cuda'][2].numel()} values) max_abs_err="
+          f"{err:.3e} (|logit| max {mx:.2f}, tol atol="
+          f"{HY_PARITY_TOL['atol']}); greedy tokens identical, and to the "
+          f"eager-serial engine on cuda: 3 requests x 16 tokens, "
+          f"{len({t for r in toks for t in r})} distinct")
+    del runs
+
+    i8 = {dev: _run_engine(torch, cfg, plan_i8, params, reqs(), dev)
+          for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-hymba[int8]", i8["cuda"][1:3], i8["cpu"][1:3],
+                    INT8_PARITY_TOL)
+    toks_i8 = i8["cuda"][1]
+    print(f"parity-hymba: int8 pools and int8 slabs, engine on cuda vs cpu: "
+          f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol "
+          f"rtol={INT8_PARITY_TOL['rtol']} atol={INT8_PARITY_TOL['atol']}); "
+          f"greedy tokens identical")
+    del i8
+
+    contig = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                               paged=False) for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-hymba[contiguous]", contig["cuda"][1:3],
+                    contig["cpu"][1:3], HY_PARITY_TOL)
+    check(contig["cuda"][1] == toks, f"parity-hymba: contiguous and paged "
+          f"engines differ on cuda\n  {contig['cuda'][1]}\n  {toks}")
+    rings = [e["kv"]["k"].shape[3] for e in contig["cuda"][0].cache[0]]
+    check(sorted(set(rings)) == [win, 256], f"parity-hymba: rings of {rings}")
+    print(f"parity-hymba: contiguous engine (budget 256, window layers' rings "
+          f"of {win} slots, SSD lanes), float32, on cuda vs cpu: live logits "
+          f"max_abs_err={err:.3e} (|logit| max {mx:.2f}); greedy tokens "
+          f"identical, and to the paged engine on cuda")
+    del contig
+
+    restored = []
+
+    def force(eng, tick):
+        """Preempt a prefilling slot at tick 2 and a decoding one at ticks
+        8 and 20."""
+        state = {2: "prefill", 8: "decode", 20: "decode"}.get(tick)
+        for b in range(eng.B):
+            if state and eng.slot_state[b] == state:
+                eng.preempt(b)
+                return
+
+    eng = ServingEngine.build_paged(cfg, plan_i8, 2, 256, params, page_size=16,
+                                    prefill_chunk=32, device="cuda")
+    restore = eng._restore_slot
+
+    def counted_restore(adm, stash):
+        restored.append(stash["n_kv_pages"])
+        restore(adm, stash)
+
+    eng._restore_slot = counted_restore
+    got = _serve_arrivals(eng, reqs(), 3, 1, preempt=force)
+    st = eng.stats
+    check(got == toks_i8, f"parity-hymba[int8, preempted]: forced preemption "
+                          f"changed tokens\n  {got}\n  {toks_i8}")
+    check(0 < st.slab_restores == st.preemptions and all(restored),
+          f"parity-hymba[int8, preempted]: {st.preemptions} preemptions, "
+          f"{st.slab_restores} restores of {restored} KV pages")
+    print(f"parity-hymba: int8 pools and slabs, preempt(b) forced mid-prefill "
+          f"and mid-decode on cuda: greedy tokens identical to the "
+          f"uninterrupted run; preemptions={st.preemptions} slab_restores="
+          f"{st.slab_restores} kv_pages_restored={restored} "
+          f"prefill_tokens_skipped={st.prefill_tokens_skipped}")
+
+
 def phase_parity_ssm(torch):
     """Full-width mamba2-370m (48 layers) in float32 at the port's init
     scale, engines on the card (kernels) against engines on the CPU (plain
@@ -2577,33 +3094,42 @@ SERVE_PHASES = {
     "serve-prefix": ("tinyllama-42m", "bfloat16", "", 0, "prefix"),
     "serve-qwen3": ("qwen3-0.6b", "bfloat16", "", 0, "random"),
     "serve-gemma3": ("gemma3-12b", "bfloat16", "", 0, "long"),
+    "serve-hymba": ("hymba-1.5b", "bfloat16", "", 0, "long"),
 }
+# the phases served at a cut depth, full width: mamba2's 48 layers to 24, so
+# that serve-hymba and its profile fit the script's time (the profiles of the
+# three mamba2 runs took 199 s at 48 layers; parity-ssm keeps all 48)
+SERVE_DEPTH = {"serve-ssm": 24, "serve-ssm-int8": 24}
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
 # the phases served again with eager steps and the serial loop
 AB_PHASES = ("serve", "serve-ssm", "serve-contig")
-# the mixer kernel each serving phase must launch: attention in its decode or
-# verify ticks; the SSD scan in its prefill chunks, once per layer, and never
-# in a decode tick
-PHASE_MIXER = {"serve": "paged_decode_attention",
-               "serve-spec": "paged_verify_attention",
-               "serve-int8": "paged_decode_attention_i8",
-               "serve-spec-int8": "paged_verify_attention_i8",
-               "serve-ssm": "ssd_scan",
-               "serve-ssm-int8": "ssd_scan_i8",
-               "serve-contig": "decode_attention",
-               "serve-contig-int8": "decode_attention_i8",
-               "serve-prefix": "paged_decode_attention",
-               "serve-qwen3": "paged_decode_attention",
-               "serve-gemma3": "paged_decode_attention"}
+# the mixer kernels each serving phase must launch: attention in its decode
+# or verify ticks (and flash attention in its prefill chunks or whole
+# prompts); the SSD scan in its prefill chunks, once per layer, and never in
+# a decode tick; a hybrid all three
+PHASE_MIXER = {"serve": ("paged_decode_attention",),
+               "serve-spec": ("paged_verify_attention",),
+               "serve-int8": ("paged_decode_attention_i8",),
+               "serve-spec-int8": ("paged_verify_attention_i8",),
+               "serve-ssm": ("ssd_scan",),
+               "serve-ssm-int8": ("ssd_scan_i8",),
+               "serve-contig": ("decode_attention",),
+               "serve-contig-int8": ("decode_attention_i8",),
+               "serve-prefix": ("paged_decode_attention",),
+               "serve-qwen3": ("paged_decode_attention",),
+               "serve-gemma3": ("paged_decode_attention",),
+               "serve-hymba": ("paged_decode_attention", "flash_attention",
+                               "ssd_scan")}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
 
 
 SLOTS, SB, PSZ, CH, NEW = 8, 256, 16, 32, 32
-# serve-gemma3: a 2048-token budget, chunks of 128, prompts of 512-1536
-# tokens (half past the window of 1024), weights drawn on the card
+# serve-gemma3 and serve-hymba: a 2048-token budget, chunks of 128, prompts
+# of 512-1536 tokens (half past the window of 1024), weights drawn on the
+# card
 LONG = dict(sb=2048, ch=128, lo=512, hi=1536)
 
 
@@ -2613,12 +3139,12 @@ def _phase_shape(name):
     return (LONG["sb"], LONG["ch"]) if kind == "long" else (SB, CH)
 
 
-def _long_requests(Request, rng, n, lo, hi, max_new, vocab):
-    """Random prompts of ``lo``-``hi`` tokens, half of them past gemma3's
-    window of 1024, in a shuffled order."""
+def _long_requests(Request, rng, n, lo, hi, max_new, vocab, win):
+    """Random prompts of ``lo``-``hi`` tokens, half of them past the arch's
+    window ``win`` (1024 for gemma3 and hymba), in a shuffled order."""
     import numpy as np
-    lens = np.concatenate([rng.randint(lo, G3_WIN + 1, n // 2),
-                           rng.randint(G3_WIN + 1, hi + 1, n - n // 2)])
+    lens = np.concatenate([rng.randint(lo, win + 1, n // 2),
+                           rng.randint(win + 1, hi + 1, n - n // 2)])
     rng.shuffle(lens)
     return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
                     max_new_tokens=max_new) for i, L in enumerate(lens)]
@@ -2639,8 +3165,12 @@ def _serve_setup(torch, name):
     serve-prefix: a shared 100-token prefix and 16-64 tokens of each
     request's own, served with the prefix cache; serve-gemma3: full-width
     gemma3-12b drawn on the card, a 2048-token budget, chunks of 128,
-    prompts of 512-1536 tokens, ``LONG``); the contiguous engine for
+    prompts of 512-1536 tokens, ``LONG``; serve-hymba the same for
+    full-width hymba-1.5b); the contiguous engine for
     ``CONTIG_PHASES``, else the paged one."""
+    import dataclasses
+    import functools
+
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -2649,12 +3179,16 @@ def _serve_setup(torch, name):
     from repro_torch.serving import Request, ServingEngine
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     cfg = get_config(arch)
+    if name in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[name])
     plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
-    # full-width gemma3 (11.8 B parameters) draws on the card
+    # full-width gemma3 (11.8 B parameters) and hymba draw on the card
     gen = torch.Generator(device="cuda" if kind == "long" else "cpu")
     params = model.init_params(cfg, plan, gen.manual_seed(0), device="cuda")
     make = {"random": _requests, "motif": _motif_requests,
-            "prefix": _prefix_requests, "long": _long_requests}[kind]
+            "prefix": _prefix_requests,
+            "long": functools.partial(_long_requests,
+                                      win=cfg.sliding_window)}[kind]
     lo, hi = {"prefix": (16, 64), "long": (LONG["lo"], LONG["hi"])}.get(
         kind, (16, 160))
     sb, ch = _phase_shape(name)
@@ -2830,28 +3364,34 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     steps = [kd for kd in ("decode", "verify") if calls[kd]]
     check(all(per_phase[kd]["matmul"] > 0 for kd in ["prefill"] + steps),
           f"{name}: matmul not launched in every step kind {per_phase}")
-    mixer = PHASE_MIXER[name]
+    mixers = PHASE_MIXER[name]
+    mixer = mixers[0]               # the decode or verify tick's, or the SSD scan
     n_layers = cfg.n_layers
+    specs = cfg.layer_specs()
+    has_attn = any("kv" in s.cache_kinds() for s in specs)
+    ssm = any("ssm" in s.cache_kinds() for s in specs)
+    ffn = any(s.ffn != "none" for s in specs)
     # every step runs the norm family once per norm of the model: the plain
     # norm for the first layer's input (and qwen3's and gemma3's qk-norm, q
     # and k in every layer, and gemma3's post_ln1 and post_ln2), every
-    # later norm with the residual add before it fused in (tinyllama, qwen3
-    # and gemma3 2L of them, mamba2 L), and mamba2's gated norm in every
-    # layer; each decode tick launches as many counted kernels as before
-    # the fusion (tinyllama 10L + 2, qwen3 12L + 2, gemma3 14L + 2, mamba2
-    # 8L + 2)
-    ssm = arch.startswith("mamba2")
+    # later norm with the residual add before it fused in (2L of them with
+    # an FFN, mamba2's L), and the SSD heads' gated norm in every layer
+    # (mamba2, hymba); each decode tick launches as many counted kernels as
+    # the layers hold: 4 attention projections and the attention kernel, 6
+    # SSD projections and the gated norm, 3 FFN products and ln2, ln1, and
+    # the final norm and the head (tinyllama 10L + 2, qwen3 12L + 2, gemma3
+    # 14L + 2, mamba2 8L + 2, hymba 17L + 2)
     qk = 2 if cfg.qk_norm else 0
     post = 2 if cfg.sandwich_norm else 0
     per_norm = {"rmsnorm": 1 + (qk + post) * n_layers,
-                "rmsnorm_residual": n_layers * (1 if ssm else 2),
+                "rmsnorm_residual": n_layers * (2 if ffn else 1),
                 "rmsnorm_gated": n_layers if ssm else 0}
     for kd in ["prefill"] + steps:
         got = {kn: per_phase[kd][kn] for kn in NORMS}
         check(got == {kn: v * calls[kd] for kn, v in per_norm.items()},
               f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
               f"{per_norm} per step")
-    per_tick = (8 if ssm else 10 + qk + post) * n_layers + 2
+    per_tick = (5 * has_attn + 7 * ssm + 4 * ffn + 1 + qk + post) * n_layers + 2
     check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
           f"{name}: {sum(per_phase['decode'].values())} kernels in "
           f"{calls['decode']} decode ticks, not {per_tick} per tick")
@@ -2868,6 +3408,21 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                   if v and kn not in NORMS + ("matmul", "flash_attention", mixer)]
         check(not others, f"{name}: paged, SSM or other decode kernels "
                           f"launched {others}")
+    elif eng.has_slabs and has_attn:
+        # a hybrid: flash attention and the SSD scan in every layer of every
+        # prefill chunk, the paged decode kernel in every layer of every
+        # decode tick, and no other mixer kernel
+        per = {kd: {kn: per_phase[kd][kn] for kn in mixers}
+               for kd in ("prefill", "decode")}
+        want = {"prefill": {kn: n_layers * calls["prefill"] if kn != mixer else 0
+                            for kn in mixers},
+                "decode": {kn: n_layers * calls["decode"] if kn == mixer else 0
+                           for kn in mixers}}
+        check(per == want and calls["prefill"] > 0 and calls["decode"] > 0,
+              f"{name}: mixer launches {per}, not {want}")
+        others = [kn for kn, v in launches.items()
+                  if v and kn not in NORMS + ("matmul",) + mixers]
+        check(not others, f"{name}: unexpected kernels launched {others}")
     elif eng.has_slabs:
         n_ssm = n_layers
         check(per_phase["prefill"][mixer] == n_ssm * calls["prefill"] > 0 and
@@ -2901,7 +3456,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         window = (f"window_rows={bite} of {len(rows)} decode rows read a "
                   f"window of {cfg.sliding_window} shorter than their prefix "
                   f"(up to {max(rows)} keys) ")
-    for kn in ("rmsnorm", "rmsnorm_residual", "matmul", mixer) + \
+    for kn in ("rmsnorm", "rmsnorm_residual", "matmul") + mixers + \
             (("rmsnorm_gated",) if ssm else ()):
         check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
     ttft = np.asarray(stats.ttft_s) * 1e3
@@ -2913,8 +3468,9 @@ def phase_serve(torch, name, graphs=True, overlap=True):
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
             if k else "")
-    store = (f"{ssmd or 'float32'} slabs" if eng.has_slabs else
-             f"{kvd} {'pools' if eng.paged else 'lanes'}")
+    store = ", ".join(
+        ([f"{kvd} {'pools' if eng.paged else 'lanes'}"] if has_attn else []) +
+        ([f"{ssmd or 'float32'} slabs"] if eng.has_slabs else []))
     layout = f"page={PSZ} chunk={ch}" if eng.paged else "contiguous"
     print(f"{name}: [{variant}] {arch} bf16 weights, {store}, speculative={k}, "
           f"{kind} prompts, slots={SLOTS} seq_budget={sb} {layout} "
@@ -3097,6 +3653,7 @@ def main() -> int:
         timed("parity", phase_parity, torch)
         timed("parity-qwen3", phase_parity_qwen3, torch)
         timed("parity-gemma3", phase_parity_gemma3, torch)
+        timed("parity-hymba", phase_parity_hymba, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)

@@ -1,8 +1,8 @@
 """One transformer layer over the contiguous or the paged cache, at tp=1.
 
 Port of the parts of the JAX package's ``core/blocks.py`` that serving of
-attention-only and pure-SSM decoders runs at dp=1: ``attn_mixer`` over a
-contiguous lane (decode, and whole-prompt prefill; ``_kv_q``/``_kv_dq``
+attention-only, pure-SSM and hybrid decoders runs at dp=1: ``attn_mixer``
+over a contiguous lane (decode, and whole-prompt prefill; ``_kv_q``/``_kv_dq``
 with the fixed ``KVQ`` int8 scale, the card's decode kernel reading int8
 lanes in place, ``_kv_write``, ``_kv_fill``) or over
 the page pools (decode, speculative-verify and prefill-chunk modes, over
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import FFN_NONE, MIX_ATTN, MIX_SSM
+from repro_torch.configs.base import FFN_NONE, MIX_ATTN, MIX_HYBRID, MIX_SSM
 from repro_torch.core import ssm as ssd
 from repro_torch.core.attention import (decode_attention, flash_attention,
                                         gather_kv, paged_decode_attention,
@@ -354,8 +354,10 @@ def _paged_ssm(xn, ps, cfg, lay, mode, slab_pool, pages):
 
 def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
                   pos=None, pages=None, delta=None):
-    """One layer: an attention or SSM mixer, then a dense FFN unless the
-    layer has none.  The residual stream is carried as ``x`` and a pending
+    """One layer: an attention or SSM mixer, or both on the same normed
+    input fused as ``0.5 * (attention + SSM)`` (a hybrid layer, JAX's
+    ``partial = 0.5 * (pa + ps_)``), then a dense FFN unless the layer has
+    none.  The residual stream is carried as ``x`` and a pending
     ``delta`` (None before the first layer): each residual add is fused
     into the norm after it (``layers.add_rmsnorm``), so the layer opens
     with the norm of ``x + delta``, and the add of its last sublayer's
@@ -365,23 +367,26 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     the pending delta, as JAX normalizes it before the residual add.
     -> ((x, delta), cache updated in place); ``x + delta`` is the layer's
     output."""
+    if spec.mixer not in (MIX_ATTN, MIX_SSM, MIX_HYBRID):
+        raise NotImplementedError(f"mixer '{spec.mixer}' is not ported")
     x, h = apply_norm(x, p["ln1"], cfg, delta)
-    if spec.mixer == MIX_ATTN:
+    partial = None
+    if spec.mixer in (MIX_ATTN, MIX_HYBRID):
         partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
                                  cache["kv"], positions, pos, pages)
         cache = {**cache, "kv": kv}
-    elif spec.mixer == MIX_SSM and "statep" in cache["ssm"]:
-        partial, slabs = _paged_ssm(h, p["ssm"], cfg, lay, mode,
-                                    cache["ssm"], pages)
-        cache = {**cache, "ssm": slabs}
-    elif spec.mixer == MIX_SSM:                       # a contiguous lane
-        partial, new = ssm_mixer(h, p["ssm"], cfg, lay, mode, cache["ssm"])
-        for name, t in new.items():
-            cache["ssm"][name].copy_(t)
-    else:
-        raise NotImplementedError(
-            f"mixer '{spec.mixer}' is not ported yet (the hybrid fusion "
-            f"comes with hymba-1.5b, ROADMAP Queue 1 item 5)")
+    if spec.mixer in (MIX_SSM, MIX_HYBRID):
+        if "statep" in cache["ssm"]:                  # slab pools
+            ps, slabs = _paged_ssm(h, p["ssm"], cfg, lay, mode,
+                                   cache["ssm"], pages)
+            cache = {**cache, "ssm": slabs}
+        else:                                         # a contiguous lane
+            ps, new = ssm_mixer(h, p["ssm"], cfg, lay, mode, cache["ssm"])
+            for name, t in new.items():
+                cache["ssm"][name].copy_(t)
+        # hybrid: the attention and SSD heads fuse before the one
+        # residual add, as JAX fuses them before the mixer's one psum
+        partial = ps if partial is None else 0.5 * (partial + ps)
     if cfg.sandwich_norm:
         partial = rmsnorm(partial, p["post_ln1"]["scale"], cfg.norm_eps)
     if spec.ffn == FFN_NONE:

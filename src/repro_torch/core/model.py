@@ -2,16 +2,17 @@
 cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
-decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN)
-and pure-SSM (mamba2) decoders at tp=1.  The parameter tree has
-the JAX tree's paths, with the tp axis stripped (what the JAX package's
-``blocks._lo`` returns) and the stacked ``reps`` axis kept:
+decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN),
+pure-SSM (mamba2) decoders and hybrid (hymba) decoders at tp=1.  The
+parameter tree has the JAX tree's paths, with the tp axis stripped (what
+the JAX package's ``blocks._lo`` returns) and the stacked ``reps`` axis
+kept:
 
     {"embed": {"table": (V, E)},
      "stacks": [[layer tree per pattern entry] per layer group],
      "final_norm": {"scale": (E,)}}
 
-with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
+with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and
 
 - attention layers: ``attn`` ``{"wq": (reps, E, H, D), "wk"/"wv": (reps,
   E, n_kv_loc, D), "wo": (reps, H, D, E)}`` (with qk-norm also
@@ -22,7 +23,9 @@ with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and either
 - SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
   H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
   "conv_B"/"conv_C": (reps, N, K), "A_log"/"D"/"dt_bias": (reps, H),
-  "norm_scale": (reps, H * P), "out": (reps, H, P, E)}`` (no FFN).
+  "norm_scale": (reps, H * P), "out": (reps, H, P, E)}`` (no FFN), or
+- hybrid layers: both ``attn`` and ``ssm``, in that order, then ``ln2``
+  and ``ffn``.
 
 ``A_log`` and ``dt_bias`` stay float32 whatever the weight dtype, as in
 JAX.  ``_run_stack`` loops over ``reps`` in Python where JAX scans, and
@@ -57,8 +60,9 @@ class ParamSpec:
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders (GQA, optional
     qk-norm, sliding windows, sandwich norms, a scaled embedding) with
-    RMSNorm, a gated SiLU or gelu FFN and tied embeddings, and pure-SSM
-    (mamba2) decoders; the rest waits for its slice."""
+    RMSNorm, a gated SiLU or gelu FFN and tied embeddings, pure-SSM
+    (mamba2) decoders and hybrid attention + SSM decoders (hymba); the
+    rest waits for its slice."""
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
         ("layernorm (ROADMAP Queue 1 item 9)", cfg.norm != "rmsnorm"),
@@ -70,8 +74,6 @@ def check_supported(cfg: ModelConfig):
          cfg.act not in ("silu", "gelu")),
         ("encoder-decoder (ROADMAP Queue 1 item 9)", cfg.is_encdec),
         ("a frontend (ROADMAP Queue 1 items 5 and 9)", cfg.frontend),
-        ("hybrid attention + SSM layers (hymba-1.5b, ROADMAP Queue 1 item "
-         "5)", any(s.mixer == MIX_HYBRID for s in specs)),
         ("MoE layers (ROADMAP Queue 1 item 10)",
          any(s.ffn == FFN_MOE for s in specs))) if bad]
     if missing:
@@ -106,7 +108,7 @@ def layer_template(cfg, spec, n_layers_total):
     E, d = cfg.d_model, cfg.head_dim_
     out_scale = 0.02 / math.sqrt(2 * n_layers_total)
     t = {"ln1": {"scale": ParamSpec((E,), "zeros")}}
-    if spec.mixer == MIX_ATTN:
+    if spec.mixer in (MIX_ATTN, MIX_HYBRID):
         t["attn"] = {"wq": ParamSpec((E, cfg.n_heads, d)),
                      "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
                      "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
@@ -114,7 +116,7 @@ def layer_template(cfg, spec, n_layers_total):
         if cfg.qk_norm:
             t["attn"]["q_norm"] = ParamSpec((d,), "zeros")
             t["attn"]["k_norm"] = ParamSpec((d,), "zeros")
-    elif spec.mixer == MIX_SSM:
+    if spec.mixer in (MIX_SSM, MIX_HYBRID):
         t["ssm"] = _ssm_template(cfg, out_scale)
     if cfg.sandwich_norm:
         t["post_ln1"] = {"scale": ParamSpec((E,), "zeros")}

@@ -14,7 +14,13 @@ attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 or from state slabs with ``--paged``; ``--arch qwen3-0.6b`` a GQA decoder
 with qk-norm, ``--arch gemma3-12b`` gemma3 (sliding windows on 5 of
 every 6 layers, head_dim 256, sandwich norms, a gelu FFN; 23.5 GB of bf16
-weights at full width).  ``--prefix-cache`` (implies
+weights at full width); ``--arch hymba-1.5b`` the hybrid (attention and
+SSD heads in every layer, windows of 1024 on 29 of 32 layers), from
+per-slot KV and state lanes, or with ``--paged`` from KV pages and a
+state slab per request (``--kv-dtype int8``: int8 pools and slabs;
+``--policy priority --preemption`` stashes both on the host).  SSM archs
+refuse ``--speculative`` and ``--prefix-cache``, as in JAX, and print
+the ``ssm_slabs:`` line when paged.  ``--prefix-cache`` (implies
 ``--paged``) shares cached prompt prefixes through a radix tree with
 copy-on-write pages and prints the ``prefix_cache:`` line;
 ``--shared-prefix N`` prepends a common N-token prefix to every prompt.

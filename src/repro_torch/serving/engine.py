@@ -110,18 +110,22 @@ place, the scale rows of the pages freed since the last plan
 (``PageAllocator.take_scale_dirty``), so a recycled page never pairs a
 fresh payload with a stale scale.
 
-**SSM archs** (mamba2), paged: each admission also gets one recurrent-state
-**slab** (``SlabAllocator``; ``batch_slots + 1`` slabs, slab 0 scratch),
-zeroed at admission so the previous owner's state cannot leak into the new
-request; prefill chunks and decode steps read and write it by slab id, and
-idle lanes point at the scratch slab.  A pure-SSM arch has no KV pool and
-budgets no pages.  ``plan.ssm_cache_dtype == "int8"`` stores the slabs as
+**SSM archs** (mamba2, and the hybrid hymba), paged: each admission also
+gets one recurrent-state **slab** (``SlabAllocator``; ``batch_slots + 1``
+slabs, slab 0 scratch), zeroed at admission so the previous owner's state
+cannot leak into the new request; prefill chunks and decode steps read and
+write it by slab id, and idle lanes point at the scratch slab.  A pure-SSM
+arch has no KV pool and budgets no pages; a hybrid is admitted with its
+page run and its slab together, all or nothing, and frees both together.
+``plan.ssm_cache_dtype == "int8"`` stores the slabs as
 int8 with per-(slab, head) scales.  Speculation is refused: an SSM
 recurrence advances one token per step.  The prefix cache is refused: an SSM
 layer's state for a shared prefix is not addressable by pages.  A preempted
 slot's slab (state, conv tails and, for int8 slabs, scales: 48 MiB for a
-float32 mamba2-370m request) is copied to pinned host memory after the
-barrier (``_stash_slot``) and written into the re-admission's new slab
+float32 mamba2-370m request, 6.25 MiB for hymba-1.5b) and, for a hybrid,
+the payloads (and int8 scale rows) of the KV pages covering its resident
+tokens are copied to pinned host memory after the barrier
+(``_stash_slot``) and written into the re-admission's new slab and pages
 before its first chunk (``_restore_slot``, ``stats.slab_restores``);
 prefill resumes at the stashed position.  The replica handoff rounds wait
 for ROADMAP Queue 1 item 11.
@@ -592,34 +596,71 @@ class ServingEngine:
         self._clear_slot(b)
         self.stats.preemptions += 1
 
-    def _slab_pools(self):
-        """Every SSM layer's slab pools, (reps, n_slabs, ...) each, in
-        cache order."""
+    def _kind_pools(self, kind: str):
+        """Every layer's pools of one cache kind ("kv" page pools, (reps,
+        n_pages, ...), or "ssm" slab pools, (reps, n_slabs, ...)), in cache
+        order."""
         return [pool for group in self.cache for entry in group
-                for pool in entry.get("ssm", {}).values()]
+                for pool in entry.get(kind, {}).values()]
+
+    @staticmethod
+    def _runs(pages):
+        """Page ids as runs of consecutive ids: (offset in ``pages``,
+        first id, length), so a run is copied as one slice (a view: no
+        index tensor, nothing read on the host)."""
+        runs = []
+        for i, p in enumerate(pages):
+            if runs and p == runs[-1][1] + runs[-1][2]:
+                runs[-1][2] += 1
+            else:
+                runs.append([i, p, 1])
+        return runs
 
     def _stash_slot(self, adm: Admission, n: int):
-        """Checkpoint a preempted slot's slab (state after exactly ``n``
-        tokens, conv tails, int8 scales) to host memory: one non-blocking
-        copy per pool into pinned buffers.  The host never reads them: the
-        restore copies them back on the same stream, after these copies.
-        (A pure-SSM arch holds no KV pages; JAX also stashes a hybrid's KV
-        pages, and the port serves no hybrid.)"""
+        """Checkpoint a preempted slot to host memory: its slab (state after
+        exactly ``n`` tokens, conv tails, int8 scales) and, for a hybrid,
+        the payloads of the first ``pages_needed(n, page_size)`` pages of
+        every KV pool (int8 pools' scale rows too), as JAX's
+        ``_stash_slot``: KV alone could be recomputed, but not through
+        hybrid layers without re-advancing the SSM state, so the resume
+        point restores both.  Non-blocking copies into pinned buffers; the
+        host never reads them: the restore copies them back on the same
+        stream, after these copies."""
         pin = self.device.type == "cuda"
-        host = []
-        for pool in self._slab_pools():
-            h = torch.empty(pool[:, adm.slab].shape, dtype=pool.dtype,
-                            pin_memory=pin)
+
+        def host(src):
+            return torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
+
+        slabs = []
+        for pool in self._kind_pools("ssm"):
+            h = host(pool[:, adm.slab])
             h.copy_(pool[:, adm.slab], non_blocking=True)
-            host.append(h)
-        self._stash[adm.req.rid] = {"n": n, "ssm": host}
+            slabs.append(h)
+        k = pages_needed(n, self.page_size) if adm.pages else 0
+        kv = []
+        for pool in self._kind_pools("kv") if k else ():
+            h = host(pool[:, :k])
+            for i, p, m in self._runs(adm.pages[:k]):
+                h[:, i:i + m].copy_(pool[:, p:p + m], non_blocking=True)
+            kv.append(h)
+        self._stash[adm.req.rid] = {"n": n, "ssm": slabs, "kv": kv,
+                                    "n_kv_pages": k}
 
     def _restore_slot(self, adm: Admission, stash: dict):
-        """Write a stashed checkpoint into the re-admission's fresh slab;
-        prefill then continues at token ``stash["n"]``: nothing resident is
+        """Write a stashed checkpoint into the re-admission's fresh slab and
+        the first ``stash["n_kv_pages"]`` pages of its new run; prefill then
+        continues at token ``stash["n"]``: nothing resident is
         recomputed."""
-        for pool, h in zip(self._slab_pools(), stash["ssm"], strict=True):
+        for pool, h in zip(self._kind_pools("ssm"), stash["ssm"],
+                           strict=True):
             pool[:, adm.slab].copy_(h, non_blocking=True)
+        k = stash["n_kv_pages"]
+        if k:
+            runs = self._runs(adm.pages[:k])
+            for pool, h in zip(self._kind_pools("kv"), stash["kv"],
+                               strict=True):
+                for i, p, m in runs:
+                    pool[:, p:p + m].copy_(h[:, i:i + m], non_blocking=True)
         self.stats.slab_restores += 1
 
     # ----------------------------------------------------------------- tick

@@ -6,7 +6,8 @@ of ``_paged_ssm`` against ``repro.core``, the deterministic SSD-head
 inits, the slab pools and allocator, reduced ``mamba2-370m``'s logits and
 slabs over prefill chunks and decode steps, and the engine's greedy tokens
 against the JAX paged engine, for float32 and int8 slabs.  Also the
-refusals (speculation with an SSM arch, hybrid and MoE archs, no card).
+refusals (speculation with an SSM arch, an untied head and MoE archs, no
+card).
 
 Tolerances: the SSD scan 1e-3 (``tests/test_kernels.py``'s SSD tolerance:
 the chunked and sequential forms sum in other orders); fp32 1e-4
@@ -643,7 +644,7 @@ def test_speculation_is_refused_for_ssm_archs(ssm_weights, capsys):
 
 
 @pytest.mark.parametrize("change,slice_", [
-    (dict(family="hybrid", ssm_state=16), "hymba-1.5b, ROADMAP Queue 1 item 5"),
+    (dict(tie_embeddings=False), "an untied LM head (ROADMAP Queue 1 item 5)"),
     (dict(n_experts=4, top_k=2, moe_d_ff=64), "MoE layers (ROADMAP Queue 1 "
                                               "item 10)"),
 ])
