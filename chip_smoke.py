@@ -76,7 +76,14 @@ each (and a few detail lines):
             in 2048 keys, the SSD scan at H 50, P 64, N 16 over 128 rows
             from a zero, float32 and int8 state, the gated norm over 3200
             channels, rmsnorm at E 1600, matmul at every hymba projection
-            (in_dt's N 50, in_B/in_C's N 16) and the 32,001-row head; median
+            (in_dt's N 50, in_B/in_C's N 16) and the 32,001-row head; then
+            mistral-large-123b's shapes (96 q over 8 kv heads, group 12, D
+            128): flash over the chunk (Sq 32 at q_offset 256 in 288 keys,
+            and the first chunk), paged decode (B 8, lengths to 256, a
+            graph replayed after they change), the norms at E 12288,
+            matmul at M 8 and 32 for wq, wk/wv, wo, w_gate/w_up and
+            w_down (K and N to 28672) and the untied (32768, 12288) head at
+            M 8 and 1; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (SDPA, with
@@ -116,6 +123,19 @@ each (and a few detail lines):
             within 1e-4, tokens equal to the paged engine's), and int8
             pools and slabs with preempt(b) forced (KV pages and the slab
             stashed and restored), identical greedy tokens.
+            parity-mistral: mistral-large-123b cut to 3 layers, d_model
+            768, 12 q heads over 1 kv head of 64 (its group of 12), d_ff
+            2048, its vocab of 32768 and untied head kept, float32: float
+            pools (also against the eager-serial engine) and the contiguous
+            engine, card against CPU, logits within 1e-4, identical greedy
+            tokens; a speculative engine on the card refused at
+            construction (R 12 x Q 2 > 16).  parity-sample: tinyllama-42m at
+            full width cut to 4 layers, float32, sampled (temperature 0.7,
+            top_k 40; temperature 1.0, top_p 0.9): the paged engine with
+            speculation k = 3 (also against the one-token engine), under
+            priority preemption with preempt(b) forced (also against FCFS),
+            and the contiguous engine (also against the paged one), card
+            against CPU: identical sampled tokens.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -138,7 +158,7 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in twelve phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in fourteen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
@@ -162,7 +182,16 @@ each (and a few detail lines):
             layers, the same long mix, bfloat16 pools and float32 slabs;
             flash attention and the SSD scan in every layer of every
             chunk, the paged decode kernel in every layer of every decode
-            tick).  Every
+            tick), and serve-mistral (full-width mistral-large-123b at 20
+            of its 88 layers (``SERVE_DEPTH``: 57.0 GB of bf16 weights),
+            drawn on the card, bfloat16 pools, random prompts, flash and
+            paged decode at group 12, the untied head; its widths, head
+            layout, weight bytes, tok/s, ticks and busy share printed on
+            a ``mistral[...]`` line with the card), and serve-sample
+            (serve's model and mix, sampled at temperature 0.7, top_k 40:
+            served again eager-serial with identical tokens, and its
+            tok/s, wall per tick and ticks beside serve's on a
+            ``sample[...]`` line).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
@@ -1180,6 +1209,7 @@ def phase_kernels(torch, F):
     _gqa_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows)
+    _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -2146,6 +2176,211 @@ def _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows):
               f"library_us={lib} [{r['plan']}]")
 
 
+# mistral-large-123b's widths: 96 q heads over 8 kv heads of 128 (group 12
+# at tp=1), d_model 12288, d_ff 28672, the untied 32768-row head
+ML_HQ, ML_HK, ML_D, ML_E, ML_F, ML_V = 96, 8, 128, 12288, 28672, 32768
+ML_MATMULS = (("mistral wq", ML_E, ML_HQ * ML_D, False),
+              ("mistral wk/wv", ML_E, ML_HK * ML_D, False),
+              ("mistral wo", ML_HQ * ML_D, ML_E, False),
+              ("mistral w_gate/w_up", ML_E, ML_F, False),
+              ("mistral w_down", ML_F, ML_E, False),
+              ("mistral LM head (untied)", ML_E, ML_V, True))
+
+
+def _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
+                     rows):
+    """The kernel cases at mistral-large-123b's shapes, against their plain
+    versions: flash over serve-mistral's prefill chunk (Sq 32 at q_offset
+    256 over 288 keys, and the first chunk at q_offset 0; 96 q over 8 kv
+    heads, group 12, D 128; q_offset an int32 on the card); paged decode
+    at B 8, group 12, D 128 (pages of 16, n_max 16, ragged lengths to 256,
+    an idle lane; a graph replayed after the lengths change); the norm and
+    the residual norm at E 12288; matmul at M 8 (a decode tick) and 32 (a
+    chunk) for wq, wk/wv, wo, w_gate/w_up and w_down (K and N up to
+    28672), and the untied head (32768, 12288) NT at M 8 and 1 (a chunk's
+    last row).  float32 and bf16; every bf16 case runs twice (bitwise-
+    equal outputs) and every case is one kernel node in a CUDA graph.
+    Times (bf16, L2-warm) beside the bound, the plain version and the
+    library call where one computes the same (SDPA with enable_gqa=True
+    and a mask for the offset; ``F.rms_norm``; ``torch.matmul``); appended
+    to each kernel's ``by_shape``."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import matmul as _mm
+    from repro_torch.kernels import ops, ref
+    Hq, Hk, D = ML_HQ, ML_HK, ML_D
+    R = Hq // Hk
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def twice(kname, case, dt, call, got):
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+
+    # ---- flash: the chunk at q_offset 256 over 288 keys (a 256-token
+    # prefix), and the first chunk
+    for dt in (torch.float32, bf):
+        for Sq, Skv, q_off in ((32, 288, 256), (32, 32, 0)):
+            q, k, v = (randn(Hq, Sq, D, dtype=dt), randn(Hk, Skv, D, dtype=dt),
+                       randn(Hk, Skv, D, dtype=dt))
+            off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+
+            def call():
+                return ops.flash_attention(q, k, v, q_offset=off)
+
+            def plain():
+                return ref.ref_flash_attention(q, k, v, q_offset=q_off)
+
+            case = (f"mistral {Hq}/{Hk} Sq={Sq} Skv={Skv} D={D} "
+                    f"q_offset={q_off} {dtype_name(dt)}")
+            got = call()
+            err = compare("flash_attention", got, plain(), dt, torch)
+            note("flash_attention", case, err)
+            twice("flash_attention", case, dt, call, got)
+            if dt != bf or q_off == 0:
+                continue
+            mask = (torch.arange(Skv, device="cuda")[None, :]
+                    <= torch.arange(Sq, device="cuda")[:, None] + q_off)
+            pairs, kv_read = int(mask.sum()), int(mask.any(0).sum())
+            b_ms, b_by = bound((2 * q.numel() + 2 * Hk * kv_read * D) * 2,
+                               4 * D * Hq * pairs, bf)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], attn_mask=mask[None, None],
+                    enable_gqa=True)
+
+            compare("SDPA yardstick mistral", sdpa()[0], plain(), bf, torch)
+            p = _fl.plan(Hq, Sq, Skv, D, bf, 0, R)
+            rb = _fl.heads_per_block(R)
+            add("flash_attention", dict(
+                shape=f"mistral Hq={Hq} Hk={Hk} group {R} Sq={Sq} Skv={Skv} "
+                      f"D={D} q_offset={q_off} bf16",
+                max_abs_err=err,
+                plan=f"wq={p.wq} split={p.split} heads_per_block={rb} blocks="
+                     f"{p.split * (Hq // rb) * -(-Sq // (16 * p.wq // rb))}",
+                ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
+
+    # ---- paged decode: 8 slots over a shuffled pool of pages of 16, ragged
+    # lengths to 256 (serve-mistral's budget), the last slot an idle lane
+    B, psz, n_max = 8, 16, 16
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(7)) + 1
+    bt = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    bt[-1] = 0
+    lengths = [1, 17, 33, 100, 160, 192, 256, 1]
+    length = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, bf):
+        q = randn(B, Hq, D, dtype=dt)
+        kp, vp = randn(n_pages, Hk, psz, D, dtype=dt), randn(n_pages, Hk, psz, D,
+                                                            dtype=dt)
+
+        def call():
+            return ops.paged_decode_attention(q, kp, vp, bt, length)
+
+        def plain():
+            return ref.ref_paged_decode_attention(q, kp, vp, bt, length)
+
+        case = (f"mistral {Hq}/{Hk} group {R} D={D} n_max={n_max} "
+                f"lengths={lengths} {dtype_name(dt)}")
+        got = call()
+        err = compare("paged_decode_attention", got, plain(), dt, torch)
+        note("paged_decode_attention", case, err)
+        twice("paged_decode_attention", case, dt, call, got)
+        replay_check("paged_decode_attention", case, call, length,
+                     [256, 1, 16, 200, 33, 5, 128, 1])
+        if dt != bf:
+            continue
+        toks = sum(lengths)
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * Hk * toks * D * 2 +
+                           bt.numel() * 4 + B * 4, 4 * D * Hq * toks, bf)
+        p = _dec.plan(B, Hq, 1, D, psz, n_max, bf, False, R)
+        add("paged_decode_attention", dict(
+            shape=f"mistral B={B} Hq={Hq} Hk={Hk} group {R} D={D} psz={psz} "
+                  f"n_max={n_max} lengths={lengths} bf16",
+            max_abs_err=err,
+            plan=f"nw={p.nw} split={p.split} blocks={p.split * B * Hk}",
+            ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+    del kp, vp
+
+    # ---- the norms at E 12288: a decode tick's 8 rows and a chunk's 32
+    for T in (8, 32):
+        x, r = randn(T, ML_E, dtype=bf), randn(T, ML_E, dtype=bf)
+        sc = 0.1 * randn(ML_E, dtype=bf)
+        case = f"mistral T={T} E={ML_E} bf16"
+        got = ops.rmsnorm(x, sc)
+        err = compare("rmsnorm", got, ref.ref_rmsnorm(x, sc), bf, torch)
+        note("rmsnorm", case, err)
+        twice("rmsnorm", case, bf, lambda: ops.rmsnorm(x, sc), got)
+        xs, normed = ops.rmsnorm_residual(x, r, sc)
+        check(torch.equal(xs, x + r) and torch.equal(normed, ops.rmsnorm(x + r, sc)),
+              f"rmsnorm_residual {case}: not bitwise the unfused ops")
+        note("rmsnorm_residual", case, 0.0)
+        one_kernel("rmsnorm_residual", case, lambda: ops.rmsnorm_residual(x, r, sc))
+        if T != 8:
+            continue
+        b_ms, b_by = bound(2 * x.numel() * 2 + sc.numel() * 2, 5 * x.numel(),
+                           torch.float32)                # the math is float32
+        w1 = (1.0 + sc.float()).to(bf)
+        add("rmsnorm", dict(
+            shape=f"mistral x ({T}, {ML_E}) bf16", max_abs_err=err, plan="-",
+            ms=time_ms(lambda: ops.rmsnorm(x, sc), torch),
+            plain_ms=time_plain(lambda: ref.ref_rmsnorm(x, sc), torch),
+            library_ms=(time_ms(lambda: F.rms_norm(x, (ML_E,), w1, 1e-6), torch)
+                        if hasattr(F, "rms_norm") else None),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # ---- matmul: every projection at M 8 and 32, the untied head at M 8
+    # and 1; weights at the init scale; float32 at M 8 (the parity phase's
+    # kernel, at full width here)
+    for tag, K, N, nt in ML_MATMULS:
+        b = (0.02 * (randn(N, K) if nt else randn(K, N))).to(bf)
+        for M in ((8, 1) if nt else (8, 32)):
+            a = randn(M, K, dtype=bf)
+            case = f"{tag} M={M} K={K} N={N}{' NT' if nt else ''} bf16"
+            got = ops.matmul(a, b, trans_b=nt)
+            err = compare("matmul", got, ref.ref_matmul(a, b, nt), bf, torch)
+            note("matmul", case, err)
+            twice("matmul", case, bf, lambda: ops.matmul(a, b, trans_b=nt), got)
+            if M == 1:
+                continue
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf)
+            p = _mm.plan(M, N, K, bf, nt)
+            w = f"({N}, {K})^T" if nt else f"({K}, {N})"
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ {w} bf16",
+                M=M, K=K, N=N, trans_b=nt, max_abs_err=err,
+                plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} blocks={p.blocks} "
+                     f"smem={p.smem} vec={p.vec}",
+                ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b, nt), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b), torch),
+                bound_ms=b_ms, bound_by=b_by))
+        bf32, a32 = b.float(), randn(8, K)
+        del b
+        case = f"{tag} M=8 K={K} N={N}{' NT' if nt else ''} float32"
+        note("matmul", case, compare("matmul", ops.matmul(a32, bf32, trans_b=nt),
+                                     ref.ref_matmul(a32, bf32, nt), torch.float32,
+                                     torch))
+        one_kernel("matmul", case, lambda: ops.matmul(a32, bf32, trans_b=nt))
+        del bf32
+        torch.cuda.empty_cache()
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
+
+
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
     import numpy as np
     return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
@@ -2724,6 +2959,215 @@ def phase_parity_hymba(torch):
           f"prefill_tokens_skipped={st.prefill_tokens_skipped}")
 
 
+# parity-mistral: mistral-large-123b cut in width and depth, keeping its
+# group of 12 q heads a kv slot and its untied 32768-row head
+ML_PARITY_CUT = dict(n_layers=3, d_model=768, n_heads=12, n_kv_heads=1,
+                     head_dim=64, d_ff=2048)
+# float32 logits, card against CPU: held to 1e-4 absolute
+ML_PARITY_TOL = dict(rtol=0.0, atol=1e-4)
+
+
+def phase_parity_mistral(torch):
+    """mistral-large-123b cut to 3 layers, d_model 768, 12 q heads over 1
+    kv head of 64 (R 12, mistral's group), d_ff 2048 (``ML_PARITY_CUT``),
+    its vocab of 32768 and untied head kept, float32 at the init scale:
+    engines on the card (flash and paged decode at group 12, the head's NT
+    product on a tensor of its own) against engines on the CPU (plain
+    versions), 3 requests of 40-130 prompt tokens plus 16 new: float pools
+    (also against the eager-serial engine on the card) and the contiguous
+    engine (also against the paged engine on the card).  Logits of every
+    step within 1e-4, identical greedy tokens, leak-free.  Then a
+    speculative engine on the card is refused at construction (R 12 x Q 2
+    rows past the verify kernel's m16: ROADMAP Queue 2 item 1)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan, model_layout
+    from repro_torch.serving import Request, ServingEngine
+    cfg = dataclasses.replace(get_config("mistral-large-123b"),
+                              name="mistral-large-123b-parity", dtype="float32",
+                              **ML_PARITY_CUT)
+    lay = model_layout(cfg, ShardingPlan()).attn
+    check(lay.r == 12 and not cfg.tie_embeddings,
+          f"parity-mistral: r={lay.r}, tie_embeddings={cfg.tie_embeddings}")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    params = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                               device="cpu")
+    prompts = [np.random.RandomState(27 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    out = {}
+    for paged in (True, False):
+        tag = "paged" if paged else "contiguous"
+        runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                                 paged=paged) for dev in ("cuda", "cpu")}
+        err, mx = _same(f"parity-mistral[{tag}]", runs["cuda"][1:3],
+                        runs["cpu"][1:3], ML_PARITY_TOL)
+        out[tag] = toks = runs["cuda"][1]
+        n_distinct = len({t for r in toks for t in r})
+        check(n_distinct > 3, f"parity-mistral[{tag}]: greedy decoding "
+                              f"collapsed {toks}")
+        if paged:
+            _eager_serial(torch, "parity-mistral", toks, cfg, plan, params, reqs())
+        print(f"parity-mistral: mistral-large-123b cut to {ML_PARITY_CUT} "
+              f"(r={lay.r}, kv slots {lay.n_kv_loc}, untied head "
+              f"({cfg.vocab_size}, {cfg.d_model})) float32, {tag} engine on cuda "
+              f"vs cpu: live logits of every step ({runs['cuda'][2].numel()} "
+              f"values) max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol atol="
+              f"{ML_PARITY_TOL['atol']}); greedy tokens identical"
+              f"{', and to the eager-serial engine on cuda' if paged else ''}: "
+              f"3 requests x 16 tokens, {n_distinct} distinct")
+        del runs
+    check(out["paged"] == out["contiguous"], f"parity-mistral: contiguous and "
+          f"paged engines differ on cuda\n  {out['contiguous']}\n  {out['paged']}")
+    try:
+        ServingEngine.build_paged(cfg, plan, 2, 256, params, page_size=16,
+                                  prefill_chunk=32, speculative=1, device="cuda")
+    except ValueError as e:
+        check("ROADMAP Queue 2 item 1" in str(e),
+              f"parity-mistral: speculation refused for another reason: {e}")
+        print(f"parity-mistral: contiguous tokens equal the paged engine's on "
+              f"cuda; speculative=1 refused at construction on cuda: {e}")
+    else:
+        raise SmokeFailure("parity-mistral: a speculative engine at R 12 was "
+                           "built on the card")
+
+
+# parity-sample: tinyllama-42m at full width cut to 4 of its 8 layers, and
+# the two samplers of the CPU tests
+SAMPLE_DEPTH = 4
+SAMPLERS = {"top_k": dict(temperature=0.7, top_k=40),
+            "top_p": dict(temperature=1.0, top_p=0.9)}
+
+
+def phase_parity_sample(torch):
+    """Sampled decoding on the card against the CPU in fp32: tinyllama-42m
+    at full width cut to 4 of its 8 layers (``SAMPLE_DEPTH``), weights
+    x0.5, the same weights, requests and ``rng_seed`` on both: the paged
+    engine with temperature 0.7, top_k 40 and with temperature 1.0, top_p
+    0.9, each with speculation k = 3 on 8 repetitive prompts and 32 new
+    tokens (also against the one-token engine on the card: speculation
+    changes no draw).  At x0.5 the top 40 often hold a motif's tokens, so
+    top_k's samples meet drafts and the verify kernel runs (and accepts
+    some); top_p's nucleus at temperature 1.0 spans most of the 32000
+    tokens, whose draws hardly ever recur in the context, so its drafts
+    rarely hit (the CPU tests verify top_p's drafts at vocab 512).  Under PriorityScheduler(preemption=True) with the
+    first sampler, every 3rd request urgent and arriving while others run,
+    ``preempt(b)`` forced at ticks 4 and 11 (also against the uninterrupted
+    FCFS run on the card); the contiguous engine with the first sampler
+    (also against the paged engine on the card).  Identical sampled tokens
+    (every request's own stream, one draw per emitted row), live logits of
+    every step within the parity tolerance, leak-free."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import (PriorityScheduler, Request, SamplerConfig,
+                                     ServingEngine)
+    cfg = dataclasses.replace(get_config("tinyllama-42m"), n_layers=SAMPLE_DEPTH)
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    params = model.tree_map(lambda t: t * 0.5, model.init_params(
+        cfg, plan, torch.Generator().manual_seed(0), device="cpu",
+        dtype="float32"))
+
+    def spec_reqs():
+        return _motif_requests(Request, np.random.RandomState(11), 8, 24, 48,
+                               32, cfg.vocab_size)
+
+    for kind, sk in SAMPLERS.items():
+        kw = dict(sampler=SamplerConfig(**sk), rng_seed=7)
+        spec = {dev: _run_engine(torch, cfg, plan, params, spec_reqs(), dev,
+                                 speculative=3, **kw) for dev in ("cuda", "cpu")}
+        err, mx = _same(f"parity-sample[{kind}, spec]", spec["cuda"][1:3],
+                        spec["cpu"][1:3], PARITY_TOL)
+        one = _run_engine(torch, cfg, plan, params, spec_reqs(), "cuda", **kw)[1]
+        toks = spec["cuda"][1]
+        check(toks == one, f"parity-sample[{kind}]: speculative and one-token "
+                           f"engines differ on cuda\n  {toks}\n  {one}")
+        st = spec["cuda"][0].stats
+        check(kind != "top_k" or st.spec_accepted > 0,
+              f"parity-sample[{kind}]: no draft accepted {st}")
+        print(f"parity-sample: tinyllama-42m at {SAMPLE_DEPTH} layers float32, "
+              f"{sk}, speculative=3 engine on cuda vs cpu: live logits "
+              f"max_abs_err={err:.3e} (|logit| max {mx:.2f}); sampled tokens "
+              f"identical, and to the one-token engine on cuda (8 requests x "
+              f"32 tokens, {len({t for r in toks for t in r})} distinct); "
+              f"verify slot-steps={st.spec_steps} drafted={st.spec_drafted} "
+              f"accepted={st.spec_accepted}")
+        del spec
+
+    sampler = SamplerConfig(**SAMPLERS["top_k"])
+
+    def mixed():
+        out = _requests(Request, np.random.RandomState(9), 7, 8, 70, 16,
+                        cfg.vocab_size)
+        for r in out:
+            r.priority = 10 if r.rid % 3 == 2 else 0
+        return out
+
+    def force(eng, tick):
+        if tick in (4, 11):
+            b = next((b for b in range(eng.B) if eng.admissions[b] is not None),
+                     None)
+            if b is not None:
+                eng.preempt(b)
+
+    def engine(dev, **kw):
+        return ServingEngine.build_paged(cfg, plan, 2, 256, params, page_size=16,
+                                         prefill_chunk=32, sampler=sampler,
+                                         rng_seed=7, device=dev, **kw)
+
+    want = _serve_arrivals(engine("cuda"), mixed(), 2, 6)
+    got, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        eng = engine(dev, prefix_cache=True, scheduler=functools.partial(
+            PriorityScheduler, preemption=True))
+        got[dev] = _serve_arrivals(eng, mixed(), 2, 6, preempt=force)
+        stats[dev] = eng.stats
+    check(got["cuda"] == got["cpu"], f"parity-sample[preempted]: cuda and cpu "
+          f"differ\n  {got['cuda']}\n  {got['cpu']}")
+    check(got["cuda"] == want, f"parity-sample[preempted]: preemption changed "
+          f"sampled tokens\n  {got['cuda']}\n  {want}")
+    st = stats["cuda"]
+    check(st.preemptions > 2, f"parity-sample[preempted]: {st.preemptions} "
+                              f"preemptions")
+    print(f"parity-sample: {SAMPLERS['top_k']}, priority with preemption and "
+          f"preempt(b) forced at ticks 4 and 11, engine on cuda vs cpu: sampled "
+          f"tokens identical, and to FCFS without preemption on cuda (7 requests "
+          f"x 16); preemptions={st.preemptions} prefill_tokens_skipped="
+          f"{st.prefill_tokens_skipped}")
+
+    prompts = [np.random.RandomState(7 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    kw = dict(sampler=sampler, rng_seed=7)
+    contig = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                               paged=False, **kw) for dev in ("cuda", "cpu")}
+    err, mx = _same("parity-sample[contiguous]", contig["cuda"][1:3],
+                    contig["cpu"][1:3], PARITY_TOL)
+    paged = _run_engine(torch, cfg, plan, params, reqs(), "cuda", **kw)[1]
+    check(contig["cuda"][1] == paged, f"parity-sample: contiguous and paged "
+          f"engines differ on cuda\n  {contig['cuda'][1]}\n  {paged}")
+    print(f"parity-sample: {SAMPLERS['top_k']}, contiguous engine on cuda vs "
+          f"cpu: live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}); "
+          f"sampled tokens identical, and to the paged engine on cuda")
+
+
 def phase_parity_ssm(torch):
     """Full-width mamba2-370m (48 layers) in float32 at the port's init
     scale, engines on the card (kernels) against engines on the CPU (plain
@@ -3095,11 +3539,23 @@ SERVE_PHASES = {
     "serve-qwen3": ("qwen3-0.6b", "bfloat16", "", 0, "random"),
     "serve-gemma3": ("gemma3-12b", "bfloat16", "", 0, "long"),
     "serve-hymba": ("hymba-1.5b", "bfloat16", "", 0, "long"),
+    "serve-mistral": ("mistral-large-123b", "bfloat16", "", 0, "random"),
+    "serve-sample": ("tinyllama-42m", "bfloat16", "", 0, "random"),
 }
 # the phases served at a cut depth, full width: mamba2's 48 layers to 24, so
 # that serve-hymba and its profile fit the script's time (the profiles of the
 # three mamba2 runs took 199 s at 48 layers; parity-ssm keeps all 48)
-SERVE_DEPTH = {"serve-ssm": 24, "serve-ssm-int8": 24}
+SERVE_DEPTH = {"serve-ssm": 24, "serve-ssm-int8": 24,
+               # mistral's 88 layers hold 245.2 GB of bf16 weights; 20 hold
+               # 55.4 GB, with the embedding table and the untied head 57.0 GB
+               # on the 80 GB card, beside the pools and the step graphs
+               "serve-mistral": 20}
+# the phases that sample (every other phase is greedy): serve-sample is
+# serve's model and mix, drawn with the JAX launcher's top_k 40
+SERVE_SAMPLER = {"serve-sample": dict(temperature=0.7, top_k=40)}
+# the sampled phases served again eager-serial for their tokens alone (no
+# profile)
+SAMPLE_AB_PHASES = ("serve-sample",)
 # the phases served by the contiguous engine (the others are paged)
 CONTIG_PHASES = ("serve-contig", "serve-contig-int8")
 # the phases served again with eager steps and the serial loop
@@ -3120,7 +3576,9 @@ PHASE_MIXER = {"serve": ("paged_decode_attention",),
                "serve-qwen3": ("paged_decode_attention",),
                "serve-gemma3": ("paged_decode_attention",),
                "serve-hymba": ("paged_decode_attention", "flash_attention",
-                               "ssd_scan")}
+                               "ssd_scan"),
+               "serve-mistral": ("paged_decode_attention", "flash_attention"),
+               "serve-sample": ("paged_decode_attention",)}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -3166,8 +3624,11 @@ def _serve_setup(torch, name):
     request's own, served with the prefix cache; serve-gemma3: full-width
     gemma3-12b drawn on the card, a 2048-token budget, chunks of 128,
     prompts of 512-1536 tokens, ``LONG``; serve-hymba the same for
-    full-width hymba-1.5b); the contiguous engine for
-    ``CONTIG_PHASES``, else the paged one."""
+    full-width hymba-1.5b; serve-mistral: full-width mistral-large-123b
+    at 20 of its 88 layers (``SERVE_DEPTH``), drawn on the card, the
+    random mix; serve-sample: serve's model and mix, sampled
+    (``SERVE_SAMPLER``)); the contiguous engine for ``CONTIG_PHASES``,
+    else the paged one."""
     import dataclasses
     import functools
 
@@ -3176,14 +3637,17 @@ def _serve_setup(torch, name):
     from repro_torch.configs import get_config
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request, SamplerConfig, ServingEngine
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     cfg = get_config(arch)
     if name in SERVE_DEPTH:
         cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[name])
     plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
-    # full-width gemma3 (11.8 B parameters) and hymba draw on the card
-    gen = torch.Generator(device="cuda" if kind == "long" else "cpu")
+    sampler = SamplerConfig(**SERVE_SAMPLER.get(name, {}))
+    # full-width gemma3 (11.8 B parameters), hymba and mistral (28.5 B at 20
+    # layers) draw on the card
+    gen = torch.Generator(device="cuda" if kind == "long" or
+                          arch == "mistral-large-123b" else "cpu")
     params = model.init_params(cfg, plan, gen.manual_seed(0), device="cuda")
     make = {"random": _requests, "motif": _motif_requests,
             "prefix": _prefix_requests,
@@ -3196,12 +3660,13 @@ def _serve_setup(torch, name):
     def engine(graphs=True, overlap=True, prefix_cache=kind == "prefix"):
         if name in CONTIG_PHASES:
             return ServingEngine(cfg, plan, SLOTS, sb, params, graphs=graphs,
-                                 device="cuda")
+                                 sampler=sampler, device="cuda")
         return ServingEngine.build_paged(cfg, plan, SLOTS, sb, params,
                                          page_size=PSZ, prefill_chunk=ch,
                                          speculative=k, overlap=overlap,
                                          prefix_cache=prefix_cache,
-                                         graphs=graphs, device="cuda")
+                                         sampler=sampler, graphs=graphs,
+                                         device="cuda")
 
     def requests(seed=0, n=16, new=NEW):
         return make(Request, np.random.RandomState(seed), n, lo, hi, new,
@@ -3472,7 +3937,10 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         ([f"{kvd} {'pools' if eng.paged else 'lanes'}"] if has_attn else []) +
         ([f"{ssmd or 'float32'} slabs"] if eng.has_slabs else []))
     layout = f"page={PSZ} chunk={ch}" if eng.paged else "contiguous"
-    print(f"{name}: [{variant}] {arch} bf16 weights, {store}, speculative={k}, "
+    decoding = (f"sampled {SERVE_SAMPLER[name]}" if name in SERVE_SAMPLER
+                else "greedy")
+    print(f"{name}: [{variant}] {arch} bf16 weights, {store}, {decoding}, "
+          f"speculative={k}, "
           f"{kind} prompts, slots={SLOTS} seq_budget={sb} {layout} "
           f"requests={len(reqs)} tokens={stats.decoded_tokens} "
           f"ticks={stats.ticks} wall_s={wall:.3f} "
@@ -3510,7 +3978,11 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     return dict(launches=launches, per_call=per_call, wall=wall,
                 ticks=stats.ticks, tokens=stats.decoded_tokens,
                 chunks=calls["prefill"], graphs=graphs_out,
-                tokens_by_request=[r.out_tokens for r in reqs])
+                tokens_by_request=[r.out_tokens for r in reqs],
+                weight_bytes=sum(t.numel() * t.element_size()
+                                 for t in eng.model.parameters()),
+                ttft_p50_ms=float(np.percentile(ttft, 50)),
+                tpot_p50_ms=float(np.median(stats.tpot_s) * 1e3))
 
 
 def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
@@ -3654,6 +4126,8 @@ def main() -> int:
         timed("parity-qwen3", phase_parity_qwen3, torch)
         timed("parity-gemma3", phase_parity_gemma3, torch)
         timed("parity-hymba", phase_parity_hymba, torch)
+        timed("parity-mistral", phase_parity_mistral, torch)
+        timed("parity-sample", phase_parity_sample, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)
@@ -3664,7 +4138,11 @@ def main() -> int:
         # the same phases with eager steps and the serial loop, in this call
         eager = {name: timed(f"{name}[eager-serial]", phase_serve, torch, name,
                              False, False) for name in AB_PHASES}
-        for name, out in eager.items():
+        # the sampled phases' eager-serial runs, for their tokens alone
+        eager_sampled = {name: timed(f"{name}[eager-serial]", phase_serve, torch,
+                                     name, False, False)
+                         for name in SAMPLE_AB_PHASES}
+        for name, out in list(eager.items()) + list(eager_sampled.items()):
             check(out["tokens_by_request"] == served[name]["tokens_by_request"],
                   f"{name}: eager-serial tokens differ from graphed-overlap")
         prof = {name: timed(f"profile[{name}]", phase_profile, torch, name,
@@ -3694,6 +4172,34 @@ def main() -> int:
                 f"prefill_chunks={sv['chunks']} flash_launches="
                 f"{sv['launches']['flash_attention']}")
         print("prefix[serve-prefix vs serve]: " + " | ".join(rows_px))
+        # serve-sample beside serve, in this call: the host's draws
+        rows_sm = []
+        for name in ("serve-sample", "serve"):
+            sv = served[name]
+            rows_sm.append(
+                f"{name} tok_per_s={sv['tokens'] / sv['wall']:.1f} "
+                f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+                f"ticks={sv['ticks']} busy_share={prof[name]['busy']:.3f} "
+                f"device_ms={prof[name]['device_ms']:.2f}")
+        print("sample[serve-sample vs serve]: " + " | ".join(rows_sm) +
+              " (serve-sample's eager-serial tokens identical)")
+        from repro_torch.configs import get_config
+        from repro_torch.core.partition import ShardingPlan, model_layout
+        ml = get_config(SERVE_PHASES["serve-mistral"][0])
+        lay = model_layout(ml, ShardingPlan()).attn
+        sv = served["serve-mistral"]
+        print(f"mistral[serve-mistral]: {ml.name} d_model={ml.d_model} "
+              f"heads={ml.n_heads}/{ml.n_kv_heads} head_dim={ml.head_dim_} "
+              f"d_ff={ml.d_ff} vocab={ml.vocab_size} untied head, layers="
+              f"{SERVE_DEPTH['serve-mistral']} of {ml.n_layers}; r={lay.r} "
+              f"kv_slots={lay.n_kv_loc}; weights on the card "
+              f"{sv['weight_bytes'] / 1e9:.2f} GB bf16; tok_per_s="
+              f"{sv['tokens'] / sv['wall']:.1f} ticks={sv['ticks']} "
+              f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+              f"prefill_chunks={sv['chunks']} ttft_p50_ms={sv['ttft_p50_ms']:.1f} "
+              f"tpot_p50_ms={sv['tpot_p50_ms']:.2f} busy_share="
+              f"{prof['serve-mistral']['busy']:.3f} device_ms="
+              f"{prof['serve-mistral']['device_ms']:.2f}; {smi_line}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

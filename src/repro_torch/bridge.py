@@ -14,7 +14,10 @@ The SSM leaves cross the same way:
 ``in_z``/``in_x``/``in_dt``/``conv_x``/``A_log``/``D``/``dt_bias``/``out``
 lose their tp axis, ``norm_scale`` arrives flat, (reps, 1, H*P) ->
 (reps, H*P), and the replicated ``in_B``/``in_C``/``conv_B``/``conv_C``
-carry none; ``A_log`` and ``dt_bias`` stay float32.
+carry none; ``A_log`` and ``dt_bias`` stay float32.  An untied head,
+JAX's ``lm_head.w`` (1, V, E) at tp=1 (the vocab layout of ``embed.table``),
+becomes (V, E); a tree whose head presence differs from the config's
+``tie_embeddings`` is refused, as any tree whose keys differ is.
 """
 from __future__ import annotations
 

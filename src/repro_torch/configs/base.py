@@ -193,7 +193,8 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma3, hymba, mamba2_370m, paper_models, qwen3)
+        gemma3, hymba, mamba2_370m, mistral_large, paper_models, pixtral,
+        qwen3)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -2,7 +2,8 @@
 cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
-decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN),
+decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN,
+and mistral's untied LM head),
 pure-SSM (mamba2) decoders and hybrid (hymba) decoders at tp=1.  The
 parameter tree has the JAX tree's paths, with the tp axis stripped (what
 the JAX package's ``blocks._lo`` returns) and the stacked ``reps`` axis
@@ -10,7 +11,8 @@ kept:
 
     {"embed": {"table": (V, E)},
      "stacks": [[layer tree per pattern entry] per layer group],
-     "final_norm": {"scale": (E,)}}
+     "final_norm": {"scale": (E,)},
+     "lm_head": {"w": (V, E)}}          # untied heads only (mistral)
 
 with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and
 
@@ -60,20 +62,25 @@ class ParamSpec:
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders (GQA, optional
     qk-norm, sliding windows, sandwich norms, a scaled embedding) with
-    RMSNorm, a gated SiLU or gelu FFN and tied embeddings, pure-SSM
-    (mamba2) decoders and hybrid attention + SSM decoders (hymba); the
-    rest waits for its slice."""
+    RMSNorm, a gated SiLU or gelu FFN and a tied or untied LM head,
+    pure-SSM (mamba2) decoders and hybrid attention + SSM decoders
+    (hymba); the rest waits for its slice.  A vision frontend (pixtral)
+    is refused for JAX's reason (``core/kvcache.py::
+    paged_cache_supported``): its image embeds need injection at prefill,
+    which token-only prompts cannot carry."""
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
         ("layernorm (ROADMAP Queue 1 item 9)", cfg.norm != "rmsnorm"),
-        ("an untied LM head (ROADMAP Queue 1 item 5)",
-         not cfg.tie_embeddings),
         ("a plain (ungated) FFN (ROADMAP Queue 1 item 9)",
          not cfg.gated_ffn),
         ("an FFN activation other than silu or gelu",
          cfg.act not in ("silu", "gelu")),
         ("encoder-decoder (ROADMAP Queue 1 item 9)", cfg.is_encdec),
-        ("a frontend (ROADMAP Queue 1 items 5 and 9)", cfg.frontend),
+        ("a vision frontend, whose image embeds need injection at prefill: "
+         "the token-only chunked prefill step cannot carry them (ROADMAP "
+         "Queue 1 items 5 and 13)", cfg.frontend == "vision_patches"),
+        ("a frontend (ROADMAP Queue 1 items 5 and 9)",
+         cfg.frontend not in (None, "vision_patches")),
         ("MoE layers (ROADMAP Queue 1 item 10)",
          any(s.ffn == FFN_MOE for s in specs))) if bad]
     if missing:
@@ -134,12 +141,15 @@ def model_template(cfg: ModelConfig):
     """The parameter tree of ``ParamSpec`` leaves, in the JAX package's
     leaf order (which fixes the order of random draws)."""
     check_supported(cfg)
-    return {
+    t = {
         "embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model))},
         "stacks": [[layer_template(cfg, s, cfg.n_layers) for s in g.pattern]
                    for g in cfg.layer_groups()],
         "final_norm": {"scale": ParamSpec((cfg.d_model,), "zeros")},
     }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = {"w": ParamSpec((cfg.vocab_size, cfg.d_model))}
+    return t
 
 
 def map_template(cfg, fn):
@@ -304,8 +314,12 @@ def embed_tokens(params, tokens, cfg):
 
 
 def final_logits(params, x):
-    """Tied LM head: x @ table^T, reading the table as stored."""
-    return logits(x, params["embed"]["table"])
+    """The LM head, x @ head^T, reading the head as stored: the untied
+    ``lm_head.w`` (V, E) when the model has one, else the embedding table
+    (JAX's ``final_logits``)."""
+    head = params["lm_head"]["w"] if "lm_head" in params else \
+        params["embed"]["table"]
+    return logits(x, head)
 
 
 def forward_prefill(params, tokens, cache, cfg, plan, lay):

@@ -24,6 +24,7 @@ from repro_torch.core.kvcache import (cache_profile, cache_template,
                                       paged_cache_template, zero_cache,
                                       zero_paged_cache)
 from repro_torch.core.partition import model_layout
+from repro_torch.kernels import decode_attention as k_dec
 
 
 def _expect(name, t, shape):
@@ -133,6 +134,26 @@ def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
                                     plan, lay, pages)
 
     return verify_fn
+
+
+def check_verify_on_card(cfg, plan, q_len: int):
+    """Refuse a verify step of ``q_len`` = k + 1 queries a row that the
+    card's verify kernel cannot take at this arch's head layout: the
+    kernel holds a kv slot's R x Q query rows (R q heads a slot, Q queries
+    each) in one m16 tile, so R x Q <= 16, and Q <= 8
+    (``kernels.decode_attention.plan``).  mistral-large-123b's R = 12
+    takes Q = 1 only: no speculation.  Raised where an engine is built on
+    the card, before anything is allocated; the CPU path (plain versions)
+    takes any k, as the Pallas kernel does.  Raises ValueError."""
+    r = model_layout(cfg, plan).attn.r
+    if r * q_len > k_dec.MAX_ROWS or q_len > k_dec.MAX_NQ:
+        raise ValueError(
+            f"speculative={q_len - 1} is unsupported on the card for arch "
+            f"'{cfg.name}': the verify kernel takes R x Q <= "
+            f"{k_dec.MAX_ROWS} query rows of a kv slot and Q <= "
+            f"{k_dec.MAX_NQ}, and R {r} q heads a slot x Q {q_len} queries "
+            f"= {r * q_len} (ROADMAP Queue 2 item 1: R x Q > 16; the CPU "
+            f"path takes any k)")
 
 
 def _index(name, x, device):

@@ -4,8 +4,8 @@ serving engine, on the card unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-42m \\
         --requests 16 --slots 8 --seq-budget 256 --max-new 32 [--paged]
 
-Takes the flags of ``python -m repro.launch.serve`` that the greedy
-one-replica path supports, and selects the engine as that launcher does:
+Takes the flags of ``python -m repro.launch.serve`` that the one-replica
+path supports, and selects the engine as that launcher does:
 the contiguous engine by default, the paged engine with ``--paged`` or
 ``--speculative K`` (prompt-lookup drafts verified in one step,
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
@@ -14,7 +14,12 @@ attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 or from state slabs with ``--paged``; ``--arch qwen3-0.6b`` a GQA decoder
 with qk-norm, ``--arch gemma3-12b`` gemma3 (sliding windows on 5 of
 every 6 layers, head_dim 256, sandwich norms, a gelu FFN; 23.5 GB of bf16
-weights at full width); ``--arch hymba-1.5b`` the hybrid (attention and
+weights at full width); ``--arch mistral-large-123b`` a dense decoder of
+d_model 12288 with 12 q heads a kv head and an untied LM head (245 GB of
+bf16 weights at full depth: on one card, serve it with ``--smoke``, or at
+full width and a cut depth from a script, as ``chip_smoke.py`` does;
+``--speculative`` is refused on the card, its verify kernel takes R x Q
+<= 16); ``--arch hymba-1.5b`` the hybrid (attention and
 SSD heads in every layer, windows of 1024 on 29 of 32 layers), from
 per-slot KV and state lanes, or with ``--paged`` from KV pages and a
 state slab per request (``--kv-dtype int8``: int8 pools and slabs;
@@ -31,9 +36,12 @@ splits TTFT by class, ``--clients N`` spreads requests over N client ids.
 The paged engine pipelines its tick (plan the next tick while this one
 runs on the card) unless ``--no-overlap``, as the JAX launcher does, and
 prints the ``pipeline:`` line; the contiguous engine ignores the flag, as
-in JAX.  The port runs tp=1, dp=1 and greedy: the JAX launcher's other
-flags parse with its defaults, and a value the port cannot serve (``--tp
-2``, ``--temperature 0.7``, ...) is refused with the slice it waits for.
+in JAX.  ``--temperature T`` > 0 samples with ``top_k=40``, each request
+from its own stream seeded by ``--seed`` and its id, as the JAX launcher
+does (0, the default, is greedy).  The port runs tp=1 and dp=1: the JAX
+launcher's other flags parse with its defaults, and a value the port
+cannot serve (``--tp 2``, ``--dp 2``, ...) is refused with the slice it
+waits for.
 Weights are random, drawn from ``--seed`` on the serving device (a CUDA
 generator on the card: full-width draws stay there); prompts are random
 token ids.
@@ -55,7 +63,6 @@ LATER = {
     "--disagg": ((None,), "disaggregated prefill/decode (ROADMAP Queue 1 "
                           "item 11)"),
     "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11)"),
-    "--temperature": ((0.0,), "sampled decoding (ROADMAP Queue 1 item 6)"),
     "--frame-groups": ((1,), "encoder-decoder serving (ROADMAP Queue 1 "
                              "item 9)"),
 }
@@ -63,7 +70,7 @@ LATER = {
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
-        description="greedy serving on the PyTorch port")
+        description="serving on the PyTorch port")
     ap.add_argument("--arch", required=True,
                     help="registered config id (repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true",
@@ -103,7 +110,9 @@ def parse_args(argv=None):
                     help="plan tick t+1 while tick t's steps run on the card "
                          "(paged engine; --no-overlap is the serial loop, "
                          "token-identical either way)")
-    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (top_k 40, as the JAX "
+                         "launcher); 0 is greedy")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix sharing with copy-on-write pages "
                          "(implies --paged)")
@@ -160,7 +169,7 @@ def main(argv=None):
     from repro_torch.core.device import resolve_device
     from repro_torch.core.partition import ShardingPlan
     from repro_torch.serving import (FairScheduler, PriorityScheduler,
-                                     Request, ServingEngine)
+                                     Request, SamplerConfig, ServingEngine)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -175,6 +184,7 @@ def main(argv=None):
                                torch.Generator(device=dev).manual_seed(
                                    args.seed),
                                device=dev)
+    sampler = SamplerConfig(temperature=args.temperature, top_k=40)
     scheduler = None                 # engine default: FCFS
     if args.policy != "fcfs":
         scheduler = functools.partial(
@@ -184,13 +194,14 @@ def main(argv=None):
         engine = ServingEngine.build_paged(
             cfg, plan, args.slots, args.seq_budget, params,
             page_size=args.page_size, n_pages=args.n_pages,
-            prefill_chunk=args.prefill_chunk, rng_seed=args.seed,
+            prefill_chunk=args.prefill_chunk, sampler=sampler,
+            rng_seed=args.seed,
             speculative=args.speculative, prefix_cache=args.prefix_cache,
             scheduler=scheduler, overlap=args.overlap, device=args.device)
     else:
         engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
-                               rng_seed=args.seed, scheduler=scheduler,
-                               device=args.device)
+                               sampler=sampler, rng_seed=args.seed,
+                               scheduler=scheduler, device=args.device)
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(2, cfg.vocab_size,
                          args.shared_prefix).astype(np.int32)
@@ -210,9 +221,11 @@ def main(argv=None):
     dt = time.time() - t0
     where = (torch.cuda.get_device_name(engine.device)
              if engine.device.type == "cuda" else "cpu")
+    decoding = (f"sampled(temperature={args.temperature},top_k=40)"
+                if engine.sampled else "greedy")
     print(f"device={where} arch={cfg.name} "
           f"engine={'paged' if engine.paged else 'contiguous'} "
-          f"requests={args.requests} "
+          f"decoding={decoding} requests={args.requests} "
           f"ticks={stats.ticks} prefills={stats.prefills} "
           f"tokens={stats.decoded_tokens} preemptions={stats.preemptions}")
     if stats.ttft_s:

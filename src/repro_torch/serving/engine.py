@@ -1,8 +1,8 @@
 """Serving engine: continuous batching over contiguous lanes, or over the
 prefill-chunk and decode steps of the paged cache.
 
-Port of the JAX package's ``serving/engine.py`` for one replica (dp=1)
-and greedy sampling.  The engine is mechanism: it owns the cache, block
+Port of the JAX package's ``serving/engine.py`` for one replica (dp=1),
+greedy or sampled.  The engine is mechanism: it owns the cache, block
 tables and positions and runs the steps; admission order, page budgeting,
 prefix reuse, eviction and preemption victims live in ``serving.scheduler``
 and ``serving.policies`` (``scheduler=``: FCFS by default, or a
@@ -22,6 +22,24 @@ one device buffer, which comes back in ONE non-blocking copy to pinned
 memory behind an event.  ``graphs=False`` runs the same steps eagerly (the
 counterpart of ``jax.disable_jit``), so the card can hold the two against
 each other.  On the CPU the steps run eagerly: the caller asked for it.
+
+**Sampled decoding** (``sampler=SamplerConfig(temperature > 0, top_k,
+top_p)``): every request draws from its own stream,
+``RandomState([rng_seed, seed or rid])`` made at submit, exactly one draw
+per emitted row, in emission order (``serving.sampler``, the JAX package's
+numpy sampler), so sampled outputs do not depend on admission order,
+batch composition, preemption points or speculation, as in JAX.  A
+sampled engine brings the rows it draws from to the host: each step's
+logits rows (a completing chunk's last row, the decode step's B rows, the
+verify step's B x Q) are copied on the card, in the logits' dtype, into
+one device buffer beside the ids, before the next replay overwrites the
+step's output, and come home in ONE non-blocking copy to pinned memory
+behind the ids' event; collect widens them to float32 (exact from bf16)
+and draws.  One host buffer suffices: collect reads it before the next
+dispatch enqueues a copy into it.  Rows whose slot retired or was
+preempted since dispatch are skipped by the (slot, rid) guard, so their
+streams do not advance.  A greedy engine (``temperature == 0``, the
+default) copies no logits: its ids come home alone.
 
 **Contiguous engine** (``ServingEngine(...)``, ``paged=False``, the JAX
 launcher's default): every slot owns a lane of ``seq_budget`` tokens.
@@ -68,7 +86,8 @@ dispatch (``overlap=True``, the default):
   scratch page with pos 0), and send the ids home.
 
 ``overlap=False`` collects in the same tick: the serial loop, token-
-identical (greedy outputs do not depend on when a slot is admitted).
+identical (greedy outputs, and sampled ones drawn from per-request
+streams, do not depend on when a slot is admitted).
 ``run()``, ``drain()`` and ``preempt()`` collect in-flight work first.
 Finished slots return their pages at collect, before the next dispatch, so
 the host only ever plans pages and slabs that no in-flight step
@@ -95,13 +114,14 @@ slot's own context, no second model) proposes up to k tokens per slot, and
 ONE verify step (``core.steps.make_verify_step``) scores all k+1
 positions, writing their KV through the block table.  Collect emits 1..k+1
 tokens per slot by greedy acceptance over the verify step's ids
-(``sampler.greedy_accept``, ``speculative_sample``'s greedy branch),
-token-identical to the one-token path.  Rejected drafts need no device
-rollback: ``pos`` advances only past emitted tokens and validity masks the
-rest until it is overwritten.  Admission budgets +k tokens of page headroom
-all or nothing (``Admission.spec``); a slot whose drafts miss
-``SPEC_DISABLE_AFTER`` times in a row stops drafting and returns the
-headroom (``Scheduler.on_spec_trim``).  A tick where no slot drafts runs
+(``sampler.greedy_accept``, ``speculative_sample``'s greedy branch) or,
+sampled, by ``speculative_sample`` over its logits rows (one draw per
+emitted row), token-identical to the one-token path.  Rejected drafts
+need no device rollback: ``pos`` advances only past emitted tokens and
+validity masks the rest until it is overwritten.  Admission budgets +k
+tokens of page headroom all or nothing (``Admission.spec``); a slot whose
+drafts miss ``SPEC_DISABLE_AFTER`` times in a row stops drafting and
+returns the headroom (``Scheduler.on_spec_trim``).  A tick where no slot drafts runs
 the plain decode step.
 
 **int8 page pools** (paged, ``plan.kv_cache_dtype == "int8"``): every token
@@ -147,14 +167,17 @@ from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
                                       cache_profile, pages_needed)
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
-from repro_torch.core.steps import (make_decode_step, make_page_copy_step,
+from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
+                                    make_page_copy_step,
                                     make_paged_decode_step,
                                     make_prefill_chunk_step, make_prefill_step,
                                     make_verify_step, zero_cache_for,
                                     zero_paged_cache_for)
 from repro_torch.serving.prefix_cache import (PromptLookupDraft,
                                               RadixPrefixCache)
-from repro_torch.serving.sampler import greedy_accept, greedy_ids
+from repro_torch.serving.sampler import (SamplerConfig, greedy_accept,
+                                         greedy_ids, sample_from_logits,
+                                         speculative_sample)
 from repro_torch.serving.scheduler import (Admission, FCFSScheduler,
                                            Scheduler, effective_prompt)
 
@@ -292,7 +315,8 @@ class ServingEngine:
     def __init__(self, cfg, plan, batch_slots: int, seq_budget: int, params,
                  *, paged: bool = False, page_size: int = 16,
                  n_pages: int = 0, prefill_chunk: int = 16,
-                 eos_id: int = 1, rng_seed: int = 0, speculative: int = 0,
+                 eos_id: int = 1, sampler: Optional[SamplerConfig] = None,
+                 rng_seed: int = 0, speculative: int = 0,
                  prefix_cache: bool = False, scheduler=None,
                  overlap: bool = True, graphs: bool = True, device="cuda"):
         self.device = resolve_device(device)
@@ -322,6 +346,8 @@ class ServingEngine:
             raise ValueError(f"seq_budget {seq_budget} must be a multiple of "
                              f"page_size {page_size} and prefill_chunk "
                              f"{prefill_chunk}")
+        if speculative > 0 and self.device.type == "cuda":
+            check_verify_on_card(cfg, plan, speculative + 1)
         self.cfg, self.plan = cfg, plan
         self.paged = bool(paged)
         self.overlap = bool(overlap) and self.paged
@@ -331,6 +357,8 @@ class ServingEngine:
         self.B = batch_slots
         self.S = seq_budget
         self.eos = eos_id
+        self.sampler = sampler or SamplerConfig()
+        self.sampled = self.sampler.temperature > 0
         self.rng_seed = rng_seed
         self.model = Decoder(tree_map(lambda t: t.to(self.device), params))
         self.params = self.model.tree()
@@ -400,6 +428,7 @@ class ServingEngine:
     def build_paged(cls, cfg, plan, batch_slots: int, seq_budget: int,
                     params, *, page_size: int = 16, n_pages: int = 0,
                     prefill_chunk: int = 16, eos_id: int = 1,
+                    sampler: Optional[SamplerConfig] = None,
                     rng_seed: int = 0, speculative: int = 0,
                     prefix_cache: bool = False, scheduler=None,
                     overlap: bool = True, graphs: bool = True,
@@ -410,12 +439,14 @@ class ServingEngine:
         ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
         in one step; ``prefix_cache=True`` shares cached prompt prefixes
         (radix tree, copy-on-write pages); ``scheduler`` is the policy
-        (FCFS by default).  ``overlap=False`` is the serial loop;
-        ``graphs=False`` runs the steps eagerly."""
+        (FCFS by default); ``sampler`` with a temperature > 0 samples each
+        request from its own stream seeded by (``rng_seed``, its seed or
+        rid).  ``overlap=False`` is the serial loop; ``graphs=False`` runs
+        the steps eagerly."""
         return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
-                   rng_seed=rng_seed, speculative=speculative,
+                   sampler=sampler, rng_seed=rng_seed, speculative=speculative,
                    prefix_cache=prefix_cache, scheduler=scheduler,
                    overlap=overlap, graphs=graphs, device=device)
 
@@ -428,7 +459,9 @@ class ServingEngine:
     def _build_io(self):
         """Staging for every step kind's inputs, and the ids buffer: one
         row of ids per prefill round of a tick (at most one a slot), then
-        the decode step's B ids or the verify step's B x Q."""
+        the decode step's B ids or the verify step's B x Q.  A sampled
+        engine also gets a logits buffer of as many rows, on the card and
+        pinned on the host."""
         dev, B = self.device, self.B
         io = {"decode": [("tokens", (B, 1)), ("pos", (B,))]}
         if self.paged:
@@ -467,6 +500,13 @@ class ServingEngine:
                                      pin_memory=cuda)
         self._out_np = self._out_host.numpy()
         self._out_event = torch.cuda.Event() if cuda else None
+        self._lout = self._lout_host = None
+        if self.sampled:
+            # the logits' dtype: the head's, which is the activations'
+            shape = (n_out, self.cfg.vocab_size)
+            dt = self.params["embed"]["table"].dtype
+            self._lout = torch.zeros(shape, dtype=dt, device=dev)
+            self._lout_host = torch.zeros(shape, dtype=dt, pin_memory=cuda)
 
     def _build_steps(self) -> dict:
         """Each fixed-shape step over its static inputs, ending in the
@@ -503,12 +543,32 @@ class ServingEngine:
         return steps
 
     def _send_out(self, inflight: dict):
-        """Send the tick's ids home in one copy behind an event; collect
-        waits for it."""
+        """Send the tick's ids home in one copy behind an event, and a
+        sampled engine's logits rows in one more (the prefill rounds' rows,
+        then the step's); collect waits for the event."""
         self._out_host.copy_(self._out, non_blocking=True)
+        if self.sampled:
+            step = inflight["step"]
+            n = len(inflight["pf"]) if step is None else self.B + self.B * (
+                self.speculative + 1 if step[0] == "verify" else 1)
+            self._lout_host[:n].copy_(self._lout[:n], non_blocking=True)
         if self._out_event is not None:
             self._out_event.record()
         self._inflight = dict(inflight, t_dispatch=time.monotonic())
+
+    def _logit_rows(self, row: int, n: int) -> np.ndarray:
+        """Rows ``row`` .. ``row + n`` of the logits brought home, widened
+        to float32 (exact from bf16), as JAX's host copy gives them to
+        its sampler."""
+        return self._lout_host[row:row + n].float().numpy()
+
+    def _token(self, row: int, req: Request) -> int:
+        """The token of ids row ``row``: its greedy id, or on a sampled
+        engine one draw from ``req``'s own stream over the row's logits."""
+        if not self.sampled:
+            return int(self._out_np[row])
+        return int(sample_from_logits(self._logit_rows(row, 1), self.sampler,
+                                      self.cfg.vocab_size, req.rng)[0])
 
     def _wait_out(self):
         t0 = time.monotonic()
@@ -691,8 +751,9 @@ class ServingEngine:
     def _prefill_into(self, b: int, req: Request):
         """Empty slot b's lanes in place (zeros; pos -1 marks every ring
         slot empty, as in a fresh lane), prefill ``req``'s exact prompt
-        straight into them, and emit the greedy token of the prompt's last
-        logits: the first generated token."""
+        straight into them, and emit the token of the prompt's last
+        logits (greedy, or drawn from the request's stream): the first
+        generated token."""
         lane = [[{kind: {name: t[:, b:b + 1] for name, t in leaves.items()}
                   for kind, leaves in entry.items()} for entry in group]
                 for group in self.cache]
@@ -708,12 +769,14 @@ class ServingEngine:
         logits, _ = self.prefill_fn(self.params, io.dev[:, :L], lane)
         self._out[:1].copy_(greedy_ids(logits, self.cfg.vocab_size))
         self._out_host[:1].copy_(self._out[:1], non_blocking=True)
+        if self.sampled:
+            self._lout_host[:1].copy_(logits, non_blocking=True)
         if self._out_event is not None:
             self._out_event.record()
         now = self._wait_out()
         self.stats.prefills += 1
         self.pos[b] = L
-        self._emit(b, req, int(self._out_np[0]), now)
+        self._emit(b, req, self._token(0, req), now)
 
     def _tick_paged(self):
         """One pipelined tick: plan (host; overlaps the previous dispatch
@@ -820,7 +883,7 @@ class ServingEngine:
             self.stats.prefills += 1
             self.sched.on_prefill_complete(adm)
             self.pos[b] = L
-            self._emit(b, adm.req, int(ids[i]), time.monotonic())
+            self._emit(b, adm.req, self._token(i, adm.req), time.monotonic())
             if self.admissions[b] is not None:
                 self.slot_state[b] = "decode"
         step = inf["step"]
@@ -834,7 +897,7 @@ class ServingEngine:
                 if adm is None or adm.req.rid != rid:
                     continue
                 self.pos[b] += 1    # the decode step wrote last_token's KV
-                self._emit(b, adm.req, int(out[b]), now)
+                self._emit(b, adm.req, self._token(self.B + b, adm.req), now)
             return
         Q, drafts = self.speculative + 1, step[2]
         for b, rid in step[1]:
@@ -844,7 +907,13 @@ class ServingEngine:
             req = adm.req
             d = drafts.get(b, [])
             emitted = 0
-            for tok in greedy_accept(out[b * Q:b * Q + len(d) + 1], d):
+            if self.sampled:
+                toks = speculative_sample(
+                    self._logit_rows(self.B + b * Q, len(d) + 1), d,
+                    self.sampler, self.cfg.vocab_size, req.rng)
+            else:
+                toks = greedy_accept(out[b * Q:b * Q + len(d) + 1], d)
+            for tok in toks:
                 self.pos[b] += 1    # verify wrote this position's KV
                 self._emit(b, req, tok, now)
                 emitted += 1
@@ -945,11 +1014,15 @@ class ServingEngine:
         return pf
 
     def _prefill_round(self, i: int, entry):
-        """Replay the chunk step on round i's inputs; its id goes to ids
-        row i before the next round's replay overwrites the step's own."""
+        """Replay the chunk step on round i's inputs; its id (and, on a
+        sampled engine, the logits row of a chunk that completes its
+        prompt) goes to row i before the next round's replay overwrites
+        the step's own."""
         self._chunk_in.copy_(self.io["chunk"].dev[i])
-        _, ids = self.steps["chunk"]()
+        logits, ids = self.steps["chunk"]()
         self._out[i:i + 1].copy_(ids)
+        if self.sampled and entry[2] is not None:
+            self._lout[i].copy_(logits[0])
 
     def _dispatch_step(self):
         """The decode-or-verify step over every decode-state slot.
@@ -982,8 +1055,10 @@ class ServingEngine:
                 if self.has_slabs:
                     f["slab_ids"][b] = self._slab_id(b, bool(act[b]))
         io.send()
-        _, ids = self.steps["decode"]()
+        logits, ids = self.steps["decode"]()
         self._out[self.B:2 * self.B].copy_(ids)
+        if self.sampled:
+            self._lout[self.B:2 * self.B].copy_(logits)
         return "decode", [(b, self.admissions[b].req.rid) for b in active]
 
     def _plan_drafts(self, active: List[int]):
@@ -1035,8 +1110,10 @@ class ServingEngine:
             f["pos"][b] = self.pos[b]
             f["block_table"][b] = self._bt_row(b)
         io.send()
-        _, ids = self.steps["verify"]()
+        logits, ids = self.steps["verify"]()
         self._out[self.B:].copy_(ids.reshape(-1))
+        if self.sampled:
+            self._lout[self.B:].copy_(logits.reshape(-1, logits.shape[-1]))
         return ("verify", [(b, self.admissions[b].req.rid) for b in active],
                 drafts)
 

@@ -1,9 +1,10 @@
 """Token samplers over (possibly vocab-padded) logits: copies of the JAX
-package's ``serving/sampler.py::sample_from_logits`` and
-``speculative_sample`` (host-side numpy), kept for sampled decoding; and
-the greedy path the serving engine runs: ``greedy_ids`` on the device,
-inside the compiled steps, and ``greedy_accept``, the verify emission over
-those ids."""
+package's ``serving/sampler.py::SamplerConfig``, ``sample_from_logits``
+and ``speculative_sample`` (host-side numpy, float64), which a sampled
+engine (temperature > 0) runs at collect over the logits rows it brings
+home, one draw per emitted row from the request's own stream; and the
+greedy path: ``greedy_ids`` on the device, inside the compiled steps, and
+``greedy_accept``, the verify emission over those ids."""
 from __future__ import annotations
 
 from dataclasses import dataclass

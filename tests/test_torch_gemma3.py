@@ -473,9 +473,10 @@ def test_check_supported_takes_gemma3_and_names_what_waits():
     model.check_supported(get_config("gemma3-12b"))
     model.check_supported(get_config("gemma3-27b"))
     cfg = get_config("gemma3-12b")
+    model.check_supported(dataclasses.replace(cfg, tie_embeddings=False))
     for bad, what in ((dict(norm="layernorm"), "layernorm"),
                       (dict(gated_ffn=False), "plain (ungated) FFN"),
-                      (dict(tie_embeddings=False), "untied LM head")):
+                      (dict(frontend="vision_patches"), "vision frontend")):
         with pytest.raises(NotImplementedError, match=re.escape(what)):
             model.check_supported(dataclasses.replace(cfg, **bad))
 

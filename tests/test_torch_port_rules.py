@@ -56,8 +56,13 @@ def test_unported_architectures_are_refused():
     from repro_torch.core import model
     from repro_torch.core.partition import ShardingPlan
     cfg = reduced(get_config("tinyllama-42m"))
-    with pytest.raises(NotImplementedError, match="untied LM head"):
-        model.init_params(dataclasses.replace(cfg, tie_embeddings=False),
+    untied = model.init_params(dataclasses.replace(cfg, tie_embeddings=False),
+                               ShardingPlan(), device="cpu")
+    assert tuple(untied["lm_head"]["w"].shape) == (cfg.vocab_size,
+                                                   cfg.d_model)
+    with pytest.raises(NotImplementedError, match="vision frontend"):
+        model.init_params(dataclasses.replace(cfg, tie_embeddings=False,
+                                              frontend="vision_patches"),
                           ShardingPlan(), device="cpu")
     with pytest.raises(NotImplementedError, match="MoE layers"):
         model.init_params(dataclasses.replace(cfg, n_experts=4, top_k=2,

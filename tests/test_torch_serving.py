@@ -123,7 +123,7 @@ def test_launcher_serves_on_cpu(capsys):
     (["--dp", "2"], "data-parallel replicas"),
     (["--disagg", "1:1"], "disaggregated prefill/decode"),
     (["--scale-events", "8:1"], "elastic replicas"),
-    (["--temperature", "0.7"], "sampled decoding"),
+    (["--temperature", "0.7", "--tp", "2"], "tensor parallelism"),
     (["--frame-groups", "2"], "encoder-decoder"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):

@@ -644,7 +644,9 @@ def test_speculation_is_refused_for_ssm_archs(ssm_weights, capsys):
 
 
 @pytest.mark.parametrize("change,slice_", [
-    (dict(tie_embeddings=False), "an untied LM head (ROADMAP Queue 1 item 5)"),
+    (dict(frontend="vision_patches"), "the token-only chunked prefill step "
+                                      "cannot carry them (ROADMAP Queue 1 "
+                                      "items 5 and 13)"),
     (dict(n_experts=4, top_k=2, moe_d_ff=64), "MoE layers (ROADMAP Queue 1 "
                                               "item 10)"),
 ])
