@@ -83,7 +83,12 @@ each (and a few detail lines):
             graph replayed after they change), the norms at E 12288,
             matmul at M 8 and 32 for wq, wk/wv, wo, w_gate/w_up and
             w_down (K and N to 28672) and the untied (32768, 12288) head at
-            M 8 and 1; median
+            M 8 and 1; then tinyllama-42m-64h's shapes (64 heads of head_dim
+            8, the m16n8k8 instantiations): flash over serve's chunk (Sq 32
+            at q_offset 224 in 256 keys), the first chunk and a 160-token
+            prompt, paged decode and verify (Q 5 and 8) over float and int8
+            pools (B 8, a graph replayed after the lengths change), the
+            contiguous decode over float and int8 lanes at S 256; median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (SDPA, with
@@ -135,7 +140,12 @@ each (and a few detail lines):
             speculation k = 3 (also against the one-token engine), under
             priority preemption with preempt(b) forced (also against FCFS),
             and the contiguous engine (also against the paged one), card
-            against CPU: identical sampled tokens.
+            against CPU: identical sampled tokens.  parity-64h:
+            tinyllama-42m-64h at full width and depth (64 heads of 8),
+            float32, weights x10: the paged engine (also against the
+            eager-serial engine) and the contiguous engine (also against the
+            paged one), card against CPU, live logits within the tinyllama
+            tolerance, identical greedy tokens.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -158,7 +168,7 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in fourteen phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in fifteen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
@@ -191,7 +201,9 @@ each (and a few detail lines):
             (serve's model and mix, sampled at temperature 0.7, top_k 40:
             served again eager-serial with identical tokens, and its
             tok/s, wall per tick and ticks beside serve's on a
-            ``sample[...]`` line).  Every
+            ``sample[...]`` line), and serve-64h (full-width, full-depth
+            tinyllama-42m-64h, serve's mix: 64 heads of head_dim 8 in flash
+            and paged decode, beside serve on a ``64h[...]`` line).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
@@ -232,6 +244,20 @@ each (and a few detail lines):
             in CUDA graphs; the kernels of a graph replay are traced one
             by one); for the eager-serial runs of serve, serve-ssm and
             serve-contig too.
+6. sim      the port's copy of the paper's analytical multi-MCU model
+            (``repro_torch.sim``) in this process, where no JAX is
+            imported: one ``sim:`` line with the calibrated model's
+            headline metrics (the JAX sim's numbers).
+7. offload  host-offload streaming (``repro_torch.runtime.offload``):
+            pinned host groups copied on a side CUDA stream into two
+            staging buffers, one group ahead of the compute; the toy of
+            ``examples/offload_streaming.py`` (8 float32 groups) and one
+            mistral-large-123b layer's FFN weights as 4 groups of 2.11 GB of
+            bf16 at M 8, each equal to the all-resident run bitwise, CUDA
+            events showing every copy overlap the previous group's compute;
+            the host-to-device rate measured on the card, compute per
+            group, streamed and resident wall and ``required_bandwidth``
+            against the link (the paper's §V-C arithmetic).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1210,6 +1236,7 @@ def phase_kernels(torch, F):
     _gemma3_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows)
     _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+    _paper64h_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -2381,6 +2408,225 @@ def _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
               f"library_us={lib} [{r['plan']}]")
 
 
+# tinyllama-42m-64h's widths: 64 q = 64 kv heads of head_dim 8 (the paper's
+# Fig. 6 variant), d_model 512
+P64_H, P64_D = 64, 8
+
+
+def _paper64h_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
+                      rows):
+    """The attention kernel cases at tinyllama-42m-64h's shapes (64 heads of
+    head_dim 8, group 1), against their plain versions, float32 and bf16:
+    flash over serve's prefill chunk (Sq 32 at q_offset 224 in 256 keys,
+    the offset an int32 on the card), the first chunk and a whole
+    160-token prompt; paged decode and verify (Q 5 and 8) over float and
+    int8 pools (B 8, pages of 16, n_max 16, ragged lengths, an idle lane,
+    zero-scale rows; a graph replayed after the lengths change); the
+    contiguous decode over float and fixed-scale int8 lanes (S 256, ragged
+    and zero lengths, NaN past every float row's length).  Every bf16 case
+    runs twice (bitwise-equal outputs) and every case is one kernel node in
+    a CUDA graph.  Times (bf16, L2-warm) beside the bound, the plain
+    version and SDPA where it computes the same (a mask for the offset
+    chunk and the lengths, ``is_causal`` for the prompt); appended to each
+    kernel's ``by_shape``."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import ops, ref
+    H, D = P64_H, P64_D
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def checked(kname, case, dt, call, plain):
+        got = call()
+        err = compare(kname, got, plain(), dt, torch)
+        note(kname, case, err)
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+        return err
+
+    # ---- flash: the chunk at q_offset 224 over 256 keys, the first chunk,
+    # and a whole prompt of 160 (the contiguous engine's prefill)
+    for dt in (torch.float32, bf):
+        for Sq, Skv, q_off in ((32, 256, 224), (32, 32, 0), (160, 160, 0)):
+            q, k, v = (randn(H, Sq, D, dtype=dt), randn(H, Skv, D, dtype=dt),
+                       randn(H, Skv, D, dtype=dt))
+            off = torch.tensor([q_off], dtype=torch.int32, device="cuda")
+
+            def call():
+                return ops.flash_attention(q, k, v, q_offset=off)
+
+            def plain():
+                return ref.ref_flash_attention(q, k, v, q_offset=q_off)
+
+            case = (f"64h H={H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} "
+                    f"{dtype_name(dt)}")
+            err = checked("flash_attention", case, dt, call, plain)
+            if dt != bf or (Sq, q_off) == (32, 0):
+                continue
+            mask = (torch.arange(Skv, device="cuda")[None, :]
+                    <= torch.arange(Sq, device="cuda")[:, None] + q_off)
+            pairs, kv_read = int(mask.sum()), int(mask.any(0).sum())
+            b_ms, b_by = bound((2 * q.numel() + 2 * H * kv_read * D) * 2,
+                               4 * D * H * pairs, bf)
+            if q_off:
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], attn_mask=mask[None, None])
+            else:
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q[None], k[None], v[None], is_causal=True)
+            compare("SDPA yardstick 64h", sdpa()[0], plain(), bf, torch)
+            p = _fl.plan(H, Sq, Skv, D, bf)
+            add("flash_attention", dict(
+                shape=f"64h H={H} Sq={Sq} Skv={Skv} D={D} q_offset={q_off} bf16",
+                max_abs_err=err,
+                plan=f"wq={p.wq} split={p.split} blocks="
+                     f"{p.split * H * -(-Sq // (16 * p.wq))}",
+                ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
+
+    # ---- paged decode and verify: 8 slots over a shuffled pool of pages of
+    # 16, ragged lengths, the last slot an idle lane on scratch page 0
+    B, psz, n_max = 8, 16, 16
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(8)) + 1
+    bt_full = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    bt_full[-1] = 0
+
+    def table(lengths, nq):
+        out = bt_full.clone()
+        for b, L in enumerate(lengths):
+            out[b, min(-(-(L + nq - 1) // psz), n_max):] = 0
+        return out
+
+    def int8_pool():
+        pool = torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
+                             device="cuda", dtype=torch.int8)
+        scale = 0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+        return pool, scale
+
+    lengths = [1, 15, 16, 17, 100, 250, 249, 1]
+    for nq in (1, 5, 8):
+        lens = [min(L, n_max * psz - nq + 1) for L in lengths]
+        length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bt = table(lens, nq)
+        for dt in (torch.float32, bf):
+            q = randn(B, H, D, dtype=dt) if nq == 1 else randn(B, H, nq, D, dtype=dt)
+            (kq, ks), (vq, vs) = int8_pool(), int8_pool()
+            ks[int(bt[4, 0]), psz // 2:] = 0.0           # a recycled page's reset rows
+            pools = {False: ((randn(n_pages, H, psz, D, dtype=dt),
+                              randn(n_pages, H, psz, D, dtype=dt)), {}),
+                     True: ((kq, vq), dict(k_scale=ks, v_scale=vs))}
+            for quant, ((kp, vp), sc) in pools.items():
+                if nq == 1:
+                    kname = "paged_decode_attention"
+                    fn, pfn = ops.paged_decode_attention, ref.ref_paged_decode_attention
+                else:
+                    kname = "paged_verify_attention"
+                    fn, pfn = ops.paged_verify_attention, ref.ref_paged_verify_attention
+                kname += "_i8" if quant else ""
+
+                def call():
+                    return fn(q, kp, vp, bt, length, **sc)
+
+                def plain():
+                    return pfn(q, kp, vp, bt, length, **sc)
+
+                case = (f"64h B={B} H={H} Q={nq} D={D} psz={psz} n_max={n_max} "
+                        f"lengths={lens} q {dtype_name(dt)}"
+                        f"{', int8 pools' if quant else ''}")
+                err = checked(kname, case, dt, call, plain)
+                if nq == 1:
+                    replay_check(kname, case, call, length,
+                                 [40, 3, 200, 16, 1, 129, 64, 1])
+                if dt != bf or nq == 8:
+                    continue
+                n_kv = [min(L + nq - 1, n_max * psz) for L in lens]
+                pairs = sum(min(L + i, n_max * psz) for L in lens for i in range(nq))
+                elt = 1 if quant else 2
+                b_ms, b_by = bound(2 * q.numel() * 2 + 2 * H * sum(n_kv) * D * elt
+                                   + (2 * sum(n_kv) * 4 if quant else 0)
+                                   + bt.numel() * 4 + B * 4,
+                                   4 * D * H * pairs
+                                   + (2 * D * H * sum(n_kv) if quant else 0),
+                                   torch.int8 if quant else bf)
+                p = _dec.plan(B, H, nq, D, psz, n_max, bf, quant)
+                add(kname, dict(
+                    shape=f"64h B={B} H={H} Q={nq} D={D} psz={psz} n_max={n_max} "
+                          f"lengths={lens} q bf16, {'int8' if quant else 'bf16'} pools",
+                    max_abs_err=err,
+                    plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+                    ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by))
+
+    # ---- contiguous decode over float and fixed-scale int8 lanes, S 256
+    S, DQ = 256, 1.0 / 16.0
+    lens = [256, 1, 13, 255, 0, 64, 200, 100]
+    lc = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, bf):
+        qc = randn(B, H, D, dtype=dt)
+        for quant in (False, True):
+            if quant:
+                kc, vc = (torch.randint(-127, 128, (B, H, S, D), generator=gen,
+                                        device="cuda", dtype=torch.int8)
+                          for _ in range(2))
+                kname = "decode_attention_i8"
+
+                def call():
+                    return ops.decode_attention_i8(qc, kc, vc, lc, DQ)
+
+                def plain():
+                    return ref.ref_decode_attention_i8(qc, kc, vc, lc, DQ)
+            else:
+                kc, vc = randn(B, H, S, D, dtype=dt), randn(B, H, S, D, dtype=dt)
+                kin, vin = kc.clone(), vc.clone()
+                for b, L in enumerate(lens):           # NaN past each row's length
+                    kin[b, :, L:] = float("nan")
+                    vin[b, :, L:] = float("nan")
+                kname = "decode_attention"
+
+                def call():
+                    return ops.decode_attention(qc, kin, vin, lc)
+
+                def plain():
+                    return ref.ref_decode_attention(qc, kc, vc, lc)
+            case = (f"64h B={B} H={H} S={S} D={D} lengths={lens} q "
+                    f"{dtype_name(dt)}{', int8 lanes' if quant else ''}")
+            err = checked(kname, case, dt, call, plain)
+            if dt != bf:
+                continue
+            toks = sum(lens)
+            elt = 1 if quant else 2
+            b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * H * toks * D * elt + B * 4,
+                               (6 if quant else 4) * D * H * toks,
+                               torch.int8 if quant else bf)
+            kmask = (torch.arange(S, device="cuda")[None, :] < lc[:, None])[:, None, None]
+            p = _dec.contiguous_plan(B, H, S, D, bf, quant)
+            add(kname, dict(
+                shape=f"64h B={B} H={H} S={S} D={D} lengths={lens} q bf16, "
+                      f"{'int8' if quant else 'bf16'} lanes",
+                max_abs_err=err,
+                plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+                ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                library_ms=None if quant else time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qc[:, :, None], kc, vc, attn_mask=kmask), torch),
+                bound_ms=b_ms, bound_by=b_by))
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
+
+
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
     import numpy as np
     return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
@@ -3040,6 +3286,61 @@ def phase_parity_mistral(torch):
                            "built on the card")
 
 
+def phase_parity_64h(torch):
+    """tinyllama-42m-64h at full width and depth (8 layers, 64 heads of
+    head_dim 8) in float32, weights x10: engines on the card (every
+    attention kernel at D 8) against engines on the CPU (plain versions),
+    4 requests of 23-130 prompt tokens plus 16 new: the paged engine (also
+    against the eager-serial engine on the card) and the contiguous engine
+    (also against the paged engine on the card).  Live logits of every step
+    within the tinyllama tolerance, identical greedy tokens, leak-free."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = get_config("tinyllama-42m-64h")
+    check((cfg.n_heads, cfg.head_dim_) == (P64_H, P64_D),
+          f"parity-64h: {cfg.n_heads} heads of {cfg.head_dim_}")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu", dtype="float32")
+    params = model.tree_map(lambda t: t * 10, base)
+    prompts = [np.random.RandomState(17 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    out = {}
+    for paged in (True, False):
+        tag = "paged" if paged else "contiguous"
+        runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev,
+                                 paged=paged) for dev in ("cuda", "cpu")}
+        err, mx = _same(f"parity-64h[{tag}]", runs["cuda"][1:3],
+                        runs["cpu"][1:3], PARITY_TOL)
+        out[tag] = toks = runs["cuda"][1]
+        n_distinct = len({t for r in toks for t in r})
+        check(n_distinct > 3, f"parity-64h[{tag}]: greedy decoding collapsed "
+                              f"{toks}")
+        if paged:
+            _eager_serial(torch, "parity-64h", toks, cfg, plan, params, reqs())
+        print(f"parity-64h: tinyllama-42m-64h ({cfg.n_layers} layers, "
+              f"{cfg.n_heads} heads x {cfg.head_dim_}) float32, {tag} engine "
+              f"on cuda vs cpu: live logits of every step "
+              f"({runs['cuda'][2].numel()} values) max_abs_err={err:.3e} "
+              f"(|logit| max {mx:.2f}, tol rtol={PARITY_TOL['rtol']} atol="
+              f"{PARITY_TOL['atol']}); greedy tokens identical"
+              f"{', and to the eager-serial engine on cuda' if paged else ''}: "
+              f"4 requests x 16 tokens, {n_distinct} distinct")
+        del runs
+    check(out["paged"] == out["contiguous"], f"parity-64h: contiguous and "
+          f"paged engines differ on cuda\n  {out['contiguous']}\n  {out['paged']}")
+    print("parity-64h: contiguous tokens equal the paged engine's on cuda")
+
+
 # parity-sample: tinyllama-42m at full width cut to 4 of its 8 layers, and
 # the two samplers of the CPU tests
 SAMPLE_DEPTH = 4
@@ -3541,6 +3842,7 @@ SERVE_PHASES = {
     "serve-hymba": ("hymba-1.5b", "bfloat16", "", 0, "long"),
     "serve-mistral": ("mistral-large-123b", "bfloat16", "", 0, "random"),
     "serve-sample": ("tinyllama-42m", "bfloat16", "", 0, "random"),
+    "serve-64h": ("tinyllama-42m-64h", "bfloat16", "", 0, "random"),
 }
 # the phases served at a cut depth, full width: mamba2's 48 layers to 24, so
 # that serve-hymba and its profile fit the script's time (the profiles of the
@@ -3578,7 +3880,8 @@ PHASE_MIXER = {"serve": ("paged_decode_attention",),
                "serve-hymba": ("paged_decode_attention", "flash_attention",
                                "ssd_scan"),
                "serve-mistral": ("paged_decode_attention", "flash_attention"),
-               "serve-sample": ("paged_decode_attention",)}
+               "serve-sample": ("paged_decode_attention",),
+               "serve-64h": ("paged_decode_attention",)}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -4064,6 +4367,202 @@ def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
     return dict(device_ms=total, busy=total / (serve_wall_s * 1e3))
 
 
+# the offload phase: examples/offload_streaming.py's toy (8 groups of two
+# float32 layers, E 512, F 2048, x of B 8 x S 128 rows), then the FFN
+# weights of one mistral-large-123b layer (w_gate, w_up, w_down at E 12288,
+# F 28672 in bf16: 2.11 GB a group) streamed as 4 groups at M 8
+OFFLOAD_TOY = dict(groups=8, E=512, F=2048, rows=8 * 128)
+OFFLOAD_ML_GROUPS = 4
+
+
+def _timeline_overlap(ex, ref_ev, what):
+    """Device times (ms after ``ref_ev``) of each group's copy and compute
+    from the executor's CUDA events; checks that group i+1's copy started
+    before group i's compute ended and ran while it ran."""
+    t = [{k: ref_ev.elapsed_time(rec[k]) for k in
+          ("copy_start", "copy_end", "compute_start", "compute_end")}
+         for rec in ex.timeline]
+    for i in range(len(t) - 1):
+        check(t[i + 1]["copy_start"] < t[i]["compute_end"] and
+              t[i + 1]["copy_end"] > t[i]["compute_start"],
+              f"offload[{what}]: group {i + 1}'s copy "
+              f"[{t[i + 1]['copy_start']:.3f}, {t[i + 1]['copy_end']:.3f}] ms did "
+              f"not overlap group {i}'s compute [{t[i]['compute_start']:.3f}, "
+              f"{t[i]['compute_end']:.3f}] ms")
+    return t
+
+
+def phase_offload(torch, smi_line):
+    """Host-offload streaming (``repro_torch.runtime.offload``): pinned host
+    groups copied on a side CUDA stream, into two staging buffers in turn,
+    one group ahead of the compute that reads them.  (1) The toy of ``examples/offload_streaming.py``, through
+    the port's float32 matmul: the streamed result equals the all-resident
+    run bitwise.  (2) The FFN weights of one mistral-large-123b layer as
+    ``OFFLOAD_ML_GROUPS`` groups of 2.11 GB of bf16 (drawn on the card,
+    copied into pinned host memory; 2 groups if that much cannot be
+    pinned), at M 8 through the port's bf16 matmul: equal to the resident
+    run bitwise.  Each stream's CUDA events show group i+1's copy issued
+    and running while group i computes.  Prints the host-to-device rate
+    measured on this card, compute per group, streamed and resident wall,
+    and ``required_bandwidth`` against the measured link: the paper's §V-C
+    arithmetic on the card."""
+    import gc
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.offload import (OffloadExecutor, host_link_rate,
+                                             required_bandwidth, tree_map)
+    bf = torch.bfloat16
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def stream(host, fn, x):
+        """(output, executor, wall s, the event its timeline is read
+        against) of one measured stream after a warm-up stream."""
+        OffloadExecutor(host).stream_forward(x, [fn] * len(host))
+        sync()
+        ex = OffloadExecutor(host)
+        ref_ev = torch.cuda.Event(enable_timing=True)
+        ref_ev.record()
+        t0 = time.perf_counter()
+        y = ex.stream_forward(x, [fn] * len(host))
+        sync()
+        return y, ex, time.perf_counter() - t0, ref_ev
+
+    def resident_run(groups, fn, x):
+        y = x
+        for p in groups:
+            y = fn(y, p)
+        return y
+
+    def per_group_ms(fn, x, p, reps=5):
+        samples = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn(x, p)
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        return statistics.median(samples)
+
+    # ---- (1) the example's toy, float32
+    E, Fd, rows = OFFLOAD_TOY["E"], OFFLOAD_TOY["F"], OFFLOAD_TOY["rows"]
+    rng = np.random.RandomState(0)
+    toy_host = [{"w1": rng.randn(E, Fd).astype(np.float32) * 0.02,
+                 "w2": rng.randn(Fd, E).astype(np.float32) * 0.02}
+                for _ in range(OFFLOAD_TOY["groups"])]
+    x = torch.from_numpy(rng.randn(rows, E).astype(np.float32)).cuda()
+
+    def toy(x, p):
+        return x + ops.matmul(F.silu(ops.matmul(x, p["w1"])), p["w2"])
+
+    ops.reset_launch_counts()
+    y, ex, wall, ref_ev = stream(toy_host, toy, x)
+    launches = ops.launch_counts()["matmul"]
+    check(launches == 2 * 2 * OFFLOAD_TOY["groups"],
+          f"offload[toy]: {launches} matmul launches in two streams")
+    resident = [tree_map(lambda a: torch.from_numpy(a).cuda(), g) for g in toy_host]
+    check(torch.equal(y, resident_run(resident, toy, x)),
+          "offload[toy]: the streamed result differs from the resident run")
+    tl = _timeline_overlap(ex, ref_ev, "toy")
+    rate, nbytes = host_link_rate(ex.host_groups[0])
+    comp = per_group_ms(toy, x, resident[0])
+    need = required_bandwidth(nbytes, comp / 1e3)
+    print(f"offload[toy]: {OFFLOAD_TOY['groups']} groups of {nbytes / 1e6:.1f} MB "
+          f"float32 (E {E}, F {Fd}, {rows} rows), pinned: streamed equals the "
+          f"resident run bitwise; every group i+1's copy overlapped group i's "
+          f"compute (CUDA events; copy {tl[1]['copy_end'] - tl[1]['copy_start']:.3f} "
+          f"ms, compute {tl[0]['compute_end'] - tl[0]['compute_start']:.3f} ms a "
+          f"group in the stream) wall_streamed_ms={wall * 1e3:.3f} "
+          f"h2d_GBps={rate / 1e9:.2f} compute_ms_per_group={comp:.3f} "
+          f"required_GBps={need / 1e9:.2f} => streaming "
+          f"{'free' if need < rate else 'exposed'}; stage_dispatch_ms="
+          f"{ex.stats.stage_s * 1e3:.2f} compute_dispatch_ms="
+          f"{ex.stats.compute_s * 1e3:.2f}")
+    del resident, ex, y
+    _free_card(torch)
+
+    # ---- (2) one mistral-large-123b layer's FFN, bf16, M 8
+    E, Fd = ML_E, ML_F
+    shapes = (("w_gate", (E, Fd)), ("w_up", (E, Fd)), ("w_down", (Fd, E)))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    host, note = [], ""
+    try:
+        for _ in range(OFFLOAD_ML_GROUPS):
+            g = {}
+            for name, shape in shapes:
+                h = torch.empty(shape, dtype=bf, pin_memory=True)
+                h.copy_((0.02 * torch.randn(shape, generator=gen,
+                                            device="cuda")).to(bf))
+                g[name] = h
+            host.append(g)
+    except RuntimeError as e:
+        if len(host) < 2:
+            raise SmokeFailure(f"offload[mistral]: could not pin 2 groups: {e}")
+        host = host[:2]
+        note = f" (only 2 groups: pinning group {len(host) + 1} failed: {e})"
+    sync()
+    x8 = torch.randn(8, E, generator=gen, device="cuda").to(bf)
+
+    def ffn(x, p):
+        gate = ops.matmul(x, p["w_gate"])
+        up = ops.matmul(x, p["w_up"])
+        return ops.matmul((F.silu(gate.float()) * up.float()).to(bf), p["w_down"])
+
+    y, ex, wall, ref_ev = stream(host, ffn, x8)
+    tl = _timeline_overlap(ex, ref_ev, "mistral")
+    resident = [tree_map(lambda a: a.to("cuda"), g) for g in host]
+    sync()
+    t0 = time.perf_counter()
+    want = resident_run(resident, ffn, x8)
+    sync()
+    wall_res = time.perf_counter() - t0
+    check(torch.equal(y, want),
+          "offload[mistral]: the streamed result differs from the resident run")
+    check(bool(torch.isfinite(y.float()).all()), "offload[mistral]: non-finite")
+    rate, nbytes = host_link_rate(host[0])
+    comp = per_group_ms(ffn, x8, resident[0])
+    need = required_bandwidth(nbytes, comp / 1e3)
+    copy_ms = statistics.median(r["copy_end"] - r["copy_start"] for r in tl)
+    print(f"offload[mistral]: {len(host)} groups of one mistral-large-123b layer's "
+          f"FFN (w_gate, w_up ({E}, {Fd}), w_down ({Fd}, {E}) bf16: "
+          f"{nbytes / 1e9:.2f} GB a group, {len(host) * nbytes / 1e9:.2f} GB "
+          f"pinned){note} at M 8: streamed equals resident bitwise; group i+1's "
+          f"copy overlapped group i's compute in every step; h2d_GBps="
+          f"{rate / 1e9:.2f} copy_ms_per_group_in_stream={copy_ms:.3f} "
+          f"compute_ms_per_group={comp:.3f} wall_streamed_ms={wall * 1e3:.3f} "
+          f"wall_resident_ms={wall_res * 1e3:.3f} required_GBps="
+          f"{need / 1e9:.1f} vs measured {rate / 1e9:.2f} => streaming "
+          f"{'free' if need < rate else 'exposed'} (x{need / rate:.1f} the "
+          f"link); {smi_line}")
+    del host, resident, ex, y, want
+    gc.collect()
+    _free_card(torch)
+
+
+def phase_sim(torch):
+    """The port's copy of the paper's analytical multi-MCU model
+    (``repro_torch.sim``), run on the card's machine, where no JAX is
+    installed: the calibrated Siracusa model's headline metrics."""
+    from repro_torch.sim import calibrate
+    from repro_torch.sim.siracusa import SiracusaConfig
+    m = calibrate.paper_metrics(SiracusaConfig())
+    check(not any(n == "jax" or n.startswith(("jax.", "repro."))
+                  for n in sys.modules), "sim: jax or the JAX package imported")
+    print(f"sim: Siracusa model (repro_torch.sim, no jax in this process): "
+          f"tinyllama-42m AR 8 chips speedup={m['ar_speedup8']:.1f}x "
+          f"t_block={m['ar_t8_ms']:.2f} ms e_block={m['ar_e8_mj']:.2f} mJ; prompt "
+          f"8 chips {m['prompt_speedup8']:.1f}x; mobilebert 4 chips "
+          f"{m['mb_speedup4']:.2f}x ({m['mb_t4_ms']:.1f} ms); tinyllama-42m-64h "
+          f"64 chips {m['ar64_speedup64']:.1f}x, energy ratio "
+          f"{m['ar64_energy_ratio']:.2f}x; loss vs the paper's targets "
+          f"{calibrate.loss(m):.4f}")
+
+
 # name: (route, source, the TPU kernel it replaces)
 _PAGED = "src/repro_torch/kernels/csrc/paged_decode.cu"
 KERNELS = {
@@ -4127,6 +4626,7 @@ def main() -> int:
         timed("parity-gemma3", phase_parity_gemma3, torch)
         timed("parity-hymba", phase_parity_hymba, torch)
         timed("parity-mistral", phase_parity_mistral, torch)
+        timed("parity-64h", phase_parity_64h, torch)
         timed("parity-sample", phase_parity_sample, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
@@ -4200,6 +4700,18 @@ def main() -> int:
               f"tpot_p50_ms={sv['tpot_p50_ms']:.2f} busy_share="
               f"{prof['serve-mistral']['busy']:.3f} device_ms="
               f"{prof['serve-mistral']['device_ms']:.2f}; {smi_line}")
+        # serve-64h beside serve, in this call: 64 heads of 8 against 8 of 64
+        rows_64 = []
+        for name in ("serve-64h", "serve"):
+            sv = served[name]
+            rows_64.append(
+                f"{name} tok_per_s={sv['tokens'] / sv['wall']:.1f} "
+                f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+                f"ticks={sv['ticks']} busy_share={prof[name]['busy']:.3f} "
+                f"device_ms={prof[name]['device_ms']:.2f}")
+        print("64h[serve-64h vs serve]: " + " | ".join(rows_64))
+        timed("sim", phase_sim, torch)
+        timed("offload", phase_offload, torch, smi_line)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, get_config, reduced, register,
+    PAPER_MODELS, ModelConfig, get_config, reduced, register,
 )

@@ -112,6 +112,10 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
 
+    @property
+    def is_encoder_only(self) -> bool:
+        return self.family == "encoder"
+
     def layer_specs(self) -> list:
         """Per-layer structure for the decoder stack."""
         return [self._spec_for_layer(i) for i in range(self.n_layers)]
@@ -187,6 +191,9 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch '{name}'; the PyTorch port serves "
                        f"{sorted(_REGISTRY)} so far")
     return _REGISTRY[name]
+
+
+PAPER_MODELS = ["tinyllama-42m", "tinyllama-42m-64h", "mobilebert"]
 
 
 def _ensure_loaded():

@@ -67,7 +67,12 @@ def check_supported(cfg: ModelConfig):
     (hymba); the rest waits for its slice.  A vision frontend (pixtral)
     is refused for JAX's reason (``core/kvcache.py::
     paged_cache_supported``): its image embeds need injection at prefill,
-    which token-only prompts cannot carry."""
+    which token-only prompts cannot carry.  An encoder (mobilebert, the
+    paper's other workload, registered for the sim) is refused for JAX's
+    reason too (``paged_cache_supported``): it has no decode path."""
+    if cfg.is_encoder_only:
+        raise ValueError(f"serving unsupported for arch '{cfg.name}': "
+                         f"encoder-only arch has no decode path to serve")
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
         ("layernorm (ROADMAP Queue 1 item 9)", cfg.norm != "rmsnorm"),

@@ -2,8 +2,8 @@
 // payload) loads and float32/bfloat16 stores through float, warp
 // reductions, and the tensor-core kit of the bfloat16 kernels (matmul,
 // flash attention, the SSD scan, paged attention): cp.async copies,
-// ldmatrix, mma.sync m16n8k16, the thread-block cluster barrier and the
-// shared-tile swizzle.
+// ldmatrix, mma.sync m16n8k16 (and m16n8k8 for head_dim 8), the
+// thread-block cluster barrier and the shared-tile swizzle.
 #pragma once
 
 #include <cstdint>
@@ -64,6 +64,15 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_b
                : "memory");
 }
 
+// 8 bytes from global to shared memory, of which the first `src_bytes` (0
+// or 8) are read and the rest zero-filled (.ca, as cp_async_4): an int8 row
+// of head_dim 8.  `src` must be a valid address either way.
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -103,6 +112,13 @@ __device__ __forceinline__ void ldsm_x2(unsigned* r, const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// Two 8x8 tiles (lanes 0-15 give the row addresses), transposed.
+__device__ __forceinline__ void ldsm_x2_trans(unsigned* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // d (16 x 8, float32) += a (16 x 16, bf16, row) * b (16 x 8, bf16, col).
 // Fragments, g = lane / 4, t = lane % 4: a0 (row g, cols 2t, 2t+1), a1 (row
 // g+8, the same), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, the same); b0
@@ -115,6 +131,18 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsi
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d (16 x 8, float32) += a (16 x 8, bf16, row) * b (8 x 8, bf16, col): the
+// k8 shape, for head_dim 8 (sm_80 and later).  Fragments: a0 (row g, cols
+// 2t, 2t+1), a1 (row g+8, the same); b0 (rows 2t, 2t+1, col g); d as in
+// mma_bf16.  a0 and a1 are the k16 A fragment's a[0] and a[1].
+__device__ __forceinline__ void mma_bf16_k8(float* d, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b[0]));
 }
 
 // Two floats rounded to bfloat16 and packed, `lo` in the low half.

@@ -59,13 +59,19 @@
 //    64-key stages alone would be 135 KB, and with Q and a split's inbox
 //    past the 227 KB a block may hold.  D <= 128 keeps 64-key tiles and Q
 //    in registers, the instantiations' code unchanged.
+//  - head_dim 8 (tinyllama-42m-64h, 64 heads of 8): Q K^T is one mma.sync
+//    m16n8k8 step (a k of 8), its A fragment the first half of the k16
+//    one, K through ldmatrix x4 (four 8-key score tiles at once); P V's
+//    output is a single n8 tile, V through ldmatrix x2.trans.  A stored
+//    row is one 16-byte chunk at a stride of two (the same d / 8 + 1).
 //  kernels/flash_attention.py::plan picks wq and split from the shapes and
 //  the C entry refuses a plan whose shared memory differs from smem_bytes.
 //
 // float32 keeps a CUDA-core kernel (its 1e-4 tolerance excludes bf16 and
 // TF32 products): one block per (q head h, 16-query tile) over kv head
 // h / R, four warps of four rows, each 64-key tile (32 for D >= 128) of K and
-// V staged as float (in dynamic shared memory at D = 256: 81 KB).
+// V staged as float (in dynamic shared memory at D = 256: 81 KB); a lane
+// holds output columns lane + 32 c (at D 8 lanes 0-7 one each).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -80,9 +86,11 @@ using repro::cluster_wait;
 using repro::cp_async_16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::ldsm_x2_trans;
 using repro::ldsm_x4;
 using repro::ldsm_x4_trans;
 using repro::mma_bf16;
+using repro::mma_bf16_k8;
 using repro::NEG;
 using repro::pack_bf16;
 using repro::warp_max;
@@ -140,7 +148,8 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
                  int R, int rb, int wr, int split, int row_tiles) {
   constexpr int KT = kv_tile(D);        // keys per tile
   constexpr int KS = kv_stride(D);      // chunks per stored K/V row
-  constexpr int DK = D / 16;            // k steps of Q K^T
+  constexpr bool K8 = D == 8;           // Q K^T in one m16n8k8 step
+  constexpr int DK = K8 ? 1 : D / 16;   // k steps of Q K^T
   constexpr int NS = KT / 8;            // score tiles (8 keys) per key tile
   constexpr int NO = D / 8;             // output tiles (8 columns)
   constexpr int TILE = KT * KS * 8;     // bf16 elements of one stored tile
@@ -217,7 +226,9 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = r0 + g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
-        qf[kk][i] = row < Sq ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+        qf[kk][i] = row < Sq && !(K8 && i >= 2)   // k8: a0, a1 only
+                        ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col)
+                        : 0u;
       }
   }
 
@@ -250,8 +261,17 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
     for (int nt = 0; nt < NS; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    if constexpr (K8) {
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
+      for (int nf = 0; nf < NS / 4; ++nf) {   // 32 keys: four score tiles
+        unsigned b[4];
+        ldsm_x4(b, ks + (nf * 32 + mat * 8 + mrow) * KS * 8);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16_k8(s[4 * nf + j], qf[0], b + j);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < (K8 ? 0 : DK); ++kk) {
       unsigned qa[4];                   // QSMEM: A fragment, rows (mat & 1) 8 + mrow, k half mat >> 1
       if constexpr (QSMEM) ldsm_x4(qa, qs + (((mat & 1) * 8 + mrow) * KS + kk * 2 + (mat >> 1)) * 8);
 #pragma unroll
@@ -313,6 +333,11 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
       a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
       a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
       a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      if constexpr (K8) {               // 8 output columns: one tile
+        unsigned b[2];
+        ldsm_x2_trans(b, vs + (kk * 16 + (mat & 1) * 8 + mrow) * KS * 8);
+        mma_bf16(o[0], a, b);
+      }
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {   // 16 output columns: two tiles
         unsigned b[4];
@@ -413,7 +438,7 @@ flash_mma_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ K,
       }
     }
     row += step;
-    if (row >= q0 + rows_h) {           // step <= 4 < 16 <= rows_h: one wrap at most
+    if (row >= q0 + rows_h) {           // step <= 16 <= rows_h: one wrap at most
       row -= rows_h;
       ++hq;
     }
@@ -465,7 +490,7 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                   const int* __restrict__ q_off, int causal, int window, float scale, int R) {
   constexpr int BKV = D <= 64 ? 64 : 32;  // keys per tile
   constexpr int KPL = BKV / 32;           // keys per lane
-  constexpr int DPL = D / 32;             // output columns per lane
+  constexpr int DPL = (D + 31) / 32;      // output columns per lane (D 8: lanes 0-7)
   constexpr bool DYN = D > 128;           // tiles past static shared memory's 48 KB
   // Qs [BQ][D], Ks [BKV][D + 1] (+1: lanes read different rows), Vs [BKV][D]
   __shared__ float st_smem[DYN ? 1 : BQ * D + BKV * (D + 1) + BKV * D];
@@ -478,6 +503,8 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   const int h = blockIdx.y;             // q head h reads kv head h / R
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool col_ok = D >= 32 || lane < D;   // the lane holds output columns
+  const int col0 = col_ok ? lane : 0;
   const float* q = Q + (size_t)h * Sq * D;
   const float* k = K + (size_t)(h / R) * Skv * D;
   const float* v = V + (size_t)(h / R) * Skv * D;
@@ -562,7 +589,7 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
           const float pj = __shfl_sync(0xffffffffu, p[kk], src);
           const int j = src + 32 * kk;
 #pragma unroll
-          for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, Vs[j][lane + 32 * c], acc[r][c]);
+          for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, Vs[j][col0 + 32 * c], acc[r][c]);
         }
       }
     }
@@ -573,6 +600,7 @@ flash_simt_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     const int row = warp * ROWS + r;
     if (q0 + row >= Sq) break;
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
+    if (!col_ok) continue;
 #pragma unroll
     for (int c = 0; c < DPL; ++c)
       o[(size_t)(q0 + row) * D + lane + 32 * c] = acc[r][c] * inv;
@@ -603,8 +631,8 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int H, int
 // over H / R kv heads (R >= 1, H % R == 0).  dtype: 0 = float32 (CUDA
 // cores: wq 4, split 1, smem 0), 1 = bfloat16 (tensor cores: wq = rb
 // row_warps(Sq, rb) warps of 16 rows, rb = heads_per_block(R), split 1, 2,
-// 4 or 8, smem as smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {32, 64, 128,
-// 256}.  All
+// 4 or 8, smem as smem_bytes(); q, k, v 16-byte aligned).  head_dim D in {8, 32, 64,
+// 128, 256}.  All
 // tensors contiguous row-major; q_offset points at one int32 on the device.
 // Returns a CUDA error code: a plan that does not fit the shape is
 // cudaErrorInvalidValue, never a launch.
@@ -613,12 +641,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
                                      int causal, int window, float scale, int dtype,
                                      int wq, int split, int smem, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 32 && D != 64 && D != 128 && D != 256) ||
+  if (H <= 0 || Sq <= 0 || Skv < 0 || (D != 8 && D != 32 && D != 64 && D != 128 && D != 256) ||
       q_offset == nullptr || R < 1 || H % R)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     if (wq != NW || split != 1 || smem != 0) return (int)cudaErrorInvalidValue;
     switch (D) {
+      case 8:
+        return launch_simt<8>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
       case 32:
         return launch_simt<32>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, s);
       case 64:
@@ -635,6 +665,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
       (long long)(H / rb) * ((Sq + 16 * wr - 1) / (16 * wr)) > 65535)
     return (int)cudaErrorInvalidValue;
   switch (D) {
+    case 8:
+      return launch_mma<8>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
+                           smem, s);
     case 32:
       return launch_mma<32>(q, k, v, o, H, R, Sq, Skv, q_offset, causal, window, scale, wq, split,
                             smem, s);

@@ -3,8 +3,8 @@
 // (nq <= 8 queries per slot), each over float pools (in q's dtype) or int8
 // pools with one float32 scale per token row.  The same kernel serves
 // decode over a contiguous cache (two more variants, float lanes and
-// fixed-scale int8 lanes; see "Contiguous lanes" below).  Head dims 32, 64,
-// 128 and 256.
+// fixed-scale int8 lanes; see "Contiguous lanes" below).  Head dims 8, 32,
+// 64, 128 and 256.
 //
 //   q (B, H, nq, D) (decode: nq = 1, q (B, H, D)); k/v pools (n_pages,
 //   H / R, psz, D); int8 scales k_scale/v_scale (n_pages, psz) float32;
@@ -78,6 +78,11 @@
 //    the block stages its 16 query rows once in shared memory (odd chunk
 //    stride) and each warp reads them by ldmatrix at every k step.  At D <=
 //    128 Q stays in registers, the instantiations' code unchanged.
+//  - head_dim 8 (tinyllama-42m-64h): Q K^T is one mma.sync m16n8k8 step
+//    (its A fragment the first half of the k16 one; K through ldmatrix x2,
+//    or int8 pairs packed exactly), and P V's output a single n8 tile (V
+//    through ldmatrix x2.trans).  An int8 row is 8 bytes: one 8-byte
+//    cp.async into a 16-byte stored row, whose upper half is never read.
 //  - The warps' (m, l, O) rows meet in the owner rank's inbox through
 //    distributed shared memory in the same launch (local shared memory when
 //    split is 1): each warp pushes its rows to the rank that owns them, and
@@ -91,7 +96,8 @@
 // (q head h, slot), reading kv head h / R, the warps taking pages in turn,
 // each K/V row loaded once into registers (int8 rows dequantised through
 // the row's scale) and scored against every query that may see it; the
-// warps' states merge through shared memory.
+// warps' states merge through shared memory.  A lane holds the columns
+// lane + 32 c (at D 8 lanes 0-7 one each, the rest zeros).
 //
 // Contiguous lanes (repro_decode_attention, repro_decode_attention_i8):
 //   q (B, H, D); k/v (B, H / R, S, D) in q's dtype, or int8 whose values
@@ -139,11 +145,15 @@ using repro::cluster_arrive;
 using repro::cluster_wait;
 using repro::cp_async_16;
 using repro::cp_async_4;
+using repro::cp_async_8;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::ldsm_x2;
+using repro::ldsm_x2_trans;
 using repro::ldsm_x4;
 using repro::ldsm_x4_trans;
 using repro::mma_bf16;
+using repro::mma_bf16_k8;
 using repro::NEG;
 using repro::pack_bf16;
 using repro::to_float;
@@ -208,13 +218,15 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
   static_assert(!(CONTIG && WINDOW), "a contiguous ring needs no window");
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   constexpr bool QSMEM = D > 128;               // Q from shared memory (head_dim 256)
+  constexpr bool K8 = D == 8;                   // head_dim 8: one m16n8k8 step
+  constexpr bool ROW8 = K8 && QUANT;            // an 8-byte pool row: one 8-byte piece
   constexpr int EPC = 16 / sizeof(PT);          // pool elements per 16-byte chunk
-  constexpr int CPR = D / EPC;                  // chunks per pool row
+  constexpr int CPR = ROW8 ? 1 : D / EPC;       // chunks (pieces) per pool row
   constexpr int RS = row_chunks(D, QUANT);      // chunks per stored row (odd)
   constexpr int RB = RS * 16;                   // bytes per stored row
   constexpr int TILE = KT * RB;                 // bytes of one stored K (or V) tile
   constexpr int STAGE = stage_bytes(D, QUANT);
-  constexpr int DK = D / 16;                    // k steps of Q K^T
+  constexpr int DK = K8 ? 1 : D / 16;           // k steps of Q K^T
   constexpr int NO = D / 8;                     // output tiles (8 columns)
   constexpr int QRB = (D / 8 + 1) * 16;         // bytes per staged Q row (odd chunk stride)
   extern __shared__ __align__(16) unsigned char smem[];
@@ -253,8 +265,13 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
       const int r = c / CPR, cc = c % CPR, kpos = key0 + r;
       const bool in = kpos < n_kv;
       const size_t off = in ? pool_row(kpos) * D + cc * EPC : 0;
-      cp_async_16(st + r * RB + cc * 16, KP + off, in ? 16 : 0);
-      cp_async_16(st + TILE + r * RB + cc * 16, VP + off, in ? 16 : 0);
+      if constexpr (ROW8) {
+        cp_async_8(st + r * RB, KP + off, in ? 8 : 0);
+        cp_async_8(st + TILE + r * RB, VP + off, in ? 8 : 0);
+      } else {
+        cp_async_16(st + r * RB + cc * 16, KP + off, in ? 16 : 0);
+        cp_async_16(st + TILE + r * RB + cc * 16, VP + off, in ? 16 : 0);
+      }
     }
     if (QUANT && !CONTIG && lane < KT) {
       const int kpos = key0 + lane;
@@ -286,7 +303,9 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = g + 8 * (i & 1), col = kk * 16 + 2 * t4 + 8 * (i >> 1);
-        qf[kk][i] = row < nr ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col) : 0u;
+        qf[kk][i] = row < nr && !(K8 && i >= 2)   // k8: a0, a1 only
+                        ? *reinterpret_cast<const unsigned*>(q + (size_t)row * D + col)
+                        : 0u;
       }
   }
 
@@ -335,8 +354,20 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    if constexpr (K8) {                         // keys g and 8 + g, columns 2 t4 (+1)
+      unsigned bk[2];
+      if constexpr (QUANT) {
+        const int8_t* k0 = reinterpret_cast<const int8_t*>(ks) + g * RB + 2 * t4;
+        bk[0] = pack_i8(k0, 1);
+        bk[1] = pack_i8(k0 + 8 * RB, 1);
+      } else {
+        ldsm_x2(bk, ks + ((mat & 1) * 8 + mrow) * RB);
+      }
+      mma_bf16_k8(s[0], qf[0], bk);
+      mma_bf16_k8(s[1], qf[0], bk + 1);
+    }
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk) {
+    for (int kk = 0; kk < (K8 ? 0 : DK); ++kk) {
       unsigned bk[4];
       if constexpr (QUANT) {                    // keys g and 8 + g, columns 2 t4 (+1), +8
         const int8_t* k0 = reinterpret_cast<const int8_t*>(ks) + g * RB + kk * 16 + 2 * t4;
@@ -410,6 +441,10 @@ paged_mma_kernel(const bf16* __restrict__ Q, const PT* __restrict__ KP,
         const unsigned bv[2] = {pack_i8(v0, RB), pack_i8(v0 + 8 * RB, RB)};
         mma_bf16(o[nt], a, bv);
       }
+    } else if constexpr (K8) {                  // 8 output columns: one tile
+      unsigned bv[2];
+      ldsm_x2_trans(bv, vs + ((mat & 1) * 8 + mrow) * RB);
+      mma_bf16(o[0], a, bv);
     } else {
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {     // 16 output columns: two tiles
@@ -513,7 +548,7 @@ int launch_mma(const void* q, const void* kp, const void* vp, const void* ks, co
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel at head dim D in {32, 64, 128, 256}; H q heads, R
+// The tensor-core kernel at head dim D in {8, 32, 64, 128, 256}; H q heads, R
 // of them per kv head; WINDOW: window > 0.
 template <typename PT, bool CONTIG, bool WINDOW>
 int launch_mma_dw(int D, const void* q, const void* kp, const void* vp, const void* ks,
@@ -524,6 +559,7 @@ int launch_mma_dw(int D, const void* q, const void* kp, const void* vp, const vo
   launch_mma<DIM, PT, CONTIG, WINDOW>(q, kp, vp, ks, vs, bt, len, o, B, H, R, nq, psz, n_max, \
                                       window, scale, dq, nw, split, smem, stream)
   switch (D) {
+    case 8: return REPRO_PAGED_MMA(8);
     case 32: return REPRO_PAGED_MMA(32);
     case 64: return REPRO_PAGED_MMA(64);
     case 128: return REPRO_PAGED_MMA(128);
@@ -545,7 +581,7 @@ int launch_mma_d(int D, const void* q, const void* kp, const void* vp, const voi
                                           n_max, 0, scale, dq, nw, split, smem, stream);
 }
 
-bool head_dim_ok(int D) { return D == 32 || D == 64 || D == 128 || D == 256; }
+bool head_dim_ok(int D) { return D == 8 || D == 32 || D == 64 || D == 128 || D == 256; }
 
 // A tensor-core plan the kernel takes: `rows` = R nq query rows in the
 // m16, 1 <= nw <= 4 warps, split 1, 2, 4 or 8, smem as smem_bytes().
@@ -564,12 +600,13 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
                   const float* __restrict__ VS, const int* __restrict__ BT,
                   const int* __restrict__ LEN, float* __restrict__ O, int H, int R, int nq,
                   int psz, int n_max, int window, float scale) {
-  constexpr int DPL = D / 32;
+  constexpr int DPL = (D + 31) / 32;
   constexpr bool QUANT = std::is_same<PT, int8_t>::value;
   __shared__ float sm[NW][NQ], sl[NW][NQ];
   __shared__ float sacc[NW][NQ][D];
   const int h = blockIdx.x, b = blockIdx.y;   // q head h reads kv head h / R
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool col_ok = D >= 32 || lane < D;   // the lane holds columns (else zeros)
   const int Hk = H / R, hk = h / R;
   const int length = LEN[b];
   const int n_kv = length + nq - 1;          // keys the deepest query sees
@@ -585,7 +622,7 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
-      q[i][c] = i < nq ? Q[(qrow + i) * D + lane + 32 * c] : 0.f;
+      q[i][c] = i < nq && col_ok ? Q[(qrow + i) * D + lane + 32 * c] : 0.f;
       acc[i][c] = 0.f;
     }
   }
@@ -600,8 +637,8 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
       float kr[DPL], vr[DPL];
 #pragma unroll
       for (int c = 0; c < DPL; ++c) {
-        kr[c] = to_float(kpage[t * D + lane + 32 * c]);
-        vr[c] = to_float(vpage[t * D + lane + 32 * c]);
+        kr[c] = col_ok ? to_float(kpage[t * D + lane + 32 * c]) : 0.f;
+        vr[c] = col_ok ? to_float(vpage[t * D + lane + 32 * c]) : 0.f;
       }
       if (QUANT) {
         const float ks = KS[page * psz + t], vs = VS[page * psz + t];
@@ -637,8 +674,9 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
       sm[warp][i] = m[i];
       sl[warp][i] = l[i];
     }
+    if (col_ok)
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) sacc[warp][i][lane + 32 * c] = acc[i][c];
+      for (int c = 0; c < DPL; ++c) sacc[warp][i][lane + 32 * c] = acc[i][c];
   }
   __syncthreads();
   for (int i = warp; i < nq; i += NW) {
@@ -653,11 +691,13 @@ paged_simt_kernel(const float* __restrict__ Q, const PT* __restrict__ KP,
       const float f = expf(sm[w][i] - mx);
       den = fmaf(sl[w][i], f, den);
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) out[c] = fmaf(sacc[w][i][lane + 32 * c], f, out[c]);
+      for (int c = 0; c < DPL; ++c)
+        out[c] = col_ok ? fmaf(sacc[w][i][lane + 32 * c], f, out[c]) : 0.f;
     }
     const float inv = 1.f / fmaxf(den, 1e-20f);
+    if (col_ok)
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) O[(qrow + i) * D + lane + 32 * c] = out[c] * inv;
+      for (int c = 0; c < DPL; ++c) O[(qrow + i) * D + lane + 32 * c] = out[c] * inv;
   }
 }
 
@@ -671,6 +711,7 @@ int launch_simt(const void* q, const void* kp, const void* vp, const void* ks, c
       (const float*)q, (const PT*)kp, (const PT*)vp, (const float*)ks, (const float*)vs,  \
       (const int*)bt, (const int*)len, (float*)o, H, R, nq, psz, n_max, window, scale)
   switch (D) {
+    case 8: REPRO_PAGED_SIMT(8); break;
     case 32: REPRO_PAGED_SIMT(32); break;
     case 64: REPRO_PAGED_SIMT(64); break;
     case 128: REPRO_PAGED_SIMT(128); break;
@@ -728,11 +769,20 @@ __device__ __forceinline__ void load16(const int8_t* p, float* out) {
   for (int i = 0; i < 16; ++i) out[i] = (float)c[i];
 }
 
+// 8 bytes of an int8 lane row (head_dim 8) as floats.
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  const int2 v = *reinterpret_cast<const int2*>(p);
+  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = (float)c[i];
+}
+
 // One block per (q head h, row), reading kv head h / R's lane, eight warps
 // taking 32-key tiles of [0, length) in turn; in a tile each lane scores one
 // key (its row by 16-byte loads, dotted with q staged in shared memory), the
 // warp takes one max and one sum over its 32 scores and accumulates the
-// tile's value rows one at a time, each lane holding D / 32 output columns;
+// tile's value rows one at a time, each lane holding D / 32 output columns
+// (at D 8 lanes 0-7 one each; an int8 row is one 8-byte load);
 // the warps merge through shared memory.  KV float (dq unused) or int8 (values times dq).
 template <typename KV, int D>
 __global__ void __launch_bounds__(CONTIG_NW * 32)
@@ -740,13 +790,15 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
                    const KV* __restrict__ V, const int* __restrict__ LEN, float* __restrict__ O,
                    int H, int R, int S, float scale, float dq) {
   constexpr bool QUANT = std::is_same<KV, int8_t>::value;
-  constexpr int DPL = D / 32;                    // output columns per lane
-  constexpr int VEC = 16 / sizeof(KV);           // elements per 16-byte load
+  constexpr int DPL = (D + 31) / 32;             // output columns per lane
+  constexpr int VEC = 16 / sizeof(KV) < D ? 16 / sizeof(KV) : D;   // elements per load
   __shared__ float sq[D];
   __shared__ float sm[CONTIG_NW], sl[CONTIG_NW];
   __shared__ float sacc[CONTIG_NW][D];
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool col_ok = D >= 32 || lane < D;       // the lane holds output columns
+  const int col0 = col_ok ? lane : 0;
   const int n = max(0, min(LEN[b], S));          // valid keys of this row
   const size_t bh = (size_t)b * H + h;
   const size_t lane_kv = (size_t)b * (H / R) + h / R;   // the kv head's lane
@@ -770,7 +822,10 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
 #pragma unroll
       for (int d0 = 0; d0 < D; d0 += VEC) {
         float kv[VEC];
-        load16(kp + d0, kv);
+        if constexpr (VEC * sizeof(KV) == 16)
+          load16(kp + d0, kv);
+        else
+          load8(kp + d0, kv);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) dot = fmaf(sq[d0 + i], deq(kv[i]), dot);
       }
@@ -787,7 +842,7 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
       const float pi = __shfl_sync(0xffffffffu, p, i);
       const KV* vp = vrow + (size_t)(t0 + i) * D;
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[c] = fmaf(pi, deq(to_float(vp[lane + 32 * c])), acc[c]);
+      for (int c = 0; c < DPL; ++c) acc[c] = fmaf(pi, deq(to_float(vp[col0 + 32 * c])), acc[c]);
     }
     m = m_new;
   }
@@ -796,8 +851,9 @@ contig_simt_kernel(const float* __restrict__ Q, const KV* __restrict__ K,
     sm[warp] = m;
     sl[warp] = l;
   }
+  if (col_ok)
 #pragma unroll
-  for (int c = 0; c < DPL; ++c) sacc[warp][lane + 32 * c] = acc[c];
+    for (int c = 0; c < DPL; ++c) sacc[warp][lane + 32 * c] = acc[c];
   __syncthreads();
   float mx = NEG;
 #pragma unroll
@@ -824,6 +880,7 @@ int launch_contig_simt(const void* q, const void* k, const void* v, const void* 
       (const float*)q, (const KV*)k, (const KV*)v, (const int*)len, (float*)o, H, R, S,    \
       scale, dq)
   switch (D) {
+    case 8: REPRO_CONTIG_SIMT(8); break;
     case 32: REPRO_CONTIG_SIMT(32); break;
     case 64: REPRO_CONTIG_SIMT(64); break;
     case 128: REPRO_CONTIG_SIMT(128); break;
@@ -864,7 +921,7 @@ int run_contig(int dtype, const void* q, const void* k, const void* v, const voi
 // kernels/decode_attention.py::plan chose (nw, split, smem; see run()).
 // dtype: 0 = float32, 1 = bfloat16 (q and output; the pools too in the
 // float variants); H q heads over H / R kv heads of the pools, R nq <= 16;
-// head_dim D in {32, 64, 128, 256}; verify takes 1 <= nq <= 8; window 0
+// head_dim D in {8, 32, 64, 128, 256}; verify takes 1 <= nq <= 8; window 0
 // (none) or the sliding window's keys.
 // All tensors contiguous; bf16 q and pools 16-byte aligned.  Each returns a
 // CUDA error code: a plan that does not fit the shape is
@@ -912,7 +969,7 @@ extern "C" int repro_paged_verify_i8(const void* q, const void* kp, const void* 
 // dtype: 0 = float32, 1 = bfloat16 (q, output, and the lanes of
 // repro_decode_attention; repro_decode_attention_i8 takes int8 lanes whose
 // values times dq are the keys and values); H q heads over H / R kv heads
-// of the lanes (B, H / R, S, D); head_dim D in {32, 64, 128, 256}.
+// of the lanes (B, H / R, S, D); head_dim D in {8, 32, 64, 128, 256}.
 // All tensors contiguous; q and the lanes 16-byte aligned.  Each returns a
 // CUDA error code, as the paged entries do.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,

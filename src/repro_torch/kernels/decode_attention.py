@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (8, 32, 64, 128, 256)
 MAX_NQ = 8           # verify queries per slot (csrc/paged_decode.cu)
 MAX_ROWS = 16        # query rows of one kv head in the kernel's m16: group x nq
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -23,7 +23,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (8, 32, 64, 128, 256)
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
              + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 4
              + [ctypes.c_void_p])

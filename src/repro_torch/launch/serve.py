@@ -10,7 +10,8 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 ``--speculative K`` (prompt-lookup drafts verified in one step,
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
-``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
+``--arch tinyllama-42m-64h`` serves the paper's 64-head variant (head_dim
+8).  ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
 or from state slabs with ``--paged``; ``--arch qwen3-0.6b`` a GQA decoder
 with qk-norm, ``--arch gemma3-12b`` gemma3 (sliding windows on 5 of
 every 6 layers, head_dim 256, sandwich norms, a gelu FFN; 23.5 GB of bf16
@@ -147,6 +148,9 @@ def parse_args(argv=None):
         cfg = get_config(args.arch)
     except KeyError as e:
         ap.error(str(e))
+    if cfg.is_encoder_only:
+        ap.error(f"arch '{args.arch}': encoder-only arch has no decode path "
+                 f"to serve")
     if args.speculative and "ssm" in cache_profile(cfg):
         ap.error(f"--speculative is unsupported for arch '{args.arch}': SSM "
                  f"recurrences advance one token per step")

@@ -370,12 +370,13 @@ def test_head_dim_256_plans_mirror_the_sources():
     """The head dims, the wide tile and the staged query rows are the ones
     csrc/paged_decode.cu and csrc/flash_attention.cu compile."""
     src = _source("paged_decode.cu")
-    assert k_decode.HEAD_DIMS == (32, 64, 128, 256)
-    assert "return D == 32 || D == 64 || D == 128 || D == 256;" in src
+    # head_dim 8 (tinyllama-42m-64h) joined the head dims after 256
+    assert k_decode.HEAD_DIMS == (8, 32, 64, 128, 256)
+    assert "return D == 8 || D == 32 || D == 64 || D == 128 || D == 256;" in src
     assert "d > 128 ? 16 * (d / 8 + 1) * 16 : 0" in src
     assert re.search(r"ring_bytes\(d, quant, nw\) \+ q_stage_bytes\(d\) \+", src)
     fsrc = _source("flash_attention.cu")
-    assert k_flash.HEAD_DIMS == (32, 64, 128, 256)
+    assert k_flash.HEAD_DIMS == (8, 32, 64, 128, 256)
     assert re.search(rf"constexpr int KV_TILE_WIDE = {k_flash.KV_TILE_WIDE};",
                      fsrc)
     assert "d > 128 ? KV_TILE_WIDE : KV_TILE" in fsrc

@@ -70,6 +70,15 @@ def test_unported_architectures_are_refused():
                           ShardingPlan(), device="cpu")
     with pytest.raises(KeyError, match="hymba-1.5b"):
         get_config("mixtral-8x22b")
+    # the paper's encoder: registered for the sim, refused for JAX's reason
+    # (src/repro/core/kvcache.py::paged_cache_supported)
+    why = "encoder-only arch has no decode path to serve"
+    with pytest.raises(ValueError, match=why):
+        model.init_params(reduced(get_config("mobilebert")), ShardingPlan(),
+                          device="cpu")
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.parse_args(["--arch", "mobilebert", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="int8"):
         model.init_params(cfg, ShardingPlan(weight_dtype="int8"), device="cpu")
 
