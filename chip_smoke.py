@@ -88,7 +88,14 @@ each (and a few detail lines):
             at q_offset 224 in 256 keys), the first chunk and a 160-token
             prompt, paged decode and verify (Q 5 and 8) over float and int8
             pools (B 8, a graph replayed after the lengths change), the
-            contiguous decode over float and int8 lanes at S 256; median
+            contiguous decode over float and int8 lanes at S 256; then
+            seamless-m4t-large-v2's shapes (16 heads of 64): flash without
+            the causal mask over 4096 keys (Sq 32 and 100) and the
+            encoder's causal flash over 4096 frames, paged decode through a
+            256-page cross block table over float and int8 pools, the
+            contiguous decode at S 4096, matmul at M 4096, 32 and 8 for the
+            projections and the plain FFN and the tied 256,206-row head;
+            median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
             computes the same function where there is one (SDPA, with
@@ -145,7 +152,16 @@ each (and a few detail lines):
             float32, weights x10: the paged engine (also against the
             eager-serial engine) and the contiguous engine (also against the
             paged one), card against CPU, live logits within the tinyllama
-            tolerance, identical greedy tokens.
+            tolerance, identical greedy tokens.  parity-seamless:
+            seamless-m4t-large-v2 cut to 3 decoder and 2 encoder layers,
+            d_model 512, 8 heads of 64, d_ff 2048, vocab 32000 and 512
+            frames, float32, weights x5 (int8 x2) but the layernorms': the
+            paged engine over float pools (also against the eager-serial
+            engine) and int8 pools (2 encodes, 2 cross hits), the
+            contiguous engine over float32 lanes (tokens also equal to the
+            paged engine's) and int8 lanes (JAX's bare cast), 4 requests
+            over 2 frame tensors, card against CPU, identical greedy
+            tokens, live logits within the tinyllama or int8 tolerance.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -168,11 +184,11 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in fifteen phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in sixteen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
-            mamba2-370m cut to 24 of its 48 layers (``SERVE_DEPTH``) in
+            mamba2-370m cut to 12 of its 48 layers (``SERVE_DEPTH``) in
             serve-ssm (float32 state slabs) and serve-ssm-int8 (int8
             slabs), and tinyllama-42m on the
             contiguous engine in serve-contig (bfloat16 lanes) and
@@ -184,12 +200,13 @@ each (and a few detail lines):
             printed, and its tok/s, busy share and prefill chunks beside
             serve's), and serve-qwen3 (full-width qwen3-0.6b, 28 layers,
             bfloat16 pools, random prompts; no eager-serial run), and
-            serve-gemma3 (full-width, full-depth gemma3-12b, 48 layers,
-            weights drawn on the card, bfloat16 pools, a 2048-token budget,
+            serve-gemma3 (full-width gemma3-12b at 24 of its 48 layers
+            (``SERVE_DEPTH``), weights drawn on the card, bfloat16 pools, a
+            2048-token budget,
             chunks of 128, prompts of 512-1536 tokens and the count of
             decode rows whose window is shorter than their prefix), and
-            serve-hymba (full-width, full-depth hymba-1.5b, 32 hybrid
-            layers, the same long mix, bfloat16 pools and float32 slabs;
+            serve-hymba (full-width hymba-1.5b at 16 of its 32 hybrid
+            layers (``SERVE_DEPTH``), the same long mix, bfloat16 pools and float32 slabs;
             flash attention and the SSD scan in every layer of every
             chunk, the paged decode kernel in every layer of every decode
             tick), and serve-mistral (full-width mistral-large-123b at 20
@@ -203,7 +220,17 @@ each (and a few detail lines):
             tok/s, wall per tick and ticks beside serve's on a
             ``sample[...]`` line), and serve-64h (full-width, full-depth
             tinyllama-42m-64h, serve's mix: 64 heads of head_dim 8 in flash
-            and paged decode, beside serve on a ``64h[...]`` line).  Every
+            and paged decode, beside serve on a ``64h[...]`` line), and
+            serve-seamless (full-width, full-depth seamless-m4t-large-v2,
+            24 encoder and 24 decoder layers, weights drawn on the card,
+            bfloat16 pools and cross pools, serve's mix over 4 frame
+            tensors of 4096 frames: 4 encodes, 12 cross hits; flash twice
+            per layer in every chunk, paged decode twice per layer in every
+            decode tick, the encoder's flash and products in each encode's
+            graph, 10L + 1 counted kernels a tick (layernorm is plain
+            PyTorch: no norm kernel); a ``seamless[...]`` line with the
+            encodes, the hit rate, one encode's time, TTFT and TPOT, the
+            busy share, device time and matmul share).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
@@ -1237,6 +1264,7 @@ def phase_kernels(torch, F):
     _hymba_kernels(torch, F, randn, gen, note, one_kernel, rows)
     _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _paper64h_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+    _seamless_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -2627,6 +2655,226 @@ def _paper64h_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
               f"library_us={lib} [{r['plan']}]")
 
 
+# seamless-m4t-large-v2's widths: 16 q = 16 kv heads of 64, d_model 1024, a
+# plain FFN of 8192, the tied 256,206-row head, an encoder memory of 4096
+# frames (256 pages of 16 a request)
+SM_H, SM_D, SM_E, SM_F, SM_V, SM_S = 16, 64, 1024, 8192, 256_206, 4096
+SM_MATMULS = (("seamless wq/wk/wv/wo", SM_E, SM_E, False),
+              ("seamless w_up", SM_E, SM_F, False),
+              ("seamless w_down", SM_F, SM_E, False),
+              ("seamless LM head (tied)", SM_E, SM_V, True))
+
+
+def _seamless_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
+                      rows):
+    """The kernel cases at seamless-m4t-large-v2's shapes, against their
+    plain versions: flash without the causal mask (the cross-attention of
+    a prefill chunk, Sq 32 over the 4096 frames' keys, and of a
+    contiguous whole-prompt prefill, Sq 100), the encoder's causal flash
+    over all 4096 frames (float32 at 512, the parity phase's memory);
+    paged decode through a 256-page cross block table (B 8, 16 heads of
+    64, pages of 16, every key visible: length 4096, an idle lane on
+    scratch page 0; a graph replayed after the lengths change) over float
+    and int8 pools; the contiguous decode at S 4096 (the contiguous
+    engine's cross lanes); matmul at M 4096 (the encoder's projections and
+    FFN), at M 8 and 32 (the decoder's), and the tied head at M 8 and 1
+    (N % 8 = 6).  float32 and bf16; every bf16 case runs twice
+    (bitwise-equal outputs) and every case is one kernel node in a CUDA
+    graph.  Times (bf16, L2-warm) beside the bound, the plain version and
+    the library call (SDPA, ``is_causal`` for the encoder; ``torch.matmul``);
+    appended to each kernel's ``by_shape``."""
+    from repro_torch.kernels import decode_attention as _dec
+    from repro_torch.kernels import flash_attention as _fl
+    from repro_torch.kernels import matmul as _mm
+    from repro_torch.kernels import ops, ref
+    H, D = SM_H, SM_D
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        row = rows[name]
+        row.setdefault("by_shape", [{k: v for k, v in row.items()}])
+        row["by_shape"].append(r)
+        timed.append((name, r))
+
+    def checked(kname, case, dt, call, plain):
+        got = call()
+        err = compare(kname, got, plain(), dt, torch)
+        note(kname, case, err)
+        if dt == bf:
+            check(torch.equal(got, call()), f"{kname} {case}: two calls differ")
+        one_kernel(kname, case, call)
+        return err
+
+    # ---- flash: cross-attention without the causal mask over the 4096
+    # frames' keys (a prefill chunk of 32, a whole prompt of 100), and the
+    # encoder's causal self-attention over every frame
+    cases = [(torch.float32, 32, SM_S, False), (bf, 32, SM_S, False),
+             (torch.float32, 100, SM_S, False), (bf, 100, SM_S, False),
+             (torch.float32, 512, 512, True), (bf, SM_S, SM_S, True)]
+    for dt, Sq, Skv, causal in cases:
+        q, k, v = (randn(H, Sq, D, dtype=dt), randn(H, Skv, D, dtype=dt),
+                   randn(H, Skv, D, dtype=dt))
+
+        def call():
+            return ops.flash_attention(q, k, v, causal=causal)
+
+        def plain():
+            return ref.ref_flash_attention(q, k, v, causal=causal)
+
+        what = "encoder, causal" if causal else "cross, causal=False"
+        case = f"seamless {what} H={H} Sq={Sq} Skv={Skv} D={D} {dtype_name(dt)}"
+        err = checked("flash_attention", case, dt, call, plain)
+        if dt != bf:
+            continue
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        b_ms, b_by = bound((2 * q.numel() + 2 * H * Skv * D) * 2,
+                           4 * D * H * pairs, bf)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                  is_causal=causal)
+
+        compare("SDPA yardstick seamless", sdpa()[0], plain(), bf, torch)
+        p = _fl.plan(H, Sq, Skv, D, bf)
+        add("flash_attention", dict(
+            shape=case, max_abs_err=err,
+            plan=f"wq={p.wq} split={p.split} blocks="
+                 f"{p.split * H * -(-Sq // (16 * p.wq))}",
+            ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+            library_ms=time_ms(sdpa, torch), bound_ms=b_ms, bound_by=b_by))
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- paged decode through the cross block table: 8 slots, 256 pages
+    # of 16 each over a shuffled pool, every one of the 4096 keys visible
+    # (cur_pos = S_enc - 1), the last slot an idle lane on scratch page 0
+    B, psz, n_max = 8, 16, SM_S // 16
+    n_pages = B * n_max + 1
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(9)) + 1
+    bt = perm[:B * n_max].reshape(B, n_max).to(torch.int32).cuda()
+    bt[-1] = 0
+    lens = [SM_S] * B
+    length = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, bf):
+        q = randn(B, H, D, dtype=dt)
+        kq = torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        vq = torch.randint(-127, 128, (n_pages, H, psz, D), generator=gen,
+                           device="cuda", dtype=torch.int8)
+        ks = 0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+        vs = 0.05 * torch.rand(n_pages, psz, generator=gen, device="cuda")
+        pools = {False: ((randn(n_pages, H, psz, D, dtype=dt),
+                          randn(n_pages, H, psz, D, dtype=dt)), {}),
+                 True: ((kq, vq), dict(k_scale=ks, v_scale=vs))}
+        for quant, ((kp, vp), sc) in pools.items():
+            kname = "paged_decode_attention" + ("_i8" if quant else "")
+
+            def call():
+                return ops.paged_decode_attention(q, kp, vp, bt, length, **sc)
+
+            def plain():
+                return ref.ref_paged_decode_attention(q, kp, vp, bt, length,
+                                                      **sc)
+
+            case = (f"seamless cross B={B} H={H} D={D} psz={psz} n_max={n_max} "
+                    f"length {SM_S} q {dtype_name(dt)}"
+                    f"{', int8 pools' if quant else ''}")
+            err = checked(kname, case, dt, call, plain)
+            replay_check(kname, case, call, length,
+                         [SM_S, 1, 17, 2000, 4095, 256, 3000, SM_S])
+            if dt != bf:
+                continue
+            toks, elt = sum(lens), 1 if quant else 2
+            b_ms, b_by = bound(2 * q.numel() * 2 + 2 * H * toks * D * elt
+                               + (2 * toks * 4 if quant else 0)
+                               + bt.numel() * 4 + B * 4,
+                               4 * D * H * toks + (2 * D * H * toks if quant else 0),
+                               torch.int8 if quant else bf)
+            p = _dec.plan(B, H, 1, D, psz, n_max, bf, quant)
+            add(kname, dict(
+                shape=case, max_abs_err=err,
+                plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+                ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del pools, kq, vq
+    torch.cuda.empty_cache()
+
+    # ---- the contiguous decode over the cross lanes: S 4096, every key
+    # valid (JAX's cur_pos = S_enc: length min(S_enc + 1, S_enc))
+    lc = torch.full((B,), SM_S, dtype=torch.int32, device="cuda")
+    for dt in (torch.float32, bf):
+        qc = randn(B, H, D, dtype=dt)
+        kc, vc = randn(B, H, SM_S, D, dtype=dt), randn(B, H, SM_S, D, dtype=dt)
+
+        def call():
+            return ops.decode_attention(qc, kc, vc, lc)
+
+        def plain():
+            return ref.ref_decode_attention(qc, kc, vc, lc)
+
+        case = f"seamless cross lanes B={B} H={H} S={SM_S} D={D} q {dtype_name(dt)}"
+        err = checked("decode_attention", case, dt, call, plain)
+        if dt != bf:
+            continue
+        toks = B * SM_S
+        b_ms, b_by = bound(2 * qc.numel() * 2 + 2 * H * toks * D * 2 + B * 4,
+                           4 * D * H * toks, bf)
+        p = _dec.contiguous_plan(B, H, SM_S, D, bf, False)
+        add("decode_attention", dict(
+            shape=case, max_abs_err=err,
+            plan=f"nw={p.nw} split={p.split} blocks={p.split * B * H}",
+            ms=time_ms(call, torch), plain_ms=time_plain(plain, torch),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qc[:, :, None], kc, vc), torch),
+            bound_ms=b_ms, bound_by=b_by))
+        del kc, vc
+
+    # ---- matmul: the encoder's products at M 4096 (every frame), the
+    # decoder's at M 8 (a decode tick) and 32 (a chunk), the tied head at
+    # M 8 and 1; float32 at M 512 (the parity phase's encoder)
+    for tag, K, N, nt in SM_MATMULS:
+        b = (0.02 * (randn(N, K) if nt else randn(K, N))).to(bf)
+        for M in ((8, 1) if nt else (SM_S, 32, 8)):
+            a = randn(M, K, dtype=bf)
+            case = f"{tag} M={M} K={K} N={N}{' NT' if nt else ''} bf16"
+            got = ops.matmul(a, b, trans_b=nt)
+            err = compare("matmul", got, ref.ref_matmul(a, b, nt), bf, torch)
+            note("matmul", case, err)
+            check(torch.equal(got, ops.matmul(a, b, trans_b=nt)),
+                  f"matmul {case}: two calls differ")
+            one_kernel("matmul", case, lambda: ops.matmul(a, b, trans_b=nt))
+            if M not in (SM_S, 8):
+                continue
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf)
+            p = _mm.plan(M, N, K, bf, nt)
+            w = f"({N}, {K})^T" if nt else f"({K}, {N})"
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ {w} bf16",
+                M=M, K=K, N=N, trans_b=nt, max_abs_err=err,
+                plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} "
+                     f"blocks={p.blocks} smem={p.smem} vec={p.vec}",
+                ms=time_ms(lambda: ops.matmul(a, b, trans_b=nt), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b, nt), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b.t() if nt else b),
+                                   torch),
+                bound_ms=b_ms, bound_by=b_by))
+        if not nt:
+            a32, b32 = randn(512, K), b.float()
+            case = f"{tag} M=512 K={K} N={N} float32"
+            note("matmul", case, compare("matmul", ops.matmul(a32, b32),
+                                         ref.ref_matmul(a32, b32), torch.float32,
+                                         torch))
+            one_kernel("matmul", case, lambda: ops.matmul(a32, b32))
+        del b
+        torch.cuda.empty_cache()
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
+
+
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
     import numpy as np
     return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
@@ -2724,18 +2972,21 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
 
 
 def leak_check(name, eng):
-    """After ``drain()``: every page free or held by the prefix cache, and
-    free after the cache is evicted whole; every slab free."""
+    """After ``drain()``: every page free or held by the prefix cache or
+    the cross-KV cache, and free after the caches are evicted whole; every
+    slab free."""
     if eng.paged:
         usable = eng.allocator.n_pages - eng.allocator.n_reserved
-        cached = eng.prefix_cache.n_cached_pages if eng.prefix_cache else 0
+        caches = [c for c in (eng.prefix_cache, eng.cross_cache) if c]
+        cached = sum(c.n_cached_pages for c in caches)
         check(eng.allocator.n_free + cached == usable,
               f"{name}: pool leaked {usable - cached - eng.allocator.n_free} "
               f"pages on {eng.device}")
-        if eng.prefix_cache:
-            eng.prefix_cache.evict(usable)
+        for c in caches:
+            c.evict(usable)
+        if caches:
             check(eng.allocator.n_free == usable and
-                  eng.prefix_cache.n_nodes == 0,
+                  all(c.n_cached_pages == 0 for c in caches),
                   f"{name}: pages left after a full evict on {eng.device}")
     check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
           f"{name}: slabs not leak-free after drain() on {eng.device}")
@@ -3341,6 +3592,121 @@ def phase_parity_64h(torch):
     print("parity-64h: contiguous tokens equal the paged engine's on cuda")
 
 
+# parity-seamless: seamless-m4t-large-v2 cut in width and depth for the
+# CPU side, keeping its head_dim 64, layernorm, the plain gelu FFN and an
+# encoder memory of 512 frames (32 cross pages of 16)
+SM_PARITY_CUT = dict(n_layers=3, n_enc_layers=2, d_model=512, n_heads=8,
+                     n_kv_heads=8, d_ff=2048, vocab_size=32000,
+                     enc_seq_len=512)
+# weights x5 but the layernorms' (scale 1, bias 0: x5 there would scale
+# every attention logit x25 more): |logit| up to ~11, 55 distinct tokens.
+# The int8 runs at x2: their pools and lanes quantize the encoder memory's
+# K/V, whose float32 sums differ between the card and the CPU in the last
+# bits, and at x5 the attention is peaked enough that a K/V value moved one
+# step changes greedy tokens (on the CPU alone, frames perturbed by one part
+# in a million flipped the int8 paged engine's tokens at x5, not at x2)
+SM_PARITY_SCALE, SM_PARITY_SCALE_INT8 = 5.0, 2.0
+
+
+def _scaled_but_norms(tree, s, key=""):
+    """Every weight of ``tree`` times ``s`` but the norms' (the subtrees
+    under an ``ln*`` or ``final_norm`` key)."""
+    if isinstance(tree, dict):
+        return {k: _scaled_but_norms(v, s, k if k.startswith(
+            ("ln", "final_norm")) else key) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_scaled_but_norms(v, s, key) for v in tree]
+    return tree if key else tree * s
+
+
+def phase_parity_seamless(torch):
+    """seamless-m4t-large-v2 cut to 3 decoder and 2 encoder layers, d_model
+    512, 8 heads of 64, d_ff 2048, vocab 32000 and 512 frames
+    (``SM_PARITY_CUT``), float32, weights x5 (int8 runs x2) but the
+    layernorms': engines on the card (flash
+    without the causal mask over the cross keys, the encoder's causal
+    flash, paged decode through the cross block table, the contiguous
+    decode over the cross lanes) against engines on the CPU (plain
+    versions), 4 requests of 23-130 prompt tokens plus 16 new over two
+    frame tensors (request i the (i mod 2)-th).  The paged engine over
+    float pools (also against the eager-serial engine on the card) and
+    over int8 pools (cross pools int8 too), each with 2 encodes and 2
+    cross hits; the contiguous engine over float32 lanes (tokens also
+    equal to the paged engine's on the card) and over int8 lanes (the
+    cross lanes a bare int8 cast, JAX's trap).  Identical greedy tokens;
+    live logits of every step within the tinyllama tolerance (int8: the
+    int8 one); leak-free after drain(), cross-cached pages counted."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              name="seamless-m4t-large-v2-parity",
+                              dtype="float32", **SM_PARITY_CUT)
+    check(cfg.head_dim_ == SM_D and cfg.norm == "layernorm" and
+          not cfg.gated_ffn, "parity-seamless: not seamless's layer")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    plan_i8 = ShardingPlan(kv_cache_dtype="int8")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu")
+    params = {False: _scaled_but_norms(base, SM_PARITY_SCALE),
+              True: _scaled_but_norms(base, SM_PARITY_SCALE_INT8)}
+    frames = [np.random.RandomState(40 + g).randn(
+        cfg.enc_seq_len, cfg.d_model).astype(np.float32) for g in range(2)]
+    prompts = [np.random.RandomState(17 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((23, 40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16,
+                        frames=frames[i % 2]) for i, pr in enumerate(prompts)]
+
+    out = {}
+    for tag, pl, paged, tol in (
+            ("paged", plan, True, PARITY_TOL),
+            ("paged, int8 pools", plan_i8, True, INT8_PARITY_TOL),
+            ("contiguous", plan, False, PARITY_TOL),
+            ("contiguous, int8 lanes", plan_i8, False, INT8_PARITY_TOL)):
+        quant = pl is plan_i8
+        runs = {dev: _run_engine(torch, cfg, pl, params[quant], reqs(), dev,
+                                 paged=paged) for dev in ("cuda", "cpu")}
+        err, mx = _same(f"parity-seamless[{tag}]", runs["cuda"][1:3],
+                        runs["cpu"][1:3], tol)
+        out[tag] = toks = runs["cuda"][1]
+        n_distinct = len({t for r in toks for t in r})
+        check(n_distinct > 3, f"parity-seamless[{tag}]: greedy decoding "
+                              f"collapsed {toks}")
+        enc = ""
+        if paged:
+            st = runs["cuda"][0].stats
+            check((st.cross_encodes, st.cross_hits, st.cross_lookups) ==
+                  (2, 2, 4), f"parity-seamless[{tag}]: {st.cross_encodes} "
+                             f"encodes, {st.cross_hits}/{st.cross_lookups} hits")
+            enc = (f"; cross_encodes={st.cross_encodes} cross_hits="
+                   f"{st.cross_hits}/{st.cross_lookups}")
+        if tag == "paged":
+            _eager_serial(torch, "parity-seamless", toks, cfg, pl,
+                          params[quant], reqs())
+        print(f"parity-seamless: seamless-m4t-large-v2 cut to {SM_PARITY_CUT} "
+              f"float32 x{SM_PARITY_SCALE_INT8 if quant else SM_PARITY_SCALE:g}"
+              f" (norms x1), {tag} engine on cuda "
+              f"vs cpu: "
+              f"live logits of every step ({runs['cuda'][2].numel()} values) "
+              f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+              f"{tol['rtol']} atol={tol['atol']}); greedy tokens identical"
+              f"{', and to the eager-serial engine on cuda' if tag == 'paged' else ''}"
+              f": 4 requests x 16 tokens over 2 frame tensors, {n_distinct} "
+              f"distinct{enc}")
+        del runs
+    check(out["paged"] == out["contiguous"], f"parity-seamless: contiguous "
+          f"and paged engines differ on cuda\n  {out['contiguous']}\n  "
+          f"{out['paged']}")
+    print("parity-seamless: contiguous tokens equal the paged engine's on cuda")
+
+
 # parity-sample: tinyllama-42m at full width cut to 4 of its 8 layers, and
 # the two samplers of the CPU tests
 SAMPLE_DEPTH = 4
@@ -3843,15 +4209,22 @@ SERVE_PHASES = {
     "serve-mistral": ("mistral-large-123b", "bfloat16", "", 0, "random"),
     "serve-sample": ("tinyllama-42m", "bfloat16", "", 0, "random"),
     "serve-64h": ("tinyllama-42m-64h", "bfloat16", "", 0, "random"),
+    "serve-seamless": ("seamless-m4t-large-v2", "bfloat16", "", 0, "frames"),
 }
-# the phases served at a cut depth, full width: mamba2's 48 layers to 24, so
-# that serve-hymba and its profile fit the script's time (the profiles of the
-# three mamba2 runs took 199 s at 48 layers; parity-ssm keeps all 48)
-SERVE_DEPTH = {"serve-ssm": 24, "serve-ssm-int8": 24,
+# the phases served at a cut depth, full width: mamba2's 48 layers to 12
+# (the profiles of the three mamba2 runs took 199 s at 48 layers and 101-131
+# s at 24, the host-bound share of the script that varies most from call to
+# call); parity-ssm keeps all 48
+SERVE_DEPTH = {"serve-ssm": 12, "serve-ssm-int8": 12,
                # mistral's 88 layers hold 245.2 GB of bf16 weights; 20 hold
                # 55.4 GB, with the embedding table and the untied head 57.0 GB
                # on the 80 GB card, beside the pools and the step graphs
-               "serve-mistral": 20}
+               "serve-mistral": 20,
+               # gemma3's 48 layers to 24 (4 of its 6-layer window patterns)
+               # and hymba's 32 to 16 (full attention at 0, 8 and 15), so
+               # that serve-seamless and its profile fit the script's time
+               # (their profiles took 78.8 and 105.0 s at full depth)
+               "serve-gemma3": 24, "serve-hymba": 16}
 # the phases that sample (every other phase is greedy): serve-sample is
 # serve's model and mix, drawn with the JAX launcher's top_k 40
 SERVE_SAMPLER = {"serve-sample": dict(temperature=0.7, top_k=40)}
@@ -3881,7 +4254,8 @@ PHASE_MIXER = {"serve": ("paged_decode_attention",),
                                "ssd_scan"),
                "serve-mistral": ("paged_decode_attention", "flash_attention"),
                "serve-sample": ("paged_decode_attention",),
-               "serve-64h": ("paged_decode_attention",)}
+               "serve-64h": ("paged_decode_attention",),
+               "serve-seamless": ("paged_decode_attention", "flash_attention")}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -3911,6 +4285,19 @@ def _long_requests(Request, rng, n, lo, hi, max_new, vocab, win):
                     max_new_tokens=max_new) for i, L in enumerate(lens)]
 
 
+# serve-seamless: 16 requests of serve's random mix over 4 frame tensors
+# (request i the (i mod 4)-th): 4 encodes, 12 cross hits
+SM_FRAME_GROUPS = 4
+
+
+def _frames_requests(Request, rng, n, lo, hi, max_new, vocab, frames):
+    """``_requests``'s mix, request i carrying ``frames[i % len(frames)]``."""
+    reqs = _requests(Request, rng, n, lo, hi, max_new, vocab)
+    for r in reqs:
+        r.frames = frames[r.rid % len(frames)]
+    return reqs
+
+
 def _free_card(torch):
     """Release what the previous phase left on the card (its model,
     pools and graph memory) before the next one draws its own."""
@@ -3930,8 +4317,10 @@ def _serve_setup(torch, name):
     full-width hymba-1.5b; serve-mistral: full-width mistral-large-123b
     at 20 of its 88 layers (``SERVE_DEPTH``), drawn on the card, the
     random mix; serve-sample: serve's model and mix, sampled
-    (``SERVE_SAMPLER``)); the contiguous engine for ``CONTIG_PHASES``,
-    else the paged one."""
+    (``SERVE_SAMPLER``); serve-seamless: full-width, full-depth
+    seamless-m4t-large-v2 drawn on the card, serve's random mix over
+    ``SM_FRAME_GROUPS`` frame tensors); the contiguous engine for
+    ``CONTIG_PHASES``, else the paged one."""
     import dataclasses
     import functools
 
@@ -3949,13 +4338,18 @@ def _serve_setup(torch, name):
     sampler = SamplerConfig(**SERVE_SAMPLER.get(name, {}))
     # full-width gemma3 (11.8 B parameters), hymba and mistral (28.5 B at 20
     # layers) draw on the card
-    gen = torch.Generator(device="cuda" if kind == "long" or
+    gen = torch.Generator(device="cuda" if kind in ("long", "frames") or
                           arch == "mistral-large-123b" else "cpu")
     params = model.init_params(cfg, plan, gen.manual_seed(0), device="cuda")
+    frames = [np.random.RandomState(100 + g).randn(
+        cfg.enc_seq_len, cfg.d_model).astype(np.float32)
+        for g in range(SM_FRAME_GROUPS)] if kind == "frames" else None
     make = {"random": _requests, "motif": _motif_requests,
             "prefix": _prefix_requests,
             "long": functools.partial(_long_requests,
-                                      win=cfg.sliding_window)}[kind]
+                                      win=cfg.sliding_window),
+            "frames": functools.partial(_frames_requests,
+                                        frames=frames)}[kind]
     lo, hi = {"prefix": (16, 64), "long": (LONG["lo"], LONG["hi"])}.get(
         kind, (16, 160))
     sb, ch = _phase_shape(name)
@@ -3989,8 +4383,8 @@ def graph_report(torch, name, steps, calls):
     """Each captured step graph of an engine, read node by node: kernel
     nodes (the port's kernels by name, which must be the step's counted
     launches per replay, and PyTorch's, the greedy argmax among them; the
-    page-copy graph launches none of the port's kernels and takes no
-    argmax), memcpy and memset nodes, the memory its capture reserved, and
+    page-copy graph launches none of the port's kernels, and neither it nor
+    the cross-KV write graph takes an argmax), memcpy and memset nodes, the memory its capture reserved, and
     the launches of the phase (counted launches x replays)."""
     out = {}
     for kind, step in steps.items():
@@ -4000,15 +4394,17 @@ def graph_report(torch, name, steps, calls):
         counted = sum(step.launches.values())
         check(ours == counted, f"{name}: the {kind} graph holds {ours} of the "
                                f"port's kernels, its capture counted {counted}")
-        check((kind == "copy") != any("ArgMax" in n for n in kern),
-              f"{name}: the {kind} graph {'holds' if kind == 'copy' else 'lacks'}"
+        plain = kind in ("copy", "cross")     # no ids come out of these
+        check(plain != any("ArgMax" in n for n in kern),
+              f"{name}: the {kind} graph {'holds' if plain else 'lacks'}"
               f" an argmax kernel")
         n_copy = sum(k == 1 for k, _ in nodes)
         n_set = sum(k == 2 for k, _ in nodes)
         replays = calls[kind]
         what = (f"PyTorch's {sorted({n[:80] for n in kern})}" if kind == "copy"
                 else f"the port's {ours} = counted launches per replay, "
-                     f"PyTorch's {len(kern) - ours} with the argmax")
+                     f"PyTorch's {len(kern) - ours}"
+                     f"{'' if plain else ' with the argmax'}")
         print(f"  graph[{kind}]: kernel_nodes={len(kern)} ({what}) "
               f"memcpy_nodes={n_copy} memset_nodes={n_set} "
               f"other_nodes={len(nodes) - len(kern) - n_copy - n_set} "
@@ -4082,7 +4478,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     eng = engine(graphs, overlap)
     build_s = time.perf_counter() - t0
     graph_steps = dict(eng.steps)
-    kinds = ("prefill", "decode", "verify")
+    kinds = ("prefill", "decode", "verify", "cross")
     per_phase = {kd: dict.fromkeys(ops.launch_counts(), 0) for kd in kinds}
     calls = dict.fromkeys(kinds, 0)
 
@@ -4103,6 +4499,8 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     eng.steps["decode"] = counted("decode", eng.steps["decode"])
     if k:
         eng.steps["verify"] = counted("verify", eng.steps["verify"])
+    if "cross" in eng.steps:                  # the encodes (enc-dec)
+        eng.steps["cross"] = counted("cross", eng.steps["cross"])
     reqs = requests()
     torch.cuda.synchronize()
     ops.reset_launch_counts()                 # main path starts here
@@ -4118,6 +4516,26 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           f"{name}: token ids out of range")
     check(eng.drain() == 0, f"{name}: slots still admitted after run()")
+    cross = {}
+    if "cross" in graph_steps:
+        # one encode alone: the write step's graph replayed (the last
+        # request's frames into its own pages again), CUDA events around it
+        n_rep, ev = 3, [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(n_rep):
+            graph_steps["cross"]()
+        ev[1].record()
+        ev[1].synchronize()
+        cross = dict(encodes=stats.cross_encodes, hits=stats.cross_hits,
+                     lookups=stats.cross_lookups,
+                     encode_ms=ev[0].elapsed_time(ev[1]) / n_rep)
+        want = (SM_FRAME_GROUPS, len(reqs) - SM_FRAME_GROUPS, len(reqs))
+        check((stats.cross_encodes, stats.cross_hits, stats.cross_lookups) ==
+              want == (calls["cross"], want[1], want[2]),
+              f"{name}: {stats.cross_encodes} encodes ({calls['cross']} write "
+              f"steps), {stats.cross_hits}/{stats.cross_lookups} cross hits, "
+              f"not {want}")
     prefix = ""
     if eng.prefix_cache is not None:
         check(stats.cow_copies > 0 and stats.prefill_tokens_skipped > 0,
@@ -4149,17 +4567,25 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     # SSD projections and the gated norm, 3 FFN products and ln2, ln1, and
     # the final norm and the head (tinyllama 10L + 2, qwen3 12L + 2, gemma3
     # 14L + 2, mamba2 8L + 2, hymba 17L + 2)
+    # (layernorm, seamless's, is plain PyTorch: no norm kernel at all; an
+    # enc-dec layer adds cross-attention's 2 projections and its attention
+    # kernel, and seamless's plain FFN has 2 products: 10L + 1)
     qk = 2 if cfg.qk_norm else 0
     post = 2 if cfg.sandwich_norm else 0
-    per_norm = {"rmsnorm": 1 + (qk + post) * n_layers,
-                "rmsnorm_residual": n_layers * (2 if ffn else 1),
+    ln = cfg.norm == "layernorm"
+    xattn = any(s.cross_attn for s in specs)
+    per_norm = {"rmsnorm": 0 if ln else 1 + (qk + post) * n_layers,
+                "rmsnorm_residual": 0 if ln else n_layers * (2 if ffn else 1),
                 "rmsnorm_gated": n_layers if ssm else 0}
     for kd in ["prefill"] + steps:
         got = {kn: per_phase[kd][kn] for kn in NORMS}
         check(got == {kn: v * calls[kd] for kn, v in per_norm.items()},
               f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
               f"{per_norm} per step")
-    per_tick = (5 * has_attn + 7 * ssm + 4 * ffn + 1 + qk + post) * n_layers + 2
+    norms_layer = 0 if ln else 1 + ffn + qk + post
+    per_tick = (5 * has_attn + 7 * ssm + 3 * xattn +
+                (3 if cfg.gated_ffn else 2) * ffn + norms_layer) * n_layers + \
+        (1 if ln else 2)
     check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
           f"{name}: {sum(per_phase['decode'].values())} kernels in "
           f"{calls['decode']} decode ticks, not {per_tick} per tick")
@@ -4200,6 +4626,29 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         others = [kn for kn, v in launches.items()
                   if v and kn not in NORMS + ("matmul", mixer)]
         check(not others, f"{name}: unexpected kernels launched {others}")
+    elif xattn:
+        # self- and cross-attention: flash twice per layer in every chunk
+        # (causal, then without the mask over the cross keys), paged decode
+        # twice per layer in every decode tick (the self pages, then the
+        # cross pages); each encode flash once per encoder layer and the
+        # encoder's 6 products per layer, then each decoder layer's cross
+        # K/V projections
+        L_enc = cfg.n_enc_layers
+        want = {"prefill": {"flash_attention": 2 * n_layers, "matmul":
+                            8 * n_layers + 1, "paged_decode_attention": 0},
+                "decode": {"flash_attention": 0, "matmul": 8 * n_layers + 1,
+                           "paged_decode_attention": 2 * n_layers},
+                "cross": {"flash_attention": L_enc, "matmul":
+                          6 * L_enc + 2 * n_layers, "paged_decode_attention": 0}}
+        got = {kd: {kn: per_phase[kd][kn] for kn in w} for kd, w in want.items()}
+        want = {kd: {kn: v * calls[kd] for kn, v in w.items()}
+                for kd, w in want.items()}
+        check(got == want and calls["prefill"] > 0 and calls["decode"] > 0
+              and calls["cross"] > 0,
+              f"{name}: launches {got} in {calls} steps, not {want}")
+        others = [kn for kn, v in launches.items()
+                  if v and kn not in ("matmul",) + mixers]
+        check(not others, f"{name}: unexpected kernels launched {others}")
     else:
         check(per_phase["prefill"]["flash_attention"] > 0,
               f"{name}: flash_attention not launched in prefill {per_phase}")
@@ -4224,14 +4673,15 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         window = (f"window_rows={bite} of {len(rows)} decode rows read a "
                   f"window of {cfg.sliding_window} shorter than their prefix "
                   f"(up to {max(rows)} keys) ")
-    for kn in ("rmsnorm", "rmsnorm_residual", "matmul") + mixers + \
-            (("rmsnorm_gated",) if ssm else ()):
+    for kn in (() if ln else ("rmsnorm", "rmsnorm_residual")) + \
+            ("matmul",) + mixers + (("rmsnorm_gated",) if ssm else ()):
         check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
     ttft = np.asarray(stats.ttft_s) * 1e3
     per_call = {kd: {kn: v / max(calls[kd], 1) for kn, v in c.items() if v}
                 for kd, c in per_phase.items()}
     step_calls = {"chunk": calls["prefill"], "decode": calls["decode"],
-                  "verify": calls["verify"], "copy": stats.cow_copies}
+                  "verify": calls["verify"], "copy": stats.cow_copies,
+                  "cross": calls["cross"]}
     spec = (f"acceptance_rate={stats.spec_accepted / max(stats.spec_drafted, 1):.3f} "
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
@@ -4256,7 +4706,10 @@ def phase_serve(torch, name, graphs=True, overlap=True):
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}{prefix}"
-          f"{window}"
+          f"{window}" + (f"cross_encodes={cross['encodes']} cross_hit_rate="
+                         f"{cross['hits'] / cross['lookups']:.3f} ({cross['hits']}/"
+                         f"{cross['lookups']}) encode_ms={cross['encode_ms']:.3f} "
+                         f"per_encode={per_call['cross']} " if cross else "") +
           f"launches={ {kn: v for kn, v in launches.items() if v} } "
           f"{'prefill_chunks' if eng.paged else 'prefills'}={calls['prefill']} "
           f"decode_ticks={calls['decode']} "
@@ -4284,6 +4737,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                 tokens_by_request=[r.out_tokens for r in reqs],
                 weight_bytes=sum(t.numel() * t.element_size()
                                  for t in eng.model.parameters()),
+                cross=cross,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 tpot_p50_ms=float(np.median(stats.tpot_s) * 1e3))
 
@@ -4329,6 +4783,7 @@ def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
           f"{'; '.join(host) or 'none recorded'}")
     for ms, n, key in rows[:10]:
         print(f"  {ms:9.3f} ms {n:6d} calls {100 * ms / total:5.1f}%  {key[:100]}")
+    shares = {}
     # matmul, flash attention, the SSD scan and paged attention in the serve
     # trace: each kernel's device functions (never more of them in the trace
     # than its wrappers' launches), calls, device time per call and share.  The
@@ -4364,7 +4819,9 @@ def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
               f"{n_launch - k_calls}) device_ms={k_ms:.2f} "
               f"per_call_us={1e3 * k_ms / max(k_calls, 1):.2f} "
               f"share_of_device={k_ms / total:.3f}")
-    return dict(device_ms=total, busy=total / (serve_wall_s * 1e3))
+        shares[kname] = k_ms / total
+    return dict(device_ms=total, busy=total / (serve_wall_s * 1e3),
+                shares=shares)
 
 
 # the offload phase: examples/offload_streaming.py's toy (8 groups of two
@@ -4593,6 +5050,32 @@ KERNELS = {
 }
 
 
+def _seamless_line(served, prof, smi_line):
+    """The ``seamless[serve-seamless]`` line: widths, weight bytes, the
+    cross-KV cache's work (encodes, hit rate, one encode's time) and the
+    serve numbers with the profile's busy share, device time and matmul
+    share, beside the card."""
+    from repro_torch.configs import get_config
+    name = "serve-seamless"
+    sv, pr = served[name], prof[name]
+    cfg = get_config(SERVE_PHASES[name][0])
+    cr = sv["cross"]
+    print(f"seamless[{name}]: {cfg.name} {cfg.n_enc_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model={cfg.d_model} heads="
+          f"{cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"d_ff={cfg.d_ff} (plain gelu) vocab={cfg.vocab_size} tied, "
+          f"{cfg.enc_seq_len} frames; weights on the card "
+          f"{sv['weight_bytes'] / 1e9:.2f} GB bf16; {SM_FRAME_GROUPS} frame "
+          f"tensors: encodes={cr['encodes']} cross_hit_rate="
+          f"{cr['hits'] / cr['lookups']:.3f} ({cr['hits']}/{cr['lookups']}) "
+          f"encode_ms={cr['encode_ms']:.3f}; tok_per_s="
+          f"{sv['tokens'] / sv['wall']:.1f} ticks={sv['ticks']} "
+          f"ttft_p50_ms={sv['ttft_p50_ms']:.1f} tpot_p50_ms="
+          f"{sv['tpot_p50_ms']:.2f} busy_share={pr['busy']:.3f} device_ms="
+          f"{pr['device_ms']:.2f} matmul_share="
+          f"{pr['shares'].get('matmul', 0.0):.3f}; {smi_line}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this script "
@@ -4627,6 +5110,7 @@ def main() -> int:
         timed("parity-hymba", phase_parity_hymba, torch)
         timed("parity-mistral", phase_parity_mistral, torch)
         timed("parity-64h", phase_parity_64h, torch)
+        timed("parity-seamless", phase_parity_seamless, torch)
         timed("parity-sample", phase_parity_sample, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
@@ -4710,6 +5194,7 @@ def main() -> int:
                 f"ticks={sv['ticks']} busy_share={prof[name]['busy']:.3f} "
                 f"device_ms={prof[name]['device_ms']:.2f}")
         print("64h[serve-64h vs serve]: " + " | ".join(rows_64))
+        _seamless_line(served, prof, smi_line)
         timed("sim", phase_sim, torch)
         timed("offload", phase_offload, torch, smi_line)
     except SmokeFailure as e:

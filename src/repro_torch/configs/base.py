@@ -1,8 +1,9 @@
 """Model configuration: ``ModelConfig``, its layer plan and the registry.
 
 A copy of the parts of the JAX package's ``configs/base.py`` that the
-paged-serving slices need; field names and defaults are unchanged so a
-config means the same thing on both sides.
+serving slices need (the decoder's layer plan, and an enc-dec arch's
+encoder plan, ``encoder_layer_specs``); field names and defaults are
+unchanged so a config means the same thing on both sides.
 """
 from __future__ import annotations
 
@@ -143,6 +144,12 @@ class ModelConfig:
         return LayerSpec(mixer=mixer, attn=attn, ffn=ffn, d_ff=d_ff,
                          cross_attn=self.is_encdec)
 
+    def encoder_layer_specs(self) -> list:
+        """Per-layer structure for the encoder stack (enc-dec archs)."""
+        return [LayerSpec(mixer=MIX_ATTN, attn=ATTN_FULL, ffn=FFN_DENSE,
+                          d_ff=self.d_ff, cross_attn=False)
+                for _ in range(self.n_enc_layers)]
+
     def layer_groups(self, specs: Optional[Sequence[LayerSpec]] = None) -> list:
         """Factor the layer list into (n_reps x pattern) groups."""
         specs = list(specs if specs is not None else self.layer_specs())
@@ -201,7 +208,7 @@ def _ensure_loaded():
         return
     from repro_torch.configs import (  # noqa: F401
         gemma3, hymba, mamba2_370m, mistral_large, paper_models, pixtral,
-        qwen3)
+        qwen3, seamless_m4t)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -9,7 +9,9 @@ the page pools (decode, speculative-verify and prefill-chunk modes, over
 float or int8 pools; ``_row_quant``, ``_page_write``), ``dense_ffn``,
 ``ssm_mixer`` (decode, whole-sequence prefill from a zero state, and
 chunked prefill) over a contiguous lane or, through ``_paged_ssm``, over
-float32 or int8 state slabs, and ``layer_forward``.  Caches are updated
+float32 or int8 state slabs, the encoder-decoder's ``cross_attn_mixer``
+(over a contiguous cross lane, or read-only cross pages through the
+cross block table) and ``layer_forward``.  Caches are updated
 in place where JAX returns new arrays.  On one device every ``psum`` of
 the two-sync contract is the identity.  Every matrix product goes through
 ``kernels.ops.matmul``.
@@ -120,9 +122,11 @@ def attn_mixer(xn, pa, cfg, plan, lay, spec, mode, kv_cache, positions, pos,
     page pools ({"kp", "vp", ...}) -> (output (B, S, E), kv_cache updated
     in place)."""
     paged = kv_cache is not None and "kp" in kv_cache
+    # "train" is JAX's mode for the encoder: a whole sequence, no cache
     if mode not in (("decode", "verify", "prefill") if paged
-                    else ("decode", "prefill")) or \
-            (mode == "decode" and kv_cache is None):
+                    else ("decode", "prefill", "train")) or \
+            (mode == "decode" and kv_cache is None) or \
+            (mode == "train" and kv_cache is not None):
         raise NotImplementedError(
             f"attn_mixer mode '{mode}' over a "
             f"{'paged' if paged else 'contiguous'} cache is not ported")
@@ -253,9 +257,96 @@ def _page_write(kv, kg, vg, positions, bt, psz):
 
 
 def dense_ffn(xn, pf, cfg):
-    """Gated FFN: down(act(x @ gate) * (x @ up))."""
-    h = activation(_mm(xn, pf["w_gate"]), cfg.act) * _mm(xn, pf["w_up"])
+    """Gated FFN, down(act(x @ gate) * (x @ up)), or the plain one,
+    down(act(x @ up)) (``cfg.gated_ffn`` False: seamless)."""
+    if cfg.gated_ffn:
+        h = activation(_mm(xn, pf["w_gate"]), cfg.act) * _mm(xn, pf["w_up"])
+    else:
+        h = activation(_mm(xn, pf["w_up"]), cfg.act)
     return _mm(h, pf["w_down"])
+
+
+def cross_kv(enc_memory, pa, cfg):
+    """One cross-attention layer's K/V of the encoder memory, (B, G,
+    S_enc, D) each: no RoPE (JAX's ``forward_cross_kv``), k RMS-normed
+    with qk-norm."""
+    k, v = _mm(enc_memory, pa["wk"]), _mm(enc_memory, pa["wv"])
+    if cfg.qk_norm:
+        k = rmsnorm(k, pa["k_norm"], cfg.norm_eps)
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def cross_lane_cast(x, dtype):
+    """The contiguous cross lane's store: JAX's bare ``astype``.  For an
+    int8 lane that is no ``_kv_q`` and no scale: a truncation toward zero,
+    saturating at the int8 range as XLA's conversion does (a trap of the
+    JAX package, kept: ROADMAP, "Known traps")."""
+    if dtype == torch.int8:
+        return x.float().trunc().clamp(-128, 127).to(torch.int8)
+    return x.to(dtype)
+
+
+def cross_attn_mixer(xn, pa, cfg, lay, mode, cross, enc_memory=None,
+                     pages=None):
+    """Cross-attention: q from x (no RoPE), K/V of the encoder memory ->
+    (output (B, S, E), cross cache).
+
+    Paged (``cross`` holds the ``ckp``/``cvp`` pools, and ``cksp``/
+    ``cvsp`` scales when int8): the K/V were written once at admission
+    (``steps.make_cross_kv_write_step``) and are read-only here, through
+    the slot's ``pages["cross_block_table"]``.  A decode token runs the
+    paged decode attention over that table in place at ``cur_pos =
+    S_enc - 1`` (every key of the memory visible: no gather); a prefill
+    chunk gathers the pages once and runs flash attention without the
+    causal mask over the first ``S_enc`` keys, as JAX does.
+
+    Contiguous (``cross`` holds the lanes ``k``/``v``, (B, G, S_enc, D)):
+    a whole-prompt prefill projects ``enc_memory`` and stores it into the
+    lane (``cross_lane_cast``), attending without the causal mask; a
+    decode token reads the lane cast to q's dtype (int8 lanes by a bare
+    cast, as JAX's ``astype``) with every key valid (JAX's ``cur_pos =
+    S_enc``: the decode kernel's length ``min(cur_pos + 1, S_enc)``).  The
+    encoder (``"train"``) keeps no cache."""
+    B, S, E = xn.shape
+    q = _mm(xn, pa["wq"])
+    if cfg.qk_norm:
+        q = rmsnorm(q, pa["q_norm"], cfg.norm_eps)
+    qg = _group_q(q, lay)                            # (B, G, R, S, D)
+    S_enc = cfg.enc_seq_len
+    scale = cfg.attn_scale
+    if cross is not None and "ckp" in cross:         # paged, read-only
+        cbt = pages["cross_block_table"]
+        if "cksp" in cross:
+            kp, vp = cross["ckp"], cross["cvp"]
+            scales = dict(k_scale=cross["cksp"], v_scale=cross["cvsp"])
+        else:
+            kp, vp = cross["ckp"].to(qg.dtype), cross["cvp"].to(qg.dtype)
+            scales = {}
+        if mode == "decode":
+            last = torch.full((B,), S_enc - 1, dtype=torch.int32,
+                              device=xn.device)
+            out = paged_decode_attention(qg[:, :, :, 0], kp, vp, cbt, last,
+                                         scale=scale, **scales)
+            out = out[:, :, :, None, :]
+        else:
+            k_all, v_all = gather_kv(kp, vp, cbt, qg.dtype, **scales)
+            out = flash_attention(qg, k_all[:, :, :S_enc], v_all[:, :, :S_enc],
+                                  causal=False, scale=scale)
+    elif mode == "decode":
+        k, v = cross["k"].to(qg.dtype), cross["v"].to(qg.dtype)
+        slot_pos = torch.arange(S_enc, dtype=torch.int32,
+                                device=xn.device).expand(B, S_enc)
+        every = torch.full((B,), S_enc, dtype=torch.int32, device=xn.device)
+        out = decode_attention(qg[:, :, :, 0], k, v, slot_pos, every,
+                               scale=scale)
+        out = out[:, :, :, None, :]
+    else:
+        kg, vg = cross_kv(enc_memory, pa, cfg)
+        out = flash_attention(qg, kg, vg, causal=False, scale=scale)
+        if mode == "prefill" and cross is not None:
+            cross["k"].copy_(cross_lane_cast(kg, cross["k"].dtype))
+            cross["v"].copy_(cross_lane_cast(vg, cross["v"].dtype))
+    return _mm(_ungroup(out, lay), pa["wo"].reshape(-1, E)), cross
 
 
 def ssm_mixer(xn, ps, cfg, lay, mode, ssm_cache, chunk_last_idx=None):
@@ -353,11 +444,13 @@ def _paged_ssm(xn, ps, cfg, lay, mode, slab_pool, pages):
 
 
 def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
-                  pos=None, pages=None, delta=None):
+                  pos=None, pages=None, delta=None, enc_memory=None):
     """One layer: an attention or SSM mixer, or both on the same normed
     input fused as ``0.5 * (attention + SSM)`` (a hybrid layer, JAX's
-    ``partial = 0.5 * (pa + ps_)``), then a dense FFN unless the layer has
-    none.  The residual stream is carried as ``x`` and a pending
+    ``partial = 0.5 * (pa + ps_)``), then an enc-dec decoder's
+    cross-attention (its own norm ``ln_x``, ``cross_attn_mixer`` over
+    ``cache["cross"]`` or ``enc_memory``), then a dense FFN unless the
+    layer has none.  The residual stream is carried as ``x`` and a pending
     ``delta`` (None before the first layer): each residual add is fused
     into the norm after it (``layers.add_rmsnorm``), so the layer opens
     with the norm of ``x + delta``, and the add of its last sublayer's
@@ -373,7 +466,7 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     partial = None
     if spec.mixer in (MIX_ATTN, MIX_HYBRID):
         partial, kv = attn_mixer(h, p["attn"], cfg, plan, lay, spec, mode,
-                                 cache["kv"], positions, pos, pages)
+                                 cache.get("kv"), positions, pos, pages)
         cache = {**cache, "kv": kv}
     if spec.mixer in (MIX_SSM, MIX_HYBRID):
         if "statep" in cache["ssm"]:                  # slab pools
@@ -389,6 +482,12 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
         partial = ps if partial is None else 0.5 * (partial + ps)
     if cfg.sandwich_norm:
         partial = rmsnorm(partial, p["post_ln1"]["scale"], cfg.norm_eps)
+    if spec.cross_attn:
+        x, h = apply_norm(x, p["ln_x"], cfg, partial)
+        partial, cross = cross_attn_mixer(h, p["xattn"], cfg, lay, mode,
+                                          cache.get("cross"), enc_memory,
+                                          pages)
+        cache = {**cache, "cross": cross}
     if spec.ffn == FFN_NONE:
         return (x, partial), cache
     x, h = apply_norm(x, p["ln2"], cfg, partial)

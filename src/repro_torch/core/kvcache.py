@@ -1,8 +1,9 @@
 """The decode caches: the contiguous per-slot lanes, the page pools and SSM
 state slabs, and the host-side page and slab allocators.
 
-Port of the JAX package's ``core/kvcache.py`` for attention-only and
-pure-SSM decoders on one device (dp=1, so nothing carries a replica axis).
+Port of the JAX package's ``core/kvcache.py`` for attention-only, SSM,
+hybrid and encoder-decoder models on one device (dp=1, so nothing carries
+a replica axis).
 
 **Contiguous lanes** (``cache_template``/``zero_cache``): per layer group
 and pattern entry, stacked under the group's reps axis,
@@ -13,8 +14,12 @@ and pattern entry, stacked under the group's reps axis,
              "conv_x": (reps, B, K-1, H*P), "conv_B"/"conv_C": (reps, B,
              K-1, N) in cfg.dtype}}
 
+    {"cross": {"k"/"v": (reps, B, G, S_enc, D) in plan.kv_cache_dtype}}
+
 with W = ``kv_window`` (the sequence budget, or a sliding window shorter
-than it); int8 lanes hold the fixed-scale ``blocks.KVQ`` payload.
+than it); int8 lanes hold the fixed-scale ``blocks.KVQ`` payload, an
+enc-dec decoder's cross lanes (the encoder memory's K/V, written at
+prefill) JAX's bare int8 cast (``blocks.cross_lane_cast``).
 
 **Paged pools** (``paged_cache_template``/``zero_paged_cache``): per layer
 group and pattern entry, for an attention layer,
@@ -34,6 +39,14 @@ dequantizes to exact zeros.  For an SSM layer it holds
 with conv tails in ``cfg.dtype`` and, for int8 slabs, ``"sscalep"``
 (reps, n_slabs, H) float32: one scale per (slab, head), rewritten with the
 whole state on every scatter.  A pure-SSM model has no KV pools at all.
+An enc-dec decoder layer also holds
+
+    {"cross": {"ckp"/"cvp": the shape of "kp"}}
+
+(with ``"cksp"``/``"cvsp"`` for int8 pools): the encoder memory's K/V,
+written once per encode and read-only after.  Cross pages share the
+self-KV page-id space (one allocator covers both), so a request's cross
+block table and its self block table index the same ``n_pages``.
 
 Token t of a slot lives at page block_table[t // page_size], offset
 t % page_size; a request's recurrent state lives in its one slab.  The
@@ -92,6 +105,10 @@ def layer_cache_template(cfg, plan, lay, spec, batch: int, budget: int):
                       "conv_x": ((batch, K - 1, H * Pd), conv_dt),
                       "conv_B": ((batch, K - 1, N), conv_dt),
                       "conv_C": ((batch, K - 1, N), conv_dt)}
+    if "cross_kv" in spec.cache_kinds():
+        shape = (batch, lay.attn.n_kv_loc, cfg.enc_seq_len, cfg.head_dim_)
+        kvd = torch_dtype(plan.kv_cache_dtype)
+        out["cross"] = {"k": (shape, kvd), "v": (shape, kvd)}
     return out
 
 
@@ -123,9 +140,10 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
     """-> list (per layer group) of lists (per pattern entry) of
     ``{"kv": {"kp": (shape, dtype), "vp": (shape, dtype)}}`` (plus
     ``"ksp"``/``"vsp"`` scale pools when the pool is int8) for attention
-    layers and ``{"ssm": {"statep", "conv_xp", "conv_Bp", "conv_Cp"}}``
+    layers, ``{"ssm": {"statep", "conv_xp", "conv_Bp", "conv_Cp"}}``
     (plus ``"sscalep"`` for int8 slabs) for SSM layers, with ``n_slabs``
-    slabs including the scratch slab."""
+    slabs including the scratch slab, and ``{"cross": {"ckp", "cvp"}}``
+    (plus ``"cksp"``/``"cvsp"``) for an enc-dec decoder's layers."""
     check_supported(cfg)
     kv_shape = (n_pages, lay.attn.n_kv_loc, page_size, cfg.head_dim_)
     kv_dtype = torch_dtype(plan.kv_cache_dtype)
@@ -157,6 +175,13 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
                 entry["kv"] = kv
             if "ssm" in spec.cache_kinds():
                 entry["ssm"] = slab
+            if "cross_kv" in spec.cache_kinds():
+                cross = {"ckp": (kv_shape, kv_dtype),
+                         "cvp": (kv_shape, kv_dtype)}
+                if kv_pool_is_quantized(plan):
+                    scale = ((n_pages, page_size), torch.float32)
+                    cross.update(cksp=scale, cvsp=scale)
+                entry["cross"] = cross
             per_pattern.append(
                 {kind: {name: ((g.n_reps,) + shape, dtype)
                         for name, (shape, dtype) in pools.items()}

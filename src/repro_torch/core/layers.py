@@ -4,7 +4,9 @@ Port of the JAX package's ``core/layers.py`` at tp=1 (every ``psum`` there
 is the identity on one device).  ``rmsnorm``, ``add_rmsnorm`` (the
 residual add fused into the norm after it), ``gated_rmsnorm`` (mamba2's
 gated norm, ``rmsnorm_from_sumsq`` at tp=1) and the LM head go through
-``kernels.ops``, so on the card they run the Hopper kernels.
+``kernels.ops``, so on the card they run the Hopper kernels.  ``layernorm``
+(seamless) is plain PyTorch on every device, as JAX computes it outside
+any Pallas kernel: the rmsnorm kernel computes another function.
 """
 from __future__ import annotations
 
@@ -42,9 +44,26 @@ def gated_rmsnorm(y, z, scale, eps: float = 1e-6, out_dtype=None):
     return out.reshape(y.shape)
 
 
+def layernorm(x, scale, bias, eps: float = 1e-6):
+    """LayerNorm over the last axis in float32, cast back: the mean, the
+    mean of squared deviations, ``rsqrt(var + eps)``, then ``* scale +
+    bias`` (JAX's ``layernorm``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def apply_norm(x, p, cfg, delta=None):
     """The residual stream with its pending ``delta`` added, and its norm
-    -> (x + delta, rmsnorm(x + delta)); with no delta (x, rmsnorm(x))."""
+    -> (x + delta, norm(x + delta)); with no delta (x, norm(x)).  RMSNorm
+    takes the add into its kernel; layernorm (``cfg.norm``) adds first in
+    x's dtype, as JAX's residual add does."""
+    if cfg.norm == "layernorm":
+        if delta is not None:
+            x = x + delta
+        return x, layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     if delta is not None:
         return add_rmsnorm(x, delta, p["scale"], cfg.norm_eps)
     return x, rmsnorm(x, p["scale"], cfg.norm_eps)

@@ -1,27 +1,30 @@
-"""Decoder parameters and forward passes over the contiguous or the paged
+"""Model parameters and forward passes over the contiguous or the paged
 cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
 decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN,
-and mistral's untied LM head),
-pure-SSM (mamba2) decoders and hybrid (hymba) decoders at tp=1.  The
-parameter tree has the JAX tree's paths, with the tp axis stripped (what
-the JAX package's ``blocks._lo`` returns) and the stacked ``reps`` axis
-kept:
+and mistral's untied LM head), pure-SSM (mamba2) decoders, hybrid (hymba)
+decoders and encoder-decoders (seamless: layernorm, a plain gelu FFN, the
+encoder and cross-attention) at tp=1.  The parameter tree has the JAX
+tree's paths, with the tp axis stripped (what the JAX package's
+``blocks._lo`` returns) and the stacked ``reps`` axis kept:
 
     {"embed": {"table": (V, E)},
      "stacks": [[layer tree per pattern entry] per layer group],
      "final_norm": {"scale": (E,)},
-     "lm_head": {"w": (V, E)}}          # untied heads only (mistral)
+     "lm_head": {"w": (V, E)},          # untied heads only (mistral)
+     "encoder": {"stacks": [[...]], "final_norm": {...}}}   # enc-dec only
 
-with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and
+with, per layer, ``ln1`` ``{"scale": (reps, E)}`` (layernorm: also
+``"bias"``, and the scale initialised to ones) and
 
 - attention layers: ``attn`` ``{"wq": (reps, E, H, D), "wk"/"wv": (reps,
   E, n_kv_loc, D), "wo": (reps, H, D, E)}`` (with qk-norm also
   ``"q_norm"``/``"k_norm"``: (reps, D)), ``ln2`` and ``ffn``
-  ``{"w_gate"/"w_up": (reps, E, F), "w_down": (reps, F, E)}`` (with
-  sandwich norms also ``post_ln1`` and ``post_ln2``, ``{"scale": (reps,
-  E)}``), or
+  ``{"w_up": (reps, E, F), "w_down": (reps, F, E)}``, gated FFNs also
+  ``"w_gate"`` (with sandwich norms also ``post_ln1`` and ``post_ln2``,
+  ``{"scale": (reps, E)}``), and an enc-dec decoder's ``ln_x`` and
+  ``xattn`` (the attention tree) between them, or
 - SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
   H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
   "conv_B"/"conv_C": (reps, N, K), "A_log"/"D"/"dt_bias": (reps, H),
@@ -32,7 +35,10 @@ with, per layer, ``ln1`` ``{"scale": (reps, E)}`` and
 ``A_log`` and ``dt_bias`` stay float32 whatever the weight dtype, as in
 JAX.  ``_run_stack`` loops over ``reps`` in Python where JAX scans, and
 carries the residual stream as (x, pending delta) so that every residual
-add runs inside the norm after it.
+add runs inside the norm after it.  The encoder (``encode``) runs JAX's
+``"train"`` mode over the frames: causal flash attention with ``cfg.causal``
+(True for seamless, as JAX computes it), RoPE over ``arange(S_enc)``, no
+cache.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch.nn as nn
 
 from repro_torch.configs.base import (FFN_DENSE, FFN_MOE, MIX_ATTN,
                                      MIX_HYBRID, MIX_SSM, ModelConfig)
-from repro_torch.core.blocks import layer_forward
+from repro_torch.core.blocks import cross_kv, layer_forward
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layers import apply_norm, embed, logits
 from repro_torch.core.partition import ShardingPlan, model_layout, torch_dtype
@@ -62,9 +68,10 @@ class ParamSpec:
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders (GQA, optional
     qk-norm, sliding windows, sandwich norms, a scaled embedding) with
-    RMSNorm, a gated SiLU or gelu FFN and a tied or untied LM head,
-    pure-SSM (mamba2) decoders and hybrid attention + SSM decoders
-    (hymba); the rest waits for its slice.  A vision frontend (pixtral)
+    RMSNorm or layernorm, a gated or plain SiLU or gelu FFN and a tied or
+    untied LM head, pure-SSM (mamba2) decoders, hybrid attention + SSM
+    decoders (hymba) and encoder-decoders over precomputed audio frames
+    (seamless); the rest waits for its slice.  A vision frontend (pixtral)
     is refused for JAX's reason (``core/kvcache.py::
     paged_cache_supported``): its image embeds need injection at prefill,
     which token-only prompts cannot carry.  An encoder (mobilebert, the
@@ -75,17 +82,16 @@ def check_supported(cfg: ModelConfig):
                          f"encoder-only arch has no decode path to serve")
     specs = cfg.layer_specs()
     missing = [name for name, bad in (
-        ("layernorm (ROADMAP Queue 1 item 9)", cfg.norm != "rmsnorm"),
-        ("a plain (ungated) FFN (ROADMAP Queue 1 item 9)",
-         not cfg.gated_ffn),
+        ("a norm other than rmsnorm or layernorm",
+         cfg.norm not in ("rmsnorm", "layernorm")),
         ("an FFN activation other than silu or gelu",
          cfg.act not in ("silu", "gelu")),
-        ("encoder-decoder (ROADMAP Queue 1 item 9)", cfg.is_encdec),
         ("a vision frontend, whose image embeds need injection at prefill: "
          "the token-only chunked prefill step cannot carry them (ROADMAP "
          "Queue 1 items 5 and 13)", cfg.frontend == "vision_patches"),
-        ("a frontend (ROADMAP Queue 1 items 5 and 9)",
-         cfg.frontend not in (None, "vision_patches")),
+        ("a frontend other than an enc-dec arch's audio frames",
+         cfg.frontend not in (None, "vision_patches") and
+         not (cfg.frontend == "audio_frames" and cfg.is_encdec)),
         ("MoE layers (ROADMAP Queue 1 item 10)",
          any(s.ffn == FFN_MOE for s in specs))) if bad]
     if missing:
@@ -116,61 +122,98 @@ def _ssm_template(cfg, out_scale):
     }
 
 
-def layer_template(cfg, spec, n_layers_total):
+def _norm_template(cfg):
+    """JAX's ``_norm_t``: RMSNorm's ``(1 + scale)`` starts at zeros;
+    layernorm's scale at ones, with a zero ``bias``."""
+    E = cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"scale": ParamSpec((E,), "ones"),
+                "bias": ParamSpec((E,), "zeros")}
+    return {"scale": ParamSpec((E,), "zeros")}
+
+
+def _attn_template(cfg, out_scale):
+    """JAX's ``_attn_t``: self-attention's and cross-attention's weights."""
     E, d = cfg.d_model, cfg.head_dim_
+    t = {"wq": ParamSpec((E, cfg.n_heads, d)),
+         "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+         "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
+         "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)}
+    if cfg.qk_norm:
+        t["q_norm"] = ParamSpec((d,), "zeros")
+        t["k_norm"] = ParamSpec((d,), "zeros")
+    return t
+
+
+def layer_template(cfg, spec, n_layers_total):
+    E = cfg.d_model
     out_scale = 0.02 / math.sqrt(2 * n_layers_total)
-    t = {"ln1": {"scale": ParamSpec((E,), "zeros")}}
+    t = {"ln1": _norm_template(cfg)}
     if spec.mixer in (MIX_ATTN, MIX_HYBRID):
-        t["attn"] = {"wq": ParamSpec((E, cfg.n_heads, d)),
-                     "wk": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
-                     "wv": ParamSpec((E, cfg.n_kv_heads, d), kv_heads=True),
-                     "wo": ParamSpec((cfg.n_heads, d, E), scale=out_scale)}
-        if cfg.qk_norm:
-            t["attn"]["q_norm"] = ParamSpec((d,), "zeros")
-            t["attn"]["k_norm"] = ParamSpec((d,), "zeros")
+        t["attn"] = _attn_template(cfg, out_scale)
     if spec.mixer in (MIX_SSM, MIX_HYBRID):
         t["ssm"] = _ssm_template(cfg, out_scale)
     if cfg.sandwich_norm:
-        t["post_ln1"] = {"scale": ParamSpec((E,), "zeros")}
+        t["post_ln1"] = _norm_template(cfg)
+    if spec.cross_attn:
+        t["ln_x"] = _norm_template(cfg)
+        t["xattn"] = _attn_template(cfg, out_scale)
     if spec.ffn == FFN_DENSE:
-        t["ln2"] = {"scale": ParamSpec((E,), "zeros")}
+        t["ln2"] = _norm_template(cfg)
         t["ffn"] = {"w_up": ParamSpec((E, spec.d_ff)),
-                    "w_down": ParamSpec((spec.d_ff, E), scale=out_scale),
-                    "w_gate": ParamSpec((E, spec.d_ff))}
+                    "w_down": ParamSpec((spec.d_ff, E), scale=out_scale)}
+        if cfg.gated_ffn:
+            t["ffn"]["w_gate"] = ParamSpec((E, spec.d_ff))
         if cfg.sandwich_norm:
-            t["post_ln2"] = {"scale": ParamSpec((E,), "zeros")}
+            t["post_ln2"] = _norm_template(cfg)
     return t
 
 
 def model_template(cfg: ModelConfig):
     """The parameter tree of ``ParamSpec`` leaves, in the JAX package's
-    leaf order (which fixes the order of random draws)."""
+    leaf order (which fixes the order of random draws).  The out
+    projections' init scale counts the encoder's layers too, as JAX's."""
     check_supported(cfg)
+    nl = cfg.n_layers + cfg.n_enc_layers
     t = {
         "embed": {"table": ParamSpec((cfg.vocab_size, cfg.d_model))},
-        "stacks": [[layer_template(cfg, s, cfg.n_layers) for s in g.pattern]
+        "stacks": [[layer_template(cfg, s, nl) for s in g.pattern]
                    for g in cfg.layer_groups()],
-        "final_norm": {"scale": ParamSpec((cfg.d_model,), "zeros")},
+        "final_norm": _norm_template(cfg),
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = {"w": ParamSpec((cfg.vocab_size, cfg.d_model))}
+    if cfg.is_encdec:
+        t["encoder"] = {
+            "stacks": [[layer_template(cfg, s, nl) for s in g.pattern]
+                       for g in cfg.layer_groups(cfg.encoder_layer_specs())],
+            "final_norm": _norm_template(cfg),
+        }
     return t
 
 
 def map_template(cfg, fn):
     """Map ``fn(spec, reps)`` over the template; ``reps`` is the group's
-    repetition count inside ``stacks`` and 0 elsewhere."""
+    repetition count inside ``stacks`` (the decoder's and the encoder's)
+    and 0 elsewhere."""
     def walk(node, reps):
         if isinstance(node, ParamSpec):
             return fn(node, reps)
         return {k: walk(v, reps) for k, v in node.items()}
 
+    def stacks(groups, val):
+        return [[walk(pt, g.n_reps) for pt in sub]
+                for g, sub in zip(groups, val, strict=True)]
+
     tmpl = model_template(cfg)
     out = {}
     for key, val in tmpl.items():
         if key == "stacks":
-            out[key] = [[walk(pt, g.n_reps) for pt in sub]
-                        for g, sub in zip(cfg.layer_groups(), val, strict=True)]
+            out[key] = stacks(cfg.layer_groups(), val)
+        elif key == "encoder":
+            out[key] = {"stacks": stacks(
+                cfg.layer_groups(cfg.encoder_layer_specs()), val["stacks"]),
+                "final_norm": walk(val["final_norm"], 0)}
         else:
             out[key] = walk(val, 0)
     return out
@@ -286,14 +329,18 @@ class Decoder(nn.Module):
 
 
 def _run_stack(x, stack_params, groups, cfg, plan, lay, mode, positions,
-               pos=None, cache=None, pages=None):
+               pos=None, cache=None, pages=None, enc_memory=None):
     """Every layer group, each repetition in turn; the pools in ``cache``
-    (aligned with ``groups``) are updated in place.  The residual stream
-    is carried as a pair (x, pending delta), each add fused into the norm
-    after it (``layer_forward``) -> ((x, delta), cache): the stack's output
-    is ``x + delta``, which the caller folds into the final norm
-    (``final_norm``)."""
+    (aligned with ``groups``; None for the encoder, which keeps no cache)
+    are updated in place.  ``enc_memory`` (B, S_enc, E) is what an enc-dec
+    decoder's cross-attention projects in a whole-prompt prefill.  The
+    residual stream is carried as a pair (x, pending delta), each add
+    fused into the norm after it (``layer_forward``) -> ((x, delta),
+    cache): the stack's output is ``x + delta``, which the caller folds
+    into the final norm (``final_norm``)."""
     delta = None
+    if cache is None:
+        cache = [[{} for _ in g.pattern] for g in groups]
     for group, gparams, gcache in zip(groups, stack_params, cache, strict=True):
         for r in range(group.n_reps):
             for pi, spec in enumerate(group.pattern):
@@ -301,7 +348,7 @@ def _run_stack(x, stack_params, groups, cfg, plan, lay, mode, positions,
                 c_rep = tree_map(lambda a, r=r: a[r], gcache[pi])
                 (x, delta), _ = layer_forward(x, p_rep, c_rep, cfg, plan,
                                               lay, spec, mode, positions,
-                                              pos, pages, delta)
+                                              pos, pages, delta, enc_memory)
     return (x, delta), cache
 
 
@@ -327,19 +374,73 @@ def final_logits(params, x):
     return logits(x, head)
 
 
-def forward_prefill(params, tokens, cache, cfg, plan, lay):
+def encode(params, frames, cfg, plan, lay):
+    """The encoder stack over precomputed frame embeddings (the audio
+    stub), in JAX's ``"train"`` mode: flash attention with ``cfg.causal``
+    over every frame, RoPE over ``arange(S_enc)``, no cache; then the
+    encoder's final norm.  frames: (B, S_enc, E) in the weights' dtype ->
+    the encoder memory (B, S_enc, E)."""
+    B, S = frames.shape[:2]
+    positions = torch.arange(S, device=frames.device,
+                             dtype=torch.int32).expand(B, S)
+    enc = params["encoder"]
+    (x, delta), _ = _run_stack(frames, enc["stacks"],
+                               cfg.layer_groups(cfg.encoder_layer_specs()),
+                               cfg, plan, lay, "train", positions)
+    return apply_norm(x, enc["final_norm"], cfg, delta)[1]
+
+
+def forward_cross_kv(params, enc_memory, cfg, plan, lay):
+    """Every cross-attention layer's K/V of the encoder memory -> a list
+    aligned with ``cfg.layer_groups()``: per group, per pattern entry,
+    None (no cross-attention) or ``{"k", "v"}`` of shape (reps, B, G,
+    S_enc, D), the grouped layout ``blocks.cross_attn_mixer`` attends over
+    (JAX's ``forward_cross_kv``).  The paged engine scatters these into
+    the cross pools once per encode (``steps.make_cross_kv_write_step``)."""
+    out = []
+    for group, gparams in zip(cfg.layer_groups(), params["stacks"],
+                              strict=True):
+        per_pat = []
+        for pi, spec in enumerate(group.pattern):
+            if not spec.cross_attn:
+                per_pat.append(None)
+                continue
+            kvs = [cross_kv(enc_memory,
+                            tree_map(lambda a, r=r: a[r],
+                                     gparams[pi]["xattn"]), cfg)
+                   for r in range(group.n_reps)]
+            per_pat.append({"k": torch.stack([k for k, _ in kvs]),
+                            "v": torch.stack([v for _, v in kvs])})
+        out.append(per_pat)
+    return out
+
+
+def frames_dtype(params):
+    """The dtype an enc-dec model takes its frames in: the weights', which
+    is ``cfg.dtype`` unless the caller chose another (JAX casts frames to
+    ``cfg.dtype`` before ``encode``)."""
+    return params["embed"]["table"].dtype
+
+
+def forward_prefill(params, tokens, cache, cfg, plan, lay, frames=None):
     """Prefill a whole prompt into a contiguous cache (JAX
-    ``forward_prefill`` for token decoders, without context parallelism).
-    tokens: (B, S); cache: lanes of ``kvcache.cache_template`` with a ring
-    of at least S, filled in place -> (logits of the last position (B, V),
-    cache)."""
+    ``forward_prefill`` for token decoders and enc-decs, without context
+    parallelism).  tokens: (B, S); cache: lanes of
+    ``kvcache.cache_template`` with a ring of at least S, filled in place;
+    ``frames`` (B, S_enc, E), an enc-dec arch's encoder input (cast to the
+    weights' dtype, encoded, and projected into every layer's cross lane)
+    -> (logits of the last position (B, V), cache)."""
     B, S = tokens.shape
+    enc_memory = None
+    if cfg.is_encdec:
+        enc_memory = encode(params, frames.to(frames_dtype(params)), cfg,
+                            plan, lay)
     positions = torch.arange(S, device=tokens.device,
                              dtype=torch.int32).expand(B, S)
     x = embed_tokens(params, tokens, cfg)
     (x, delta), cache = _run_stack(x, params["stacks"], cfg.layer_groups(),
                                    cfg, plan, lay, "prefill", positions,
-                                   cache=cache)
+                                   cache=cache, enc_memory=enc_memory)
     x = final_norm(params, x[:, -1:], delta[:, -1:], cfg)
     return final_logits(params, x)[:, 0], cache
 

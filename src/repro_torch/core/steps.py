@@ -1,9 +1,11 @@
 """The serving steps: contiguous decode and whole-prompt prefill, and the
-paged decode, speculative verify, prefill chunk and page copy.
+paged decode, speculative verify, prefill chunk, page copy and an enc-dec
+arch's cross-KV write.
 
 Port of the JAX package's ``make_decode_step``, ``make_prefill_step``,
 ``make_paged_decode_step``, ``make_verify_step``,
-``make_prefill_chunk_step`` and ``make_page_copy_step`` at dp=1.  Each is
+``make_prefill_chunk_step``, ``make_page_copy_step`` and
+``make_cross_kv_write_step`` at dp=1.  Each is
 a plain callable that runs eagerly; the engine captures every fixed-shape
 one in a CUDA graph on the card (``core.graphs``), where JAX jits it.  The
 contiguous steps take the per-slot lanes of ``kvcache.cache_template``; the
@@ -13,7 +15,9 @@ n_max_pages) for verify, (chunk, n_max_pages) for a prefill chunk — and
 every request length reaches them only as data (block tables, positions,
 live-column counts), never as a shape, as in the JAX engine.  Paged models
 with SSM layers take one more input, ``slab_ids``: each row's state slab
-(scratch slab 0 for idle lanes).
+(scratch slab 0 for idle lanes); enc-dec models take their read-only
+``cross_block_table`` after it (all scratch page 0 for idle lanes), and
+their contiguous prefill takes the request's frames before its prompt.
 """
 from __future__ import annotations
 
@@ -21,8 +25,9 @@ import torch
 
 from repro_torch.core import model
 from repro_torch.core.kvcache import (cache_profile, cache_template,
-                                      paged_cache_template, zero_cache,
-                                      zero_paged_cache)
+                                      pages_needed, paged_cache_template,
+                                      zero_cache, zero_paged_cache)
+from repro_torch.core.blocks import _row_quant
 from repro_torch.core.partition import model_layout
 from repro_torch.kernels import decode_attention as k_dec
 
@@ -33,11 +38,20 @@ def _expect(name, t, shape):
                          f"{tuple(shape)}")
 
 
-def _pages(cfg, block_table, slab_ids, rows):
+def n_cross_pages(cfg, page_size: int) -> int:
+    """Pages of one encoder memory's cross-KV (0 without cross-attention)."""
+    if "cross_kv" not in cache_profile(cfg):
+        return 0
+    return pages_needed(cfg.enc_seq_len, page_size)
+
+
+def _pages(cfg, block_table, slab_ids, cross_bt, rows, n_cross=0):
     """The step's paging inputs; ``slab_ids`` exactly when the model has
-    SSM layers."""
+    SSM layers, ``cross_block_table`` (rows, n_cross) exactly when it has
+    cross-attention."""
     pages = {"block_table": block_table}
-    if "ssm" in cache_profile(cfg):
+    prof = cache_profile(cfg)
+    if "ssm" in prof:
         if slab_ids is None:
             raise ValueError(f"arch '{cfg.name}' has SSM layers: the step "
                              f"needs slab_ids")
@@ -45,6 +59,18 @@ def _pages(cfg, block_table, slab_ids, rows):
         pages["slab_ids"] = slab_ids
     elif slab_ids is not None:
         raise ValueError(f"arch '{cfg.name}' has no SSM layers: no slab_ids")
+    if "cross_kv" in prof:
+        if not n_cross:
+            raise ValueError(f"arch '{cfg.name}' has cross-attention: make "
+                             f"the step with its page_size")
+        if cross_bt is None:
+            raise ValueError(f"arch '{cfg.name}' has cross-attention: the "
+                             f"step needs cross_block_table")
+        _expect("cross_block_table", cross_bt, (rows, n_cross))
+        pages["cross_block_table"] = cross_bt
+    elif cross_bt is not None:
+        raise ValueError(f"arch '{cfg.name}' has no cross-attention: no "
+                         f"cross_block_table")
     return pages
 
 
@@ -70,15 +96,29 @@ def make_decode_step(cfg, plan, batch: int, budget: int):
 def make_prefill_step(cfg, plan, budget: int):
     """-> prefill_fn(params, prompt (1, S), cache) -> (logits (1, V), cache
     filled in place), for a batch-1 lane of ``zero_cache_for(cfg, plan, 1,
-    budget)`` and 1 <= S < budget."""
+    budget)`` and 1 <= S < budget.  An enc-dec arch's takes ``(params,
+    frames (1, S_enc, E), prompt, cache)``, as JAX's takes ``(frames,
+    dec_tokens, cache)``: the frames in any float dtype, cast to the
+    weights' dtype, encoded, and every cross lane filled."""
     lay = model_layout(cfg, plan)
 
-    def prefill_fn(params, prompt, cache):
+    def check(prompt):
         if prompt.dim() != 2 or prompt.shape[0] != 1 or \
                 not 1 <= prompt.shape[1] < budget:
             raise ValueError(f"prompt: shape {tuple(prompt.shape)} is not "
                              f"(1, S) with 1 <= S < {budget}")
-        return model.forward_prefill(params, prompt, cache, cfg, plan, lay)
+
+    if cfg.is_encdec:
+        def prefill_fn(params, frames, prompt, cache):
+            check(prompt)
+            _expect("frames", frames, (1, cfg.enc_seq_len, cfg.d_model))
+            return model.forward_prefill(params, prompt, cache, cfg, plan,
+                                         lay, frames)
+    else:
+        def prefill_fn(params, prompt, cache):
+            check(prompt)
+            return model.forward_prefill(params, prompt, cache, cfg, plan,
+                                         lay)
 
     return prefill_fn
 
@@ -89,19 +129,24 @@ def zero_cache_for(cfg, plan, batch: int, budget: int, device="cuda"):
     return zero_cache(cache_template(cfg, plan, lay, batch, budget), device)
 
 
-def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int):
+def make_paged_decode_step(cfg, plan, batch: int, n_max_pages: int,
+                           page_size: int = 0):
     """-> decode_fn(params, cache, tokens (B, 1), pos (B,), block_table
-    (B, n_max)[, slab_ids (B,)]) -> (logits (B, V), cache updated in
-    place).  ``pos`` is the inclusive position of each row's token; idle
-    rows point their block table at the scratch page with pos 0, and their
-    slab id at the scratch slab."""
+    (B, n_max)[, slab_ids (B,)][, cross_block_table (B, n_cross)]) ->
+    (logits (B, V), cache updated in place).  ``pos`` is the inclusive
+    position of each row's token; idle rows point their block table at the
+    scratch page with pos 0, their slab id at the scratch slab and their
+    cross block table at the scratch page.  ``page_size`` sizes the cross
+    block table (enc-dec archs)."""
     lay = model_layout(cfg, plan)
+    n_cross = n_cross_pages(cfg, page_size) if page_size else 0
 
-    def decode_fn(params, cache, tokens, pos, block_table, slab_ids=None):
+    def decode_fn(params, cache, tokens, pos, block_table, *extra):
         _expect("tokens", tokens, (batch, 1))
         _expect("pos", pos, (batch,))
         _expect("block_table", block_table, (batch, n_max_pages))
-        pages = _pages(cfg, block_table, slab_ids, batch)
+        pages = _pages(cfg, block_table, *_extra(cfg, extra), batch,
+                       n_cross=n_cross)
         return model.forward_decode(params, cache, tokens, pos, cfg, plan,
                                     lay, pages)
 
@@ -136,6 +181,20 @@ def make_verify_step(cfg, plan, batch: int, q_len: int, n_max_pages: int):
     return verify_fn
 
 
+def _extra(cfg, extra):
+    """A paged step's trailing inputs as (slab_ids, cross_block_table):
+    ``slab_ids`` first when the model has SSM layers, then the cross block
+    table when it has cross-attention (JAX's order)."""
+    extra = list(extra)
+    prof = cache_profile(cfg)
+    slab_ids = extra.pop(0) if "ssm" in prof and extra else None
+    cross_bt = extra.pop(0) if "cross_kv" in prof and extra else None
+    if extra:
+        raise ValueError(f"arch '{cfg.name}': {len(extra)} unexpected step "
+                         f"inputs")
+    return slab_ids, cross_bt
+
+
 def check_verify_on_card(cfg, plan, q_len: int):
     """Refuse a verify step of ``q_len`` = k + 1 queries a row that the
     card's verify kernel cannot take at this arch's head layout: the
@@ -165,10 +224,11 @@ def _index(name, x, device):
     return torch.tensor([x], dtype=torch.int32, device=device)
 
 
-def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
+def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int,
+                            page_size: int = 0):
     """-> chunk_fn(params, cache, tokens (1, C), chunk_start, last_idx,
-    block_table (1, n_max)[, slab_ids (1,)]) -> (logits (1, V), cache
-    updated in place).  ``chunk_start`` is the chunk's first absolute
+    block_table (1, n_max)[, slab_ids (1,)][, cross_block_table (1,
+    n_cross)]) -> (logits (1, V), cache updated in place).  ``chunk_start`` is the chunk's first absolute
     position and ``last_idx`` the in-chunk index of the prompt's last token
     (SSM layers leave their state untouched past it), each a (1,) int32
     tensor on the device, as JAX takes them traced (the engine's case: the
@@ -176,9 +236,10 @@ def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
     or a host int, range-checked here.  The engine checks its own
     ``last_idx`` while it is still a host int."""
     lay = model_layout(cfg, plan)
+    n_cross = n_cross_pages(cfg, page_size) if page_size else 0
 
     def chunk_fn(params, cache, tokens, chunk_start, last_idx, block_table,
-                 slab_ids=None):
+                 *extra):
         _expect("tokens", tokens, (1, chunk))
         _expect("block_table", block_table, (1, n_max_pages))
         if not isinstance(last_idx, torch.Tensor) and \
@@ -186,7 +247,8 @@ def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int):
             raise ValueError(f"last_idx {last_idx} outside the chunk {chunk}")
         chunk_start = _index("chunk_start", chunk_start, tokens.device)
         last_idx = _index("last_idx", last_idx, tokens.device)
-        pages = _pages(cfg, block_table, slab_ids, 1)
+        pages = _pages(cfg, block_table, *_extra(cfg, extra), 1,
+                       n_cross=n_cross)
         return model.forward_prefill_chunk(params, cache, tokens, chunk_start,
                                            last_idx, cfg, plan, lay, pages)
 
@@ -222,6 +284,58 @@ def make_page_copy_step(n_pages: int):
         return cache
 
     return copy_fn
+
+
+def make_cross_kv_write_step(cfg, plan, page_size: int):
+    """-> write_fn(params, cache, frames (1, S_enc, E), cross_block_table
+    (1, n_cross)) -> cache, its cross pools written in place.
+
+    The enc-dec admission step (JAX's ``make_cross_kv_write_step`` at
+    dp=1): run the encoder over one request's frames (any float dtype,
+    cast to the weights' dtype, as JAX casts them to ``cfg.dtype``),
+    project every cross-attention layer's K/V of the memory
+    (``model.forward_cross_kv``) and scatter them into the ``ckp``/``cvp``
+    pools: position s to page ``cross_block_table[s // page_size]``,
+    offset ``s % page_size``.  int8 pools quantize each token row over its
+    (heads, head_dim) values with its own scale, amax / 127, rounded half
+    to even and clipped at 127 (``blocks._row_quant``, JAX's
+    ``scatter_q``), payload and scale written together.  Runs once per
+    encode (never on a frames-digest hit); the pages are read-only after.
+    Fixed shapes: the engine captures it in a CUDA graph over static
+    frames and table buffers, whose warm-up writes go to scratch page 0."""
+    if "cross_kv" not in cache_profile(cfg):
+        raise ValueError(f"arch '{cfg.name}' has no cross-attention layers")
+    lay = model_layout(cfg, plan)
+    S_enc = cfg.enc_seq_len
+    n_cross = n_cross_pages(cfg, page_size)
+
+    def write_fn(params, cache, frames, cross_bt):
+        _expect("frames", frames, (1, S_enc, cfg.d_model))
+        _expect("cross_block_table", cross_bt, (1, n_cross))
+        enc = model.encode(params, frames.to(model.frames_dtype(params)),
+                           cfg, plan, lay)
+        kvs = model.forward_cross_kv(params, enc, cfg, plan, lay)
+        s = torch.arange(S_enc, device=frames.device)
+        pid = cross_bt[0].long().index_select(0, s // page_size)
+        off = s % page_size
+        for gkv, gcache in zip(kvs, cache, strict=True):
+            for kv, entry in zip(gkv, gcache, strict=True):
+                if kv is None:
+                    continue
+                cr = entry["cross"]
+                for name in ("k", "v"):
+                    # (reps, 1, G, S_enc, D) -> one row per position:
+                    # (S_enc, reps, G, D), the order pool[:, pid, :, off]
+                    # takes
+                    rows = kv[name][:, 0].permute(2, 0, 1, 3)
+                    pool = cr[f"c{name}p"]
+                    if f"c{name}sp" in cr:
+                        rows, scale = _row_quant(rows)       # (S_enc, reps)
+                        cr[f"c{name}sp"][:, pid, off] = scale.t()
+                    pool[:, pid, :, off] = rows.to(pool.dtype)
+        return cache
+
+    return write_fn
 
 
 def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda",

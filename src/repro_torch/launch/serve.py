@@ -11,7 +11,12 @@ the contiguous engine by default, the paged engine with ``--paged`` or
 attention-only archs).  ``--kv-dtype int8`` stores fixed-scale int8 lanes
 (contiguous) or int8 page pools and SSM state slabs (paged).
 ``--arch tinyllama-42m-64h`` serves the paper's 64-head variant (head_dim
-8).  ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
+8).  ``--arch seamless-m4t-large-v2`` serves the encoder-decoder: every
+request carries one of ``--frame-groups K`` random frame tensors (request
+i the (i mod K)-th), encoded at admission (contiguous) or once per
+distinct tensor, its cross-KV pages shared by frames digest (``--paged``,
+which prints JAX's ``cross_kv:`` line); ``--prefix-cache`` and
+``--speculative`` are refused for it, as in JAX.  ``--arch mamba2-370m`` serves the SSM decoder from per-slot state lanes,
 or from state slabs with ``--paged``; ``--arch qwen3-0.6b`` a GQA decoder
 with qk-norm, ``--arch gemma3-12b`` gemma3 (sliding windows on 5 of
 every 6 layers, head_dim 256, sandwich norms, a gelu FFN; 23.5 GB of bf16
@@ -64,8 +69,6 @@ LATER = {
     "--disagg": ((None,), "disaggregated prefill/decode (ROADMAP Queue 1 "
                           "item 11)"),
     "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11)"),
-    "--frame-groups": ((1,), "encoder-decoder serving (ROADMAP Queue 1 "
-                             "item 9)"),
 }
 
 
@@ -120,7 +123,10 @@ def parse_args(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a common system-prompt prefix of this "
                          "many tokens to every request")
-    ap.add_argument("--frame-groups", type=int, default=1, metavar="K")
+    ap.add_argument("--frame-groups", type=int, default=1, metavar="K",
+                    help="enc-dec archs: spread requests over K distinct "
+                         "synthetic frame tensors (requests in a group "
+                         "share one encode's cross-KV pages)")
     ap.add_argument("--policy", choices=("fcfs", "priority", "fair"),
                     default="fcfs", help="admission policy "
                                          "(serving.policies)")
@@ -209,6 +215,11 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     shared = rng.randint(2, cfg.vocab_size,
                          args.shared_prefix).astype(np.int32)
+    # the JAX launcher's order of draws: the shared prefix, the frame
+    # tensors, then each prompt
+    frame_groups = [rng.randn(cfg.enc_seq_len, cfg.d_model).astype(np.float32)
+                    for _ in range(max(args.frame_groups, 1))] \
+        if cfg.is_encdec else []
     reqs = []
     t0 = time.time()
     for rid in range(args.requests):
@@ -218,7 +229,9 @@ def main(argv=None):
         hi = args.high_priority_every and rid % args.high_priority_every == 0
         req = Request(rid=rid, prompt=np.concatenate([shared, prompt]),
                       max_new_tokens=args.max_new, priority=10 if hi else 0,
-                      client_id=rid % max(args.clients, 1))
+                      client_id=rid % max(args.clients, 1),
+                      frames=(frame_groups[rid % len(frame_groups)]
+                              if frame_groups else None))
         reqs.append(req)
         engine.submit(req)
     stats = engine.run()
@@ -268,6 +281,11 @@ def main(argv=None):
               f"collect_wait={stats.collect_wait_s * 1e3:.1f}ms")
         print(f"pages_free={engine.allocator.n_free}/"
               f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
+    if engine.cross_cache is not None:
+        print(f"cross_kv: hit_rate={stats.cross_hit_rate:.2f} "
+              f"({stats.cross_hits}/{stats.cross_lookups} lookups) "
+              f"encodes={stats.cross_encodes} "
+              f"cached_entries={engine.cross_cache.n_entries}")
     if engine.has_slabs:
         print(f"ssm_slabs: slabs={engine.n_slabs - 1} "
               f"allocated={engine.slab_allocator.total_allocated} "

@@ -149,6 +149,27 @@ tokens are copied to pinned host memory after the barrier
 before its first chunk (``_restore_slot``, ``stats.slab_restores``);
 prefill resumes at the stashed position.  The replica handoff rounds wait
 for ROADMAP Queue 1 item 11.
+
+**Encoder-decoders** (seamless): a request carries its encoder input,
+``Request.frames`` (enc_seq_len, d_model) frame embeddings (the audio
+stub), checked at submit with JAX's messages.  The contiguous engine
+encodes at every admission: the whole-prompt prefill step takes the
+frames, runs the encoder and fills the slot's cross lanes, which every
+decode step reads.  The paged engine pages the encoder memory's K/V into
+cross pools that share the self-KV page-id space (``build_paged`` sizes
+the pool for every slot's self and cross pages by default): each
+admission also gets ``n_cross_pages`` read-only pages, shared by frames
+digest (``serving.prefix_cache.CrossKVCache``: a later request with equal
+frames takes the resident pages; a second one in the same tick shares the
+pages of the first's pending encode).  A miss runs the cross-KV write step
+(``core.steps.make_cross_kv_write_step``, captured like the other steps:
+the encoder, every layer's cross K/V, the scatter) once, dispatched before
+the tick's copy-on-write copies and prefill chunks, so no chunk reads
+cross pages before they are written; the chunk and decode steps read them
+through each row's cross block table (idle rows: the scratch page).
+``stats`` counts ``cross_lookups``, ``cross_hits`` and ``cross_encodes``.
+As in JAX, the prefix cache is refused (the self-KV depends on the frames
+through cross-attention) and so is speculation.
 """
 from __future__ import annotations
 
@@ -168,12 +189,14 @@ from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
 from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
+                                    make_cross_kv_write_step,
                                     make_page_copy_step,
                                     make_paged_decode_step,
                                     make_prefill_chunk_step, make_prefill_step,
-                                    make_verify_step, zero_cache_for,
-                                    zero_paged_cache_for)
-from repro_torch.serving.prefix_cache import (PromptLookupDraft,
+                                    make_verify_step, n_cross_pages,
+                                    zero_cache_for, zero_paged_cache_for)
+from repro_torch.serving.prefix_cache import (CrossKVCache,
+                                              PromptLookupDraft,
                                               RadixPrefixCache)
 from repro_torch.serving.sampler import (SamplerConfig, greedy_accept,
                                          greedy_ids, sample_from_logits,
@@ -191,6 +214,7 @@ SPEC_DISABLE_AFTER = 4
 class Request:
     rid: int
     prompt: np.ndarray                 # (S,) int32
+    frames: Optional[np.ndarray] = None  # (enc_seq_len, d_model): enc-dec
     max_new_tokens: int = 32
     priority: int = 0                  # higher = more urgent (policies.py)
     client_id: int = 0                 # fairness accounting key (policies.py)
@@ -219,6 +243,9 @@ class EngineStats:
     preemptions: int = 0
     prefix_lookups: int = 0
     prefix_hits: int = 0
+    cross_lookups: int = 0             # enc-dec frames-digest lookups
+    cross_hits: int = 0                # ... served from a shared encode
+    cross_encodes: int = 0             # cross-KV write steps run
     slab_restores: int = 0             # preempted SSM state reloads
     tick_wall_s: float = 0.0           # total wall time inside tick()
     tpot_s: list = field(default_factory=list)
@@ -264,6 +291,11 @@ class EngineStats:
     def prefix_hit_rate(self) -> float:
         return self.prefix_hits / self.prefix_lookups \
             if self.prefix_lookups else 0.0
+
+    @property
+    def cross_hit_rate(self) -> float:
+        return self.cross_hits / self.cross_lookups \
+            if self.cross_lookups else 0.0
 
 
 class Staging:
@@ -333,6 +365,14 @@ class ServingEngine:
                 f"that a token-id prefix cannot address (cache kinds "
                 f"{sorted(prof)}); run it paged without the prefix "
                 f"cache")
+        if prefix_cache and "cross_kv" in prof:
+            raise ValueError(
+                f"prefix_cache=True is unsupported for arch "
+                f"'{cfg.name}': decoder self-KV depends on the "
+                f"request's encoder frames through cross-attention, "
+                f"so equal token prefixes do not imply equal KV; "
+                f"cross-KV sharing is keyed by frames digest instead "
+                f"(automatic)")
         if speculative > 0 and not paged:
             raise ValueError("speculative decoding requires the paged engine")
         if speculative > 0 and prof != {"kv"}:
@@ -354,6 +394,9 @@ class ServingEngine:
         self.graphs = bool(graphs)
         self.has_slabs = self.paged and "ssm" in prof
         self.n_slabs = batch_slots + 1 if self.has_slabs else 0
+        self.has_cross = self.paged and "cross_kv" in prof
+        self.n_cross_pages = n_cross_pages(cfg, page_size) \
+            if self.has_cross else 0
         self.B = batch_slots
         self.S = seq_budget
         self.eos = eos_id
@@ -365,12 +408,14 @@ class ServingEngine:
         self.stats = EngineStats()
         self.speculative = int(speculative)
         self.quant_pools = self.paged and kv_pool_is_quantized(plan) and \
-            "kv" in prof
+            ("kv" in prof or "cross_kv" in prof)
         self.allocator = self.slab_allocator = self._prefix_cache = None
+        self.cross_cache = None
         self.verify_fn = self.draft_source = None
         self._stash: dict = {}         # rid -> preempted SSM checkpoint
         if self.paged:
-            n_pages = n_pages or batch_slots * (seq_budget // page_size) + 1
+            n_pages = n_pages or batch_slots * (
+                seq_budget // page_size + self.n_cross_pages) + 1
             self.page_size = page_size
             self.chunk = prefill_chunk
             self.n_max_pages = seq_budget // page_size
@@ -381,13 +426,19 @@ class ServingEngine:
                 self._prefix_cache = RadixPrefixCache(self.allocator,
                                                       page_size)
                 self.copy_fn = make_page_copy_step(n_pages)   # COW copies
+            if self.has_cross:
+                self.cross_cache = CrossKVCache(self.allocator)
+                self.cross_write_fn = make_cross_kv_write_step(cfg, plan,
+                                                               page_size)
             self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
                                               self.device, self.n_slabs)
             self.prefill_fn = make_prefill_chunk_step(cfg, plan,
                                                       prefill_chunk,
-                                                      self.n_max_pages)
+                                                      self.n_max_pages,
+                                                      page_size)
             self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
-                                                    self.n_max_pages)
+                                                    self.n_max_pages,
+                                                    page_size)
             if self.speculative:
                 self.verify_fn = make_verify_step(cfg, plan, batch_slots,
                                                   self.speculative + 1,
@@ -411,6 +462,8 @@ class ServingEngine:
                 page_size=page_size if self.paged else 0,
                 prefix_cache=self._prefix_cache, stats=self.stats,
                 slab_allocator=self.slab_allocator,
+                cross_cache=self.cross_cache,
+                cross_pages_per_req=self.n_cross_pages,
                 kv_pages=not self.paged or "kv" in prof,
                 spec_tokens=self.speculative)
         self.admissions: List[Optional[Admission]] = [None] * self.B
@@ -434,7 +487,8 @@ class ServingEngine:
                     overlap: bool = True, graphs: bool = True,
                     device="cuda"):
         """A paged engine.  ``n_pages`` defaults to full occupancy (every
-        slot at budget) plus the scratch page; pass something smaller to
+        slot at budget, plus every slot's cross-KV pages for enc-dec
+        archs) plus the scratch page; pass something smaller to
         exercise admission control under memory pressure.
         ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
         in one step; ``prefix_cache=True`` shares cached prompt prefixes
@@ -466,11 +520,16 @@ class ServingEngine:
         io = {"decode": [("tokens", (B, 1)), ("pos", (B,))]}
         if self.paged:
             slab = [("slab_ids", (B,))] if self.has_slabs else []
-            nm = self.n_max_pages
-            io["decode"] += [("block_table", (B, nm))] + slab
+            nm, nc = self.n_max_pages, self.n_cross_pages
+            cross = [("cross_bt", (B, nc))] if self.has_cross else []
+            io["decode"] += [("block_table", (B, nm))] + slab + cross
             io["chunk"] = ([("tokens", (1, self.chunk)), ("chunk_start", (1,)),
                             ("last_idx", (1,)), ("block_table", (1, nm))]
-                           + ([("slab_ids", (1,))] if self.has_slabs else []))
+                           + ([("slab_ids", (1,))] if self.has_slabs else [])
+                           + ([("cross_bt", (1, nc))] if self.has_cross
+                              else []))
+            if self.has_cross:
+                io["cross"] = [("cross_bt", (nc,))]
             if self.speculative:
                 io["verify"] = [("tokens", (B, self.speculative + 1)),
                                 ("pos", (B,)), ("qlen", (B,)),
@@ -479,16 +538,33 @@ class ServingEngine:
                 io["copy"] = [("src", (1,)), ("dst", (1,))]
         else:
             io["prompt"] = [("tokens", (1, self.S))]
-        # a chunk or copy round per slot at most in a tick, one row each
+        # a chunk, copy or cross round per slot at most in a tick, one row
+        # each
         self.io = {kind: Staging(fields, dev,
-                                 rows=B if kind in ("chunk", "copy") else 1)
+                                 rows=B if kind in ("chunk", "copy", "cross")
+                                 else 1)
                    for kind, fields in io.items()}
+        if self.cfg.is_encdec:
+            # float32 frames as requests carry them (the steps cast them to
+            # the weights' dtype): a row per cross round, or the contiguous
+            # prefill's one
+            frames = [("frames", (self.cfg.enc_seq_len, self.cfg.d_model))]
+            self.io["frames"] = Staging(frames, dev,
+                                        rows=B if self.paged else 1,
+                                        dtype=torch.float32)
         if self.paged:
             # the chunk and copy graphs' static inputs: each round's row is
             # copied here on the card before its replay
             self._chunk_in = torch.zeros(self.io["chunk"].dev.shape[1],
                                          dtype=torch.int32, device=dev)
             self._copy_in = torch.zeros(2, dtype=torch.int32, device=dev)
+            if self.has_cross:
+                # the cross-KV write graph's static inputs
+                self._frames_in = torch.zeros(
+                    (1, self.cfg.enc_seq_len, self.cfg.d_model),
+                    dtype=torch.float32, device=dev)
+                self._cross_in = torch.zeros((1, self.n_cross_pages),
+                                             dtype=torch.int32, device=dev)
             # ids of slabs to zero and pages whose scale rows to reset
             self.io["plan"] = Staging(
                 [("ids", (self.allocator.n_pages + self.n_slabs,))], dev,
@@ -532,6 +608,10 @@ class ServingEngine:
             self.copy_fn(self.cache, src, dst)
             return ()
 
+        def cross_write(frames, cross_bt):
+            self.cross_write_fn(self.params, self.cache, frames, cross_bt)
+            return ()
+
         steps = {"decode": make(run("decode_fn"), inputs("decode"))}
         if self.paged:
             steps["chunk"] = make(run("prefill_fn"),
@@ -540,6 +620,9 @@ class ServingEngine:
                 steps["verify"] = make(run("verify_fn"), inputs("verify"))
             if self._prefix_cache is not None:
                 steps["copy"] = make(copy, inputs("copy", self._copy_in))
+            if self.has_cross:
+                steps["cross"] = make(cross_write,
+                                      (self._frames_in, self._cross_in))
         return steps
 
     def _send_out(self, inflight: dict):
@@ -585,6 +668,18 @@ class ServingEngine:
     def submit(self, req: Request):
         if req.rid in self._rids:     # rids key the per-request stats
             raise RuntimeError(f"duplicate request id {req.rid}")
+        if self.cfg.is_encdec:
+            want = (self.cfg.enc_seq_len, self.cfg.d_model)
+            if req.frames is None:
+                raise RuntimeError(
+                    f"request {req.rid}: arch '{self.cfg.name}' is "
+                    f"encoder-decoder — Request.frames of shape {want} "
+                    f"(encoder frame embeddings) is required")
+            if tuple(np.shape(req.frames)) != want:
+                raise RuntimeError(
+                    f"request {req.rid}: frames shape "
+                    f"{tuple(np.shape(req.frames))} != {want} expected by "
+                    f"arch '{self.cfg.name}' (enc_seq_len, d_model)")
         self.sched.submit(req)        # raises on infeasible requests
         self._rids.add(req.rid)
         if req.rng is None:
@@ -766,7 +861,18 @@ class ServingEngine:
         io = self.io["prompt"]
         io.host()[0, :L] = req.prompt
         io.send(L)
-        logits, _ = self.prefill_fn(self.params, io.dev[:, :L], lane)
+        if self.cfg.is_encdec:
+            # the encoder runs at every admission, over the request's
+            # frames, and fills the slot's cross lanes
+            fio = self.io["frames"]
+            fio.host()[0] = np.asarray(req.frames, np.float32).reshape(-1)
+            fio.send()
+            logits, _ = self.prefill_fn(
+                self.params,
+                fio.dev.view(1, self.cfg.enc_seq_len, self.cfg.d_model),
+                io.dev[:, :L], lane)
+        else:
+            logits, _ = self.prefill_fn(self.params, io.dev[:, :L], lane)
         self._out[:1].copy_(greedy_ids(logits, self.cfg.vocab_size))
         self._out_host[:1].copy_(self._out[:1], non_blocking=True)
         if self.sampled:
@@ -793,17 +899,19 @@ class ServingEngine:
 
     # ------------------------------------------------------------ plan phase
     def _plan_phase(self) -> dict:
-        """Preemption verdicts, admissions and the COW rounds of this tick,
-        and in place: the new slots' slabs zeroed (or restored from a
-        preempted request's stash) and the scale rows of pages freed since
-        the last plan zeroed.  Verdicts against slots with work in flight
-        are deferred past collect (their emissions may retire the victim
-        first); with nothing in flight they apply at once, as in the serial
-        loop.  Freed pages and slabs were released at a collect, so no
-        in-flight step reads them; the device work rides the stream behind
-        the in-flight steps.  -> the tick's plan: {"preempts": [(slot,
-        rid)], "cow": [admission]}."""
-        tick_plan = {"preempts": [], "cow": []}
+        """Preemption verdicts, admissions and the COW and cross-KV rounds
+        of this tick, and in place: the new slots' slabs zeroed (or
+        restored from a preempted request's stash) and the scale rows of
+        pages freed since the last plan zeroed (the cross pools' too).
+        Verdicts against slots with work in flight are deferred past
+        collect (their emissions may retire the victim first); with
+        nothing in flight they apply at once, as in the serial loop.  Freed
+        pages and slabs were released at a collect, so no in-flight step
+        reads them; the device work rides the stream behind the in-flight
+        steps.  -> the tick's plan: {"preempts": [(slot, rid)], "cow":
+        [admission], "cross": [admission]} (the cross rounds: the
+        admissions whose frames must be encoded, in plan order)."""
+        tick_plan = {"preempts": [], "cow": [], "cross": []}
         if self._inflight is not None:
             self.stats.plan_ahead_ticks += 1
         active = [a for a in self.admissions if a is not None]
@@ -820,6 +928,8 @@ class ServingEngine:
             self.slot_state[b] = "prefill"
             if adm.cow is not None:
                 tick_plan["cow"].append(adm)
+            if adm.needs_encode:
+                tick_plan["cross"].append(adm)
             # prefix-cached tokens are resident: prefill resumes at the
             # first uncached position (for a preempted request, its donated
             # progress: reused, not recomputed)
@@ -844,9 +954,10 @@ class ServingEngine:
         """Zero, in place, slabs ``slabs`` of every SSM layer (state, conv
         tails and, for int8 slabs, scales: the previous owner's state must
         not leak into the new request) and the scale rows of recycled pages
-        ``pids`` (scale 0 dequantizes to exact zeros, so rows past a new
-        occupant's length can never pair its payload with the previous
-        owner's scales).  The ids go through the plan staging."""
+        ``pids`` in the self-KV and cross pools (scale 0 dequantizes to
+        exact zeros, so rows past a new occupant's length can never pair
+        its payload with the previous owner's scales).  The ids go through
+        the plan staging."""
         io = self.io["plan"]
         ids = io.host()[0]
         ids[:len(slabs)] = slabs
@@ -859,9 +970,10 @@ class ServingEngine:
                 if slabs:
                     for pool in entry.get("ssm", {}).values():
                         pool.index_fill_(1, sid, 0)
-                if pids and "kv" in entry:
-                    entry["kv"]["ksp"].index_fill_(1, pid, 0.0)
-                    entry["kv"]["vsp"].index_fill_(1, pid, 0.0)
+                for kind in ("kv", "cross") if pids else ():
+                    for name, pool in entry.get(kind, {}).items():
+                        if name.endswith("sp"):
+                            pool.index_fill_(1, pid, 0.0)
 
     # --------------------------------------------------------- collect phase
     def _collect_phase(self):
@@ -941,14 +1053,39 @@ class ServingEngine:
 
     # -------------------------------------------------------- dispatch phase
     def _dispatch_phase(self, tick_plan: dict):
-        """Enqueue this tick's steps and return without blocking: the COW
-        page copies, a chunk round per prefilling slot, then the
-        decode-or-verify step, then the ids' copy home."""
+        """Enqueue this tick's steps and return without blocking: the
+        cross-KV encodes, the COW page copies, a chunk round per
+        prefilling slot, then the decode-or-verify step, then the ids' copy
+        home.  Every encode of the tick runs before any chunk, so a slot
+        sharing a pending encode never reads its pages unwritten."""
+        self._dispatch_cross(tick_plan["cross"])
         self._dispatch_cow(tick_plan["cow"])
         pf = self._dispatch_prefill()
         step = self._dispatch_step()
         if pf or step is not None:
             self._send_out({"pf": pf, "step": step})
+
+    def _dispatch_cross(self, adms: List[Admission]):
+        """Each admission's encode: every round's frames and cross block
+        table in one copy each, then one replay of the cross-KV write step
+        per round (its inputs copied into the step's static buffers on the
+        card first); the pages are published to the cross-KV cache once
+        the write is enqueued (a later read is behind it on the stream)."""
+        if not adms:
+            return
+        fio, cio = self.io["frames"], self.io["cross"]
+        frames, cbt = fio.host(), cio.host()
+        for i, adm in enumerate(adms):
+            frames[i] = np.asarray(adm.req.frames, np.float32).reshape(-1)
+            cbt[i] = adm.cross_pages
+        fio.send(len(adms) * fio.dev.shape[1])
+        cio.send(len(adms) * cio.dev.shape[1])
+        for i, adm in enumerate(adms):
+            self._frames_in.view(-1).copy_(fio.dev[i])
+            self._cross_in.view(-1).copy_(cio.dev[i])
+            self.steps["cross"]()
+            self.sched.on_cross_written(adm)
+            self.stats.cross_encodes += 1
 
     def _dispatch_cow(self, adms: List[Admission]):
         """Each admission's copy-on-write page: every round's (src, dst) in
@@ -979,6 +1116,15 @@ class ServingEngine:
             row[:len(adm.pages)] = adm.pages
         return row
 
+    def _cross_row(self, b: int) -> np.ndarray:
+        """Slot b's cross block table: its cross pages, or the scratch
+        page for a slot without them."""
+        row = np.full(self.n_cross_pages, SCRATCH_PAGE, np.int32)
+        adm = self.admissions[b]
+        if adm is not None and adm.cross_pages is not None:
+            row[:] = adm.cross_pages
+        return row
+
     def _dispatch_prefill(self) -> list:
         """Advance every prefilling slot by one chunk: all rounds' inputs in
         one copy, then one replay per round.  -> [(slot, rid, prompt
@@ -1006,6 +1152,8 @@ class ServingEngine:
             f["block_table"][0] = self._bt_row(b)
             if self.has_slabs:
                 f["slab_ids"][0] = self._slab_id(b)
+            if self.has_cross:
+                f["cross_bt"][0] = self._cross_row(b)
             self.prefill_done[b] = c0 + C
             pf.append((b, req.rid, L if c0 + C >= L else None))
         io.send(len(rows) * io.dev.shape[1])
@@ -1054,6 +1202,9 @@ class ServingEngine:
                     else SCRATCH_PAGE
                 if self.has_slabs:
                     f["slab_ids"][b] = self._slab_id(b, bool(act[b]))
+                if self.has_cross:
+                    f["cross_bt"][b] = self._cross_row(b) if act[b] \
+                        else SCRATCH_PAGE
         io.send()
         logits, ids = self.steps["decode"]()
         self._out[self.B:2 * self.B].copy_(ids)

@@ -1,7 +1,6 @@
-"""The radix prefix cache and the speculative draft source: a copy of the
-JAX package's ``serving/prefix_cache.py`` without its enc-dec
-``CrossKVCache`` (ROADMAP Queue 1 item 9) and its replica ``HostSpillStore``
-(item 11).
+"""The radix prefix cache, the speculative draft source and the enc-dec
+cross-KV cache: a copy of the JAX package's ``serving/prefix_cache.py``
+without its replica ``HostSpillStore`` (ROADMAP Queue 1 item 11).
 
 Radix prefix cache: token-id sequences -> refcounted page runs in the
 engine's ``PageAllocator`` id space.  KV already resident in the page pool
@@ -34,7 +33,10 @@ Invariants (as in the JAX package, held against it by
 """
 from __future__ import annotations
 
+import hashlib
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 MAX_NGRAM = 3    # longest trailing n-gram matched, as in the JAX package
 
@@ -270,3 +272,91 @@ class PromptLookupDraft:
             return
         for path, _ in self.prefix_cache.entries():
             yield path
+
+
+class CrossKVCache:
+    """Encoder cross-KV sharing: frames digest -> refcounted page run.
+
+    The cache holds ONE allocator ref per page of every entry; a serving
+    slot that hits takes an extra ref (``acquire``) and drops it at finish
+    or preemption, so an entry's pages return to the pool only when the
+    entry is evicted AND no slot still reads them.  Entries whose pages
+    are unshared (refcount 1: cache-only) are LRU-evictable under pool
+    pressure.  No copy-on-write: cross pages are written once at
+    admission (``core.steps.make_cross_kv_write_step``) and read-only
+    after."""
+
+    def __init__(self, allocator):
+        self.allocator = allocator
+        self._entries: dict = {}    # digest -> [pages, last_access]
+        self._clock = 0
+        self.evictions = 0
+
+    @staticmethod
+    def digest(frames) -> str:
+        """Identity of an encoder input: the sha1 of its bytes and shape."""
+        a = np.ascontiguousarray(np.asarray(frames))
+        return hashlib.sha1(a.tobytes() + str(a.shape).encode()).hexdigest()
+
+    @property
+    def n_cached_pages(self) -> int:
+        return sum(len(e[0]) for e in self._entries.values())
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._entries)
+
+    @property
+    def n_evictable_pages(self) -> int:
+        return sum(len(e[0]) for e in self._entries.values()
+                   if all(self.allocator.refcount(p) == 1 for p in e[0]))
+
+    def has(self, key: str) -> bool:
+        """Read-only residency probe (no refs, no LRU touch)."""
+        return key in self._entries
+
+    def acquire(self, key: str) -> Optional[List[int]]:
+        """Pages for ``key`` with one extra (slot) ref taken, or None."""
+        self._clock += 1
+        e = self._entries.get(key)
+        if e is None:
+            return None
+        e[1] = self._clock
+        self.allocator.incref(e[0])
+        return list(e[0])
+
+    def insert(self, key: str, pages: List[int]) -> bool:
+        """Adopt ``pages`` (freshly written cross-KV) under ``key``; takes
+        one cache ref per page.  -> False (no refs taken) when the key is
+        already cached: the caller's pages then stay slot-private and die
+        with the slot."""
+        self._clock += 1
+        if key in self._entries:
+            return False
+        self.allocator.incref(pages)
+        self._entries[key] = [list(pages), self._clock]
+        return True
+
+    def entries(self):
+        """Yield (digest, pages) for every cached encode."""
+        for key, (pages, _) in self._entries.items():
+            yield key, list(pages)
+
+    def evict(self, n_pages: int) -> int:
+        """Evict LRU unshared entries until >= n_pages are freed (or nothing
+        evictable remains).  -> pages freed."""
+        freed = 0
+        while freed < n_pages:
+            victim = None
+            for k, (pages, last) in self._entries.items():
+                if any(self.allocator.refcount(p) > 1 for p in pages):
+                    continue            # a live slot still reads them
+                if victim is None or last < self._entries[victim][1]:
+                    victim = k
+            if victim is None:
+                break
+            pages, _ = self._entries.pop(victim)
+            self.allocator.decref(pages)
+            freed += len(pages)
+            self.evictions += 1
+        return freed

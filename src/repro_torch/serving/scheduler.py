@@ -11,9 +11,24 @@ hooks (``_enqueue`` / ``_select_next`` / ``_put_back`` /
 (``allocator=None``, the contiguous engine) it only orders the queue.  The
 engine executes admissions (COW page copies, chunked prefill from the first
 uncached token) and reports lifecycle events back (``on_cow_done``,
-``on_prefill_complete``, ``on_finish``, ``on_preempt``, ``on_spec_trim``).
-The enc-dec cross-KV budget waits for ROADMAP Queue 1 item 9, the handoff,
-migration and role methods for item 11.
+``on_prefill_complete``, ``on_cross_written``, ``on_finish``,
+``on_preempt``, ``on_spec_trim``).  The handoff, migration and role
+methods wait for ROADMAP Queue 1 item 11.
+
+Beyond attention-only archs, admission is a JOINT all-or-nothing budget:
+
+- **SSM/hybrid**: one recurrent-state slab per request
+  (``slab_allocator``); a request is admitted only if pages AND a slab are
+  both available, and every rollback returns both.
+- **enc-dec**: ``cross_pages_per_req`` pages of encoder cross-KV from the
+  same allocator.  A frames-digest hit on the ``CrossKVCache`` shares the
+  resident pages (refcount only); a second request with the same frames
+  in the same tick shares the pages planned for the first
+  (``_pending_cross``: one encode); a miss allocates fresh pages and marks
+  the admission ``needs_encode``, so the engine runs the cross-KV write
+  step once before the slot's first prefill chunk; ``on_cross_written``
+  then publishes the pages for later identical-frame requests.  A miss
+  that cannot get its cross pages rolls the whole admission back.
 
 Preemption contract: the engine calls ``plan_preemptions`` each tick and
 evicts the returned victims; ``on_preempt`` donates the victim's resident
@@ -24,8 +39,9 @@ and re-queues the request.  A resumed request's admission plans over its
 An SSM arch carries no prefix cache: the engine stashes its slab on the
 host instead.
 
-Invariant: leak freedom — every page is free or radix-cached, and every
-    slab is free, after ``run()``/``drain()`` retire all admissions.
+Invariant: leak freedom — every page is free, radix-cached or
+    cross-cached, and every slab is free, after ``run()``/``drain()``
+    retire all admissions.
 """
 from __future__ import annotations
 
@@ -69,7 +85,9 @@ class Admission:
     (divergence out of a shared partial page).  seq: global admission
     order stamp (preemptive policies pick the victim with the least sunk
     work by it).  slab: the slot's recurrent-state slab id (SSM archs).
-    spec: the run includes draft headroom (+spec_tokens of coverage), so
+    cross_pages: the slot's read-only cross-KV page run (enc-dec archs);
+    needs_encode marks a frames-digest miss: the engine must run the
+    cross-KV write step before this slot's first prefill chunk.  spec: the run includes draft headroom (+spec_tokens of coverage), so
     the engine may run the verify step on the slot; False means
     speculation was denied at admission (pool pressure) and the slot
     decodes one token per tick."""
@@ -80,6 +98,8 @@ class Admission:
     cow: Optional[Tuple[int, int]] = None
     seq: int = 0
     slab: Optional[int] = None
+    cross_pages: Optional[List[int]] = None
+    needs_encode: bool = False
     spec: bool = False
 
 
@@ -114,6 +134,9 @@ class Scheduler:
     def on_prefill_complete(self, adm: Admission) -> None:
         """adm's prompt is fully resident (cache-insertion hook)."""
 
+    def on_cross_written(self, adm: Admission) -> None:
+        """The engine ran adm's cross-KV write: publish the pages."""
+
     def on_finish(self, adm: Admission) -> None:
         """adm's request retired: release its resources."""
 
@@ -144,6 +167,7 @@ class FCFSScheduler(Scheduler):
 
     def __init__(self, *, seq_budget: int, allocator=None, page_size: int = 0,
                  prefix_cache=None, stats=None, slab_allocator=None,
+                 cross_cache=None, cross_pages_per_req: int = 0,
                  kv_pages: bool = True, spec_tokens: int = 0):
         self.queue: collections.deque = collections.deque()
         self.seq_budget = seq_budget
@@ -152,7 +176,13 @@ class FCFSScheduler(Scheduler):
         self.prefix_cache = prefix_cache
         self.kv_pages = kv_pages
         self.slab_allocator = slab_allocator      # SSM archs
+        self.cross_cache = cross_cache            # enc-dec archs
+        self.cross_pages_per_req = cross_pages_per_req
         self.spec_tokens = spec_tokens
+        # cross pages planned this tick but not yet written: a second
+        # same-frame admission in the same plan() round shares them
+        # instead of running a second encode
+        self._pending_cross: dict = {}
         self.stats = stats
         self._round = 0      # logical clock: one tick per plan() call
         self._adm_seq = 0    # admission order stamp
@@ -198,8 +228,11 @@ class FCFSScheduler(Scheduler):
             need = self._req_pages(req)
             usable = self.allocator.n_pages - self.allocator.n_reserved
             if need > usable:       # reject now, not mid-run at admission
-                raise RuntimeError(f"request {req.rid} needs {need} pages; "
-                                   f"the pool only has {usable} usable")
+                raise RuntimeError(
+                    f"request {req.rid} needs {need} pages"
+                    + (f" (incl. {self.cross_pages_per_req} cross-KV)"
+                       if self.cross_pages_per_req else "")
+                    + f"; the pool only has {usable} usable")
         elif len(req.prompt) >= self.seq_budget:
             # the contiguous lane needs room past the prompt for decode
             raise RuntimeError(
@@ -215,24 +248,34 @@ class FCFSScheduler(Scheduler):
         return list(self.queue)
 
     def _req_pages(self, req) -> int:
-        """Page demand of one queued request.  Constant while it waits
-        (out_tokens only grow while admitted), so the backlog counter's add
-        and subtract stay symmetric across put-backs and requeues."""
-        if not self.paged or not self.kv_pages:
+        """Page demand of one queued request (cross-KV included).  Constant
+        while it waits (out_tokens only grow while admitted), so the
+        backlog counter's add and subtract stay symmetric across put-backs
+        and requeues."""
+        if not self.paged:
             return 0
-        return pages_needed(len(effective_prompt(req)) +
-                            remaining_new_tokens(req), self.psz)
+        n = pages_needed(len(effective_prompt(req)) +
+                         remaining_new_tokens(req), self.psz) \
+            if self.kv_pages else 0
+        return n + self.cross_pages_per_req
 
     def _evictable_pages(self) -> int:
-        """Pages eviction could eventually reclaim."""
-        return self.prefix_cache.n_evictable_pages \
-            if self.prefix_cache is not None else 0
+        """Pages eviction could eventually reclaim across both caches."""
+        n = 0
+        if self.prefix_cache is not None:
+            n += self.prefix_cache.n_evictable_pages
+        if self.cross_cache is not None:
+            n += self.cross_cache.n_evictable_pages
+        return n
 
     def _reclaim(self, shortfall: int) -> None:
-        """Evict cached runs (radix leaves, LRU first) until ``shortfall``
-        pages are freed."""
+        """Evict cached runs until ``shortfall`` pages are freed (radix
+        prefix leaves first, LRU first: they are rebuildable per request;
+        then whole cross-KV entries)."""
         if self.prefix_cache is not None:
-            self.prefix_cache.evict(shortfall)
+            shortfall -= self.prefix_cache.evict(shortfall)
+        if shortfall > 0 and self.cross_cache is not None:
+            self.cross_cache.evict(shortfall)
 
     def _admissible_without_eviction(self, req) -> bool:
         """True if a free slot could serve ``req`` right now, pool pages and
@@ -328,17 +371,47 @@ class FCFSScheduler(Scheduler):
             if slab is not None:
                 self.slab_allocator.free(slab)
             return None
+        # ---- encoder cross-KV (enc-dec): a digest hit shares, a miss
+        # encodes
+        cross_pages, needs_encode = None, False
+        if self.cross_cache is not None:
+            key = self.cross_cache.digest(req.frames)
+            cross_pages = self.cross_cache.acquire(key)
+            if cross_pages is None and key in self._pending_cross:
+                # the same frames admitted earlier this tick: its write
+                # step runs before any read, so sharing is already safe
+                cross_pages = list(self._pending_cross[key])
+                alloc.incref(cross_pages)
+            if cross_pages is None:
+                needs_encode = True
+                ncross = self.cross_pages_per_req
+                cross_pages = alloc.alloc(ncross)
+                if cross_pages is None and self._can_reclaim(ncross):
+                    self._reclaim(ncross - alloc.n_free)
+                    cross_pages = alloc.alloc(ncross)
+                if cross_pages is None:   # joint rollback; the head blocks
+                    alloc.decref(shared + fresh)
+                    if cow_src is not None:
+                        alloc.decref([cow_src])
+                    if slab is not None:
+                        self.slab_allocator.free(slab)
+                    return None
+                self._pending_cross[key] = list(cross_pages)
         spec = self._draft_headroom(req, L, total, fresh)
         # count on admission only: a blocked head-of-line request is
         # re-planned every tick and must not inflate the hit rates
         if self.prefix_cache is not None and self.stats is not None:
             self.stats.prefix_lookups += 1
             self.stats.prefix_hits += cached_len > 0
+        if self.cross_cache is not None and self.stats is not None:
+            self.stats.cross_lookups += 1
+            self.stats.cross_hits += not needs_encode
         # fresh[0] sits at block-table index n_full: exactly where the COW
         # copy of the partial page belongs
         cow = (cow_src, fresh[0]) if cow_src is not None else None
         return Admission(slot=slot, req=req, pages=shared + fresh,
                          cached_len=cached_len, cow=cow, slab=slab,
+                         cross_pages=cross_pages, needs_encode=needs_encode,
                          spec=spec)
 
     def _draft_headroom(self, req, L: int, total: int,
@@ -372,11 +445,22 @@ class FCFSScheduler(Scheduler):
             self.prefix_cache.insert(prompt[:n_full * self.psz],
                                      adm.pages[:n_full])
 
+    def on_cross_written(self, adm: Admission) -> None:
+        """The engine encoded adm's frames and wrote its cross pages:
+        publish them for later identical-frame requests (the cache takes
+        its own refs) and retire the same-tick pending entry."""
+        key = self.cross_cache.digest(adm.req.frames)
+        self._pending_cross.pop(key, None)
+        self.cross_cache.insert(key, adm.cross_pages)
+
     def _release(self, adm: Admission) -> None:
-        """Drop every resource an admission holds (pages, slab)."""
+        """Drop every resource an admission holds (pages, slab, cross
+        pages)."""
         self.allocator.decref(adm.pages)
         if adm.slab is not None:
             self.slab_allocator.free(adm.slab)
+        if adm.cross_pages is not None:
+            self.allocator.decref(adm.cross_pages)
 
     def on_finish(self, adm: Admission) -> None:
         if self.paged:
@@ -395,9 +479,10 @@ class FCFSScheduler(Scheduler):
     def on_preempt(self, adm: Admission, resident_tokens) -> None:
         """Salvage an evicted slot: donate its resident *full* pages to the
         prefix cache (resume finds them as a prefix hit: the victim's KV is
-        reused, never recomputed), drop the slot's page refs and slab (SSM
-        state travels through the engine's host stash instead), and
-        re-queue the request.  The partial tail page is slot-private KV and
+        reused, never recomputed), drop the slot's page refs, slab and
+        cross-KV refs (SSM state travels through the engine's host stash
+        instead; cross pages usually stay resident in the cross-KV cache),
+        and re-queue the request.  The partial tail page is slot-private KV and
         is freed; resume re-prefills those few tokens."""
         if self.paged:
             if self.prefix_cache is not None:

@@ -475,8 +475,10 @@ def test_check_supported_takes_gemma3_and_names_what_waits():
     model.check_supported(get_config("gemma3-27b"))
     cfg = get_config("gemma3-12b")
     model.check_supported(dataclasses.replace(cfg, tie_embeddings=False))
-    for bad, what in ((dict(norm="layernorm"), "layernorm"),
-                      (dict(gated_ffn=False), "plain (ungated) FFN"),
+    # layernorm and the plain FFN came with the enc-dec slice
+    model.check_supported(dataclasses.replace(cfg, norm="layernorm"))
+    model.check_supported(dataclasses.replace(cfg, gated_ffn=False))
+    for bad, what in ((dict(norm="groupnorm"), "a norm other than rmsnorm"),
                       (dict(frontend="vision_patches"), "vision frontend")):
         with pytest.raises(NotImplementedError, match=re.escape(what)):
             model.check_supported(dataclasses.replace(cfg, **bad))

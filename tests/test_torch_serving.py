@@ -124,7 +124,6 @@ def test_launcher_serves_on_cpu(capsys):
     (["--disagg", "1:1"], "disaggregated prefill/decode"),
     (["--scale-events", "8:1"], "elastic replicas"),
     (["--temperature", "0.7", "--tp", "2"], "tensor parallelism"),
-    (["--frame-groups", "2"], "encoder-decoder"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
     """A value of the JAX launcher's flags that the port cannot serve is
@@ -133,6 +132,15 @@ def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
         serve.parse_args(["--arch", "tinyllama-42m", *argv])
     assert e.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+def test_launcher_takes_frame_groups():
+    """``--frame-groups K`` parses, as in the JAX launcher, since the
+    enc-dec slice: the port serves encoder-decoders
+    (``tests/test_torch_seamless.py`` serves it)."""
+    assert serve.parse_args(["--arch", "seamless-m4t-large-v2",
+                             "--frame-groups", "2"]).frame_groups == 2
+    assert serve.parse_args(["--arch", "tinyllama-42m"]).frame_groups == 1
 
 
 LAUNCH = ["--arch", "tinyllama-42m", "--smoke", "--requests", "3", "--slots",
