@@ -11,8 +11,9 @@ each (and a few detail lines):
 1. env      the card (nvidia-smi name and power limit), torch and CUDA
             versions, the time to build every kernel from ``src/``, and
             each kernel instantiation's registers and spills (ptxas).
-2. kernels  each of the thirteen kernel variants (rmsnorm alone, with the
-            residual add fused in and as mamba2's gated norm, matmul, flash
+2. kernels  each of the fourteen kernel variants (rmsnorm alone, with the
+            residual add fused in and as mamba2's gated norm, matmul, the
+            matmul over an MoE layer's expert axis, flash
             attention, paged decode and paged verify over float and int8
             pools, the SSD scan from a float or an int8 state, decode
             attention over contiguous float or fixed-scale int8 lanes)
@@ -95,6 +96,16 @@ each (and a few detail lines):
             256-page cross block table over float and int8 pools, the
             contiguous decode at S 4096, matmul at M 4096, 32 and 8 for the
             projections and the plain FFN and the tied 256,206-row head;
+            then the expert matmul at deepseek-moe-16b's shapes (64
+            experts, E 2048 and F 1408 both ways round, capacities 8 and
+            16) and mixtral-8x22b's (8 experts, E 6144 and F 16384), with
+            a decode tick's routing, empty, partly filled and full
+            buckets, NaN in every row past a count (never read: finite
+            output, zeros past the counts), float32 and bf16, beside the
+            shared experts' products and the routers' float32 products
+            (K split over a cluster), the expert cases' bound counting
+            the non-empty experts' weights and the library time
+            ``torch.bmm`` over every expert;
             median
             times (CUDA graphs of back-to-back calls, CUDA events) of the
             kernel, the plain version and the one PyTorch call that
@@ -162,6 +173,14 @@ each (and a few detail lines):
             paged engine's) and int8 lanes (JAX's bare cast), 4 requests
             over 2 frame tensors, card against CPU, identical greedy
             tokens, live logits within the tinyllama or int8 tolerance.
+            parity-deepseek: deepseek-moe-16b cut to 1 dense and 2 MoE
+            layers at d_model 256 and experts of 128, its 64 experts,
+            top-6, 2 shared experts, 16 heads of 128 and vocab kept,
+            float32, weights x10: paged (also eager-serial) and
+            contiguous engines, card against CPU, identical greedy
+            tokens, live logits within the tinyllama tolerance, the same
+            pairs dropped by capacity, and the smallest gap between the
+            k-th and (k+1)-th routing probability printed.
             parity-ssm: full-width mamba2-370m in float32, card
             against CPU, from float32 and from int8 state slabs: identical
             greedy tokens (more than one distinct), live logits within
@@ -184,7 +203,7 @@ each (and a few detail lines):
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
             uninterrupted run.
-4. serve    bfloat16 weights, 8 slots, 16 requests, in sixteen phases:
+4. serve    bfloat16 weights, 8 slots, 16 requests, in seventeen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
             (int8 pools, random prompts) and serve-spec-int8, full-width
@@ -230,7 +249,13 @@ each (and a few detail lines):
             graph, 10L + 1 counted kernels a tick (layernorm is plain
             PyTorch: no norm kernel); a ``seamless[...]`` line with the
             encodes, the hit rate, one encode's time, TTFT and TPOT, the
-            busy share, device time and matmul share).  Every
+            busy share, device time and matmul share), and serve-deepseek
+            (full-width, full-depth deepseek-moe-16b, 32.75 GB of bf16
+            weights drawn on the card, serve's mix: the expert matmul 3
+            times per MoE layer in every step, 390 counted kernels a
+            step; the pairs dropped by capacity over its chunks and ticks
+            printed, and a ``deepseek[...]`` line with the matmul's and
+            the expert matmul's shares of device time).  Every
             request
             completes, pools and slabs are leak-free after drain(), and
             each kernel launched in the steps it belongs to (launch counts
@@ -264,7 +289,8 @@ each (and a few detail lines):
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
             the device's busy share of the phase, and the calls, device
-            time per call and share of matmul, flash attention, the SSD
+            time per call and share of matmul, the expert matmul, flash
+            attention, the SSD
             scan, paged and contiguous decode attention and the norm family
             (never more kernels in the trace than
             launches; the kernel phase checks one kernel per call exactly,
@@ -1265,6 +1291,7 @@ def phase_kernels(torch, F):
     _mistral_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _paper64h_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
     _seamless_kernels(torch, F, randn, gen, note, one_kernel, replay_check, rows)
+    _moe_kernels(torch, randn, gen, note, one_kernel, rows)
 
     for name, r in rows.items():
         r["max_abs_err_all_cases"] = max(worst[name], r["max_abs_err"])
@@ -2875,6 +2902,177 @@ def _seamless_kernels(torch, F, randn, gen, note, one_kernel, replay_check,
               f"library_us={lib} [{r['plan']}]")
 
 
+# deepseek-moe-16b's experts: 64 of width 1408 over d_model 2048, top-6,
+# 2 shared (one dense FFN of 2816); mixtral-8x22b's: 8 of 16384 over 6144
+DS_N, DS_E, DS_F, DS_K, DS_SHARED = 64, 2048, 1408, 6, 2
+MX_N, MX_E, MX_F, MX_K = 8, 6144, 16384, 2
+
+
+def _moe_kernels(torch, randn, gen, note, one_kernel, rows):
+    """The expert matmul (``ops.expert_matmul``) against its plain version
+    at deepseek-moe-16b's shapes (64 experts, E 2048 and F 1408 both ways
+    round: w_gate/w_up and w_down) for capacities 8 (a decode tick of 8
+    slots) and 16 (a chunk of 32, a verify of 8 x 5), with the shared
+    experts' dense products beside them (matmul at M 8 and 16, 2048 x 2816
+    and 2816 x 2048) and the router's float32 product (matmul at M 8, 32
+    and 40 over 2048 x 64: K split over a cluster), and at mixtral-8x22b's
+    (8 experts, E 6144 and F 16384, capacity 16; its router 6144 x 8).  Counts: a decode tick's routing of 8 rows
+    (deepseek's top-6: about 34 of 64 experts hold 1-2 rows, the rest are
+    empty; mixtral's top-2 over 8), buckets
+    empty, partly filled and full in turn, all full, all empty; every row
+    past a count holds NaN in the input (never read: the output is finite,
+    zeros past the counts).  float32 and bf16; bf16 runs twice (bitwise
+    equal) and every case is one kernel node in a CUDA graph.  Times (every
+    bf16 case at deepseek's shapes, mixtral's decode routing and full
+    buckets; L2-warm) beside the bound (the weight bytes of the non-empty experts,
+    the filled activation rows and the whole output, over the card's
+    bandwidth), the plain version and ``torch.bmm`` over every expert;
+    appended to the kernel's ``by_shape`` (the JSON line's row: deepseek's
+    w_gate/w_up at a decode tick)."""
+    from repro_torch.kernels import matmul as _mm
+    from repro_torch.kernels import ops, ref
+    bf = torch.bfloat16
+    timed = []
+
+    def add(name, r):
+        if name not in rows:
+            rows[name] = dict(r, by_shape=[])
+        rows[name]["by_shape"].append(r)
+        timed.append((name, r))
+
+    def routed(n, C, k, rows_, seed):
+        """Fill counts of a top-k routing of ``rows_`` rows, clamped to C."""
+        g = torch.Generator().manual_seed(seed)
+        c = torch.zeros(n, dtype=torch.int32)
+        for _ in range(rows_):
+            c[torch.randperm(n, generator=g)[:k]] += 1
+        return c.clamp(max=C)
+
+    def fills(n, C, k, seed):
+        return {"decode-routing": routed(n, C, k, 8, seed),
+                "empty/partial/full": torch.tensor(
+                    [(0, 1, C // 2, C)[i % 4] for i in range(n)],
+                    dtype=torch.int32),
+                "all full": torch.full((n,), C, dtype=torch.int32),
+                "all empty": torch.zeros(n, dtype=torch.int32)}
+
+    def case(tag, n, C, K, N, dt, counts, w, timed_case):
+        cnt = counts.cuda()
+        live = torch.arange(C, device="cuda")[None, :] < cnt[:, None]
+        x = torch.where(live[..., None], randn(n, C, K, dtype=dt),
+                        torch.full((), float("nan"), dtype=dt, device="cuda"))
+        got = ops.expert_matmul(x, w, cnt)
+        err = compare("expert_matmul", got, ref.ref_expert_matmul(x, w, cnt),
+                      dt, torch)
+        check(not got[~live].any(), f"expert_matmul {tag}: rows past the "
+                                    f"counts are not zero")
+        desc = (f"{tag} n={n} C={C} K={K} N={N} fill={int(cnt.sum())} rows in "
+                f"{int((cnt > 0).sum())} experts {dtype_name(dt)}")
+        note("expert_matmul", desc, err)
+        if dt == bf:
+            check(torch.equal(got, ops.expert_matmul(x, w, cnt)),
+                  f"expert_matmul {desc}: two calls differ")
+        one_kernel("expert_matmul", desc, lambda: ops.expert_matmul(x, w, cnt))
+        if not timed_case:
+            return
+        rows_ = int(cnt.sum())
+        b_ms, b_by = bound(int((cnt > 0).sum()) * K * N * 2 + rows_ * K * 2
+                           + n * C * N * 2 + n * 4, 2 * rows_ * K * N, bf)
+        xz = torch.nan_to_num(x, nan=0.0)
+        p = _mm.expert_plan(C, N, K, bf)
+        add("expert_matmul", dict(
+            shape=f"{tag} x ({n}, {C}, {K}) @ w ({n}, {K}, {N}) bf16, "
+                  f"{rows_} rows in {int((cnt > 0).sum())} of {n} experts",
+            max_abs_err=err,
+            plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} "
+                 f"blocks={p.blocks} x {n} experts smem={p.smem}",
+            ms=time_ms(lambda: ops.expert_matmul(x, w, cnt), torch),
+            plain_ms=time_plain(lambda: ref.ref_expert_matmul(x, w, cnt),
+                                torch),
+            library_ms=time_ms(lambda: torch.bmm(xz, w), torch),
+            bound_ms=b_ms, bound_by=b_by))
+
+    # deepseek: w_gate/w_up (E -> F) and w_down (F -> E), capacities 8, 16
+    for tag, K, N in (("deepseek w_gate/w_up", DS_E, DS_F),
+                      ("deepseek w_down", DS_F, DS_E)):
+        for dt in (torch.float32, bf):
+            w = (0.02 * randn(DS_N, K, N)).to(dt)
+            for C in (8, 16):
+                for fname, counts in fills(DS_N, C, DS_K, C + K).items():
+                    case(f"{tag} [{fname}]", DS_N, C, K, N, dt, counts, w,
+                         dt == bf)
+            del w
+    # the shared experts' dense FFN beside them, at M 8 and 16
+    Fs = DS_SHARED * DS_F
+    for tag, K, N in (("deepseek shared w_gate/w_up", DS_E, Fs),
+                      ("deepseek shared w_down", Fs, DS_E)):
+        b = (0.02 * randn(K, N)).to(bf)
+        for M in (8, 16):
+            a = randn(M, K, dtype=bf)
+            case_ = f"{tag} M={M} K={K} N={N} bf16"
+            err = compare("matmul", ops.matmul(a, b), ref.ref_matmul(a, b), bf,
+                          torch)
+            note("matmul", case_, err)
+            one_kernel("matmul", case_, lambda: ops.matmul(a, b))
+            b_ms, b_by = bound((M * K + K * N + M * N) * 2, 2 * M * N * K, bf)
+            p = _mm.plan(M, N, K, bf, False)
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ ({K}, {N}) bf16", M=M, K=K, N=N,
+                trans_b=False, max_abs_err=err,
+                plan=f"bn={p.bn} split={p.split} kt={p.kt} bm={p.bm} "
+                     f"blocks={p.blocks} smem={p.smem} vec={p.vec}",
+                ms=time_ms(lambda: ops.matmul(a, b), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b), torch),
+                bound_ms=b_ms, bound_by=b_by))
+    # the routers' float32 products (JAX's, from bf16 activations and
+    # weights): deepseek's (T, 2048) @ (2048, 64) at a decode tick, a chunk
+    # and a verify of 8 x 5, mixtral's (T, 6144) @ (6144, 8); K split over
+    # a cluster (a single tile)
+    for tag, K, N in (("deepseek router", DS_E, DS_N), ("mixtral router", MX_E,
+                                                       MX_N)):
+        b = randn(K, N, dtype=bf).float()
+        for M in (8, 32, 40):
+            a = randn(M, K, dtype=bf).float()
+            p = _mm.plan(M, N, K, torch.float32, False)
+            case_ = f"{tag} M={M} K={K} N={N} float32 split={p.split}"
+            got = ops.matmul(a, b)
+            err = compare("matmul", got, ref.ref_matmul(a, b), torch.float32,
+                          torch)
+            note("matmul", case_, err)
+            check(torch.equal(got, ops.matmul(a, b)),
+                  f"matmul {case_}: two calls differ")
+            one_kernel("matmul", case_, lambda: ops.matmul(a, b))
+            if M != 8:
+                continue
+            b_ms, b_by = bound((M * K + K * N + M * N) * 4, 2 * M * N * K,
+                               torch.float32)
+            add("matmul", dict(
+                shape=f"{tag} a ({M}, {K}) @ ({K}, {N}) float32", M=M, K=K,
+                N=N, trans_b=False, max_abs_err=err,
+                plan=f"simt bm={p.bm} split={p.split} kt={p.kt} "
+                     f"blocks={p.blocks}",
+                ms=time_ms(lambda: ops.matmul(a, b), torch),
+                plain_ms=time_plain(lambda: ref.ref_matmul(a, b), torch),
+                library_ms=time_ms(lambda: torch.matmul(a, b), torch),
+                bound_ms=b_ms, bound_by=b_by))
+    # mixtral: 8 experts of 16384 over 6144 (1.61 GB of bf16 a projection)
+    for tag, K, N in (("mixtral w_gate/w_up", MX_E, MX_F),
+                      ("mixtral w_down", MX_F, MX_E)):
+        for dt in (torch.float32, bf):
+            w = (0.02 * randn(MX_N, K, N)).to(dt)
+            for fname, counts in fills(MX_N, 16, MX_K, K).items():
+                case(f"{tag} [{fname}]", MX_N, 16, K, N, dt, counts, w,
+                     dt == bf and fname in ("decode-routing", "all full"))
+            del w
+            torch.cuda.empty_cache()
+    for name, r in timed:
+        lib = "none" if r["library_ms"] is None else f"{1e3 * r['library_ms']:.2f}"
+        print(f"  {name} time {r['shape']}: us={1e3 * r['ms']:.2f} "
+              f"bound_us={1e3 * r['bound_ms']:.2f} plain_us={1e3 * r['plain_ms']:.2f} "
+              f"library_us={lib} [{r['plan']}]")
+
+
 def _requests(Request, rng, n, lo, hi, max_new, vocab):
     import numpy as np
     return [Request(rid=i, prompt=rng.randint(2, vocab, int(L)).astype(np.int32),
@@ -3709,6 +3907,102 @@ def phase_parity_seamless(torch):
 
 # parity-sample: tinyllama-42m at full width cut to 4 of its 8 layers, and
 # the two samplers of the CPU tests
+# parity-deepseek: deepseek-moe-16b cut to 1 dense and 2 MoE layers and a
+# narrow width for the CPU side, keeping its 64 experts, top-6, 2 shared
+# experts, 16 heads of 128, vocab 102400 and untied head
+DS_PARITY_CUT = dict(n_layers=3, d_model=256, moe_d_ff=128,
+                     dense_ff_override=1024)
+
+
+def phase_parity_deepseek(torch):
+    """deepseek-moe-16b cut to 3 layers (the dense first layer and 2 MoE
+    layers), d_model 256, experts of 128, the dense layer's FFN 1024
+    (``DS_PARITY_CUT``), float32, weights x10 (the router's too: at the
+    init scale the 64 routing probabilities of a row lie within 1e-6 of
+    each other and greedy decoding collapses): engines on the card (the
+    expert matmul, the router's float32 product on the CUDA-core kernel)
+    against engines on the CPU (plain versions), 3 requests of 40-130
+    prompt tokens plus 16 new: the paged engine (also against the
+    eager-serial engine on the card) and the contiguous engine.  Live
+    logits of every step within the tinyllama tolerance (x10 weights too:
+    |logit| up to ~17), identical greedy tokens, the same
+    pairs dropped by capacity, leak-free.  Prints the smallest gap between
+    the k-th and (k+1)-th routing probability of any routed row on the CPU
+    side (padding rows and idle lanes too): a flip at a near-tie would be
+    explained by it."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model, moe
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              name="deepseek-moe-16b-parity", dtype="float32",
+                              **DS_PARITY_CUT)
+    check([s.ffn for s in cfg.layer_specs()] == ["dense", "moe", "moe"] and
+          (cfg.n_experts, cfg.top_k, cfg.n_shared_experts) == (64, 6, 2),
+          f"parity-deepseek: layers {[s.ffn for s in cfg.layer_specs()]}")
+    plan = ShardingPlan(kv_cache_dtype="float32")
+    base = model.init_params(cfg, plan, torch.Generator().manual_seed(0),
+                             device="cpu")
+    params = model.tree_map(lambda t: t * 10, base)
+    prompts = [np.random.RandomState(41 + i).randint(2, cfg.vocab_size, L)
+               for i, L in enumerate((40, 77, 130))]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr.astype(np.int32), max_new_tokens=16)
+                for i, pr in enumerate(prompts)]
+
+    gaps, topk = [], moe.router_topk
+
+    def gap_recorded(x, w, k, n):
+        out = topk(x, w, k, n)
+        probs = torch.softmax(x.float() @ w.float(), dim=-1)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        gaps.append(float((srt[:, k - 1] - srt[:, k]).min()))
+        return out
+
+    for paged in (True, False):
+        tag = "paged" if paged else "contiguous"
+        runs, drops = {}, {}
+        for dev in ("cuda", "cpu"):
+            moe.reset_dropped_pairs()
+            if dev == "cpu":
+                moe.router_topk = gap_recorded
+            try:
+                runs[dev] = _run_engine(torch, cfg, plan, params, reqs(), dev,
+                                        paged=paged)
+            finally:
+                moe.router_topk = topk
+            drops[dev] = moe.dropped_pairs()
+        err, mx = _same(f"parity-deepseek[{tag}]", runs["cuda"][1:3],
+                        runs["cpu"][1:3], PARITY_TOL)
+        check(drops["cuda"] == drops["cpu"], f"parity-deepseek[{tag}]: "
+              f"{drops['cuda']} pairs dropped on cuda, {drops['cpu']} on cpu")
+        toks = runs["cuda"][1]
+        n_distinct = len({t for r in toks for t in r})
+        check(n_distinct > 3, f"parity-deepseek[{tag}]: greedy decoding "
+                              f"collapsed {toks}")
+        if paged:
+            _eager_serial(torch, "parity-deepseek", toks, cfg, plan, params,
+                          reqs())
+        print(f"parity-deepseek: deepseek-moe-16b cut to {DS_PARITY_CUT} "
+              f"({cfg.n_experts} experts top-{cfg.top_k}, "
+              f"{cfg.n_shared_experts} shared, weights x10) float32, {tag} "
+              f"engine on cuda vs cpu: live logits of every step "
+              f"({runs['cuda'][2].numel()} values) max_abs_err={err:.3e} "
+              f"(|logit| max {mx:.2f}, tol rtol={PARITY_TOL['rtol']} atol="
+              f"{PARITY_TOL['atol']}); greedy tokens identical"
+              f"{', and to the eager-serial engine on cuda' if paged else ''}: "
+              f"3 requests x 16 tokens, {n_distinct} distinct; pairs dropped "
+              f"by capacity {drops['cuda']} on both; smallest routing gap "
+              f"(k-th - (k+1)-th probability, cpu) {min(gaps):.3e} over "
+              f"{len(gaps)} router calls")
+        del runs
+
+
 SAMPLE_DEPTH = 4
 SAMPLERS = {"top_k": dict(temperature=0.7, top_k=40),
             "top_p": dict(temperature=1.0, top_p=0.9)}
@@ -4210,6 +4504,7 @@ SERVE_PHASES = {
     "serve-sample": ("tinyllama-42m", "bfloat16", "", 0, "random"),
     "serve-64h": ("tinyllama-42m-64h", "bfloat16", "", 0, "random"),
     "serve-seamless": ("seamless-m4t-large-v2", "bfloat16", "", 0, "frames"),
+    "serve-deepseek": ("deepseek-moe-16b", "bfloat16", "", 0, "random"),
 }
 # the phases served at a cut depth, full width: mamba2's 48 layers to 12
 # (the profiles of the three mamba2 runs took 199 s at 48 layers and 101-131
@@ -4255,7 +4550,8 @@ PHASE_MIXER = {"serve": ("paged_decode_attention",),
                "serve-mistral": ("paged_decode_attention", "flash_attention"),
                "serve-sample": ("paged_decode_attention",),
                "serve-64h": ("paged_decode_attention",),
-               "serve-seamless": ("paged_decode_attention", "flash_attention")}
+               "serve-seamless": ("paged_decode_attention", "flash_attention"),
+               "serve-deepseek": ("paged_decode_attention", "flash_attention")}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -4336,10 +4632,11 @@ def _serve_setup(torch, name):
         cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[name])
     plan = ShardingPlan(kv_cache_dtype=kvd, ssm_cache_dtype=ssmd)
     sampler = SamplerConfig(**SERVE_SAMPLER.get(name, {}))
-    # full-width gemma3 (11.8 B parameters), hymba and mistral (28.5 B at 20
-    # layers) draw on the card
+    # full-width gemma3 (11.8 B parameters), hymba, mistral (28.5 B at 20
+    # layers) and deepseek-moe (16.4 B) draw on the card
     gen = torch.Generator(device="cuda" if kind in ("long", "frames") or
-                          arch == "mistral-large-123b" else "cpu")
+                          arch in ("mistral-large-123b", "deepseek-moe-16b")
+                          else "cpu")
     params = model.init_params(cfg, plan, gen.manual_seed(0), device="cuda")
     frames = [np.random.RandomState(100 + g).randn(
         cfg.enc_seq_len, cfg.d_model).astype(np.float32)
@@ -4373,7 +4670,8 @@ def _serve_setup(torch, name):
 
 
 # the kernels of the port, by the names their functions carry in a graph
-OUR_KERNELS = ("matmul_mma_kernel", "matmul_simt_kernel", "flash_mma_kernel",
+OUR_KERNELS = ("matmul_mma_kernel", "matmul_simt_kernel", "expert_mma_kernel",
+               "expert_simt_kernel", "flash_mma_kernel",
                "flash_simt_kernel", "paged_mma_kernel", "paged_simt_kernel",
                "contig_simt_kernel", "ssd_mma_kernel", "ssd_simt_kernel",
                "_rmsnorm_kernel")
@@ -4463,6 +4761,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     counts its kernels."""
     import numpy as np
 
+    from repro_torch.core import moe
     from repro_torch.kernels import ops
     arch, kvd, ssmd, k, kind = SERVE_PHASES[name]
     _free_card(torch)                         # the previous phase's model
@@ -4503,6 +4802,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         eng.steps["cross"] = counted("cross", eng.steps["cross"])
     reqs = requests()
     torch.cuda.synchronize()
+    moe.reset_dropped_pairs()
     ops.reset_launch_counts()                 # main path starts here
     t0 = time.perf_counter()
     for r in reqs:
@@ -4511,6 +4811,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()            # main path ends here
+    dropped = moe.dropped_pairs()
     check(all(r.done for r in reqs), f"{name}: not every request completed")
     check(all(0 < len(r.out_tokens) <= NEW for r in reqs), f"{name}: token counts")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
@@ -4583,9 +4884,15 @@ def phase_serve(torch, name, graphs=True, overlap=True):
               f"{name}: norm launches {got} in {calls[kd]} {kd} steps, not "
               f"{per_norm} per step")
     norms_layer = 0 if ln else 1 + ffn + qk + post
-    per_tick = (5 * has_attn + 7 * ssm + 3 * xattn +
-                (3 if cfg.gated_ffn else 2) * ffn + norms_layer) * n_layers + \
-        (1 if ln else 2)
+    # FFN products a layer: a dense FFN's 3 (2 ungated); an MoE layer's
+    # router (float32), its 3 expert products and its shared experts' 3
+    dense_k = 3 if cfg.gated_ffn else 2
+    n_moe = sum(s.ffn == "moe" for s in specs)
+    ffn_k = sum(dense_k if s.ffn == "dense" else
+                1 + dense_k + (dense_k if cfg.n_shared_experts else 0)
+                if s.ffn == "moe" else 0 for s in specs)
+    per_tick = (5 * has_attn + 7 * ssm + 3 * xattn + norms_layer) * n_layers \
+        + ffn_k + (1 if ln else 2)
     check(sum(per_phase["decode"].values()) == per_tick * calls["decode"],
           f"{name}: {sum(per_phase['decode'].values())} kernels in "
           f"{calls['decode']} decode ticks, not {per_tick} per tick")
@@ -4656,6 +4963,15 @@ def phase_serve(torch, name, graphs=True, overlap=True):
               f"{name}: {mixer} not launched {per_phase}")
         check(launches["flash_attention"] > 0,
               f"{name}: kernel flash_attention never launched")
+    # the expert matmul: each MoE layer's gate, up and down products in
+    # every step, and nowhere else
+    for kd in ["prefill"] + steps:
+        check(per_phase[kd]["expert_matmul"] == 3 * n_moe * calls[kd],
+              f"{name}: expert_matmul launched {per_phase[kd]['expert_matmul']} "
+              f"times in {calls[kd]} {kd} steps, not {3 * n_moe} per step")
+    if n_moe:
+        check(launches["expert_matmul"] > 0, f"{name}: kernel expert_matmul "
+                                             f"never launched")
     if eng.paged:
         check(launches["decode_attention"] == launches["decode_attention_i8"] == 0,
               f"{name}: the contiguous decode attention launched in a paged phase")
@@ -4706,7 +5022,9 @@ def phase_serve(torch, name, graphs=True, overlap=True):
           f"ttft_p50_ms={np.percentile(ttft, 50):.1f} "
           f"ttft_p99_ms={np.percentile(ttft, 99):.1f} "
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}{prefix}"
-          f"{window}" + (f"cross_encodes={cross['encodes']} cross_hit_rate="
+          f"{window}" + (f"moe_pairs_dropped_by_capacity={dropped} "
+                         if n_moe else "") +
+          (f"cross_encodes={cross['encodes']} cross_hit_rate="
                          f"{cross['hits'] / cross['lookups']:.3f} ({cross['hits']}/"
                          f"{cross['lookups']}) encode_ms={cross['encode_ms']:.3f} "
                          f"per_encode={per_call['cross']} " if cross else "") +
@@ -4737,7 +5055,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                 tokens_by_request=[r.out_tokens for r in reqs],
                 weight_bytes=sum(t.numel() * t.element_size()
                                  for t in eng.model.parameters()),
-                cross=cross,
+                cross=cross, dropped=dropped,
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 tpot_p50_ms=float(np.median(stats.tpot_s) * 1e3))
 
@@ -4794,6 +5112,8 @@ def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
     # is printed.
     for kname, fns, wrappers in (
             ("matmul", ("matmul_mma_kernel", "matmul_simt_kernel"), ("matmul",)),
+            ("expert matmul", ("expert_mma_kernel", "expert_simt_kernel"),
+             ("expert_matmul",)),
             ("flash_attention", ("flash_mma_kernel", "flash_simt_kernel"),
              ("flash_attention",)),
             ("ssd_scan", ("ssd_mma_kernel", "ssd_simt_kernel"),
@@ -5031,6 +5351,10 @@ KERNELS = {
                       "src/repro/kernels/rmsnorm.py:25"),
     "matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
                "src/repro/kernels/matmul.py:36"),
+    # port-only: JAX computes the experts' products as an XLA einsum, no
+    # Pallas kernel
+    "expert_matmul": ("cuda", "src/repro_torch/kernels/csrc/matmul.cu",
+                      "src/repro/core/moe.py:79"),
     "flash_attention": ("cuda", "src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:78"),
     "paged_decode_attention": ("cuda", _PAGED,
@@ -5076,6 +5400,31 @@ def _seamless_line(served, prof, smi_line):
           f"{pr['shares'].get('matmul', 0.0):.3f}; {smi_line}")
 
 
+def _deepseek_line(served, prof, smi_line):
+    """The ``deepseek[serve-deepseek]`` line: widths, experts, weight bytes,
+    the serve numbers, the pairs dropped by capacity over its chunks and
+    ticks, and the profile's busy share, device time and the matmul's and
+    the expert matmul's shares, beside the card."""
+    from repro_torch.configs import get_config
+    name = "serve-deepseek"
+    sv, pr = served[name], prof[name]
+    cfg = get_config(SERVE_PHASES[name][0])
+    print(f"deepseek[{name}]: {cfg.name} {cfg.n_layers} layers (the first a "
+          f"dense FFN of {cfg.dense_ff_override}), d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim_} "
+          f"experts={cfg.n_experts} of {cfg.moe_d_ff} top-{cfg.top_k} + "
+          f"{cfg.n_shared_experts} shared, vocab={cfg.vocab_size} untied; "
+          f"weights on the card {sv['weight_bytes'] / 1e9:.2f} GB bf16; "
+          f"tok_per_s={sv['tokens'] / sv['wall']:.1f} ticks={sv['ticks']} "
+          f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+          f"prefill_chunks={sv['chunks']} ttft_p50_ms={sv['ttft_p50_ms']:.1f} "
+          f"tpot_p50_ms={sv['tpot_p50_ms']:.2f} pairs_dropped_by_capacity="
+          f"{sv['dropped']} busy_share={pr['busy']:.3f} device_ms="
+          f"{pr['device_ms']:.2f} matmul_share="
+          f"{pr['shares'].get('matmul', 0.0):.3f} expert_matmul_share="
+          f"{pr['shares'].get('expert matmul', 0.0):.3f}; {smi_line}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this script "
@@ -5111,6 +5460,7 @@ def main() -> int:
         timed("parity-mistral", phase_parity_mistral, torch)
         timed("parity-64h", phase_parity_64h, torch)
         timed("parity-seamless", phase_parity_seamless, torch)
+        timed("parity-deepseek", phase_parity_deepseek, torch)
         timed("parity-sample", phase_parity_sample, torch)
         timed("parity-ssm", phase_parity_ssm, torch)
         timed("parity-contig", phase_parity_contig, torch)
@@ -5195,6 +5545,7 @@ def main() -> int:
                 f"device_ms={prof[name]['device_ms']:.2f}")
         print("64h[serve-64h vs serve]: " + " | ".join(rows_64))
         _seamless_line(served, prof, smi_line)
+        _deepseek_line(served, prof, smi_line)
         timed("sim", phase_sim, torch)
         timed("offload", phase_offload, torch, smi_line)
     except SmokeFailure as e:

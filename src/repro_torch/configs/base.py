@@ -207,8 +207,8 @@ def _ensure_loaded():
     if _REGISTRY:
         return
     from repro_torch.configs import (  # noqa: F401
-        gemma3, hymba, mamba2_370m, mistral_large, paper_models, pixtral,
-        qwen3, seamless_m4t)
+        deepseek_moe, gemma3, hymba, mamba2_370m, mistral_large, mixtral,
+        paper_models, pixtral, qwen3, seamless_m4t)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -6,7 +6,8 @@ over a contiguous lane (decode, and whole-prompt prefill; ``_kv_q``/``_kv_dq``
 with the fixed ``KVQ`` int8 scale, the card's decode kernel reading int8
 lanes in place, ``_kv_write``, ``_kv_fill``) or over
 the page pools (decode, speculative-verify and prefill-chunk modes, over
-float or int8 pools; ``_row_quant``, ``_page_write``), ``dense_ffn``,
+float or int8 pools; ``_row_quant``, ``_page_write``), ``dense_ffn`` and
+``ffn_sublayer`` (a dense FFN, or an MoE layer's routed and shared experts),
 ``ssm_mixer`` (decode, whole-sequence prefill from a zero state, and
 chunked prefill) over a contiguous lane or, through ``_paged_ssm``, over
 float32 or int8 state slabs, the encoder-decoder's ``cross_attn_mixer``
@@ -24,7 +25,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import FFN_NONE, MIX_ATTN, MIX_HYBRID, MIX_SSM
+from repro_torch.configs.base import (FFN_MOE, FFN_NONE, MIX_ATTN,
+                                     MIX_HYBRID, MIX_SSM)
+from repro_torch.core import moe
 from repro_torch.core import ssm as ssd
 from repro_torch.core.attention import (decode_attention, flash_attention,
                                         gather_kv, paged_decode_attention,
@@ -266,6 +269,23 @@ def dense_ffn(xn, pf, cfg):
     return _mm(h, pf["w_down"])
 
 
+def ffn_sublayer(xn, pf, cfg, plan, spec):
+    """JAX's ``ffn_sublayer``: an MoE layer's routed experts
+    (``moe.moe_ffn_ep`` when ``plan.moe_mode`` is "ep", else
+    ``moe.moe_ffn_tp``, at ``plan.moe_capacity``) plus its shared experts'
+    dense FFN, or the dense FFN."""
+    if spec.ffn == FFN_MOE:
+        if plan.moe_mode == "ep":
+            y = moe.moe_ffn_ep(xn, pf, cfg, 0, 1,
+                               capacity_factor=plan.moe_capacity)
+        else:
+            y = moe.moe_ffn_tp(xn, pf, cfg, capacity_factor=plan.moe_capacity)
+        if cfg.n_shared_experts:
+            y = y + dense_ffn(xn, pf["shared"], cfg)
+        return y
+    return dense_ffn(xn, pf, cfg)
+
+
 def cross_kv(enc_memory, pa, cfg):
     """One cross-attention layer's K/V of the encoder memory, (B, G,
     S_enc, D) each: no RoPE (JAX's ``forward_cross_kv``), k RMS-normed
@@ -449,8 +469,8 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     input fused as ``0.5 * (attention + SSM)`` (a hybrid layer, JAX's
     ``partial = 0.5 * (pa + ps_)``), then an enc-dec decoder's
     cross-attention (its own norm ``ln_x``, ``cross_attn_mixer`` over
-    ``cache["cross"]`` or ``enc_memory``), then a dense FFN unless the
-    layer has none.  The residual stream is carried as ``x`` and a pending
+    ``cache["cross"]`` or ``enc_memory``), then the FFN sublayer (dense,
+    or MoE: ``ffn_sublayer``) unless the layer has none.  The residual stream is carried as ``x`` and a pending
     ``delta`` (None before the first layer): each residual add is fused
     into the norm after it (``layers.add_rmsnorm``), so the layer opens
     with the norm of ``x + delta``, and the add of its last sublayer's
@@ -491,7 +511,7 @@ def layer_forward(x, p, cache, cfg, plan, lay, spec, mode, positions,
     if spec.ffn == FFN_NONE:
         return (x, partial), cache
     x, h = apply_norm(x, p["ln2"], cfg, partial)
-    out = dense_ffn(h, p["ffn"], cfg)
+    out = ffn_sublayer(h, p["ffn"], cfg, plan, spec)
     if cfg.sandwich_norm:
         out = rmsnorm(out, p["post_ln2"]["scale"], cfg.norm_eps)
     return (x, out), cache

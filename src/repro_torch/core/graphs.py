@@ -27,7 +27,9 @@ Launch counts (``kernels.ops``): a wrapper counts a launch where it
 launches its kernel, and a graph replay launches again every kernel the
 capture recorded.  So capture counts nothing (it launches nothing: the
 counts are put back as they were) and each replay adds the captured
-call's counts, per wrapper.  ``CompiledStep.launches`` holds them.
+call's counts, per wrapper.  ``CompiledStep.launches`` holds them.  The
+MoE layers' device counters of pairs dropped by capacity are put back
+after the warm-up calls too (``core.moe``): a replay adds its own.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import gc
 
 import torch
 
+from repro_torch.core import moe
 from repro_torch.kernels import ops
 
 WARMUP_CALLS = 2
@@ -69,11 +72,13 @@ class CompiledStep:
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
+        drops = moe.drop_counters()
         with torch.cuda.device(dev), torch.cuda.stream(side):
             for _ in range(WARMUP_CALLS):
                 fn(*self.inputs)
         main.wait_stream(side)
         torch.cuda.synchronize(dev)
+        moe.restore_drop_counters(drops)
         before = ops.launch_counts()
         # capture starts by emptying the cache: measure from there, so the
         # difference is the graph's own pool

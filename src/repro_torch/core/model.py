@@ -3,9 +3,10 @@ cache.
 
 Port of the JAX package's ``core/model.py`` for dense attention-only
 decoders (with gemma3's sandwich norms, scaled embedding and gelu FFN,
-and mistral's untied LM head), pure-SSM (mamba2) decoders, hybrid (hymba)
-decoders and encoder-decoders (seamless: layernorm, a plain gelu FFN, the
-encoder and cross-attention) at tp=1.  The parameter tree has the JAX
+and mistral's untied LM head), mixture-of-experts decoders (deepseek-moe,
+mixtral), pure-SSM (mamba2) decoders, hybrid (hymba) decoders and
+encoder-decoders (seamless: layernorm, a plain gelu FFN, the encoder and
+cross-attention) at tp=1.  The parameter tree has the JAX
 tree's paths, with the tp axis stripped (what the JAX package's
 ``blocks._lo`` returns) and the stacked ``reps`` axis kept:
 
@@ -24,7 +25,11 @@ with, per layer, ``ln1`` ``{"scale": (reps, E)}`` (layernorm: also
   ``{"w_up": (reps, E, F), "w_down": (reps, F, E)}``, gated FFNs also
   ``"w_gate"`` (with sandwich norms also ``post_ln1`` and ``post_ln2``,
   ``{"scale": (reps, E)}``), and an enc-dec decoder's ``ln_x`` and
-  ``xattn`` (the attention tree) between them, or
+  ``xattn`` (the attention tree) between them; an MoE layer's ``ffn`` is
+  ``{"router": {"w": (reps, E, n)}, "experts": {"w_up"/"w_gate": (reps,
+  n, E, F), "w_down": (reps, n, F, E)}}`` for n experts of width F
+  (``moe_d_ff``), with ``"shared"``, a dense FFN of F x n_shared, when
+  the model has shared experts (JAX's ``_moe_ffn_t``), or
 - SSM layers: ``ssm`` ``{"in_z"/"in_x": (reps, E, H, P), "in_dt": (reps, E,
   H), "in_B"/"in_C": (reps, E, N), "conv_x": (reps, H, P, K),
   "conv_B"/"conv_C": (reps, N, K), "A_log"/"D"/"dt_bias": (reps, H),
@@ -68,10 +73,12 @@ class ParamSpec:
 def check_supported(cfg: ModelConfig):
     """The port serves dense attention-only decoders (GQA, optional
     qk-norm, sliding windows, sandwich norms, a scaled embedding) with
-    RMSNorm or layernorm, a gated or plain SiLU or gelu FFN and a tied or
-    untied LM head, pure-SSM (mamba2) decoders, hybrid attention + SSM
-    decoders (hymba) and encoder-decoders over precomputed audio frames
-    (seamless); the rest waits for its slice.  A vision frontend (pixtral)
+    RMSNorm or layernorm, a gated or plain SiLU or gelu FFN, or MoE layers
+    (routed experts with shared experts beside them and dense first
+    layers: deepseek-moe, mixtral), and a tied or untied LM head, pure-SSM
+    (mamba2) decoders, hybrid attention + SSM decoders (hymba) and
+    encoder-decoders over precomputed audio frames (seamless); the rest
+    waits for its slice.  A vision frontend (pixtral)
     is refused for JAX's reason (``core/kvcache.py::
     paged_cache_supported``): its image embeds need injection at prefill,
     which token-only prompts cannot carry.  An encoder (mobilebert, the
@@ -80,7 +87,6 @@ def check_supported(cfg: ModelConfig):
     if cfg.is_encoder_only:
         raise ValueError(f"serving unsupported for arch '{cfg.name}': "
                          f"encoder-only arch has no decode path to serve")
-    specs = cfg.layer_specs()
     missing = [name for name, bad in (
         ("a norm other than rmsnorm or layernorm",
          cfg.norm not in ("rmsnorm", "layernorm")),
@@ -91,9 +97,7 @@ def check_supported(cfg: ModelConfig):
          "Queue 1 items 5 and 13)", cfg.frontend == "vision_patches"),
         ("a frontend other than an enc-dec arch's audio frames",
          cfg.frontend not in (None, "vision_patches") and
-         not (cfg.frontend == "audio_frames" and cfg.is_encdec)),
-        ("MoE layers (ROADMAP Queue 1 item 10)",
-         any(s.ffn == FFN_MOE for s in specs))) if bad]
+         not (cfg.frontend == "audio_frames" and cfg.is_encdec))) if bad]
     if missing:
         raise NotImplementedError(
             f"arch '{cfg.name}' needs {', '.join(missing)}, which the PyTorch "
@@ -145,8 +149,32 @@ def _attn_template(cfg, out_scale):
     return t
 
 
-def layer_template(cfg, spec, n_layers_total):
+def _dense_ffn_template(cfg, d_ff, out_scale):
+    """JAX's ``_dense_ffn_t``."""
     E = cfg.d_model
+    t = {"w_up": ParamSpec((E, d_ff)),
+         "w_down": ParamSpec((d_ff, E), scale=out_scale)}
+    if cfg.gated_ffn:
+        t["w_gate"] = ParamSpec((E, d_ff))
+    return t
+
+
+def _moe_ffn_template(cfg, out_scale):
+    """JAX's ``_moe_ffn_t``: the router (E, n), the experts' weights with
+    the expert axis first, and the shared experts as one dense FFN."""
+    E, F, n = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+    ex = {"w_up": ParamSpec((n, E, F)),
+          "w_down": ParamSpec((n, F, E), scale=out_scale)}
+    if cfg.gated_ffn:
+        ex["w_gate"] = ParamSpec((n, E, F))
+    t = {"router": {"w": ParamSpec((E, n))}, "experts": ex}
+    if cfg.n_shared_experts:
+        t["shared"] = _dense_ffn_template(cfg, F * cfg.n_shared_experts,
+                                          out_scale)
+    return t
+
+
+def layer_template(cfg, spec, n_layers_total):
     out_scale = 0.02 / math.sqrt(2 * n_layers_total)
     t = {"ln1": _norm_template(cfg)}
     if spec.mixer in (MIX_ATTN, MIX_HYBRID):
@@ -158,12 +186,10 @@ def layer_template(cfg, spec, n_layers_total):
     if spec.cross_attn:
         t["ln_x"] = _norm_template(cfg)
         t["xattn"] = _attn_template(cfg, out_scale)
-    if spec.ffn == FFN_DENSE:
+    if spec.ffn in (FFN_DENSE, FFN_MOE):
         t["ln2"] = _norm_template(cfg)
-        t["ffn"] = {"w_up": ParamSpec((E, spec.d_ff)),
-                    "w_down": ParamSpec((spec.d_ff, E), scale=out_scale)}
-        if cfg.gated_ffn:
-            t["ffn"]["w_gate"] = ParamSpec((E, spec.d_ff))
+        t["ffn"] = (_moe_ffn_template(cfg, out_scale) if spec.ffn == FFN_MOE
+                    else _dense_ffn_template(cfg, spec.d_ff, out_scale))
         if cfg.sandwich_norm:
             t["post_ln2"] = _norm_template(cfg)
     return t

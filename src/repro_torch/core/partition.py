@@ -6,7 +6,9 @@
 or int8 with per-(slab, head) scales; weight dtype: float only);
 ``head_layout`` keeps the grouped-query head layout that
 ``blocks._group_q`` uses, computed for tp=1, and ``ModelLayout.ssm`` the
-SSD heads' (one state per head, no grouping).
+SSD heads' (one state per head, no grouping).  ``ShardingPlan`` also keeps
+the MoE choices (``moe_mode``, ``moe_capacity``), and ``ModelLayout`` the
+FFN widths (``dim_layout`` at tp=1: nothing sliced, nothing padded).
 """
 from __future__ import annotations
 
@@ -42,12 +44,26 @@ def ssm_pool_is_quantized(plan) -> bool:
         torch_dtype(plan.ssm_cache_dtype) == torch.int8
 
 
+MOE_MODES = ("tp", "ep")
+
+
 @dataclass(frozen=True)
 class ShardingPlan:
-    """Storage choices of a one-device deployment."""
+    """Storage and MoE choices of a one-device deployment.  ``moe_mode``:
+    JAX's "tp" (every expert's F sliced over the model axis) or "ep"
+    (experts whole, n_experts / tp a shard); at tp=1 both hold every expert
+    whole and compute the same function.  ``moe_capacity``: the capacity
+    factor of each expert's bucket (``core.moe._capacity``)."""
     kv_cache_dtype: str = "bfloat16"  # page-pool dtype ("int8": quantized)
     ssm_cache_dtype: str = ""         # "" -> float32 slabs; "int8": quantized
     weight_dtype: str = ""            # "" -> cfg.dtype
+    moe_mode: str = "tp"              # tp | ep (the same at tp=1)
+    moe_capacity: float = 1.25        # expert capacity factor
+
+    def __post_init__(self):
+        if self.moe_mode not in MOE_MODES:
+            raise ValueError(f"moe_mode '{self.moe_mode}' is not one of "
+                             f"{MOE_MODES}")
 
 
 @dataclass(frozen=True)
@@ -77,14 +93,44 @@ def head_layout(n_q: int, n_kv: int) -> HeadLayout:
 
 
 @dataclass(frozen=True)
+class DimLayout:
+    """A plain dimension (FFN F, an expert count) at tp=1: JAX's
+    ``DimLayout`` with nothing sliced and nothing padded."""
+    n: int
+    tp: int
+    n_pad: int
+    loc: int
+
+
+def dim_layout(n: int) -> DimLayout:
+    return DimLayout(n, 1, n, n)
+
+
+@dataclass(frozen=True)
 class ModelLayout:
     attn: HeadLayout
-    ssm: Optional[HeadLayout]        # SSD heads (configs with ssm_state)
+    ssm: Optional[HeadLayout]                # SSD heads (configs with ssm_state)
+    ffn: DimLayout                           # dense FFN F
+    moe_ffn: Optional[DimLayout]             # per-expert F
+    shared_ffn: Optional[DimLayout]          # the shared experts' F
+    dense_override_ffn: Optional[DimLayout]  # deepseek's first layers
+    experts: Optional[DimLayout]             # experts a device holds ("ep")
 
 
 def model_layout(cfg: ModelConfig, plan: ShardingPlan) -> ModelLayout:
+    """JAX's ``model_layout`` at tp=1."""
     ssm = None
     if cfg.ssm_state:
         n_ssm_heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
         ssm = head_layout(n_ssm_heads, n_ssm_heads)
-    return ModelLayout(attn=head_layout(cfg.n_heads, cfg.n_kv_heads), ssm=ssm)
+    moe = bool(cfg.n_experts)
+    return ModelLayout(
+        attn=head_layout(cfg.n_heads, cfg.n_kv_heads), ssm=ssm,
+        ffn=dim_layout(cfg.d_ff),
+        moe_ffn=dim_layout(cfg.moe_d_ff) if moe else None,
+        shared_ffn=(dim_layout(cfg.moe_d_ff * cfg.n_shared_experts)
+                    if cfg.n_shared_experts else None),
+        dense_override_ffn=(dim_layout(cfg.dense_ff_override)
+                            if cfg.dense_ff_override else None),
+        experts=(dim_layout(cfg.n_experts)
+                 if moe and plan.moe_mode == "ep" else None))

@@ -70,7 +70,24 @@
 //
 // float32 keeps a CUDA-core kernel in full float32, on purpose (TF32 would
 // break the fp32 tolerance and the parity phases' token identity): one
-// block per 32 x 64 or 64 x 64 output tile, K walked in 16-wide steps.
+// block per 32 x 64 or 64 x 64 output tile, K walked in 16-wide steps;
+// a product of fewer than 4 tiles over K >= 2048 (an MoE router, which
+// JAX computes in float32) splits K over a cluster of up to 8 blocks,
+// summed in rank order through distributed shared memory.
+//
+// The expert kernels (expert_mma_kernel, expert_simt_kernel) run the same
+// blocks over an MoE layer's expert axis, grid z: expert e's bucket
+// (M rows, the capacity), weight (K, N) and output at offsets e M K, e K N
+// and e M N.  Each reads the expert's fill count on the card (so a CUDA
+// graph replays as the routing changes): rows past it are never read (NaN
+// there stays out) and come out zero, and a row tile wholly past it writes
+// its zeros and returns before streaming any weight, so an expert that
+// holds no token costs a few zero stores and no weight bytes.  JAX computes
+// these products as an XLA einsum over zero-padded buckets
+// (src/repro/core/moe.py:79-86): no Pallas kernel is behind them.
+// kernels/matmul.py::expert_plan picks their launch: 64-column tiles (the
+// only width instantiated for them) and the fewest blocks an expert (the
+// experts already fill the card).
 //
 // kernels/matmul.py::plan chooses every launch (tile, split, grid, shared
 // memory) in Python; the entry point checks the plan against the shape.
@@ -158,15 +175,18 @@ __host__ __device__ constexpr int smem_bytes(bool trans_b, int bn, int bm, int k
          (split > 1 ? split * inbox_per(bn, bm, split) * 4 : 0) + bm * a_stride(kt, bn) * 16;
 }
 
-// One launch.  Grid (grid_n x split, m tiles), cluster (split, 1, 1).  The
-// `split` blocks of a cluster share one BN-column tile and take consecutive
-// K ranges of kt pieces each; with split == 1 a block walks the column
-// tiles blockIdx.x, + grid_n, ... (persistent), its activation slice
-// loaded once and its ring streaming on across tile boundaries.
+// One block of a launch.  Grid (grid_n x split, m tiles), cluster (split,
+// 1, 1).  The `split` blocks of a cluster share one BN-column tile and take
+// consecutive K ranges of kt pieces each; with split == 1 a block walks the
+// column tiles blockIdx.x, + grid_n, ... (persistent), its activation slice
+// loaded once and its ring streaming on across tile boundaries.  Rows
+// [Mv, M) of A are never read and their rows of C are written as zeros (the
+// expert kernel's rows past an expert's fill count; Mv == M otherwise); a
+// block whose rows all lie there streams no weight.
 template <int BN, int MG, bool TRANS_B>
-__global__ void __launch_bounds__(THREADS, 4)
-matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* __restrict__ C,
-                  int M, int N, int K, int bm, int split, int kt, int vec) {
+__device__ __forceinline__ void mma_block(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                                          bf16* __restrict__ C, int M, int Mv, int N, int K,
+                                          int bm, int split, int kt, int vec) {
   constexpr int WN = BN / 16;             // warps across the columns
   constexpr int WK = 4 / WN;              // warps across a piece's K rows
   constexpr int BK = STAGE / BN;          // K rows per piece: 256, 128 or 64
@@ -190,7 +210,18 @@ matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* 
   const int first = blockIdx.x / split;
   const int my_tiles = first < n_tiles ? (n_tiles - 1 - first) / grid_n + 1 : 0;
   const int m0 = blockIdx.y * bm;
-  const int rows = min(bm, M - m0);
+  const int rows = min(bm, Mv - m0);      // rows of A this block reads
+  // rows [max(m0, Mv), min(m0 + bm, M)) of C are zeros, written by rank 0
+  // of the cluster for each of the block's tiles
+  if (rank == 0) {
+    const int z0 = max(m0, Mv), z1 = min(m0 + bm, M);
+    for (int tile = 0; tile < my_tiles && z0 < z1; ++tile) {
+      const int n0 = (first + tile * grid_n) * BN, cols = min(BN, N - n0);
+      for (int e = tid; e < (z1 - z0) * cols; e += THREADS)
+        C[(size_t)(z0 + e / cols) * N + n0 + e % cols] = __float2bfloat16_rn(0.f);
+    }
+  }
+  if (rows <= 0) return;                  // every block of the cluster returns here
   const int mgv = (rows + 7) / 8;         // 8-row groups holding a valid row
   const int k_begin = rank * KS;
   const bool v = vec != 0;
@@ -201,7 +232,7 @@ matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* 
   for (int i = tid; i < mgv * 8 * (KS / 8); i += THREADS) {
     const int r = i / (KS / 8), c = i % (KS / 8);
     const int gm = m0 + r, gk = k_begin + c * 8;
-    const int avail = gm < M ? max(0, min(8, K - gk)) : 0;
+    const int avail = gm < Mv ? max(0, min(8, K - gk)) : 0;
     load_chunk<true>(As + (r * astr + c) * 8, A + (size_t)gm * K + gk, avail, v, A);
   }
   // activation fragments: group 0 at the block's first K row (+ 8 rows per
@@ -280,7 +311,7 @@ matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* 
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int mi = m + (i & 1), ni = n + 8 * (i >> 1);
-          if (mi < M && ni < N) C[(size_t)mi * N + ni] = __float2bfloat16_rn(acc[0][g][i]);
+          if (mi < Mv && ni < N) C[(size_t)mi * N + ni] = __float2bfloat16_rn(acc[0][g][i]);
         }
       }
       return;
@@ -447,20 +478,44 @@ matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* 
   }
 }
 
+// C = A @ W.
 template <int BN, int MG, bool TRANS_B>
-int launch_mma(const void* a, const void* b, void* c, int M, int N, int K, int bm, int split,
-               int grid_n, int kt, int smem, int vec, cudaStream_t stream) {
-  auto kernel = matmul_mma_kernel<BN, MG, TRANS_B>;
-  static int granted = 48 * 1024;         // dynamic shared memory allowed so far
-  if (smem > granted) {
+__global__ void __launch_bounds__(THREADS, 4)
+matmul_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* __restrict__ C,
+                  int M, int N, int K, int bm, int split, int kt, int vec) {
+  mma_block<BN, MG, TRANS_B>(A, W, C, M, M, N, K, bm, split, kt, vec);
+}
+
+// C[e] = A[e] @ W[e] for expert e = blockIdx.z: A (n, M, K), W (n, K, N), C
+// (n, M, N), M the bucket capacity.  Only the first counts[e] rows of
+// expert e's bucket are read; the rest of C[e] is zeros, and a block past
+// the count streams nothing of W[e] (an empty expert's weight is never read).
+template <int BN, int MG>
+__global__ void __launch_bounds__(THREADS, 4)
+expert_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, bf16* __restrict__ C,
+                  const int* __restrict__ counts, int M, int N, int K, int bm, int split, int kt,
+                  int vec) {
+  const size_t e = blockIdx.z;
+  const int mv = min(max(counts[e], 0), M);
+  mma_block<BN, MG, false>(A + e * M * K, W + e * K * N, C + e * M * N, M, mv, N, K, bm, split,
+                           kt, vec);
+}
+
+// One launch of `kernel` over `grid` in clusters of (split, 1, 1) of
+// `threads` threads a block, its dynamic shared memory raised to `smem` on
+// first need (`granted`: the kernel's allowance so far).
+template <typename... KArgs, typename... Args>
+int launch_cluster(void (*kernel)(KArgs...), int* granted, dim3 grid, int threads, int split,
+                   int smem, cudaStream_t stream, Args... args) {
+  if (smem > *granted) {
     const cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
-    granted = smem;
+    *granted = smem;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid_n * split, (M + bm - 1) / bm, 1);
-  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -470,30 +525,54 @@ int launch_mma(const void* a, const void* b, void* c, int M, int N, int K, int b
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = split > 1 ? 1 : 0;
-  cudaLaunchKernelEx(&cfg, kernel, (const bf16*)a, (const bf16*)b, (bf16*)c, M, N, K, bm,
-                     split, kt, vec);
+  cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)cudaGetLastError();
 }
 
+// The product's operands and plan, passed down the dispatch; `counts`
+// null for a plain product, else the expert kernel over n_exp experts.
+struct Launch {
+  const void* a;
+  const void* b;
+  void* c;
+  const int* counts;
+  int n_exp, M, N, K, bm, split, grid_n, kt, smem, vec;
+  cudaStream_t s;
+};
+
+template <int BN, int MG, bool TRANS_B>
+int launch_mma(const Launch& l) {
+  const dim3 grid(l.grid_n * l.split, (l.M + l.bm - 1) / l.bm, l.n_exp);
+  if (l.counts) {                         // the expert kernel: bn 64 only
+    if constexpr (!TRANS_B && BN == 64) {
+      static int granted = 48 * 1024;     // dynamic shared memory allowed so far
+      return launch_cluster(expert_mma_kernel<BN, MG>, &granted, grid, THREADS, l.split, l.smem,
+                            l.s,
+                            (const bf16*)l.a, (const bf16*)l.b, (bf16*)l.c, l.counts, l.M, l.N,
+                            l.K, l.bm, l.split, l.kt, l.vec);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  static int granted = 48 * 1024;
+  return launch_cluster(matmul_mma_kernel<BN, MG, TRANS_B>, &granted, grid, THREADS, l.split,
+                        l.smem, l.s, (const bf16*)l.a, (const bf16*)l.b, (bf16*)l.c, l.M, l.N, l.K, l.bm,
+                        l.split, l.kt, l.vec);
+}
+
 template <int BN, bool TRANS_B>
-int dispatch_mg(const void* a, const void* b, void* c, int M, int N, int K, int bm, int split,
-                int grid_n, int kt, int smem, int vec, cudaStream_t s) {
-  if (bm <= 8)
-    return launch_mma<BN, 1, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
-  if (bm <= 16)
-    return launch_mma<BN, 2, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
-  if (bm <= 32)
-    return launch_mma<BN, 4, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
-  return launch_mma<BN, 8, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
+int dispatch_mg(const Launch& l) {
+  if (l.bm <= 8) return launch_mma<BN, 1, TRANS_B>(l);
+  if (l.bm <= 16) return launch_mma<BN, 2, TRANS_B>(l);
+  if (l.bm <= 32) return launch_mma<BN, 4, TRANS_B>(l);
+  return launch_mma<BN, 8, TRANS_B>(l);
 }
 
 template <bool TRANS_B>
-int dispatch_bn(const void* a, const void* b, void* c, int M, int N, int K, int bm, int bn,
-                int split, int grid_n, int kt, int smem, int vec, cudaStream_t s) {
+int dispatch_bn(const Launch& l, int bn) {
   switch (bn) {
-    case 16: return dispatch_mg<16, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
-    case 32: return dispatch_mg<32, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
-    case 64: return dispatch_mg<64, TRANS_B>(a, b, c, M, N, K, bm, split, grid_n, kt, smem, vec, s);
+    case 16: return dispatch_mg<16, TRANS_B>(l);
+    case 32: return dispatch_mg<32, TRANS_B>(l);
+    case 64: return dispatch_mg<64, TRANS_B>(l);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -504,29 +583,49 @@ constexpr int TN = 4;
 constexpr int SBK = 16;
 constexpr int SBN = 64;
 
+// One block's 32 x 64 or 64 x 64 tile of C = A @ B, or with split > 1 its
+// rank's share of K: the `split` blocks of a cluster take consecutive
+// ranges of 16-row K steps, and rank 0 adds their partial tiles in rank
+// order through distributed shared memory (a fixed order: bitwise the same
+// from run to run), for products with few tiles and a long K (an MoE
+// router's (T, 2048) @ (2048, 64)), where one block walking all of K is
+// bound by its loads' latency.  Rows [Mv, M) of A are never read and their
+// rows of C are written as zeros; a block whose rows all lie there reads
+// nothing.
 template <int BM, bool TRANS_B>
-__global__ void __launch_bounds__((BM / TM) * (SBN / TN))
-matmul_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
-                   int M, int N, int K) {
+__device__ __forceinline__ void simt_block(const float* __restrict__ A,
+                                           const float* __restrict__ B, float* __restrict__ C,
+                                           int M, int Mv, int N, int K, int split) {
   constexpr int NT = (BM / TM) * (SBN / TN);
   __shared__ float As[SBK][BM + 4];   // As[k][m]
   __shared__ float Bs[SBK][SBN + 4];  // Bs[k][n]
+  __shared__ float part[BM * SBN];    // the rank's partial tile (split > 1)
   const int tid = threadIdx.x;
   const int tx = tid % (SBN / TN);
   const int ty = tid / (SBN / TN);
+  const int rank = blockIdx.x % split;
   const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * SBN;
+  const int n0 = blockIdx.x / split * SBN;
+  if (m0 >= Mv) {                     // every block of the cluster returns here
+    for (int i = tid; i < BM * SBN && rank == 0; i += NT) {
+      const int gm = m0 + i / SBN, gn = n0 + i % SBN;
+      if (gm < M && gn < N) C[(size_t)gm * N + gn] = 0.f;
+    }
+    return;
+  }
+  const int per = ((K + SBK - 1) / SBK + split - 1) / split * SBK;   // K rows a rank
+  const int k_lo = rank * per, k_hi = min(K, k_lo + per);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += SBK) {
+  for (int k0 = k_lo; k0 < k_hi; k0 += SBK) {
     for (int i = tid; i < BM * SBK; i += NT) {   // consecutive threads: consecutive k
       const int m = i / SBK, k = i % SBK;
       const int gm = m0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
+      As[k][m] = (gm < Mv && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
     }
     for (int i = tid; i < SBK * SBN; i += NT) {
       if (TRANS_B) {                               // B is (N, K): coalesce along k
@@ -554,6 +653,27 @@ matmul_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, flo
     }
     __syncthreads();
   }
+  if (split > 1) {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[(ty * TM + i) * SBN + tx * TN + j] = acc[i][j];
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                   // every rank's partial tile is in place
+    if (rank == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int e = (ty * TM + i) * SBN + tx * TN + j;
+          float sum = 0.f;
+          for (int r = 0; r < split; ++r) sum += cluster.map_shared_rank(part, r)[e];
+          acc[i][j] = sum;
+        }
+    }
+    cluster.sync();                   // rank 0 is done reading the others
+    if (rank != 0) return;
+  }
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty * TM + i;
@@ -561,30 +681,78 @@ matmul_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, flo
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx * TN + j;
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
+      if (gn < N) C[(size_t)gm * N + gn] = gm < Mv ? acc[i][j] : 0.f;
     }
   }
 }
 
+template <int BM, bool TRANS_B>
+__global__ void __launch_bounds__((BM / TM) * (SBN / TN))
+matmul_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+                   int M, int N, int K, int split) {
+  simt_block<BM, TRANS_B>(A, B, C, M, M, N, K, split);
+}
+
+// The float32 twin of expert_mma_kernel: C[e] = A[e] @ B[e], e = blockIdx.z,
+// over the first counts[e] rows of A[e].
 template <int BM>
-int launch_simt(const void* a, const void* b, void* c, int M, int N, int K, int trans_b,
-                cudaStream_t stream) {
-  dim3 grid((N + SBN - 1) / SBN, (M + BM - 1) / BM);
-  dim3 block((BM / TM) * (SBN / TN));
+__global__ void __launch_bounds__((BM / TM) * (SBN / TN))
+expert_simt_kernel(const float* __restrict__ A, const float* __restrict__ B, float* __restrict__ C,
+                   const int* __restrict__ counts, int M, int N, int K, int split) {
+  const size_t e = blockIdx.z;
+  const int mv = min(max(counts[e], 0), M);
+  simt_block<BM, false>(A + e * M * K, B + e * K * N, C + e * M * N, M, mv, N, K, split);
+}
+
+template <int BM>
+int launch_simt(const Launch& l, int trans_b) {
+  const dim3 grid(l.grid_n * l.split, (l.M + BM - 1) / BM, l.n_exp);
+  constexpr int threads = (BM / TM) * (SBN / TN);
+  static int granted = 48 * 1024;     // no dynamic shared memory: never raised
+  const float *a = (const float*)l.a, *b = (const float*)l.b;
+  float* c = (float*)l.c;
+  if (l.counts)
+    return launch_cluster(expert_simt_kernel<BM>, &granted, grid, threads, l.split, 0, l.s, a, b,
+                          c, l.counts, l.M, l.N, l.K, l.split);
   if (trans_b)
-    matmul_simt_kernel<BM, true><<<grid, block, 0, stream>>>(
-        (const float*)a, (const float*)b, (float*)c, M, N, K);
-  else
-    matmul_simt_kernel<BM, false><<<grid, block, 0, stream>>>(
-        (const float*)a, (const float*)b, (float*)c, M, N, K);
-  return (int)cudaGetLastError();
+    return launch_cluster(matmul_simt_kernel<BM, true>, &granted, grid, threads, l.split, 0, l.s,
+                          a, b, c, l.M, l.N, l.K, l.split);
+  return launch_cluster(matmul_simt_kernel<BM, false>, &granted, grid, threads, l.split, 0, l.s,
+                        a, b, c, l.M, l.N, l.K, l.split);
+}
+
+// Checks the plan against the shape and launches it (see the entries below).
+int run(Launch l, int trans_b, int dtype, int bn) {
+  if (l.M <= 0 || l.N <= 0 || l.K < 0 || l.grid_n <= 0 || l.n_exp < 1 || l.n_exp > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (l.N + bn - 1) / bn;
+  if (dtype == 0) {
+    if (bn != SBN || l.split < 1 || l.split > 8 || (l.split & (l.split - 1)) || l.smem != 0 ||
+        l.grid_n != n_tiles)
+      return (int)cudaErrorInvalidValue;
+    if (l.bm == 32) return launch_simt<32>(l, trans_b);
+    if (l.bm == 64) return launch_simt<64>(l, trans_b);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype != 1 || (bn != 16 && bn != 32 && bn != 64) || l.bm <= 0 || l.bm > 64 ||
+      l.bm % 8 || l.split < 1 || l.split > 8 || (l.split & (l.split - 1)) ||
+      l.grid_n > n_tiles || (l.split > 1 && l.grid_n != n_tiles))
+    return (int)cudaErrorInvalidValue;
+  const int k_tiles = (l.K + STAGE / bn - 1) / (STAGE / bn);
+  if (k_tiles % l.split) return (int)cudaErrorInvalidValue;
+  l.kt = k_tiles / l.split;
+  if (l.smem != smem_bytes(trans_b != 0, bn, l.bm, l.kt, l.split,
+                           (n_tiles + l.grid_n - 1) / l.grid_n))
+    return (int)cudaErrorInvalidValue;
+  if (trans_b) return dispatch_bn<true>(l, bn);
+  return dispatch_bn<false>(l, bn);
 }
 
 }  // namespace
 
 // One launch of the plan kernels/matmul.py::plan chose.  dtype: 0 =
-// float32 (CUDA cores: bm 32 or 64, bn 64, split 1, grid_n the column
-// tiles, smem 0), 1 = bfloat16 (tensor cores: bm a multiple of 8 up to 64,
+// float32 (CUDA cores: bm 32 or 64, bn 64, split 1, 2, 4 or 8, grid_n the
+// column tiles, smem 0), 1 = bfloat16 (tensor cores: bm a multiple of 8 up to 64,
 // bn 16, 32 or 64, split 1, 2, 4 or 8 dividing the K tiles of 4096 / bn rows,
 // grid_n the column tiles with split > 1 and at most that with split 1,
 // smem as smem_bytes()).  All tensors contiguous row-major; with vec,
@@ -594,25 +762,22 @@ int launch_simt(const void* a, const void* b, void* c, int M, int N, int K, int 
 extern "C" int repro_matmul(const void* a, const void* b, void* c, int M, int N, int K,
                             int trans_b, int dtype, int bm, int bn, int split, int grid_n,
                             int smem, int vec, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K < 0 || grid_n <= 0) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (N + bn - 1) / bn;
-  if (dtype == 0) {
-    if (bn != SBN || split != 1 || smem != 0 || grid_n != n_tiles)
-      return (int)cudaErrorInvalidValue;
-    if (bm == 32) return launch_simt<32>(a, b, c, M, N, K, trans_b, s);
-    if (bm == 64) return launch_simt<64>(a, b, c, M, N, K, trans_b, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (dtype != 1 || (bn != 16 && bn != 32 && bn != 64) || bm <= 0 || bm > 64 ||
-      bm % 8 || split < 1 || split > 8 || (split & (split - 1)) || grid_n > n_tiles || (split > 1 && grid_n != n_tiles))
-    return (int)cudaErrorInvalidValue;
-  const int k_tiles = (K + STAGE / bn - 1) / (STAGE / bn);
-  if (k_tiles % split) return (int)cudaErrorInvalidValue;
-  const int kt = k_tiles / split;
-  if (smem != smem_bytes(trans_b != 0, bn, bm, kt, split, (n_tiles + grid_n - 1) / grid_n))
-    return (int)cudaErrorInvalidValue;
-  if (trans_b)
-    return dispatch_bn<true>(a, b, c, M, N, K, bm, bn, split, grid_n, kt, smem, vec, s);
-  return dispatch_bn<false>(a, b, c, M, N, K, bm, bn, split, grid_n, kt, smem, vec, s);
+  return run(Launch{a, b, c, nullptr, 1, M, N, K, bm, split, grid_n, 0, smem, vec,
+                    (cudaStream_t)stream},
+             trans_b, dtype, bn);
+}
+
+// The product over an expert axis: a (n_exp, M, K) @ b (n_exp, K, N) -> c
+// (n_exp, M, N), expert e reading the first counts[e] rows of a[e] (counts:
+// n_exp int32 on the card, read there, so a CUDA graph replays it as the
+// counts change) and writing zeros past them.  The plan is one of a single
+// (M, K) @ (K, N) product (no trans_b; bfloat16 at bn 64), launched over
+// n_exp experts on grid z.
+extern "C" int repro_expert_matmul(const void* a, const void* b, void* c, const void* counts,
+                                   int n_exp, int M, int N, int K, int dtype, int bm, int bn,
+                                   int split, int grid_n, int smem, int vec, void* stream) {
+  if (counts == nullptr) return (int)cudaErrorInvalidValue;
+  return run(Launch{a, b, c, (const int*)counts, n_exp, M, N, K, bm, split, grid_n, 0, smem,
+                    vec, (cudaStream_t)stream},
+             0, dtype, bn);
 }

@@ -1,7 +1,12 @@
-"""Launcher of the Hopper matmul kernel (``csrc/matmul.cu``).
+"""Launcher of the Hopper matmul kernel (``csrc/matmul.cu``), and of its
+instantiation over an expert axis.
 
-Replaces ``src/repro/kernels/matmul.py::matmul``.  See the source for what
-bounds it and how it is built; ``kernels.ops.matmul`` is the entry point.
+``matmul`` replaces ``src/repro/kernels/matmul.py::matmul``.  See the source
+for what bounds it and how it is built; ``kernels.ops.matmul`` is the entry
+point.  ``expert_matmul`` runs the same kernel over the experts of an MoE
+layer (grid z), each expert reading only its bucket's filled rows (the
+product JAX computes as an XLA einsum, ``src/repro/core/moe.py:79``; no
+Pallas kernel); ``kernels.ops.expert_matmul`` is its entry point.
 
 ``plan`` chooses every launch from (M, N, K, dtype, trans_b) alone, in
 plain Python, so the CPU tests can hold it to its limits; the C entry point
@@ -19,6 +24,7 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_EXPERT_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 SMS = 132                    # H100 SXM
 SMEM_MAX = 232448            # dynamic shared memory a block may use (227 KB)
@@ -33,6 +39,7 @@ SPLITS = (1, 2, 4, 8)        # blocks of a cluster sharing one tile's K
 BM_MAX = 64                  # activation rows per block; more tile grid y
 BNS = (64, 32, 16)           # weight columns per block, widest first
 SIMT_BN = 64                 # float32 CUDA-core kernel: 32x64 or 64x64 tiles
+SIMT_FEW, SIMT_LONG_K = 4, 2048   # float32: fewer tiles over a longer K split K
 
 
 @dataclass(frozen=True)
@@ -135,14 +142,21 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, trans_b: bool) -> Plan:
        that count, with its smallest split.
 
     float32 takes the CUDA-core kernel: 32 x 64 tiles up to 32 rows, 64 x
-    64 above, no split.  Raises ValueError for a shape no plan can take."""
+    64 above; fewer than ``SIMT_FEW`` tiles over K >= ``SIMT_LONG_K`` (an
+    MoE router) split K over a cluster of up to 8, each rank walking at
+    least 16 steps of 16 rows.  Raises ValueError for a shape no plan can
+    take."""
     if M <= 0 or N <= 0 or K < 0:
         raise ValueError(f"matmul: no plan for M={M} N={N} K={K}")
     if dtype == torch.float32:
         bm = 32 if M <= 32 else 64
-        n_tiles = _cdiv(N, SIMT_BN)
-        return Plan("simt", bm, SIMT_BN, 16, 1, _cdiv(K, 16), _cdiv(M, bm),
-                    n_tiles, n_tiles, 0, False)
+        n_tiles, m_tiles, steps = _cdiv(N, SIMT_BN), _cdiv(M, bm), _cdiv(K, 16)
+        split = 1
+        if n_tiles * m_tiles < SIMT_FEW and K >= SIMT_LONG_K:
+            while split < 8 and steps >= 2 * split * 16:
+                split *= 2
+        return Plan("simt", bm, SIMT_BN, 16, split, _cdiv(steps, split),
+                    m_tiles, n_tiles, n_tiles, 0, False)
     if dtype != torch.bfloat16:
         raise ValueError(f"matmul: dtype {dtype} has no kernel")
     vec = K % 8 == 0 and (trans_b or N % 8 == 0)
@@ -168,6 +182,31 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype, trans_b: bool) -> Plan:
                                          c.grid_n == c.n_tiles)
     split = [c for c in cands if c.blocks >= want] or cands
     return min(split, key=lambda c: (-c.bn, c.split))
+
+
+@functools.lru_cache(maxsize=None)
+def expert_plan(M: int, N: int, K: int, dtype: torch.dtype) -> Plan:
+    """The launch of one expert's (M, K) @ (K, N) product, run over the
+    experts on grid z (``expert_matmul``).  The expert axis already gives
+    the card its blocks (tens of experts, or a few of tens of MB each), so
+    where ``plan`` cuts one product into many small tiles this takes the
+    widest tile (bn 64, the only width the expert kernel instantiates: a
+    weight row's 128 contiguous bytes) with one tile a block, then the
+    smallest split whose block fits two to an SM, else the smallest split:
+    the rule read off a sweep of every candidate on the card at deepseek's
+    and mixtral's shapes (``scripts/torch_expert_plans.py``, PERF.md §6).
+    float32: ``plan``'s.  Raises ValueError for a shape no plan can take."""
+    p = plan(M, N, K, dtype, False)
+    if p.kernel != "mma":
+        return p
+    cands = sorted((c for c in _mma_candidates(M, N, K, p.bm, p.vec, False)
+                    if c.bn == 64 and c.grid_n == c.n_tiles),
+                   key=lambda c: c.split)
+    if not cands:
+        raise ValueError(f"expert_matmul: no 64-column plan for M={M} N={N} "
+                         f"K={K} within {SMEM_MAX} bytes of shared memory")
+    two = [c for c in cands if 2 * (c.smem + 1024) <= SMEM_SM]
+    return (two or cands)[0]
 
 
 def launch_plan(a, b, trans_b: bool) -> Plan:
@@ -208,4 +247,43 @@ def matmul(a, b, *, trans_b: bool = False):
                 int(trans_b), build.dtype_code(a.dtype), p.bm, p.bn, p.split,
                 p.grid_n, p.smem, int(p.vec), build.stream_of(a))
     build.check_launch(rc, "matmul")
+    return out
+
+
+def expert_matmul(x, w, counts):
+    """x: (n, C, K) @ w: (n, K, N), expert by expert -> (n, C, N) in x.dtype,
+    on the card: expert e reads rows ``[0, counts[e])`` of its bucket x[e]
+    and writes zeros past them; an expert whose count is 0 reads nothing
+    of w[e].  ``counts``: (n,) int32 on x's device, read there (a CUDA
+    graph replays with new counts).  The launch is ``expert_plan(C, N, K)``
+    over n experts."""
+    build.check_cuda_tensor(x, "expert_matmul x", 3, _DTYPES)
+    build.check_cuda_tensor(w, "expert_matmul w", 3, (x.dtype,))
+    build.check_cuda_tensor(counts, "expert_matmul counts", 1, (torch.int32,))
+    n, C, K = x.shape
+    if w.shape[0] != n or w.shape[1] != K or counts.shape[0] != n:
+        raise ValueError(f"expert_matmul: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} and counts {tuple(counts.shape)} "
+                         f"do not match")
+    if w.device != x.device or counts.device != x.device:
+        raise ValueError(f"expert_matmul: x on {x.device}, w on {w.device}, "
+                         f"counts on {counts.device}")
+    if n > 65535:
+        raise ValueError(f"expert_matmul: {n} experts, more than grid z takes")
+    N = w.shape[2]
+    out = torch.empty((n, C, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    p = expert_plan(C, N, K, x.dtype)
+    if p.kernel == "mma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"expert_matmul: the tensor-core kernel needs 16-byte "
+                         f"aligned operands, got addresses {x.data_ptr():#x} "
+                         f"and {w.data_ptr():#x}")
+    fn = build.kernel_function("matmul", "repro_expert_matmul",
+                               _EXPERT_ARGTYPES)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                n, C, N, K, build.dtype_code(x.dtype), p.bm, p.bn, p.split,
+                p.grid_n, p.smem, int(p.vec), build.stream_of(x))
+    build.check_launch(rc, "expert_matmul")
     return out

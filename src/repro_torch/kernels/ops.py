@@ -1,9 +1,9 @@
 """Dispatch over the kernels of the serving paths: rmsnorm (alone, with
-the residual add before it, or as mamba2's gated norm), matmul, flash
-attention, paged decode and verify attention over float or int8 pools,
-the SSD scan from a float or an int8 state, and decode attention over a
-contiguous cache of float or fixed-scale int8 lanes (thirteen kernel
-variants in all).
+the residual add before it, or as mamba2's gated norm), matmul, matmul
+over an MoE layer's expert axis, flash attention, paged decode and verify
+attention over float or int8 pools, the SSD scan from a float or an int8
+state, and decode attention over a contiguous cache of float or
+fixed-scale int8 lanes (fourteen kernel variants in all).
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version
 (``kernels.ref``); on a CUDA tensor it launches the Hopper kernel or
@@ -76,6 +76,20 @@ def matmul(a, b, *, trans_b: bool = False):
     out = _matmul.matmul(a, b, trans_b=trans_b)
     if out.numel():
         matmul.launches += 1
+    return out
+
+
+def expert_matmul(x, w, counts):
+    """x: (n, C, K) @ w: (n, K, N) for each of n experts -> (n, C, N) in
+    x.dtype with a float32 accumulator; expert e reads only the first
+    ``counts[e]`` rows of x[e] ((n,) int32, on x's device) and its rows
+    past them come out zero: an MoE layer's expert products over its
+    capacity buckets."""
+    if x.device.type == "cpu":
+        return ref.ref_expert_matmul(x, w, counts)
+    out = _matmul.expert_matmul(x, w, counts)
+    if out.numel():
+        expert_matmul.launches += 1
     return out
 
 
@@ -219,7 +233,7 @@ def decode_attention_i8(q, k, v, length, kv_scale, *, scale=None):
 
 
 WRAPPERS = (rmsnorm, rmsnorm_residual, rmsnorm_gated, matmul,
-            flash_attention, paged_decode_attention,
+            expert_matmul, flash_attention, paged_decode_attention,
             paged_decode_attention_i8, paged_verify_attention,
             paged_verify_attention_i8, ssd_scan, ssd_scan_i8,
             decode_attention, decode_attention_i8)

@@ -25,6 +25,17 @@ def ref_matmul(a, b, trans_b: bool = False):
     return torch.matmul(a.float(), bf).to(a.dtype)
 
 
+def ref_expert_matmul(x, w, counts):
+    """x: (n, C, K) @ w: (n, K, N) per expert -> (n, C, N) in x.dtype, with
+    a float32 accumulator; rows ``c >= counts[e]`` of expert e are zeros
+    whatever x holds there (``torch.where``, so NaN past a count stays
+    out)."""
+    out = torch.matmul(x.float(), w.float())
+    live = torch.arange(x.shape[1], device=x.device)[None, :] < \
+        counts.to(x.device)[:, None]
+    return torch.where(live[..., None], out, 0.0).to(x.dtype)
+
+
 def ref_rmsnorm(x, scale, eps: float = 1e-6):
     """x: (T, E); scale: (E,) -> x * rsqrt(mean(x^2) + eps) * (1 + scale)."""
     xf = x.float()

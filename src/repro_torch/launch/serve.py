@@ -29,7 +29,13 @@ full width and a cut depth from a script, as ``chip_smoke.py`` does;
 SSD heads in every layer, windows of 1024 on 29 of 32 layers), from
 per-slot KV and state lanes, or with ``--paged`` from KV pages and a
 state slab per request (``--kv-dtype int8``: int8 pools and slabs;
-``--policy priority --preemption`` stashes both on the host).  SSM archs
+``--policy priority --preemption`` stashes both on the host).
+``--arch deepseek-moe-16b`` serves the mixture of experts (6 of 64
+routed experts and 2 shared ones in every layer but the first: 32.75 GB
+of bf16 weights, whole on one card), ``--arch mixtral-8x22b`` 2 of 8
+experts with windows of 4096 (282 GB of bf16 at full depth: serve it
+with ``--smoke`` on one card); JAX's launcher has no MoE flag, so the
+capacity factor is the plan's 1.25 in both.  SSM archs
 refuse ``--speculative`` and ``--prefix-cache``, as in JAX, and print
 the ``ssm_slabs:`` line when paged.  ``--prefix-cache`` (implies
 ``--paged``) shares cached prompt prefixes through a radix tree with

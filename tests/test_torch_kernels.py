@@ -906,8 +906,11 @@ def test_ops_on_cpu_take_the_plain_path_and_count_nothing():
                          torch.ones(1, dtype=torch.int32), kv_scale=1 / 16)
     ops.rmsnorm_residual(x, x, torch.zeros(64))
     ops.rmsnorm_gated(x, x, torch.zeros(64), out_dtype=torch.bfloat16)
+    ops.expert_matmul(x.reshape(2, 2, 64), x.reshape(2, 64, 2),
+                      torch.tensor([1, 2], dtype=torch.int32))
     assert ops.launch_counts() == {"rmsnorm": 0, "rmsnorm_residual": 0,
                                    "rmsnorm_gated": 0, "matmul": 0,
+                                   "expert_matmul": 0,
                                    "flash_attention": 0,
                                    "paged_decode_attention": 0,
                                    "paged_decode_attention_i8": 0,

@@ -15,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py")) \
+    + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _imported_modules(path):
@@ -64,12 +65,21 @@ def test_unported_architectures_are_refused():
         model.init_params(dataclasses.replace(cfg, tie_embeddings=False,
                                               frontend="vision_patches"),
                           ShardingPlan(), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE layers"):
-        model.init_params(dataclasses.replace(cfg, n_experts=4, top_k=2,
-                                              moe_d_ff=64),
-                          ShardingPlan(), device="cpu")
-    with pytest.raises(KeyError, match="hymba-1.5b"):
-        get_config("mixtral-8x22b")
+    # MoE layers are served: init_params builds the router, the experts
+    # (expert axis first) and the shared experts' dense FFN
+    moe = dataclasses.replace(cfg, n_experts=4, top_k=2, moe_d_ff=64,
+                              n_shared_experts=1)
+    ffn = model.init_params(moe, ShardingPlan(), device="cpu")["stacks"][0][0]["ffn"]
+    L, E = cfg.n_layers, cfg.d_model
+    assert {k: tuple(v.shape) for k, v in model.tree_paths(ffn)} == {
+        "router.w": (L, E, 4), "experts.w_up": (L, 4, E, 64),
+        "experts.w_gate": (L, 4, E, 64), "experts.w_down": (L, 4, 64, E),
+        "shared.w_up": (L, E, 64), "shared.w_gate": (L, E, 64),
+        "shared.w_down": (L, 64, E)}
+    # an unknown name raises a KeyError that lists the registered names
+    with pytest.raises(KeyError, match="deepseek-moe-16b.*hymba-1.5b.*"
+                                       "mixtral-8x22b"):
+        get_config("no-such-arch")
     # the paper's encoder: registered for the sim, refused for JAX's reason
     # (src/repro/core/kvcache.py::paged_cache_supported)
     why = "encoder-only arch has no decode path to serve"

@@ -780,9 +780,6 @@ def test_refusals_are_jax_s(seamless, frames, mesh1):
             rid=0, prompt=np.arange(2, 6, dtype=np.int32), frames=fr)))
         assert got == want
     assert "frames" in want[1]
-    with pytest.raises(NotImplementedError, match="MoE layers"):
-        model.check_supported(dataclasses.replace(cfg, n_experts=4, top_k=2,
-                                                  moe_d_ff=64))
     with pytest.raises(NotImplementedError, match="vision frontend"):
         model.check_supported(dataclasses.replace(cfg,
                                                   frontend="vision_patches"))

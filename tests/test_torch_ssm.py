@@ -647,8 +647,8 @@ def test_speculation_is_refused_for_ssm_archs(ssm_weights, capsys):
     (dict(frontend="vision_patches"), "the token-only chunked prefill step "
                                       "cannot carry them (ROADMAP Queue 1 "
                                       "items 5 and 13)"),
-    (dict(n_experts=4, top_k=2, moe_d_ff=64), "MoE layers (ROADMAP Queue 1 "
-                                              "item 10)"),
+    (dict(frontend="audio_frames"), "a frontend other than an enc-dec "
+                                    "arch's audio frames"),
 ])
 def test_hybrid_and_moe_archs_name_their_slice(change, slice_):
     cfg = dataclasses.replace(reduced(get_config("tinyllama-42m")), **change)
