@@ -3170,23 +3170,25 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
 
 
 def leak_check(name, eng):
-    """After ``drain()``: every page free or held by the prefix cache or
-    the cross-KV cache, and free after the caches are evicted whole; every
-    slab free."""
-    if eng.paged:
-        usable = eng.allocator.n_pages - eng.allocator.n_reserved
-        caches = [c for c in (eng.prefix_cache, eng.cross_cache) if c]
+    """After ``drain()``, on every replica: every page free or held by the
+    prefix cache or the cross-KV cache, and free after the caches are
+    evicted whole; every slab free."""
+    for r in range(eng.R if eng.paged else 0):
+        alloc = eng.allocators[r]
+        usable = alloc.n_pages - alloc.n_reserved
+        caches = [c for c in (eng.prefix_caches[r], eng.cross_caches[r]
+                              if eng.cross_caches else None) if c]
         cached = sum(c.n_cached_pages for c in caches)
-        check(eng.allocator.n_free + cached == usable,
-              f"{name}: pool leaked {usable - cached - eng.allocator.n_free} "
-              f"pages on {eng.device}")
+        check(alloc.n_free + cached == usable,
+              f"{name}: replica {r}'s pool leaked "
+              f"{usable - cached - alloc.n_free} pages on {eng.device}")
         for c in caches:
             c.evict(usable)
         if caches:
-            check(eng.allocator.n_free == usable and
+            check(alloc.n_free == usable and
                   all(c.n_cached_pages == 0 for c in caches),
                   f"{name}: pages left after a full evict on {eng.device}")
-    check(not eng.has_slabs or eng.slab_allocator.n_free == eng.n_slabs - 1,
+    check(all(s.n_free == eng.n_slabs - 1 for s in eng.slab_allocators),
           f"{name}: slabs not leak-free after drain() on {eng.device}")
 
 
@@ -3635,9 +3637,9 @@ def phase_parity_hymba(torch):
                                     prefill_chunk=32, device="cuda")
     restore = eng._restore_slot
 
-    def counted_restore(adm, stash):
+    def counted_restore(r, adm, stash):
         restored.append(stash["n_kv_pages"])
-        restore(adm, stash)
+        restore(r, adm, stash)
 
     eng._restore_slot = counted_restore
     got = _serve_arrivals(eng, reqs(), 3, 1, preempt=force)
@@ -4362,6 +4364,93 @@ def phase_parity_prefix(torch):
                  if k else ""))
 
 
+def _two_prefix_requests(Request, rng, n, lo, hi, max_new, vocab, shared=40):
+    """``_prefix_requests`` behind two system prompts, request i behind the
+    (i mod 2)-th: prefix affinity then spreads them over two replicas."""
+    import numpy as np
+    heads = [rng.randint(2, vocab, shared) for _ in range(2)]
+    return [Request(rid=i, prompt=np.concatenate(
+                [heads[i % 2], rng.randint(2, vocab, int(L))]).astype(np.int32),
+                    max_new_tokens=max_new)
+            for i, L in enumerate(rng.randint(lo, hi + 1, n))]
+
+
+def _replica_counts(eng):
+    """Per-replica (role, routed, prefills, tokens, handoffs out/in, pages
+    out/in)."""
+    return [(x.role, x.routed, x.prefills, x.decoded_tokens, x.handoffs_out,
+             x.handoffs_in, x.pages_transferred_out, x.pages_transferred_in)
+            for x in eng.stats.replicas]
+
+
+def phase_parity_dp(torch, name="parity-dp", **reps):
+    """Replicas on the card, fp32 at full width and depth: tinyllama (x10
+    float pools, x1.75 int8 pools) over dp = 2 replicas of 2 slots (or
+    ``disagg``), FCFS with the prefix cache, 8 requests behind two 40-token
+    system prompts: the card against the CPU (greedy tokens identical,
+    live logits within tolerance, the same routing and per-replica
+    counters, handoffs included) and against itself with graphs=False,
+    overlap=False; every replica leak-free.  dp = 2 is held against dp = 1
+    on the CPU only (the tests): on the card the matmul's plan may change
+    with M = 2 x slots rows."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.serving import Request
+    reps = reps or dict(dp=2)
+    cfg = get_config("tinyllama-42m")
+    base = model.init_params(cfg, ShardingPlan(kv_cache_dtype="float32"),
+                             torch.Generator().manual_seed(0), device="cpu",
+                             dtype="float32")
+
+    def reqs():
+        return _two_prefix_requests(Request, np.random.RandomState(5), 8, 4,
+                                    60, 16, cfg.vocab_size)
+
+    for kvd, scale, tol in (("float32", 10, PARITY_TOL),
+                            ("int8", 1.75, INT8_PARITY_TOL)):
+        plan = ShardingPlan(kv_cache_dtype=kvd)
+        params = model.tree_map(lambda t, s=scale: t * s, base)
+        kw = dict(slots=2, prefix_cache=True, **reps)
+        runs = {dev: _run_engine(torch, cfg, plan, params, reqs(), dev, **kw)
+                for dev in ("cuda", "cpu")}
+        err, mx = _same(f"{name}[{kvd}]", runs["cuda"][1:3], runs["cpu"][1:3],
+                        tol)
+        toks = runs["cuda"][1]
+        _eager_serial(torch, f"{name}[{kvd}]", toks, cfg, plan, params, reqs(),
+                      **kw)
+        eng, cpu = runs["cuda"][0], runs["cpu"][0]
+        st = eng.stats
+        counts = _replica_counts(eng)
+        check(counts == _replica_counts(cpu) and (st.handoffs,
+              st.pages_transferred, st.prefix_hits, st.cow_copies) ==
+              (cpu.stats.handoffs, cpu.stats.pages_transferred,
+               cpu.stats.prefix_hits, cpu.stats.cow_copies),
+              f"{name}[{kvd}]: per-replica counters differ card vs cpu\n  "
+              f"{counts}\n  {_replica_counts(cpu)}")
+        check(all(c[3] > 0 for c in counts) if "disagg" not in reps
+              else st.handoffs == 8, f"{name}[{kvd}]: {counts}")
+        print(f"{name}: {kvd} pools, {reps}, 2 slots a replica, 8 requests "
+              f"behind two 40-token prefixes, on cuda vs cpu: live logits "
+              f"max_abs_err={err:.3e} (|logit| max {mx:.2f}, tol rtol="
+              f"{tol['rtol']} atol={tol['atol']}); greedy tokens identical to "
+              f"cpu and to the eager-serial engine on cuda "
+              f"({len({t for r in toks for t in r})} distinct); replicas "
+              f"(role, routed, prefills, tokens, handoffs out/in, pages "
+              f"out/in) {counts} equal on cpu; handoffs={st.handoffs} "
+              f"pages_transferred={st.pages_transferred} prefix_hits="
+              f"{st.prefix_hits}/{st.prefix_lookups} cow_copies="
+              f"{st.cow_copies}")
+
+
+def phase_parity_disagg(torch):
+    """``phase_parity_dp`` at disagg 1:1: every request prefills on
+    replica 0 and hands off to replica 1; handoff counts card == cpu."""
+    phase_parity_dp(torch, "parity-disagg", dp=2, disagg=(1, 1))
+
+
 def _serve_arrivals(eng, reqs, first, every, preempt=None, max_ticks=3000):
     """Serve ``reqs`` with arrivals over time: the first ``first`` at
     once, then one more every ``every`` ticks; ``preempt(eng, tick)`` may
@@ -4505,7 +4594,16 @@ SERVE_PHASES = {
     "serve-64h": ("tinyllama-42m-64h", "bfloat16", "", 0, "random"),
     "serve-seamless": ("seamless-m4t-large-v2", "bfloat16", "", 0, "frames"),
     "serve-deepseek": ("deepseek-moe-16b", "bfloat16", "", 0, "random"),
+    "serve-dp": ("tinyllama-42m", "bfloat16", "", 0, "random"),
+    "serve-disagg": ("tinyllama-42m", "bfloat16", "", 0, "random"),
 }
+# the phases served by replicas on the one card: serve's model and mix, 32
+# requests, over 2 replicas of SLOTS slots (their own pools, allocators and
+# schedulers, one step set; the router places the requests), or 1 prefill
+# and 1 decode replica handing finished page runs over
+SERVE_REPLICAS = {"serve-dp": dict(dp=2),
+                  "serve-disagg": dict(dp=2, disagg=(1, 1))}
+SERVE_REQUESTS = {"serve-dp": 32, "serve-disagg": 32}
 # the phases served at a cut depth, full width: mamba2's 48 layers to 12
 # (the profiles of the three mamba2 runs took 199 s at 48 layers and 101-131
 # s at 24, the host-bound share of the script that varies most from call to
@@ -4551,7 +4649,9 @@ PHASE_MIXER = {"serve": ("paged_decode_attention",),
                "serve-sample": ("paged_decode_attention",),
                "serve-64h": ("paged_decode_attention",),
                "serve-seamless": ("paged_decode_attention", "flash_attention"),
-               "serve-deepseek": ("paged_decode_attention", "flash_attention")}
+               "serve-deepseek": ("paged_decode_attention", "flash_attention"),
+               "serve-dp": ("paged_decode_attention",),
+               "serve-disagg": ("paged_decode_attention",)}
 # the norm kernel's three variants: alone (the first layer's input norm),
 # with the residual add before it, and mamba2's gated norm
 NORMS = ("rmsnorm", "rmsnorm_residual", "rmsnorm_gated")
@@ -4615,8 +4715,9 @@ def _serve_setup(torch, name):
     random mix; serve-sample: serve's model and mix, sampled
     (``SERVE_SAMPLER``); serve-seamless: full-width, full-depth
     seamless-m4t-large-v2 drawn on the card, serve's random mix over
-    ``SM_FRAME_GROUPS`` frame tensors); the contiguous engine for
-    ``CONTIG_PHASES``, else the paged one."""
+    ``SM_FRAME_GROUPS`` frame tensors; serve-dp and serve-disagg: serve's
+    model and mix, 32 requests, over ``SERVE_REPLICAS``); the contiguous
+    engine for ``CONTIG_PHASES``, else the paged one."""
     import dataclasses
     import functools
 
@@ -4660,10 +4761,12 @@ def _serve_setup(torch, name):
                                          speculative=k, overlap=overlap,
                                          prefix_cache=prefix_cache,
                                          sampler=sampler, graphs=graphs,
-                                         device="cuda")
+                                         device="cuda",
+                                         **SERVE_REPLICAS.get(name, {}))
 
-    def requests(seed=0, n=16, new=NEW):
-        return make(Request, np.random.RandomState(seed), n, lo, hi, new,
+    def requests(seed=0, n=None, new=NEW):
+        return make(Request, np.random.RandomState(seed),
+                    n or SERVE_REQUESTS.get(name, 16), lo, hi, new,
                     cfg.vocab_size)
 
     return cfg, engine, requests
@@ -4692,14 +4795,15 @@ def graph_report(torch, name, steps, calls):
         counted = sum(step.launches.values())
         check(ours == counted, f"{name}: the {kind} graph holds {ours} of the "
                                f"port's kernels, its capture counted {counted}")
-        plain = kind in ("copy", "cross")     # no ids come out of these
+        plain = kind in ("copy", "cross", "transfer")   # no ids come out
         check(plain != any("ArgMax" in n for n in kern),
               f"{name}: the {kind} graph {'holds' if plain else 'lacks'}"
               f" an argmax kernel")
         n_copy = sum(k == 1 for k, _ in nodes)
         n_set = sum(k == 2 for k, _ in nodes)
         replays = calls[kind]
-        what = (f"PyTorch's {sorted({n[:80] for n in kern})}" if kind == "copy"
+        what = (f"PyTorch's {sorted({n[:80] for n in kern})}"
+                if kind in ("copy", "transfer")
                 else f"the port's {ours} = counted launches per replay, "
                      f"PyTorch's {len(kern) - ours}"
                      f"{'' if plain else ' with the argmax'}")
@@ -4837,11 +4941,28 @@ def phase_serve(torch, name, graphs=True, overlap=True):
               f"{name}: {stats.cross_encodes} encodes ({calls['cross']} write "
               f"steps), {stats.cross_hits}/{stats.cross_lookups} cross hits, "
               f"not {want}")
+    xfer = {}
+    if "transfer" in graph_steps:
+        # one handoff alone: the transfer graph replayed (the last
+        # handoff's pages again, into pages drain() freed), CUDA events
+        # around it
+        check(stats.handoffs == len(reqs) and stats.pages_transferred > 0,
+              f"{name}: {stats.handoffs} handoffs of {len(reqs)} requests, "
+              f"{stats.pages_transferred} pages")
+        n_rep, ev = 20, [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(n_rep):
+            graph_steps["transfer"]()
+        ev[1].record()
+        ev[1].synchronize()
+        xfer = dict(handoffs=stats.handoffs, pages=stats.pages_transferred,
+                    us=1e3 * ev[0].elapsed_time(ev[1]) / n_rep)
     prefix = ""
-    if eng.prefix_cache is not None:
+    if any(c is not None for c in eng.prefix_caches):
         check(stats.cow_copies > 0 and stats.prefill_tokens_skipped > 0,
               f"{name}: no prefix reuse {stats}")
-        cached = eng.prefix_cache.n_cached_pages
+        cached = sum(c.n_cached_pages for c in eng.prefix_caches)
         prefix = (f"prefix_hit_rate={stats.prefix_hit_rate:.3f} ({stats.prefix_hits}/"
                   f"{stats.prefix_lookups}) prefill_tokens_skipped="
                   f"{stats.prefill_tokens_skipped} of "
@@ -4997,7 +5118,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                 for kd, c in per_phase.items()}
     step_calls = {"chunk": calls["prefill"], "decode": calls["decode"],
                   "verify": calls["verify"], "copy": stats.cow_copies,
-                  "cross": calls["cross"]}
+                  "cross": calls["cross"], "transfer": stats.handoffs}
     spec = (f"acceptance_rate={stats.spec_accepted / max(stats.spec_drafted, 1):.3f} "
             f"tokens_per_drafted_slot_step={stats.accepted_tokens_per_tick:.3f} "
             f"verify_ticks={calls['verify']} per_verify_tick={per_call['verify']} "
@@ -5006,6 +5127,12 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         ([f"{kvd} {'pools' if eng.paged else 'lanes'}"] if has_attn else []) +
         ([f"{ssmd or 'float32'} slabs"] if eng.has_slabs else []))
     layout = f"page={PSZ} chunk={ch}" if eng.paged else "contiguous"
+    if eng.R > 1:
+        layout += (f" dp={eng.R}" + (f" disagg={eng.disagg[0]}:{eng.disagg[1]}"
+                                     if eng.disagg else "") +
+                   " routed=" + "/".join(str(x.routed) for x in stats.replicas)
+                   + " tokens_by_replica=" + "/".join(
+                       str(x.decoded_tokens) for x in stats.replicas))
     decoding = (f"sampled {SERVE_SAMPLER[name]}" if name in SERVE_SAMPLER
                 else "greedy")
     print(f"{name}: [{variant}] {arch} bf16 weights, {store}, {decoding}, "
@@ -5024,6 +5151,8 @@ def phase_serve(torch, name, graphs=True, overlap=True):
           f"tpot_p50_ms={np.median(stats.tpot_s) * 1e3:.2f} {spec}{prefix}"
           f"{window}" + (f"moe_pairs_dropped_by_capacity={dropped} "
                          if n_moe else "") +
+          (f"handoffs={xfer['handoffs']} pages_transferred={xfer['pages']} "
+           f"transfer_us_per_call={xfer['us']:.2f} " if xfer else "") +
           (f"cross_encodes={cross['encodes']} cross_hit_rate="
                          f"{cross['hits'] / cross['lookups']:.3f} ({cross['hits']}/"
                          f"{cross['lookups']}) encode_ms={cross['encode_ms']:.3f} "
@@ -5038,7 +5167,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
         graphs_out = graph_report(torch, name, graph_steps, step_calls)
         if eng.paged:
             sync_check(torch, name, engine, requests)
-    if eng.prefix_cache is not None:
+    if any(c is not None for c in eng.prefix_caches):
         # the same requests with the cache off, in this call
         off = engine(graphs, overlap, prefix_cache=False)
         off_reqs = requests()
@@ -5055,7 +5184,8 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                 tokens_by_request=[r.out_tokens for r in reqs],
                 weight_bytes=sum(t.numel() * t.element_size()
                                  for t in eng.model.parameters()),
-                cross=cross, dropped=dropped,
+                cross=cross, dropped=dropped, xfer=xfer,
+                routed=[x.routed for x in stats.replicas],
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 tpot_p50_ms=float(np.median(stats.tpot_s) * 1e3))
 
@@ -5425,6 +5555,31 @@ def _deepseek_line(served, prof, smi_line):
           f"{pr['shares'].get('expert matmul', 0.0):.3f}; {smi_line}")
 
 
+def _replicas_line(served, prof, smi_line):
+    """The ``dp[serve-dp, serve-disagg vs serve]`` line: each phase's tok/s,
+    ticks, busy share, device time, routing (and handoffs, pages moved and
+    one transfer's time), and its decode and chunk graphs' nodes beside
+    serve's one replica (the same counted kernels: the decode step at B =
+    2 x SLOTS rows, the chunk step one chunk of one replica a replay)."""
+    rows = []
+    for name in ("serve-dp", "serve-disagg", "serve"):
+        sv, pr = served[name], prof[name]
+        g, c = sv["graphs"]["decode"], sv["graphs"]["chunk"]
+        xf = sv["xfer"]
+        rows.append(
+            f"{name} tok_per_s={sv['tokens'] / sv['wall']:.1f} "
+            f"requests={len(sv['tokens_by_request'])} ticks={sv['ticks']} "
+            f"wall_per_tick_ms={1e3 * sv['wall'] / sv['ticks']:.3f} "
+            f"busy_share={pr['busy']:.3f} device_ms={pr['device_ms']:.2f} "
+            f"routed={sv['routed']} decode_graph=({g['kernel_nodes']} kernels, "
+            f"{g['ours']} the port's, {g['memcpy']} memcpy) chunk_graph=("
+            f"{c['kernel_nodes']} kernels, {c['ours']} the port's)"
+            + (f" handoffs={xf['handoffs']} pages={xf['pages']} "
+               f"transfer_us={xf['us']:.2f}" if xf else ""))
+    print("dp[serve-dp, serve-disagg vs serve]: " + " | ".join(rows) +
+          f"; {smi_line}")
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print(f"chip_smoke: {SRC / 'repro_torch'} not found: run this script "
@@ -5467,6 +5622,8 @@ def main() -> int:
         timed("parity-contig-ssm", phase_parity_contig_ssm, torch)
         timed("parity-prefix", phase_parity_prefix, torch)
         timed("parity-preempt", phase_parity_preempt, torch)
+        timed("parity-dp", phase_parity_dp, torch)
+        timed("parity-disagg", phase_parity_disagg, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
         # the same phases with eager steps and the serial loop, in this call
@@ -5546,6 +5703,7 @@ def main() -> int:
         print("64h[serve-64h vs serve]: " + " | ".join(rows_64))
         _seamless_line(served, prof, smi_line)
         _deepseek_line(served, prof, smi_line)
+        _replicas_line(served, prof, smi_line)
         timed("sim", phase_sim, torch)
         timed("offload", phase_offload, torch, smi_line)
     except SmokeFailure as e:

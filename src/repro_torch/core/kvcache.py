@@ -2,8 +2,8 @@
 state slabs, and the host-side page and slab allocators.
 
 Port of the JAX package's ``core/kvcache.py`` for attention-only, SSM,
-hybrid and encoder-decoder models on one device (dp=1, so nothing carries
-a replica axis).
+hybrid and encoder-decoder models on one device, with ``n_replicas``
+data-parallel replicas folded into every pool (below).
 
 **Contiguous lanes** (``cache_template``/``zero_cache``): per layer group
 and pattern entry, stacked under the group's reps axis,
@@ -48,6 +48,20 @@ written once per encode and read-only after.  Cross pages share the
 self-KV page-id space (one allocator covers both), so a request's cross
 block table and its self block table index the same ``n_pages``.
 
+**Replicas** (``n_replicas`` = R): JAX gives every pool a replica axis,
+(reps, R, n_pages, ...), and each step folds it into one larger pool,
+(reps, R * n_pages, ...), so attention never sees it.  Here the pools are
+stored folded: the same bytes in the same order, and at R = 1 exactly the
+one-replica layout.  Replica r's page p is folded page ``r * n_pages + p``
+(its slab s folded slab ``r * n_slabs + s``: ``fold_ids``, the one place
+that computes it).  The engine folds every id on the host as it stages a
+step's inputs, scratch page 0 and slab 0 included (an idle row of replica
+r reads replica r's scratch page), so the steps index the folded pools
+and know nothing of replicas.
+``unfold_replica_pools`` is a view of that (reps, R, n_pages, ...) and
+``fold_replica_pools`` its inverse view: neither copies, because every
+step writes its pools in place and a write into a copy would be lost.
+
 Token t of a slot lives at page block_table[t // page_size], offset
 t % page_size; a request's recurrent state lives in its one slab.  The
 pools are one static allocation, updated in place; request lengths appear
@@ -60,11 +74,12 @@ Invariants: page 0 and slab 0 are scratch — idle decode lanes point their
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTN_WINDOW
 from repro_torch.core.device import resolve_device
-from repro_torch.core.model import check_supported
+from repro_torch.core.model import check_supported, tree_map
 from repro_torch.core.partition import (kv_pool_is_quantized,
                                         ssm_pool_is_quantized, torch_dtype)
 
@@ -136,16 +151,21 @@ def zero_cache(tmpl, device="cuda"):
 
 
 def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
-                         n_slabs: int = 0):
+                         n_slabs: int = 0, n_replicas: int = 1):
     """-> list (per layer group) of lists (per pattern entry) of
     ``{"kv": {"kp": (shape, dtype), "vp": (shape, dtype)}}`` (plus
     ``"ksp"``/``"vsp"`` scale pools when the pool is int8) for attention
     layers, ``{"ssm": {"statep", "conv_xp", "conv_Bp", "conv_Cp"}}``
     (plus ``"sscalep"`` for int8 slabs) for SSM layers, with ``n_slabs``
     slabs including the scratch slab, and ``{"cross": {"ckp", "cvp"}}``
-    (plus ``"cksp"``/``"cvsp"``) for an enc-dec decoder's layers."""
+    (plus ``"cksp"``/``"cvsp"``) for an enc-dec decoder's layers.
+    ``n_pages`` and ``n_slabs`` are per replica: every pool holds
+    ``n_replicas`` of them, folded (the module's docstring)."""
     check_supported(cfg)
-    kv_shape = (n_pages, lay.attn.n_kv_loc, page_size, cfg.head_dim_)
+    if n_replicas < 1:
+        raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+    kv_shape = (n_replicas * n_pages, lay.attn.n_kv_loc, page_size,
+                cfg.head_dim_)
     kv_dtype = torch_dtype(plan.kv_cache_dtype)
     slab = None
     if "ssm" in cache_profile(cfg):
@@ -155,6 +175,7 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
         H, Pd, N = lay.ssm.hq_loc, cfg.ssm_head_dim, cfg.ssm_state
         K, conv_dt = cfg.ssm_conv, torch_dtype(cfg.dtype)
         quant = ssm_pool_is_quantized(plan)
+        n_slabs *= n_replicas
         slab = {"statep": ((n_slabs, H, Pd, N),
                            torch.int8 if quant else torch.float32),
                 "conv_xp": ((n_slabs, K - 1, H * Pd), conv_dt),
@@ -170,7 +191,7 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
             if "kv" in spec.cache_kinds():
                 kv = {"kp": (kv_shape, kv_dtype), "vp": (kv_shape, kv_dtype)}
                 if kv_pool_is_quantized(plan):
-                    scale = ((n_pages, page_size), torch.float32)
+                    scale = ((kv_shape[0], page_size), torch.float32)
                     kv.update(ksp=scale, vsp=scale)
                 entry["kv"] = kv
             if "ssm" in spec.cache_kinds():
@@ -179,7 +200,7 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
                 cross = {"ckp": (kv_shape, kv_dtype),
                          "cvp": (kv_shape, kv_dtype)}
                 if kv_pool_is_quantized(plan):
-                    scale = ((n_pages, page_size), torch.float32)
+                    scale = ((kv_shape[0], page_size), torch.float32)
                     cross.update(cksp=scale, cvsp=scale)
                 entry["cross"] = cross
             per_pattern.append(
@@ -188,6 +209,32 @@ def paged_cache_template(cfg, plan, lay, n_pages: int, page_size: int,
                  for kind, pools in entry.items()})
         out.append(per_pattern)
     return out
+
+
+def fold_ids(ids, replica: int, n_per: int):
+    """Replica ``replica``'s page (or slab) ids as ids of the folded
+    pools, ``n_per`` the pages (slabs) of one replica: id p is folded id
+    ``replica * n_per + p``.  Takes an int, a sequence or a numpy array;
+    -> an int or an int32 array."""
+    if isinstance(ids, (int, np.integer)):
+        return replica * n_per + int(ids)
+    return np.asarray(ids, np.int32) + np.int32(replica * n_per)
+
+
+def unfold_replica_pools(cache, n_replicas: int):
+    """Folded pools (reps, R * n, ...) as views (reps, R, n, ...): replica r's
+    page (or slab) p at [:, r, p].  Views, never copies."""
+    return tree_map(lambda pool: pool.view(
+        (pool.shape[0], n_replicas, pool.shape[1] // n_replicas)
+        + tuple(pool.shape[2:])), cache)
+
+
+def fold_replica_pools(cache):
+    """Inverse of ``unfold_replica_pools``: (reps, R, n, ...) ->
+    (reps, R * n, ...), views."""
+    return tree_map(lambda pool: pool.view(
+        (pool.shape[0], pool.shape[1] * pool.shape[2])
+        + tuple(pool.shape[3:])), cache)
 
 
 def zero_paged_cache(tmpl, device="cuda"):
@@ -229,6 +276,8 @@ class PageAllocator:
         self._rc = [0] * n_pages
         self._scale_dirty: set = set()       # freed pages w/ stale scale rows
         self.total_allocated = 0             # pages ever handed out (stats)
+        self.pages_transferred_out = 0       # handed to another replica
+        self.pages_transferred_in = 0        # received from another replica
 
     @property
     def n_free(self) -> int:
@@ -319,3 +368,25 @@ class SlabAllocator:
 
 def pages_needed(n_tokens: int, page_size: int) -> int:
     return -(-n_tokens // page_size)
+
+
+def handoff_refs(src_alloc: PageAllocator, src_pages,
+                 dst_alloc: PageAllocator, dst_pages):
+    """Move ownership of a page run between replica allocators, at once.
+
+    The destination allocated fresh pages up front (``dst_pages``, each
+    refcount 1: the transfer step copies the payload into them); this
+    drops the source slot's reference to each source page exactly once.
+    Source pages the radix prefix cache (or another slot) still shares just
+    lose one ref and stay resident on the source replica: a handoff never
+    frees a shared page from under its sharers."""
+    assert src_alloc is not dst_alloc, "handoff within one replica"
+    assert len(src_pages) == len(dst_pages), (src_pages, dst_pages)
+    for p in dst_pages:
+        assert dst_alloc.refcount(p) == 1, \
+            f"handoff into shared destination page {p} " \
+            f"(refcount {dst_alloc.refcount(p)}); destination pages must " \
+            f"be freshly allocated"
+    src_alloc.decref(src_pages)
+    src_alloc.pages_transferred_out += len(src_pages)
+    dst_alloc.pages_transferred_in += len(dst_pages)

@@ -1,11 +1,12 @@
 """The serving steps: contiguous decode and whole-prompt prefill, and the
-paged decode, speculative verify, prefill chunk, page copy and an enc-dec
-arch's cross-KV write.
+paged decode, speculative verify, prefill chunk, page copy, page transfer
+and an enc-dec arch's cross-KV write.
 
 Port of the JAX package's ``make_decode_step``, ``make_prefill_step``,
 ``make_paged_decode_step``, ``make_verify_step``,
-``make_prefill_chunk_step``, ``make_page_copy_step`` and
-``make_cross_kv_write_step`` at dp=1.  Each is
+``make_prefill_chunk_step``, ``make_page_copy_step``,
+``make_page_transfer_step`` and ``make_cross_kv_write_step`` on one
+device.  Each is
 a plain callable that runs eagerly; the engine captures every fixed-shape
 one in a CUDA graph on the card (``core.graphs``), where JAX jits it.  The
 contiguous steps take the per-slot lanes of ``kvcache.cache_template``; the
@@ -18,6 +19,17 @@ with SSM layers take one more input, ``slab_ids``: each row's state slab
 (scratch slab 0 for idle lanes); enc-dec models take their read-only
 ``cross_block_table`` after it (all scratch page 0 for idle lanes), and
 their contiguous prefill takes the request's frames before its prompt.
+
+**Replicas**: the pools of R data-parallel replicas are one folded pool
+(``core.kvcache``), and every id a paged step takes (block tables, slab
+ids, cross block tables, copy and transfer pages) is already folded, by
+the engine on the host (``kvcache.fold_ids``), so the steps know nothing
+of replicas.  The decode and verify steps run R x Bp rows, row b replica
+b // Bp's; the chunk, copy and cross-KV write steps run one unit of one
+replica a replay, at the same shapes as with one replica; the transfer
+step moves a page run between two replicas' pages.  JAX's steps take the
+ids replica-relative and offset them inside the step instead; the bytes
+written are the same.
 """
 from __future__ import annotations
 
@@ -255,35 +267,66 @@ def make_prefill_chunk_step(cfg, plan, chunk: int, n_max_pages: int,
     return chunk_fn
 
 
-def make_page_copy_step(n_pages: int):
-    """-> copy_fn(cache, src (1,), dst (1,)) -> cache, with page ``src``
-    copied onto page ``dst`` in every layer's self-KV pool, in place.
+def _kv_pools(cache, n_pages):
+    """Every layer's self-KV pools (payloads and int8 scale rows), each
+    checked to hold ``n_pages`` pages."""
+    for group in cache:
+        for entry in group:
+            for pool in entry.get("kv", {}).values():
+                if pool.shape[1] != n_pages:
+                    raise ValueError(f"pool of {pool.shape[1]} pages, step "
+                                     f"made for {n_pages}")
+                yield pool
+
+
+def make_page_copy_step(n_pages: int, n_pairs: int = 1):
+    """-> copy_fn(cache, src (n,), dst (n,)) -> cache, with page ``src[i]``
+    copied onto page ``dst[i]`` in every layer's self-KV pool, in place
+    (n = ``n_pairs``; ``n_pages`` the pools' pages, every replica's).
 
     The mechanism behind copy-on-write: a slot that must append into a
     page the radix prefix cache shares first duplicates it into a private
     page (``serving.prefix_cache``), then writes only the copy.  int8 pools
     copy the payload and its scale rows together (``ksp``/``vsp`` share the
     page id).  SSM slabs (another id space) are left alone.  ``src`` and
-    ``dst`` are (1,) int32 tensors on the pools' device, read there and
-    never on the host, so one CUDA graph serves every pair; src == dst is
-    the identity.  Plain indexed copies: the JAX package has no kernel for
+    ``dst`` are int32 tensors on the pools' device, read there and never
+    on the host, so one CUDA graph serves every pair; src == dst is the
+    identity.  Plain indexed copies: the JAX package has no kernel for
     this step either (``make_page_copy_step`` there, one pair per
-    replica); the pools carry their own shapes."""
+    replica)."""
 
     def copy_fn(cache, src, dst):
-        _expect("src", src, (1,))
-        _expect("dst", dst, (1,))
+        _expect("src", src, (n_pairs,))
+        _expect("dst", dst, (n_pairs,))
         dst = dst.long()           # index_copy_ takes int64 ids only
-        for group in cache:
-            for entry in group:
-                for pool in entry.get("kv", {}).values():
-                    if pool.shape[1] != n_pages:
-                        raise ValueError(f"pool of {pool.shape[1]} pages, "
-                                         f"step made for {n_pages}")
-                    pool.index_copy_(1, dst, pool.index_select(1, src))
+        for pool in _kv_pools(cache, n_pages):
+            pool.index_copy_(1, dst, pool.index_select(1, src))
         return cache
 
     return copy_fn
+
+
+def make_page_transfer_step(n_pages: int, n_lanes: int):
+    """-> transfer_fn(cache, src_pages (n_lanes,), dst_pages (n_lanes,)) ->
+    cache, with folded page ``src_pages[i]`` copied onto folded page
+    ``dst_pages[i]`` in every layer's self-KV pool (the int8 pools' scale
+    rows too, byte for byte), in place; ``n_pages`` the pools' pages,
+    every replica's.
+
+    The disaggregated engine's handoff (JAX's ``make_page_transfer_step``):
+    a prefill replica's finished page run moves to freshly allocated pages
+    of a decode replica, without re-running prefill.  Unused lanes go from
+    the source replica's scratch page to the destination's, so several
+    lanes may write the destination's scratch page: which one lands is
+    undefined, and scratch bytes are never read back.  Both inputs are
+    int32 tensors on the pools' device, never read on the host, so one
+    CUDA graph serves every handoff.  On one device JAX's cross-shard sum
+    is the identity: this is the page copy over ``n_lanes`` pairs, a
+    gather and a scatter on the folded pool.  SSM slabs and cross-KV pools
+    do not transfer (the engine refuses disaggregation for those archs);
+    the ownership of the pages moves on the host
+    (``kvcache.handoff_refs``)."""
+    return make_page_copy_step(n_pages, n_lanes)
 
 
 def make_cross_kv_write_step(cfg, plan, page_size: int):
@@ -302,7 +345,10 @@ def make_cross_kv_write_step(cfg, plan, page_size: int):
     ``scatter_q``), payload and scale written together.  Runs once per
     encode (never on a frames-digest hit); the pages are read-only after.
     Fixed shapes: the engine captures it in a CUDA graph over static
-    frames and table buffers, whose warm-up writes go to scratch page 0."""
+    frames and table buffers, whose warm-up writes go to scratch page 0.
+    With replicas the table's ids are folded (one encode of one replica a
+    call; JAX's step encodes a row per replica, the idle ones into scratch
+    pages)."""
     if "cross_kv" not in cache_profile(cfg):
         raise ValueError(f"arch '{cfg.name}' has no cross-attention layers")
     lay = model_layout(cfg, plan)
@@ -339,8 +385,11 @@ def make_cross_kv_write_step(cfg, plan, page_size: int):
 
 
 def zero_paged_cache_for(cfg, plan, n_pages, page_size, device="cuda",
-                         n_slabs: int = 0):
+                         n_slabs: int = 0, n_replicas: int = 1):
+    """Zeroed pools of ``n_replicas`` replicas of ``n_pages`` pages (and
+    ``n_slabs`` slabs), folded (``core.kvcache``)."""
     lay = model_layout(cfg, plan)
     return zero_paged_cache(
-        paged_cache_template(cfg, plan, lay, n_pages, page_size, n_slabs),
+        paged_cache_template(cfg, plan, lay, n_pages, page_size, n_slabs,
+                             n_replicas),
         device)

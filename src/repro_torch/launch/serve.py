@@ -50,10 +50,14 @@ runs on the card) unless ``--no-overlap``, as the JAX launcher does, and
 prints the ``pipeline:`` line; the contiguous engine ignores the flag, as
 in JAX.  ``--temperature T`` > 0 samples with ``top_k=40``, each request
 from its own stream seeded by ``--seed`` and its id, as the JAX launcher
-does (0, the default, is greedy).  The port runs tp=1 and dp=1: the JAX
-launcher's other flags parse with its defaults, and a value the port
-cannot serve (``--tp 2``, ``--dp 2``, ...) is refused with the slice it
-waits for.
+does (0, the default, is greedy).  ``--dp N`` serves N data-parallel
+replicas on the one card (selects the paged engine; the router places
+each request, and a ``router:`` line and a ``replica[r]:`` line each
+report them), ``--disagg P:D`` (with ``--dp P+D``) splits them into
+prefill and decode replicas that hand finished page runs over (a
+``disagg(...)`` line), with the JAX launcher's checks.  The port runs
+tp=1 and no elastic replicas: ``--tp 2`` and ``--scale-events`` are
+refused with the slice they wait for.
 Weights are random, drawn from ``--seed`` on the serving device (a CUDA
 generator on the card: full-width draws stay there); prompts are random
 token ids.
@@ -71,10 +75,8 @@ import numpy as np
 # values the port serves, the later slice of the port that brings the rest)
 LATER = {
     "--tp": ((1,), "tensor parallelism (ROADMAP Queue 1 item 12)"),
-    "--dp": ((1,), "data-parallel replicas (ROADMAP Queue 1 item 11)"),
-    "--disagg": ((None,), "disaggregated prefill/decode (ROADMAP Queue 1 "
-                          "item 11)"),
-    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11)"),
+    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11, "
+                                "its elastic half)"),
 }
 
 
@@ -154,6 +156,18 @@ def parse_args(argv=None):
                      f"waits for {slice_}")
     if args.speculative < 0:
         ap.error("--speculative must be >= 0")
+    if args.dp < 1:
+        ap.error("--dp must be >= 1")
+    args.disagg_pd = None
+    if args.disagg is not None:
+        try:
+            p, d = (int(x) for x in args.disagg.split(":"))
+        except ValueError:
+            ap.error("--disagg expects P:D (e.g. --disagg 1:1)")
+        if p < 1 or d < 1 or p + d != args.dp:
+            ap.error(f"--disagg {args.disagg} needs --dp {p + d} "
+                     f"(P + D replicas, both >= 1)")
+        args.disagg_pd = (p, d)
     from repro_torch.configs import get_config
     from repro_torch.core.kvcache import cache_profile
     try:
@@ -171,7 +185,8 @@ def parse_args(argv=None):
                  "--seq-budget")
     if args.preemption and args.policy not in ("priority", "fair"):
         ap.error("--preemption requires --policy priority or fair")
-    if args.preemption and not (args.paged or args.prefix_cache):
+    if args.preemption and not (args.paged or args.prefix_cache
+                                or args.dp > 1):
         ap.error("--preemption requires the paged engine (--paged)")
     return args
 
@@ -206,14 +221,15 @@ def main(argv=None):
         scheduler = functools.partial(
             PriorityScheduler if args.policy == "priority" else FairScheduler,
             preemption=args.preemption)
-    if args.paged or args.prefix_cache or args.speculative:
+    if args.paged or args.prefix_cache or args.speculative or args.dp > 1:
         engine = ServingEngine.build_paged(
             cfg, plan, args.slots, args.seq_budget, params,
             page_size=args.page_size, n_pages=args.n_pages,
             prefill_chunk=args.prefill_chunk, sampler=sampler,
             rng_seed=args.seed,
             speculative=args.speculative, prefix_cache=args.prefix_cache,
-            scheduler=scheduler, overlap=args.overlap, device=args.device)
+            scheduler=scheduler, overlap=args.overlap, dp=args.dp,
+            disagg=args.disagg_pd, device=args.device)
     else:
         engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
                                sampler=sampler, rng_seed=args.seed,
@@ -265,13 +281,14 @@ def main(argv=None):
             if ts:
                 print(f"ttft[{label}]: p50={np.median(ts) * 1e3:.1f}ms "
                       f"p99={np.percentile(ts, 99) * 1e3:.1f}ms n={len(ts)}")
-    if engine.prefix_cache is not None:
-        pc = engine.prefix_cache
+    caches = [c for c in engine.prefix_caches if c is not None]
+    if caches:
         print(f"prefix_cache: hit_rate={stats.prefix_hit_rate:.2f} "
               f"({stats.prefix_hits}/{stats.prefix_lookups} lookups) "
               f"prefill_tokens_skipped={stats.prefill_tokens_skipped} "
               f"cow_copies={stats.cow_copies} "
-              f"cached_pages={pc.n_cached_pages} evictions={pc.evictions}")
+              f"cached_pages={sum(c.n_cached_pages for c in caches)} "
+              f"evictions={sum(c.evictions for c in caches)}")
     if args.speculative:
         print(f"speculative(k={args.speculative}): accepted_tokens_per_tick="
               f"{stats.accepted_tokens_per_tick:.2f} draft_hit_rate="
@@ -285,18 +302,43 @@ def main(argv=None):
               f"plan_ahead_ticks={stats.plan_ahead_ticks} "
               f"plan_invalidations={stats.plan_invalidations} "
               f"collect_wait={stats.collect_wait_s * 1e3:.1f}ms")
-        print(f"pages_free={engine.allocator.n_free}/"
-              f"{engine.allocator.n_pages - engine.allocator.n_reserved}")
-    if engine.cross_cache is not None:
+        allocs = engine.allocators
+        print(f"pages_free={sum(a.n_free for a in allocs)}/"
+              f"{sum(a.n_pages - a.n_reserved for a in allocs)}")
+    if engine.cross_caches:
         print(f"cross_kv: hit_rate={stats.cross_hit_rate:.2f} "
               f"({stats.cross_hits}/{stats.cross_lookups} lookups) "
-              f"encodes={stats.cross_encodes} "
-              f"cached_entries={engine.cross_cache.n_entries}")
+              f"encodes={stats.cross_encodes} cached_entries="
+              f"{sum(c.n_entries for c in engine.cross_caches)}")
     if engine.has_slabs:
+        slabs = engine.slab_allocators
         print(f"ssm_slabs: slabs={engine.n_slabs - 1} "
-              f"allocated={engine.slab_allocator.total_allocated} "
-              f"free={engine.slab_allocator.n_free} "
+              f"allocated={sum(s.total_allocated for s in slabs)} "
+              f"free={sum(s.n_free for s in slabs)} "
               f"stash_restores={stats.slab_restores}")
+    if args.disagg_pd is not None:
+        print(f"disagg(P={args.disagg_pd[0]} D={args.disagg_pd[1]}): "
+              f"handoffs={stats.handoffs} "
+              f"pages_transferred={stats.pages_transferred}")
+    if args.dp > 1:
+        print(f"router: affinity_routed={engine.router.affinity_routed}"
+              f"/{args.requests}")
+        for r, rs in enumerate(stats.replicas):
+            alloc = engine.allocators[r]
+            handoff = ""
+            if args.disagg_pd is not None:
+                handoff = (f" role={rs.role} "
+                           f"handoffs={rs.handoffs_out}out/"
+                           f"{rs.handoffs_in}in "
+                           f"pages_transferred={rs.pages_transferred_out}"
+                           f"out/{rs.pages_transferred_in}in")
+            print(f"replica[{r}]: routed={rs.routed} "
+                  f"prefills={rs.prefills} tokens={rs.decoded_tokens} "
+                  f"preemptions={rs.preemptions} "
+                  f"prefix_hit_rate={rs.prefix_hit_rate:.2f} "
+                  f"pages_allocated={alloc.total_allocated} "
+                  f"pages_free={alloc.n_free}/"
+                  f"{alloc.n_pages - alloc.n_reserved}" + handoff)
     return 0
 
 

@@ -1,11 +1,12 @@
 """Serving engine: continuous batching over contiguous lanes, or over the
 prefill-chunk and decode steps of the paged cache.
 
-Port of the JAX package's ``serving/engine.py`` for one replica (dp=1),
-greedy or sampled.  The engine is mechanism: it owns the cache, block
-tables and positions and runs the steps; admission order, page budgeting,
-prefix reuse, eviction and preemption victims live in ``serving.scheduler``
-and ``serving.policies`` (``scheduler=``: FCFS by default, or a
+Port of the JAX package's ``serving/engine.py`` on one device, greedy or
+sampled, with ``dp`` data-parallel replicas and disaggregated
+prefill/decode.  The engine is mechanism: it owns the cache, block tables
+and positions and runs the steps; admission order, page budgeting, prefix
+reuse, eviction and preemption victims live in ``serving.scheduler`` and
+``serving.policies`` (``scheduler=``: FCFS by default, or a
 ``PriorityScheduler``/``FairScheduler`` instance or factory).
 
 **Compiled steps and their traffic.**  Every fixed-shape step (the paged
@@ -147,8 +148,7 @@ the payloads (and int8 scale rows) of the KV pages covering its resident
 tokens are copied to pinned host memory after the barrier
 (``_stash_slot``) and written into the re-admission's new slab and pages
 before its first chunk (``_restore_slot``, ``stats.slab_restores``);
-prefill resumes at the stashed position.  The replica handoff rounds wait
-for ROADMAP Queue 1 item 11.
+prefill resumes at the stashed position.
 
 **Encoder-decoders** (seamless): a request carries its encoder input,
 ``Request.frames`` (enc_seq_len, d_model) frame embeddings (the audio
@@ -170,6 +170,49 @@ through each row's cross block table (idle rows: the scratch page).
 ``stats`` counts ``cross_lookups``, ``cross_hits`` and ``cross_encodes``.
 As in JAX, the prefix cache is refused (the self-KV depends on the frames
 through cross-attention) and so is speculation.
+
+**Replicas** (``dp`` = R > 1, paged engine only, as in JAX): R replicas of
+``batch_slots`` slots each (``Bp``; global slot b = r * Bp + local, ``B``
+= R * Bp), each with its own allocator, prefix cache, slab allocator,
+cross-KV cache, scheduler (built by the ``scheduler`` factory, never a
+shared instance) and draft source, so refcounts, prefix pins, eviction
+and preemption donations never cross a replica.  The pools hold every
+replica's pages folded into one (``core.kvcache``: replica r's page p is
+page r * n_pages + p, the JAX layout's bytes), and every id the engine
+stages for a step is folded on the host (``kvcache.fold_ids``; an idle
+row of replica r reads replica r's scratch page and slab), so one step
+set drives them all and no step knows of replicas: the decode and verify
+steps run all B rows; the chunk, copy-on-write and cross-KV write steps
+run one unit of one replica a replay, as with one replica (chunks in
+JAX's round order: the first prefilling slot of each replica, then the
+second, ...), so a replica with nothing to prefill costs nothing.  The
+router
+(``serving.router``) places every request at submit: prefix affinity over
+the radix caches and the prompts routed recently, frames affinity, then
+the least page load with backlog; resumes after preemption stay on their
+replica.  ``stats.replicas[r]`` counts per replica.  The dp = 1
+accessors (``sched``, ``allocator``, ``prefix_cache``, ``slab_allocator``,
+``cross_cache``) refuse R > 1.  Sampled outputs stay schedule-invariant:
+each request draws from its own stream, whatever its replica.
+
+**Disaggregated prefill/decode** (``disagg=(P, D)``, P + D = dp,
+attention-only archs): replicas 0 .. P-1 prefill and P .. dp-1 decode.
+The router admits fresh requests on prefill replicas only; their slots
+budget the prompt's pages alone, chunk-prefill, emit the first token at
+collect and queue for handoff.  Each plan matches the queue's head (FIFO)
+to the least-loaded decode replica with a free slot (``Router.
+decode_placement``), whose scheduler allocates the run for resident +
+remaining tokens (``plan_handoff``); the slot is claimed at plan, and
+the dispatch phase moves the pages first, before this tick's steps, with
+the page-transfer step (``core.steps.make_page_transfer_step``: every
+self-KV pool, int8 scale rows too, from one replica's pages to the
+other's, its inputs device data from a staging buffer, so one CUDA graph
+serves every handoff), then moves the references (``on_handoff_sent`` ->
+``kvcache.handoff_refs``) and clears the source slot.  A source evicted
+in between rolls the claim back (``plan_invalidations``).  Decode
+replicas run decode (or verify) steps only; ``stats.handoffs``,
+``pages_transferred`` and the replicas' ``handoffs_out/_in``,
+``pages_transferred_out/_in`` count them.
 """
 from __future__ import annotations
 
@@ -185,12 +228,13 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.graphs import EagerStep, compile_step
 from repro_torch.core.kvcache import (SCRATCH_PAGE, SCRATCH_SLAB,
                                       PageAllocator, SlabAllocator,
-                                      cache_profile, pages_needed)
+                                      cache_profile, fold_ids, pages_needed)
 from repro_torch.core.model import Decoder, check_supported, tree_map
 from repro_torch.core.partition import kv_pool_is_quantized
 from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
                                     make_cross_kv_write_step,
                                     make_page_copy_step,
+                                    make_page_transfer_step,
                                     make_paged_decode_step,
                                     make_prefill_chunk_step, make_prefill_step,
                                     make_verify_step, n_cross_pages,
@@ -198,6 +242,7 @@ from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
 from repro_torch.serving.prefix_cache import (CrossKVCache,
                                               PromptLookupDraft,
                                               RadixPrefixCache)
+from repro_torch.serving.router import Router
 from repro_torch.serving.sampler import (SamplerConfig, greedy_accept,
                                          greedy_ids, sample_from_logits,
                                          speculative_sample)
@@ -220,11 +265,36 @@ class Request:
     client_id: int = 0                 # fairness accounting key (policies.py)
     seed: Optional[int] = None         # sampling stream seed (default: rid)
     rng: Optional[np.random.RandomState] = None   # set at submit
+    replica: int = -1                  # routed replica (set at submit)
     out_tokens: list = field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0
     t_first_token: float = 0.0
     t_done: float = 0.0
+
+
+@dataclass
+class ReplicaStats:
+    """Per-replica counters (``EngineStats.replicas[r]``)."""
+    role: str = "mixed"                # "prefill"/"decode" under disagg
+    routed: int = 0                    # requests the router placed here
+    prefills: int = 0
+    decoded_tokens: int = 0
+    preemptions: int = 0
+    prefix_lookups: int = 0
+    prefix_hits: int = 0
+    cross_lookups: int = 0             # enc-dec frames-digest lookups
+    cross_hits: int = 0
+    spec_denied: int = 0               # admissions denied draft headroom
+    handoffs_out: int = 0              # finished page runs sent (prefill)
+    handoffs_in: int = 0               # ... received (decode)
+    pages_transferred_out: int = 0
+    pages_transferred_in: int = 0
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hits / self.prefix_lookups \
+            if self.prefix_lookups else 0.0
 
 
 @dataclass
@@ -234,7 +304,9 @@ class EngineStats:
     (host time blocked waiting for ids), ``device_busy_s`` (dispatch to
     collect intervals) and ``plan_invalidations`` (preemption verdicts
     deferred past collect whose victim retired there, so they were rolled
-    back)."""
+    back).  ``handoffs`` and ``pages_transferred`` count a disaggregated
+    engine's page-run transfers; ``replicas`` holds one ``ReplicaStats``
+    a replica."""
     ticks: int = 0
     prefills: int = 0
     decoded_tokens: int = 0
@@ -261,6 +333,9 @@ class EngineStats:
     plan_invalidations: int = 0        # deferred preemptions rolled back
     collect_wait_s: float = 0.0        # host time blocked at collect points
     device_busy_s: float = 0.0         # dispatch->collect device intervals
+    handoffs: int = 0                  # prefill->decode page-run transfers
+    pages_transferred: int = 0         # pages moved across replicas
+    replicas: List[ReplicaStats] = field(default_factory=list)
 
     @property
     def device_busy_fraction(self) -> float:
@@ -350,12 +425,42 @@ class ServingEngine:
                  eos_id: int = 1, sampler: Optional[SamplerConfig] = None,
                  rng_seed: int = 0, speculative: int = 0,
                  prefix_cache: bool = False, scheduler=None,
-                 overlap: bool = True, graphs: bool = True, device="cuda"):
+                 overlap: bool = True, graphs: bool = True, dp: int = 1,
+                 disagg=None, device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
         if speculative < 0:
             raise ValueError(f"speculative must be >= 0, got {speculative}")
         prof = cache_profile(cfg)
+        if dp < 1:
+            raise ValueError(f"dp must be >= 1, got {dp}")
+        if dp > 1 and not paged:
+            raise ValueError("dp>1 serving requires the paged engine")
+        self.disagg = self.roles = None
+        if disagg is not None:
+            p_reps, d_reps = int(disagg[0]), int(disagg[1])
+            if not paged:
+                raise ValueError(
+                    "disaggregated serving requires the paged engine")
+            if p_reps < 1 or d_reps < 1 or p_reps + d_reps != dp:
+                raise ValueError(
+                    f"disagg {p_reps}:{d_reps} must cover every replica "
+                    f"with at least one of each role: need P >= 1, D >= 1 "
+                    f"and P + D == dp ({dp})")
+            if prof != {"kv"}:
+                raise ValueError(
+                    f"disaggregated serving is unsupported for arch "
+                    f"'{cfg.name}': the page-transfer step moves self-KV "
+                    f"page runs between replica pools (cache kinds "
+                    f"{sorted(prof)}) — SSM slabs and cross-KV pages do "
+                    f"not hand off")
+            self.disagg = (p_reps, d_reps)
+            self.roles = ["prefill"] * p_reps + ["decode"] * d_reps
+        if isinstance(scheduler, Scheduler) and dp > 1:
+            raise ValueError("dp>1 needs a scheduler factory, not an instance")
+        if isinstance(scheduler, Scheduler) and self.disagg is not None:
+            raise ValueError(
+                "disaggregation needs a scheduler factory, not an instance")
         if prefix_cache and not paged:
             raise ValueError("the prefix cache requires the paged engine")
         if prefix_cache and "ssm" in prof:
@@ -397,7 +502,9 @@ class ServingEngine:
         self.has_cross = self.paged and "cross_kv" in prof
         self.n_cross_pages = n_cross_pages(cfg, page_size) \
             if self.has_cross else 0
-        self.B = batch_slots
+        self.R = dp                    # data-parallel replicas
+        self.Bp = batch_slots          # slots a replica
+        self.B = dp * batch_slots      # global slots (the decode batch)
         self.S = seq_budget
         self.eos = eos_id
         self.sampler = sampler or SamplerConfig()
@@ -405,67 +512,103 @@ class ServingEngine:
         self.rng_seed = rng_seed
         self.model = Decoder(tree_map(lambda t: t.to(self.device), params))
         self.params = self.model.tree()
-        self.stats = EngineStats()
+        self.stats = EngineStats(replicas=[ReplicaStats()
+                                           for _ in range(dp)])
         self.speculative = int(speculative)
         self.quant_pools = self.paged and kv_pool_is_quantized(plan) and \
             ("kv" in prof or "cross_kv" in prof)
-        self.allocator = self.slab_allocator = self._prefix_cache = None
-        self.cross_cache = None
-        self.verify_fn = self.draft_source = None
+        # one of each a replica (paged); the contiguous engine has none
+        self.allocators: List[PageAllocator] = []
+        self.prefix_caches: List[Optional[RadixPrefixCache]] = []
+        self.slab_allocators: List[SlabAllocator] = []
+        self.cross_caches: List[CrossKVCache] = []
+        self.draft_sources: List[PromptLookupDraft] = []
+        self.router: Optional[Router] = None
+        self.verify_fn = self.transfer_fn = None
         self._stash: dict = {}         # rid -> preempted SSM checkpoint
+        self._pending_handoffs: List[int] = []   # prefilled, awaiting a home
         if self.paged:
             n_pages = n_pages or batch_slots * (
                 seq_budget // page_size + self.n_cross_pages) + 1
             self.page_size = page_size
             self.chunk = prefill_chunk
             self.n_max_pages = seq_budget // page_size
-            self.allocator = PageAllocator(n_pages)
+            self.n_pool_pages = n_pages      # a replica's pool
+            self.allocators = [PageAllocator(n_pages) for _ in range(dp)]
+            self.prefix_caches = [
+                RadixPrefixCache(a, page_size) if prefix_cache else None
+                for a in self.allocators]
             if self.has_slabs:
-                self.slab_allocator = SlabAllocator(self.n_slabs)
-            if prefix_cache:
-                self._prefix_cache = RadixPrefixCache(self.allocator,
-                                                      page_size)
-                self.copy_fn = make_page_copy_step(n_pages)   # COW copies
+                self.slab_allocators = [SlabAllocator(self.n_slabs)
+                                        for _ in range(dp)]
             if self.has_cross:
-                self.cross_cache = CrossKVCache(self.allocator)
+                self.cross_caches = [CrossKVCache(a)
+                                     for a in self.allocators]
+            # the steps index the folded pools of every replica: the
+            # engine folds each id as it stages it (kvcache.fold_ids)
+            if prefix_cache:
+                self.copy_fn = make_page_copy_step(dp * n_pages)  # COW
+            if self.has_cross:
                 self.cross_write_fn = make_cross_kv_write_step(cfg, plan,
                                                                page_size)
+            if self.disagg is not None:
+                self.transfer_fn = make_page_transfer_step(
+                    dp * n_pages, self.n_max_pages)
             self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
-                                              self.device, self.n_slabs)
-            self.prefill_fn = make_prefill_chunk_step(cfg, plan,
-                                                      prefill_chunk,
-                                                      self.n_max_pages,
-                                                      page_size)
-            self.decode_fn = make_paged_decode_step(cfg, plan, batch_slots,
-                                                    self.n_max_pages,
-                                                    page_size)
+                                              self.device, self.n_slabs, dp)
+            self.prefill_fn = make_prefill_chunk_step(
+                cfg, plan, prefill_chunk, self.n_max_pages, page_size)
+            self.decode_fn = make_paged_decode_step(
+                cfg, plan, self.B, self.n_max_pages, page_size)
             if self.speculative:
-                self.verify_fn = make_verify_step(cfg, plan, batch_slots,
+                self.verify_fn = make_verify_step(cfg, plan, self.B,
                                                   self.speculative + 1,
                                                   self.n_max_pages)
-                self.draft_source = PromptLookupDraft(self._prefix_cache)
+                self.draft_sources = [PromptLookupDraft(c)
+                                      for c in self.prefix_caches]
         else:
             self.cache = zero_cache_for(cfg, plan, batch_slots, seq_budget,
                                         self.device)
             self.prefill_fn = make_prefill_step(cfg, plan, seq_budget)
             self.decode_fn = make_decode_step(cfg, plan, batch_slots,
                                               seq_budget)
-        # ``scheduler`` is a ready instance or a factory (a Scheduler
-        # subclass or a functools.partial of one) that receives the
-        # engine-owned allocator, cache and stats
+        # ``scheduler`` is a ready instance (one replica) or a factory (a
+        # Scheduler subclass or a functools.partial of one) that receives
+        # the engine-owned allocator, caches and stats: one a replica, so
+        # every policy's queues, deficits and clocks are the replica's own
         sched = scheduler or FCFSScheduler
         if isinstance(sched, Scheduler):
-            self.sched = sched
+            self.scheds = [sched]
         else:
-            self.sched = sched(
-                seq_budget=seq_budget, allocator=self.allocator,
-                page_size=page_size if self.paged else 0,
-                prefix_cache=self._prefix_cache, stats=self.stats,
-                slab_allocator=self.slab_allocator,
-                cross_cache=self.cross_cache,
-                cross_pages_per_req=self.n_cross_pages,
-                kv_pages=not self.paged or "kv" in prof,
-                spec_tokens=self.speculative)
+            self.scheds = [
+                sched(seq_budget=seq_budget,
+                      allocator=self.allocators[r] if self.paged else None,
+                      page_size=page_size if self.paged else 0,
+                      prefix_cache=(self.prefix_caches[r] if self.paged
+                                    else None),
+                      stats=self.stats,
+                      slab_allocator=(self.slab_allocators[r]
+                                      if self.has_slabs else None),
+                      cross_cache=(self.cross_caches[r] if self.has_cross
+                                   else None),
+                      cross_pages_per_req=self.n_cross_pages,
+                      kv_pages=not self.paged or "kv" in prof,
+                      spec_tokens=self.speculative,
+                      **({"role": self.roles[r]} if self.roles else {}))
+                for r in range(dp)]
+        for r, sc in enumerate(self.scheds):
+            # per-replica counters move at the scheduler's counting sites,
+            # beside the global ones
+            if getattr(sc, "replica_stats", None) is None:
+                sc.replica_stats = self.stats.replicas[r]
+        if self.roles is not None:
+            for r, role in enumerate(self.roles):
+                self.stats.replicas[r].role = role
+        if self.paged:
+            self.router = Router(self.scheds, self.allocators,
+                                 self.prefix_caches, page_size,
+                                 cross_caches=self.cross_caches or None,
+                                 roles=self.roles)
         self.admissions: List[Optional[Admission]] = [None] * self.B
         self.slot_state: List[Optional[str]] = [None] * self.B
         self.pos = np.zeros(self.B, np.int32)
@@ -484,90 +627,144 @@ class ServingEngine:
                     sampler: Optional[SamplerConfig] = None,
                     rng_seed: int = 0, speculative: int = 0,
                     prefix_cache: bool = False, scheduler=None,
-                    overlap: bool = True, graphs: bool = True,
-                    device="cuda"):
-        """A paged engine.  ``n_pages`` defaults to full occupancy (every
-        slot at budget, plus every slot's cross-KV pages for enc-dec
-        archs) plus the scratch page; pass something smaller to
-        exercise admission control under memory pressure.
+                    overlap: bool = True, graphs: bool = True, dp: int = 1,
+                    disagg=None, device="cuda"):
+        """A paged engine.  ``n_pages`` (a replica's pool) defaults to full
+        occupancy (every slot at budget, plus every slot's cross-KV pages
+        for enc-dec archs) plus the scratch page; pass something smaller
+        to exercise admission control under memory pressure.
         ``speculative=k`` > 0 verifies up to k prompt-lookup drafts per slot
         in one step; ``prefix_cache=True`` shares cached prompt prefixes
         (radix tree, copy-on-write pages); ``scheduler`` is the policy
         (FCFS by default); ``sampler`` with a temperature > 0 samples each
         request from its own stream seeded by (``rng_seed``, its seed or
-        rid).  ``overlap=False`` is the serial loop; ``graphs=False`` runs
-        the steps eagerly."""
+        rid).  ``dp`` replicas each get ``batch_slots`` slots and their own
+        pool; ``disagg=(P, D)`` splits them into prefill and decode roles.
+        ``overlap=False`` is the serial loop; ``graphs=False`` runs the
+        steps eagerly."""
         return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
                    sampler=sampler, rng_seed=rng_seed, speculative=speculative,
                    prefix_cache=prefix_cache, scheduler=scheduler,
-                   overlap=overlap, graphs=graphs, device=device)
+                   overlap=overlap, graphs=graphs, dp=dp, disagg=disagg,
+                   device=device)
+
+    # ------------------------------------------------ one-replica accessors
+    def _one(self, what, items):
+        if self.R != 1:
+            raise AssertionError(f"dp>1: use engine.{what}s[r]")
+        return items[0] if items else None
+
+    @property
+    def sched(self):
+        """The single scheduler (dp = 1)."""
+        if self.R != 1:
+            raise AssertionError("dp>1: use engine.scheds[r] / has_pending()")
+        return self.scheds[0]
+
+    @property
+    def allocator(self) -> Optional[PageAllocator]:
+        """The single page allocator (dp = 1; None when contiguous)."""
+        return self._one("allocator", self.allocators)
 
     @property
     def prefix_cache(self) -> Optional[RadixPrefixCache]:
-        """The radix prefix cache (None without one)."""
-        return self._prefix_cache
+        """The radix prefix cache (dp = 1; None without one)."""
+        return self._one("prefix_cache", self.prefix_caches)
+
+    @property
+    def slab_allocator(self) -> Optional[SlabAllocator]:
+        """The single slab allocator (dp = 1; None without slabs)."""
+        return self._one("slab_allocator", self.slab_allocators)
+
+    @property
+    def cross_cache(self) -> Optional[CrossKVCache]:
+        """The single cross-KV cache (dp = 1; None without cross pages)."""
+        return self._one("cross_cache", self.cross_caches)
+
+    def _rep(self, b: int) -> int:
+        """Replica owning global slot ``b``."""
+        return b // self.Bp
+
+    def _gslot(self, r: int, local: int) -> int:
+        """Replica-local slot -> global slot."""
+        return r * self.Bp + local
+
+    def _rep_slots(self, r: int):
+        return range(r * self.Bp, (r + 1) * self.Bp)
 
     # -------------------------------------------------------- steps and io
     def _build_io(self):
         """Staging for every step kind's inputs, and the ids buffer: one
-        row of ids per prefill round of a tick (at most one a slot), then
-        the decode step's B ids or the verify step's B x Q.  A sampled
-        engine also gets a logits buffer of as many rows, on the card and
-        pinned on the host."""
+        row per prefill chunk of a tick (at most B), then the decode step's
+        B ids or the verify step's B x Q.  A sampled engine also gets a
+        logits buffer of as many rows, on the card and pinned on the
+        host."""
         dev, B = self.device, self.B
         io = {"decode": [("tokens", (B, 1)), ("pos", (B,))]}
+        rows = {}
         if self.paged:
             slab = [("slab_ids", (B,))] if self.has_slabs else []
             nm, nc = self.n_max_pages, self.n_cross_pages
             cross = [("cross_bt", (B, nc))] if self.has_cross else []
             io["decode"] += [("block_table", (B, nm))] + slab + cross
+            # a chunk a row, one per prefilling slot at most
             io["chunk"] = ([("tokens", (1, self.chunk)), ("chunk_start", (1,)),
                             ("last_idx", (1,)), ("block_table", (1, nm))]
                            + ([("slab_ids", (1,))] if self.has_slabs else [])
                            + ([("cross_bt", (1, nc))] if self.has_cross
                               else []))
+            rows["chunk"] = B
             if self.has_cross:
+                # an encode a row, one per admission of the tick at most
                 io["cross"] = [("cross_bt", (nc,))]
+                rows["cross"] = B
             if self.speculative:
                 io["verify"] = [("tokens", (B, self.speculative + 1)),
                                 ("pos", (B,)), ("qlen", (B,)),
                                 ("block_table", (B, nm))]
-            if self._prefix_cache is not None:
+            if self.prefix_caches[0] is not None:
+                # a copy-on-write (src, dst) pair a row, one per admission
                 io["copy"] = [("src", (1,)), ("dst", (1,))]
+                rows["copy"] = B
+            if self.disagg is not None:
+                # a handoff a row, one per decode slot at most
+                io["handoff"] = [("src_pages", (nm,)), ("dst_pages", (nm,))]
+                rows["handoff"] = B
         else:
             io["prompt"] = [("tokens", (1, self.S))]
-        # a chunk, copy or cross round per slot at most in a tick, one row
-        # each
-        self.io = {kind: Staging(fields, dev,
-                                 rows=B if kind in ("chunk", "copy", "cross")
-                                 else 1)
+        self.io = {kind: Staging(fields, dev, rows=rows.get(kind, 1))
                    for kind, fields in io.items()}
         if self.cfg.is_encdec:
             # float32 frames as requests carry them (the steps cast them to
-            # the weights' dtype): a row per cross round, or the contiguous
+            # the weights' dtype): a row per encode, or the contiguous
             # prefill's one
             frames = [("frames", (self.cfg.enc_seq_len, self.cfg.d_model))]
             self.io["frames"] = Staging(frames, dev,
                                         rows=B if self.paged else 1,
                                         dtype=torch.float32)
         if self.paged:
-            # the chunk and copy graphs' static inputs: each round's row is
-            # copied here on the card before its replay
+            # the chunk, copy and transfer graphs' static inputs: each
+            # replay's row is copied here on the card before it
             self._chunk_in = torch.zeros(self.io["chunk"].dev.shape[1],
                                          dtype=torch.int32, device=dev)
             self._copy_in = torch.zeros(2, dtype=torch.int32, device=dev)
+            if self.disagg is not None:
+                self._xfer_in = torch.zeros(self.io["handoff"].dev.shape[1],
+                                            dtype=torch.int32, device=dev)
             if self.has_cross:
-                # the cross-KV write graph's static inputs
+                # the cross-KV write graph's static inputs: the frames and
+                # the cross block table
                 self._frames_in = torch.zeros(
                     (1, self.cfg.enc_seq_len, self.cfg.d_model),
                     dtype=torch.float32, device=dev)
-                self._cross_in = torch.zeros((1, self.n_cross_pages),
+                self._cross_in = torch.zeros(self.n_cross_pages,
                                              dtype=torch.int32, device=dev)
-            # ids of slabs to zero and pages whose scale rows to reset
+            # ids of slabs to zero and pages whose scale rows to reset, as
+            # folded ids over every replica
             self.io["plan"] = Staging(
-                [("ids", (self.allocator.n_pages + self.n_slabs,))], dev,
+                [("ids", (self.R * (self.n_pool_pages + self.n_slabs),))], dev,
                 dtype=torch.int64)
         n_out = B + B * (self.speculative + 1)
         self._out = torch.zeros(n_out, dtype=torch.int32, device=dev)
@@ -585,10 +782,11 @@ class ServingEngine:
             self._lout_host = torch.zeros(shape, dtype=dt, pin_memory=cuda)
 
     def _build_steps(self) -> dict:
-        """Each fixed-shape step over its static inputs, ending in the
-        greedy ids: captured in a CUDA graph on the card (``graphs``),
-        else eager.  The contiguous whole-prompt prefill stays eager (one
-        shape per prompt length)."""
+        """Each fixed-shape step over its static inputs, at the engine's
+        replica count (one step set for its R, JAX's ``paged_step_set``),
+        ending in the greedy ids: captured in a CUDA graph on the card
+        (``graphs``), else eager.  The contiguous whole-prompt prefill
+        stays eager (one shape per prompt length)."""
         make = compile_step if self.graphs else EagerStep
         V = self.cfg.vocab_size
 
@@ -608,8 +806,13 @@ class ServingEngine:
             self.copy_fn(self.cache, src, dst)
             return ()
 
-        def cross_write(frames, cross_bt):
-            self.cross_write_fn(self.params, self.cache, frames, cross_bt)
+        def transfer(*ins):
+            self.transfer_fn(self.cache, *ins)
+            return ()
+
+        def cross_write(frames, cross_in):
+            self.cross_write_fn(self.params, self.cache, frames,
+                                cross_in[None])
             return ()
 
         steps = {"decode": make(run("decode_fn"), inputs("decode"))}
@@ -618,16 +821,19 @@ class ServingEngine:
                                   inputs("chunk", self._chunk_in))
             if self.speculative:
                 steps["verify"] = make(run("verify_fn"), inputs("verify"))
-            if self._prefix_cache is not None:
+            if "copy" in self.io:
                 steps["copy"] = make(copy, inputs("copy", self._copy_in))
             if self.has_cross:
                 steps["cross"] = make(cross_write,
                                       (self._frames_in, self._cross_in))
+            if self.disagg is not None:
+                steps["transfer"] = make(transfer,
+                                         inputs("handoff", self._xfer_in))
         return steps
 
     def _send_out(self, inflight: dict):
         """Send the tick's ids home in one copy behind an event, and a
-        sampled engine's logits rows in one more (the prefill rounds' rows,
+        sampled engine's logits rows in one more (the prefill chunks' rows,
         then the step's); collect waits for the event."""
         self._out_host.copy_(self._out, non_blocking=True)
         if self.sampled:
@@ -663,7 +869,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ API
     def has_pending(self) -> bool:
-        return self.sched.has_pending()
+        return any(sc.has_pending() for sc in self.scheds)
 
     def submit(self, req: Request):
         if req.rid in self._rids:     # rids key the per-request stats
@@ -680,7 +886,26 @@ class ServingEngine:
                     f"request {req.rid}: frames shape "
                     f"{tuple(np.shape(req.frames))} != {want} expected by "
                     f"arch '{self.cfg.name}' (enc_seq_len, d_model)")
-        self.sched.submit(req)        # raises on infeasible requests
+        if self.disagg is not None:
+            # a prefill-role admission budgets the prompt only; the request
+            # must still fit a decode replica's pool at handoff
+            need = pages_needed(len(req.prompt) + req.max_new_tokens,
+                                self.page_size)
+            usable = max(self.allocators[r].n_pages -
+                         self.allocators[r].n_reserved
+                         for r in range(self.R)
+                         if self.roles[r] == "decode")
+            if need > usable:
+                raise RuntimeError(
+                    f"request {req.rid} needs {need} pages to decode but "
+                    f"the largest decode-replica pool has only {usable} "
+                    f"usable pages — it could prefill but never hand off")
+        r = self.router.route(req) if self.router is not None else 0
+        self.scheds[r].submit(req)    # raises on infeasible requests
+        if self.router is not None:
+            self.router.commit(req, r)
+        req.replica = r
+        self.stats.replicas[r].routed += 1
         self._rids.add(req.rid)
         if req.rng is None:
             seed = req.seed if req.seed is not None else req.rid
@@ -703,31 +928,32 @@ class ServingEngine:
             self._collect_phase()
 
     def drain(self) -> int:
-        """Abort every in-flight admission, returning its pages and slab
-        (paged engine), after collecting in-flight work.  Aborted requests
-        keep ``done=False``; queued requests stay queued.  Host stashes of
-        preempted SSM slots are dropped too: a still-queued preempted
-        request that resumes after a drain re-prefills from scratch (exact:
-        admission zeroes its slab), so stash memory cannot outlive the work
-        it checkpoints.  -> number of slots drained."""
+        """Abort every in-flight admission, returning its pages and slab to
+        its replica (paged engine), after collecting in-flight work.
+        Aborted requests keep ``done=False``; queued requests stay queued.
+        Host stashes of preempted SSM slots are dropped too: a still-queued
+        preempted request that resumes after a drain re-prefills from
+        scratch (exact: admission zeroes its slab), so stash memory cannot
+        outlive the work it checkpoints.  -> number of slots drained."""
         self._barrier()
         n = 0
         for b in range(self.B):
             if self.admissions[b] is not None:
-                self.sched.on_finish(self.admissions[b])
+                self.scheds[self._rep(b)].on_finish(self.admissions[b])
                 self._clear_slot(b)
                 n += 1
         self._stash.clear()
         return n
 
     def preempt(self, b: int):
-        """Evict slot ``b`` mid-flight, after collecting in-flight work.
-        Emitted tokens already live on ``req.out_tokens`` and resume
+        """Evict global slot ``b`` mid-flight, after collecting in-flight
+        work.  Emitted tokens already live on ``req.out_tokens`` and resume
         re-admits over the effective prompt (prompt + emitted tokens), so
-        the resident full pages, donated to the prefix cache by
-        ``sched.on_preempt``, come back as a prefix hit: the KV is reused,
-        not recomputed (only the partial tail page is re-prefilled).  An SSM
-        slot's slab is stashed on the host instead."""
+        the resident full pages, donated to the owning replica's prefix
+        cache by its ``sched.on_preempt``, come back as a prefix hit there
+        (routing is sticky): the KV is reused, not recomputed (only the
+        partial tail page is re-prefilled).  An SSM slot's slab is stashed
+        on the host instead.  A slot queued for handoff leaves the queue."""
         if not self.paged:
             raise ValueError("preemption requires the paged engine")
         if self.admissions[b] is None:
@@ -741,20 +967,22 @@ class ServingEngine:
         """Immediate eviction: no in-flight step references slot ``b``
         (nothing is in flight, or its results were just collected)."""
         adm = self.admissions[b]
+        r = self._rep(b)
         n = int(self.prefill_done[b]) if self.slot_state[b] == "prefill" \
             else int(self.pos[b])
         if self.has_slabs:
             # recurrent state cannot be re-derived from donated pages:
             # checkpoint the slab before the scheduler frees it
-            self._stash_slot(adm, n)
-        self.sched.on_preempt(adm, effective_prompt(adm.req)[:n])
+            self._stash_slot(r, adm, n)
+        self.scheds[r].on_preempt(adm, effective_prompt(adm.req)[:n])
         self._clear_slot(b)
         self.stats.preemptions += 1
+        self.stats.replicas[r].preemptions += 1
 
     def _kind_pools(self, kind: str):
         """Every layer's pools of one cache kind ("kv" page pools, (reps,
-        n_pages, ...), or "ssm" slab pools, (reps, n_slabs, ...)), in cache
-        order."""
+        R * n_pages, ...), or "ssm" slab pools, (reps, R * n_slabs, ...)),
+        in cache order."""
         return [pool for group in self.cache for entry in group
                 for pool in entry.get(kind, {}).values()]
 
@@ -771,52 +999,58 @@ class ServingEngine:
                 runs.append([i, p, 1])
         return runs
 
-    def _stash_slot(self, adm: Admission, n: int):
-        """Checkpoint a preempted slot to host memory: its slab (state after
-        exactly ``n`` tokens, conv tails, int8 scales) and, for a hybrid,
-        the payloads of the first ``pages_needed(n, page_size)`` pages of
-        every KV pool (int8 pools' scale rows too), as JAX's
-        ``_stash_slot``: KV alone could be recomputed, but not through
-        hybrid layers without re-advancing the SSM state, so the resume
-        point restores both.  Non-blocking copies into pinned buffers; the
-        host never reads them: the restore copies them back on the same
-        stream, after these copies."""
+    def _stash_slot(self, r: int, adm: Admission, n: int):
+        """Checkpoint a preempted slot of replica ``r`` to host memory: its
+        slab (state after exactly ``n`` tokens, conv tails, int8 scales)
+        and, for a hybrid, the payloads of the first ``pages_needed(n,
+        page_size)`` pages of every KV pool (int8 pools' scale rows too),
+        as JAX's ``_stash_slot``: KV alone could be recomputed, but not
+        through hybrid layers without re-advancing the SSM state, so the
+        resume point restores both.  Non-blocking copies into pinned
+        buffers; the host never reads them: the restore copies them back on
+        the same stream, after these copies."""
         pin = self.device.type == "cuda"
 
         def host(src):
             return torch.empty(src.shape, dtype=src.dtype, pin_memory=pin)
 
+        slab = fold_ids(adm.slab, r, self.n_slabs)
         slabs = []
         for pool in self._kind_pools("ssm"):
-            h = host(pool[:, adm.slab])
-            h.copy_(pool[:, adm.slab], non_blocking=True)
+            h = host(pool[:, slab])
+            h.copy_(pool[:, slab], non_blocking=True)
             slabs.append(h)
         k = pages_needed(n, self.page_size) if adm.pages else 0
         kv = []
         for pool in self._kind_pools("kv") if k else ():
             h = host(pool[:, :k])
-            for i, p, m in self._runs(adm.pages[:k]):
+            for i, p, m in self._runs(self._folded(r, adm.pages[:k])):
                 h[:, i:i + m].copy_(pool[:, p:p + m], non_blocking=True)
             kv.append(h)
         self._stash[adm.req.rid] = {"n": n, "ssm": slabs, "kv": kv,
                                     "n_kv_pages": k}
 
-    def _restore_slot(self, adm: Admission, stash: dict):
+    def _restore_slot(self, r: int, adm: Admission, stash: dict):
         """Write a stashed checkpoint into the re-admission's fresh slab and
-        the first ``stash["n_kv_pages"]`` pages of its new run; prefill then
-        continues at token ``stash["n"]``: nothing resident is
-        recomputed."""
+        the first ``stash["n_kv_pages"]`` pages of its new run on replica
+        ``r``; prefill then continues at token ``stash["n"]``: nothing
+        resident is recomputed."""
+        slab = fold_ids(adm.slab, r, self.n_slabs)
         for pool, h in zip(self._kind_pools("ssm"), stash["ssm"],
                            strict=True):
-            pool[:, adm.slab].copy_(h, non_blocking=True)
+            pool[:, slab].copy_(h, non_blocking=True)
         k = stash["n_kv_pages"]
         if k:
-            runs = self._runs(adm.pages[:k])
+            runs = self._runs(self._folded(r, adm.pages[:k]))
             for pool, h in zip(self._kind_pools("kv"), stash["kv"],
                                strict=True):
                 for i, p, m in runs:
                     pool[:, p:p + m].copy_(h[:, i:i + m], non_blocking=True)
         self.stats.slab_restores += 1
+
+    def _folded(self, r: int, pages):
+        """Replica ``r``'s page ids as ids of the folded pools."""
+        return fold_ids(pages, r, self.n_pool_pages)
 
     # ----------------------------------------------------------------- tick
     def tick(self):
@@ -833,7 +1067,7 @@ class ServingEngine:
         decode step over every lane, collected at once.  -> False when no
         slot is in flight after admission (no decode step ran)."""
         free = [b for b in range(self.B) if self.admissions[b] is None]
-        for adm in self.sched.plan(free):
+        for adm in self.scheds[0].plan(free):
             self.admissions[adm.slot] = adm
             self._prefill_into(adm.slot, adm.req)
         live = [b for b in range(self.B) if self.admissions[b] is not None]
@@ -881,6 +1115,7 @@ class ServingEngine:
             self._out_event.record()
         now = self._wait_out()
         self.stats.prefills += 1
+        self.stats.replicas[0].prefills += 1
         self.pos[b] = L
         self._emit(b, req, self._token(0, req), now)
 
@@ -899,56 +1134,107 @@ class ServingEngine:
 
     # ------------------------------------------------------------ plan phase
     def _plan_phase(self) -> dict:
-        """Preemption verdicts, admissions and the COW and cross-KV rounds
-        of this tick, and in place: the new slots' slabs zeroed (or
-        restored from a preempted request's stash) and the scale rows of
-        pages freed since the last plan zeroed (the cross pools' too).
-        Verdicts against slots with work in flight are deferred past
-        collect (their emissions may retire the victim first); with
-        nothing in flight they apply at once, as in the serial loop.  Freed
-        pages and slabs were released at a collect, so no in-flight step
-        reads them; the device work rides the stream behind the in-flight
-        steps.  -> the tick's plan: {"preempts": [(slot, rid)], "cow":
-        [admission], "cross": [admission]} (the cross rounds: the
-        admissions whose frames must be encoded, in plan order)."""
-        tick_plan = {"preempts": [], "cow": [], "cross": []}
+        """Preemption verdicts (each replica's policy over its own slots),
+        the handoffs of a disaggregated engine, admissions and the COW and
+        cross-KV work of this tick, and in place: the new slots' slabs
+        zeroed (or restored from a preempted request's stash) and the scale
+        rows of pages freed since the last plan zeroed (the cross pools'
+        too).  Verdicts against slots with work in flight are deferred past
+        collect (their emissions may retire the victim first); with nothing
+        in flight they apply at once, as in the serial loop.  Freed pages
+        and slabs were released at a collect or behind a dispatched step,
+        so no later device work reads them before their new owner writes;
+        the device work rides the stream behind the in-flight steps.  -> the
+        tick's plan: {"preempts": [(slot, rid)], "handoffs": [(source
+        slot, source admission, destination replica, destination slot,
+        destination admission)], "cow": [(replica, admission)], "cross":
+        [admission]} (the admissions with a copy-on-write page, and those
+        whose frames must be encoded, in plan order)."""
+        tick_plan = {"preempts": [], "handoffs": [], "cow": [], "cross": []}
         if self._inflight is not None:
             self.stats.plan_ahead_ticks += 1
-        active = [a for a in self.admissions if a is not None]
-        for adm in self.sched.plan_preemptions(active, self.B - len(active)):
-            if self._inflight is None:
-                self._preempt_now(adm.slot)
-            else:
-                tick_plan["preempts"].append((adm.slot, adm.req.rid))
-        slabs = []
-        for adm in self.sched.plan([b for b in range(self.B)
-                                    if self.admissions[b] is None]):
-            b = adm.slot
-            self.admissions[b] = adm
-            self.slot_state[b] = "prefill"
-            if adm.cow is not None:
-                tick_plan["cow"].append(adm)
-            if adm.needs_encode:
-                tick_plan["cross"].append(adm)
-            # prefix-cached tokens are resident: prefill resumes at the
-            # first uncached position (for a preempted request, its donated
-            # progress: reused, not recomputed)
-            self.prefill_done[b] = adm.cached_len
-            self.stats.prefill_tokens_skipped += adm.cached_len
-            self.pos[b] = 0
-            self.last_token[b] = 0
-            if self.has_slabs:
-                stash = self._stash.pop(adm.req.rid, None)
-                if stash is None:
-                    slabs.append(adm.slab)
+        for r in range(self.R):
+            active = [self.admissions[b] for b in self._rep_slots(r)
+                      if self.admissions[b] is not None]
+            for adm in self.scheds[r].plan_preemptions(
+                    active, self.Bp - len(active)):
+                b = self._gslot(r, adm.slot)
+                if self._inflight is None:
+                    self._preempt_now(b)
                 else:
-                    self._restore_slot(adm, stash)
-                    self.prefill_done[b] = stash["n"]
-                    self.stats.prefill_tokens_skipped += stash["n"]
-        pids = self.allocator.take_scale_dirty() if self.quant_pools else []
+                    tick_plan["preempts"].append((b, adm.req.rid))
+        if self.disagg is not None:
+            self._plan_handoffs(tick_plan)
+        slabs, pids = [], []
+        for r in range(self.R):
+            for adm in self.scheds[r].plan([b - r * self.Bp
+                                            for b in self._rep_slots(r)
+                                            if self.admissions[b] is None]):
+                b = self._gslot(r, adm.slot)
+                self.admissions[b] = adm
+                self.slot_state[b] = "prefill"
+                if adm.cow is not None:
+                    tick_plan["cow"].append((r, adm))
+                if adm.needs_encode:
+                    tick_plan["cross"].append(adm)
+                # prefix-cached tokens are resident: prefill resumes at the
+                # first uncached position (for a preempted request, its
+                # donated progress: reused, not recomputed)
+                self.prefill_done[b] = adm.cached_len
+                self.stats.prefill_tokens_skipped += adm.cached_len
+                self.pos[b] = 0
+                self.last_token[b] = 0
+                if self.has_slabs:
+                    stash = self._stash.pop(adm.req.rid, None)
+                    if stash is None:
+                        slabs.append(fold_ids(adm.slab, r, self.n_slabs))
+                    else:
+                        self._restore_slot(r, adm, stash)
+                        self.prefill_done[b] = stash["n"]
+                        self.stats.prefill_tokens_skipped += stash["n"]
+            if self.quant_pools:
+                pids.extend(self._folded(
+                    r, self.allocators[r].take_scale_dirty()))
         if slabs or pids:
             self._zero_rows(slabs, pids)
         return tick_plan
+
+    def _plan_handoffs(self, tick_plan: dict):
+        """Match the slots whose prefill finished (FIFO) to decode replicas
+        with a free slot.  The destination slot is claimed now, so this
+        tick's admissions see it taken; the transfer (and the source's
+        release) happens at dispatch, and a deferred preemption landing on
+        the source first rolls the claim back."""
+        deferred = {b for b, _ in tick_plan["preempts"]}
+        while self._pending_handoffs:
+            b_src = self._pending_handoffs[0]
+            if b_src in deferred:
+                break           # the source is evicted at this collect
+            src_adm = self.admissions[b_src]
+            cand = [r for r in range(self.R)
+                    if self.roles[r] == "decode"
+                    and any(self.admissions[b] is None
+                            for b in self._rep_slots(r))]
+            if not cand:
+                break
+            dst_r = self.router.decode_placement(cand)
+            local = min(b - dst_r * self.Bp for b in self._rep_slots(dst_r)
+                        if self.admissions[b] is None)
+            resident = int(self.pos[b_src])
+            dst_adm = self.scheds[dst_r].plan_handoff(local, src_adm.req,
+                                                      resident)
+            if dst_adm is None:
+                break           # destination pool pressure: the head waits
+            b_dst = self._gslot(dst_r, dst_adm.slot)
+            self.admissions[b_dst] = dst_adm
+            self.slot_state[b_dst] = "decode"
+            self.pos[b_dst] = resident
+            self.prefill_done[b_dst] = resident
+            self.last_token[b_dst] = src_adm.req.out_tokens[-1]
+            self.spec_miss[b_dst] = 0
+            self._pending_handoffs.pop(0)
+            tick_plan["handoffs"].append(
+                (b_src, src_adm, dst_r, b_dst, dst_adm))
 
     def _zero_rows(self, slabs, pids):
         """Zero, in place, slabs ``slabs`` of every SSM layer (state, conv
@@ -956,8 +1242,9 @@ class ServingEngine:
         not leak into the new request) and the scale rows of recycled pages
         ``pids`` in the self-KV and cross pools (scale 0 dequantizes to
         exact zeros, so rows past a new occupant's length can never pair
-        its payload with the previous owner's scales).  The ids go through
-        the plan staging."""
+        its payload with the previous owner's scales); both as ids of the
+        folded pools, every replica's in one call.  The ids go through the
+        plan staging."""
         io = self.io["plan"]
         ids = io.host()[0]
         ids[:len(slabs)] = slabs
@@ -978,9 +1265,10 @@ class ServingEngine:
     # --------------------------------------------------------- collect phase
     def _collect_phase(self):
         """Wait for the in-flight dispatch's ids, then emit in dispatch
-        order: prefill completions (first token, flip to decode), then the
-        decode or verify step's tokens.  A slot retired since dispatch is
-        skipped by its (slot, rid) guard."""
+        order: prefill completions (first token; then decode, or the
+        handoff queue on a prefill replica), then the decode or verify
+        step's tokens.  A slot retired since dispatch is skipped by its
+        (slot, rid) guard."""
         inf = self._inflight
         if inf is None:
             return
@@ -988,15 +1276,25 @@ class ServingEngine:
         t1 = self._wait_out()
         self.stats.device_busy_s += t1 - inf["t_dispatch"]
         ids = self._out_np
-        for i, (b, rid, L) in enumerate(inf["pf"]):
+        for row, (b, rid, L) in enumerate(inf["pf"]):
             adm = self.admissions[b]
             if L is None or adm is None or adm.req.rid != rid:
                 continue
+            r = self._rep(b)
             self.stats.prefills += 1
-            self.sched.on_prefill_complete(adm)
+            self.stats.replicas[r].prefills += 1
+            self.scheds[r].on_prefill_complete(adm)
             self.pos[b] = L
-            self._emit(b, adm.req, self._token(i, adm.req), time.monotonic())
-            if self.admissions[b] is not None:
+            self._emit(b, adm.req, self._token(row, adm.req),
+                       time.monotonic())
+            if self.admissions[b] is None:
+                continue            # retired by that token
+            if self.roles is not None and self.roles[r] == "prefill":
+                # a prefill replica never decodes: the slot's finished page
+                # run waits for a decode replica
+                self.slot_state[b] = "handoff"
+                self._pending_handoffs.append(b)
+            else:
                 self.slot_state[b] = "decode"
         step = inf["step"]
         if step is None:
@@ -1053,11 +1351,14 @@ class ServingEngine:
 
     # -------------------------------------------------------- dispatch phase
     def _dispatch_phase(self, tick_plan: dict):
-        """Enqueue this tick's steps and return without blocking: the
-        cross-KV encodes, the COW page copies, a chunk round per
-        prefilling slot, then the decode-or-verify step, then the ids' copy
-        home.  Every encode of the tick runs before any chunk, so a slot
-        sharing a pending encode never reads its pages unwritten."""
+        """Enqueue this tick's steps and return without blocking: the page
+        handoffs (their destination slots join this tick's decode step),
+        the cross-KV encodes, the COW page copies, a chunk per prefilling
+        slot, then the decode-or-verify step, then
+        the ids' copy home.  Every encode of the tick runs before any
+        chunk, so a slot sharing a pending encode never reads its pages
+        unwritten."""
+        self._dispatch_handoffs(tick_plan["handoffs"])
         self._dispatch_cross(tick_plan["cross"])
         self._dispatch_cow(tick_plan["cow"])
         pf = self._dispatch_prefill()
@@ -1065,73 +1366,129 @@ class ServingEngine:
         if pf or step is not None:
             self._send_out({"pf": pf, "step": step})
 
+    def _dispatch_handoffs(self, handoffs: list):
+        """Run the planned page-run transfers: every handoff's source and
+        destination pages (folded ids) in one copy, then one replay of the
+        transfer step each (its inputs
+        copied into the step's static buffer on the card first); then the
+        references move (``on_handoff_sent``) and the source slot clears.
+        A plan whose source was evicted since (a preemption deferred past
+        collect) rolls the destination claim back instead."""
+        live = []
+        for b_src, src_adm, dst_r, b_dst, dst_adm in handoffs:
+            if self.admissions[b_src] is not src_adm:
+                self.scheds[dst_r].on_finish(dst_adm)
+                self._clear_slot(b_dst)
+                self.stats.plan_invalidations += 1
+                continue
+            live.append((b_src, src_adm, dst_r, dst_adm))
+        if not live:
+            return
+        io = self.io["handoff"]
+        host = io.host()
+        for i, (b_src, src_adm, dst_r, dst_adm) in enumerate(live):
+            f = io.split(host[i])
+            k, src_r = len(src_adm.pages), self._rep(b_src)
+            # unused lanes: the source's scratch page onto the destination's
+            f["src_pages"][:] = self._folded(src_r, [SCRATCH_PAGE])
+            f["dst_pages"][:] = self._folded(dst_r, [SCRATCH_PAGE])
+            f["src_pages"][:k] = self._folded(src_r, src_adm.pages)
+            f["dst_pages"][:k] = self._folded(dst_r, dst_adm.pages[:k])
+        io.send(len(live) * io.dev.shape[1])
+        for i, (b_src, src_adm, dst_r, dst_adm) in enumerate(live):
+            self._xfer_in.copy_(io.dev[i])
+            self.steps["transfer"]()
+            src_r, k = self._rep(b_src), len(src_adm.pages)
+            self.scheds[src_r].on_handoff_sent(
+                src_adm, self.allocators[dst_r], dst_adm.pages[:k])
+            self._clear_slot(b_src)
+            src_adm.req.replica = dst_r
+            self.stats.handoffs += 1
+            self.stats.pages_transferred += k
+            rs, rd = self.stats.replicas[src_r], self.stats.replicas[dst_r]
+            rs.handoffs_out += 1
+            rd.handoffs_in += 1
+            rs.pages_transferred_out += k
+            rd.pages_transferred_in += k
+
     def _dispatch_cross(self, adms: List[Admission]):
-        """Each admission's encode: every round's frames and cross block
-        table in one copy each, then one replay of the cross-KV write step
-        per round (its inputs copied into the step's static buffers on the
-        card first); the pages are published to the cross-KV cache once
-        the write is enqueued (a later read is behind it on the stream)."""
+        """Each admission's encode: every encode's frames and cross block
+        table (folded ids) in one copy each, then one replay of the
+        cross-KV write step each (its inputs copied into the step's static
+        buffers on the card first); the pages are published to the
+        replica's cross-KV cache once the write is enqueued (a later read
+        is behind it on the stream)."""
         if not adms:
             return
         fio, cio = self.io["frames"], self.io["cross"]
-        frames, cbt = fio.host(), cio.host()
+        frames, host = fio.host(), cio.host()
         for i, adm in enumerate(adms):
             frames[i] = np.asarray(adm.req.frames, np.float32).reshape(-1)
-            cbt[i] = adm.cross_pages
+            host[i] = self._folded(adm.req.replica, adm.cross_pages)
         fio.send(len(adms) * fio.dev.shape[1])
         cio.send(len(adms) * cio.dev.shape[1])
         for i, adm in enumerate(adms):
             self._frames_in.view(-1).copy_(fio.dev[i])
-            self._cross_in.view(-1).copy_(cio.dev[i])
+            self._cross_in.copy_(cio.dev[i])
             self.steps["cross"]()
-            self.sched.on_cross_written(adm)
+            self.scheds[adm.req.replica].on_cross_written(adm)
             self.stats.cross_encodes += 1
 
-    def _dispatch_cow(self, adms: List[Admission]):
-        """Each admission's copy-on-write page: every round's (src, dst) in
-        one copy, then one replay of the copy step per round, before any
-        chunk writes into the copy; the source's pin is released after."""
-        if not adms:
+    def _dispatch_cow(self, cows: list):
+        """Each (replica, admission)'s copy-on-write page: every (src, dst)
+        pair (folded ids) in one copy, then one replay of the copy step per
+        pair, before any chunk writes into the copy; the source's pin is
+        released after."""
+        if not cows:
             return
         io = self.io["copy"]
         host = io.host()
-        for i, adm in enumerate(adms):
-            host[i] = adm.cow
-        io.send(len(adms) * io.dev.shape[1])
-        for i, adm in enumerate(adms):
+        for i, (r, adm) in enumerate(cows):
+            host[i] = self._folded(r, adm.cow)
+        io.send(len(cows) * io.dev.shape[1])
+        for i, (r, adm) in enumerate(cows):
             self._copy_in.copy_(io.dev[i])
             self.steps["copy"]()
-            self.sched.on_cow_done(adm)
+            self.scheds[r].on_cow_done(adm)
             self.stats.cow_copies += 1
 
     def _slab_id(self, b: int, active: bool = True) -> int:
+        """Slot b's slab, or its replica's scratch slab: a folded id."""
         adm = self.admissions[b]
-        return adm.slab if (active and adm is not None
+        slab = adm.slab if (active and adm is not None
                             and adm.slab is not None) else SCRATCH_SLAB
+        return fold_ids(slab, self._rep(b), self.n_slabs)
 
-    def _bt_row(self, b: int) -> np.ndarray:
+    def _bt_row(self, b: int, active: bool = True) -> np.ndarray:
+        """Slot b's block table, its replica's scratch page past its pages
+        (every page when not ``active``): folded ids."""
         row = np.full(self.n_max_pages, SCRATCH_PAGE, np.int32)
         adm = self.admissions[b]
-        if adm is not None:
+        if active and adm is not None:
             row[:len(adm.pages)] = adm.pages
-        return row
+        return self._folded(self._rep(b), row)
 
-    def _cross_row(self, b: int) -> np.ndarray:
-        """Slot b's cross block table: its cross pages, or the scratch
-        page for a slot without them."""
+    def _cross_row(self, b: int, active: bool = True) -> np.ndarray:
+        """Slot b's cross block table: its cross pages, or its replica's
+        scratch page for a slot without them: folded ids."""
         row = np.full(self.n_cross_pages, SCRATCH_PAGE, np.int32)
         adm = self.admissions[b]
-        if adm is not None and adm.cross_pages is not None:
+        if active and adm is not None and adm.cross_pages is not None:
             row[:] = adm.cross_pages
-        return row
+        return self._folded(self._rep(b), row)
 
     def _dispatch_prefill(self) -> list:
-        """Advance every prefilling slot by one chunk: all rounds' inputs in
-        one copy, then one replay per round.  -> [(slot, rid, prompt
-        length if this chunk completes the prompt else None)], round i's
-        id at ids row i."""
-        rows = [b for b in range(self.B) if self.admissions[b] is not None
-                and self.slot_state[b] == "prefill"]
+        """Advance every prefilling slot by one chunk, in JAX's round
+        order (the first prefilling slot of each replica, then the second,
+        ...): all chunks' inputs in one copy, then one replay per chunk.
+        -> [(slot, rid, prompt length if this chunk completes the prompt
+        else None)], chunk i's id at ids row i."""
+        per_rep = [[b for b in self._rep_slots(r)
+                    if self.admissions[b] is not None
+                    and self.slot_state[b] == "prefill"]
+                   for r in range(self.R)]
+        rows = [slots[k] for k in range(max(map(len, per_rep)))
+                for slots in per_rep if k < len(slots)]
         if not rows:
             return []
         C, io = self.chunk, self.io["chunk"]
@@ -1162,10 +1519,10 @@ class ServingEngine:
         return pf
 
     def _prefill_round(self, i: int, entry):
-        """Replay the chunk step on round i's inputs; its id (and, on a
+        """Replay the chunk step on chunk i's inputs; its id (and, on a
         sampled engine, the logits row of a chunk that completes its
-        prompt) goes to row i before the next round's replay overwrites
-        the step's own."""
+        prompt) goes to row i before the next replay overwrites the step's
+        own."""
         self._chunk_in.copy_(self.io["chunk"].dev[i])
         logits, ids = self.steps["chunk"]()
         self._out[i:i + 1].copy_(ids)
@@ -1173,9 +1530,9 @@ class ServingEngine:
             self._lout[i].copy_(logits[0])
 
     def _dispatch_step(self):
-        """The decode-or-verify step over every decode-state slot.
-        -> ("decode", [(slot, rid)]), ("verify", [(slot, rid)], drafts) or
-        None."""
+        """The decode-or-verify step over every decode-state slot of every
+        replica.  -> ("decode", [(slot, rid)]), ("verify", [(slot, rid)],
+        drafts) or None."""
         active = [b for b in range(self.B) if self.slot_state[b] == "decode"]
         if not active:
             return None
@@ -1189,8 +1546,9 @@ class ServingEngine:
 
     def _dispatch_decode(self, active: List[int]):
         """One decode step over every slot; the paged engine's idle and
-        prefilling lanes ride along on the scratch page (and slab) with pos
-        0, the contiguous engine's idle lanes with token 0 and pos 0."""
+        prefilling lanes ride along on their replica's scratch page (and
+        slab) with pos 0, the contiguous engine's idle lanes with token 0
+        and pos 0."""
         io = self.io["decode"]
         f = io.split(io.host()[0])
         f["tokens"][:, 0] = self.last_token
@@ -1198,13 +1556,11 @@ class ServingEngine:
         f["pos"][:] = np.where(act, self.pos, 0)
         if self.paged:
             for b in range(self.B):
-                f["block_table"][b] = self._bt_row(b) if act[b] \
-                    else SCRATCH_PAGE
+                f["block_table"][b] = self._bt_row(b, bool(act[b]))
                 if self.has_slabs:
                     f["slab_ids"][b] = self._slab_id(b, bool(act[b]))
                 if self.has_cross:
-                    f["cross_bt"][b] = self._cross_row(b) if act[b] \
-                        else SCRATCH_PAGE
+                    f["cross_bt"][b] = self._cross_row(b, bool(act[b]))
         io.send()
         logits, ids = self.steps["decode"]()
         self._out[self.B:2 * self.B].copy_(ids)
@@ -1213,10 +1569,11 @@ class ServingEngine:
         return "decode", [(b, self.admissions[b].req.rid) for b in active]
 
     def _plan_drafts(self, active: List[int]):
-        """Draft up to k tokens per speculation-capable active slot.
-        -> {slot: draft tokens} holding only non-empty drafts, or None when
-        nothing drafted.  A slot whose drafts missed ``SPEC_DISABLE_AFTER``
-        times in a row stops drafting and returns its headroom pages."""
+        """Draft up to k tokens per speculation-capable active slot, from
+        its replica's draft source.  -> {slot: draft tokens} holding only
+        non-empty drafts, or None when nothing drafted.  A slot whose
+        drafts missed ``SPEC_DISABLE_AFTER`` times in a row stops drafting
+        and returns its headroom pages."""
         k = self.speculative
         drafts = {}
         for b in active:
@@ -1227,10 +1584,11 @@ class ServingEngine:
             if self.spec_miss[b] >= SPEC_DISABLE_AFTER:
                 keep = pages_needed(len(req.prompt) + req.max_new_tokens,
                                     self.page_size)
-                self.sched.on_spec_trim(adm, keep)
+                self.scheds[self._rep(b)].on_spec_trim(adm, keep)
                 continue
             self.stats.spec_draft_lookups += 1
-            draft = self.draft_source.draft(effective_prompt(req), k)
+            draft = self.draft_sources[self._rep(b)].draft(
+                effective_prompt(req), k)
             # verify writes KV at pos..pos+kd, which must stay inside the
             # slot's pages and the sequence budget
             cov = len(adm.pages) * self.page_size
@@ -1245,14 +1603,15 @@ class ServingEngine:
 
     def _dispatch_verify(self, active: List[int], drafts: dict):
         """One verify step scores k+1 positions for every active slot
-        (draftless slots ride along as qlen=1 rows, idle lanes on the
-        scratch page with pos 0 and qlen 1)."""
+        (draftless slots ride along as qlen=1 rows, idle lanes on their
+        replica's scratch page with pos 0 and qlen 1)."""
         io = self.io["verify"]
         f = io.split(io.host()[0])
         f["tokens"][:] = 0
         f["qlen"][:] = 1
         f["pos"][:] = 0
-        f["block_table"][:] = SCRATCH_PAGE
+        for b in range(self.B):
+            f["block_table"][b] = self._bt_row(b, False)
         for b in active:
             d = drafts.get(b, [])
             f["tokens"][b, 0] = self.last_token[b]
@@ -1278,13 +1637,14 @@ class ServingEngine:
         req.out_tokens.append(tok)
         self.last_token[b] = tok
         self.stats.decoded_tokens += 1
+        self.stats.replicas[self._rep(b)].decoded_tokens += 1
         if tok == self.eos or len(req.out_tokens) >= req.max_new_tokens \
                 or self.pos[b] >= self.S - 1:
             req.done = True
             req.t_done = now
             self.stats.tpot_s.append(
                 (now - req.t_first_token) / max(len(req.out_tokens) - 1, 1))
-            self.sched.on_finish(self.admissions[b])
+            self.scheds[self._rep(b)].on_finish(self.admissions[b])
             self._clear_slot(b)
 
     def _clear_slot(self, b: int):
@@ -1294,3 +1654,5 @@ class ServingEngine:
         self.last_token[b] = 0
         self.prefill_done[b] = 0
         self.spec_miss[b] = 0
+        if b in self._pending_handoffs:
+            self._pending_handoffs.remove(b)

@@ -1,7 +1,7 @@
 """Scheduling policy for the serving engine (policy/mechanism split).
 
-A copy of the JAX package's ``serving/scheduler.py`` for one replica
-(dp=1): the ``Scheduler`` interface, ``Admission`` records and
+A copy of the JAX package's ``serving/scheduler.py``: the ``Scheduler``
+interface, ``Admission`` records and
 ``FCFSScheduler``, the stock policy and the machinery base: page and slab
 budgeting, radix prefix lookup, copy-on-write planning, cache eviction,
 rollback and page release.  Subclasses override only the queue-discipline
@@ -12,8 +12,22 @@ hooks (``_enqueue`` / ``_select_next`` / ``_put_back`` /
 engine executes admissions (COW page copies, chunked prefill from the first
 uncached token) and reports lifecycle events back (``on_cow_done``,
 ``on_prefill_complete``, ``on_cross_written``, ``on_finish``,
-``on_preempt``, ``on_spec_trim``).  The handoff, migration and role
-methods wait for ROADMAP Queue 1 item 11.
+``on_preempt``, ``on_spec_trim``).  A replicated engine builds one
+scheduler per replica, each over its replica's allocator and caches, and
+hands it that replica's ``ReplicaStats`` (``replica_stats``): the
+per-replica counters move at the same sites as the global ones.  The
+migration methods of elastic replicas wait for ROADMAP Queue 1 item 11's
+elastic half.
+
+Disaggregated serving (``disagg=(P, D)``) gives each replica's scheduler
+a **role**: a ``prefill`` replica budgets only the resident-prompt page
+run (the slot leaves at its first token, so no decode pages are
+reserved) and never reserves draft headroom; a ``decode`` replica plans
+like ``mixed`` and is fed by ``plan_handoff``, the destination half of a
+page handoff, which allocates a fresh run for resident + remaining-decode
+tokens.  ``on_handoff_sent`` then moves the ownership at once
+(``kvcache.handoff_refs``).  A decode replica's own queue fills only with
+preempted requests, re-admitted over the pages their preemption donated.
 
 Beyond attention-only archs, admission is a JOINT all-or-nothing budget:
 
@@ -42,6 +56,12 @@ host instead.
 Invariant: leak freedom — every page is free, radix-cached or
     cross-cached, and every slab is free, after ``run()``/``drain()``
     retire all admissions.
+
+Invariant: role budgeting conserves the pool — a prefill-role admission
+    holds exactly the resident-prompt page run, and a handoff moves those
+    references to freshly allocated destination pages exactly once, so
+    per-replica leak freedom survives any interleaving of handoffs and
+    preemptions.
 """
 from __future__ import annotations
 
@@ -51,7 +71,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.kvcache import pages_needed
+from repro_torch.core.kvcache import handoff_refs, pages_needed
 
 
 def effective_prompt(req) -> np.ndarray:
@@ -149,6 +169,19 @@ class Scheduler:
         """The engine stopped speculating on adm's slot: return the draft
         headroom pages past block-table index ``keep``."""
 
+    def plan_handoff(self, slot: int, req,
+                     resident_len: int) -> Optional[Admission]:
+        """Destination-side admission for an incoming page handoff
+        (disaggregated serving); default: refuse, the handoff stays queued
+        at the source replica."""
+        return None
+
+    def on_handoff_sent(self, adm: Admission, dst_allocator,
+                        dst_pages) -> None:
+        """adm's resident pages were transferred to another replica: move
+        the references and retire the source slot."""
+        raise NotImplementedError
+
 
 class FCFSScheduler(Scheduler):
     """First-come-first-served admission.
@@ -163,14 +196,24 @@ class FCFSScheduler(Scheduler):
     evicts LRU cache runs when the pool cannot cover the remainder.  With
     ``spec_tokens`` > 0 an admission also tries for +spec_tokens of page
     coverage, all or nothing, never evicting; a request denied it
-    (``stats.spec_denied``) is still admitted, with ``spec=False``."""
+    (``stats.spec_denied``) is still admitted, with ``spec=False``.
+    ``role`` is the replica's under disaggregation ("prefill", "decode"),
+    else "mixed"."""
 
     def __init__(self, *, seq_budget: int, allocator=None, page_size: int = 0,
                  prefix_cache=None, stats=None, slab_allocator=None,
                  cross_cache=None, cross_pages_per_req: int = 0,
-                 kv_pages: bool = True, spec_tokens: int = 0):
+                 kv_pages: bool = True, spec_tokens: int = 0,
+                 role: str = "mixed"):
+        if role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"role must be mixed, prefill or decode, got "
+                             f"{role!r}")
         self.queue: collections.deque = collections.deque()
         self.seq_budget = seq_budget
+        # "prefill" budgets only the resident-prompt page run (the slot
+        # hands off at its first token) and reserves no draft headroom;
+        # "decode" plans like "mixed" (the router reads the marker)
+        self.role = role
         self.allocator = allocator
         self.psz = page_size
         self.prefix_cache = prefix_cache
@@ -187,8 +230,12 @@ class FCFSScheduler(Scheduler):
         self._round = 0      # logical clock: one tick per plan() call
         self._adm_seq = 0    # admission order stamp
         # page demand of the queued backlog, kept at every enqueue and
-        # dequeue (submit / admission / put-back / requeue)
+        # dequeue (submit / admission / put-back / requeue), so the router's
+        # load probe is O(1)
         self.backlog_pages = 0
+        # the replica's counters (a replicated engine sets them), moved at
+        # the same sites as the global stats so the two cannot drift
+        self.replica_stats = None
 
     @property
     def paged(self) -> bool:
@@ -254,10 +301,11 @@ class FCFSScheduler(Scheduler):
         and requeues."""
         if not self.paged:
             return 0
-        n = pages_needed(len(effective_prompt(req)) +
-                         remaining_new_tokens(req), self.psz) \
-            if self.kv_pages else 0
-        return n + self.cross_pages_per_req
+        n = len(effective_prompt(req))
+        if self.role != "prefill":      # prefill slots leave at first token
+            n += remaining_new_tokens(req)
+        return (pages_needed(n, self.psz) if self.kv_pages else 0) \
+            + self.cross_pages_per_req
 
     def _evictable_pages(self) -> int:
         """Pages eviction could eventually reclaim across both caches."""
@@ -321,8 +369,9 @@ class FCFSScheduler(Scheduler):
     def _plan_paged(self, slot: int, req) -> Optional[Admission]:
         prompt = effective_prompt(req)
         L = len(prompt)
-        total = pages_needed(L + remaining_new_tokens(req), self.psz) \
-            if self.kv_pages else 0
+        horizon = L if self.role == "prefill" \
+            else L + remaining_new_tokens(req)
+        total = pages_needed(horizon, self.psz) if self.kv_pages else 0
         alloc = self.allocator
         # ---- recurrent-state slab (SSM): all-or-nothing with pages
         slab = None
@@ -400,12 +449,13 @@ class FCFSScheduler(Scheduler):
         spec = self._draft_headroom(req, L, total, fresh)
         # count on admission only: a blocked head-of-line request is
         # re-planned every tick and must not inflate the hit rates
-        if self.prefix_cache is not None and self.stats is not None:
-            self.stats.prefix_lookups += 1
-            self.stats.prefix_hits += cached_len > 0
-        if self.cross_cache is not None and self.stats is not None:
-            self.stats.cross_lookups += 1
-            self.stats.cross_hits += not needs_encode
+        for st in self._counters():
+            if self.prefix_cache is not None:
+                st.prefix_lookups += 1
+                st.prefix_hits += cached_len > 0
+            if self.cross_cache is not None:
+                st.cross_lookups += 1
+                st.cross_hits += not needs_encode
         # fresh[0] sits at block-table index n_full: exactly where the COW
         # copy of the partial page belongs
         cow = (cow_src, fresh[0]) if cow_src is not None else None
@@ -414,20 +464,29 @@ class FCFSScheduler(Scheduler):
                          cross_pages=cross_pages, needs_encode=needs_encode,
                          spec=spec)
 
+    def _counters(self):
+        """The stats blocks a counting site moves: the global and, in a
+        replicated engine, the replica's."""
+        return [st for st in (self.stats, self.replica_stats)
+                if st is not None]
+
     def _draft_headroom(self, req, L: int, total: int,
                         pages: List[int]) -> bool:
-        """Append the speculative headroom (+spec_tokens of coverage) to
-        ``pages`` if the pool covers it; never evicts (hot resident
-        prefixes outrank draft room).  -> whether it was granted."""
-        if self.spec_tokens <= 0 or not self.kv_pages:
+        """Append the speculative headroom (+spec_tokens of coverage past
+        ``L`` + the remaining new tokens) to ``pages`` if the pool covers
+        it; never evicts (hot resident prefixes outrank draft room), never
+        for a prefill-role replica (its slots do not decode).  -> whether
+        it was granted."""
+        if self.spec_tokens <= 0 or not self.kv_pages or \
+                self.role == "prefill":
             return False
         n_max = self.seq_budget // self.psz
         extra = min(pages_needed(L + remaining_new_tokens(req) +
                                  self.spec_tokens, self.psz), n_max) - total
         more = self.allocator.alloc(extra)
         if more is None:
-            if self.stats is not None:
-                self.stats.spec_denied += 1
+            for st in self._counters():
+                st.spec_denied += 1
             return False
         pages.extend(more)
         return True
@@ -494,3 +553,38 @@ class FCFSScheduler(Scheduler):
             self._release(adm)
         self._requeue_preempted(adm.req)
         self.backlog_pages += self._req_pages(adm.req)
+
+    # ------------------------------------------------------ disaggregation
+    def plan_handoff(self, slot: int, req,
+                     resident_len: int) -> Optional[Admission]:
+        """Destination-side admission for an incoming page handoff: the
+        request arrives with ``resident_len`` tokens of KV computed on the
+        source replica, so this allocates a fresh run for resident +
+        remaining-decode tokens (the transfer step fills the resident
+        prefix; ``on_handoff_sent`` moves the references).  All or nothing
+        like ``_plan_paged``: None leaves the handoff queued at the source.
+        Draft headroom is budgeted as at a cold admission."""
+        total = pages_needed(resident_len + remaining_new_tokens(req),
+                             self.psz)
+        alloc = self.allocator
+        fresh = alloc.alloc(total)
+        if fresh is None and self._can_reclaim(total):
+            self._reclaim(total - alloc.n_free)
+            fresh = alloc.alloc(total)
+        if fresh is None:
+            return None
+        spec = self._draft_headroom(req, resident_len, total, fresh)
+        adm = Admission(slot=slot, req=req, pages=fresh,
+                        cached_len=resident_len, spec=spec)
+        adm.seq = self._adm_seq
+        self._adm_seq += 1
+        return adm
+
+    def on_handoff_sent(self, adm: Admission, dst_allocator,
+                        dst_pages) -> None:
+        """The engine transferred adm's resident pages to another replica:
+        move the references at once (the source refs drop exactly once;
+        pages the radix cache shares stay resident here).  A prefill
+        admission holds no slab and no cross pages (disaggregation serves
+        attention-only archs), so its pages are its whole estate."""
+        handoff_refs(self.allocator, adm.pages, dst_allocator, dst_pages)

@@ -119,11 +119,14 @@ def test_launcher_serves_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,slice_", [
-    (["--tp", "2"], "tensor parallelism"),
-    (["--dp", "2"], "data-parallel replicas"),
-    (["--disagg", "1:1"], "disaggregated prefill/decode"),
-    (["--scale-events", "8:1"], "elastic replicas"),
-    (["--temperature", "0.7", "--tp", "2"], "tensor parallelism"),
+    # ids as before --dp and --disagg left this list for
+    # test_launcher_serves_replicas
+    pytest.param(["--tp", "2"], "tensor parallelism",
+                 id="argv0-tensor parallelism"),
+    pytest.param(["--scale-events", "8:1"], "elastic replicas",
+                 id="argv3-elastic replicas"),
+    pytest.param(["--temperature", "0.7", "--tp", "2"], "tensor parallelism",
+                 id="argv4-tensor parallelism"),
 ])
 def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
     """A value of the JAX launcher's flags that the port cannot serve is
@@ -132,6 +135,28 @@ def test_launcher_refuses_flags_of_later_slices(argv, slice_, capsys):
         serve.parse_args(["--arch", "tinyllama-42m", *argv])
     assert e.value.code == 2
     assert slice_ in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,lines", [
+    (["--dp", "2"], ["router: affinity_routed=", "replica[0]: routed=",
+                     "replica[1]: routed="]),
+    (["--dp", "2", "--disagg", "1:1"],
+     ["disagg(P=1 D=1): handoffs=4 ", "role=prefill handoffs=4out/0in",
+      "role=decode handoffs=0out/4in"]),
+], ids=["dp2", "disagg"])
+def test_launcher_serves_replicas(argv, lines, capsys):
+    """``--dp 2`` and ``--disagg 1:1`` serve on the CPU (they were refused
+    before the replica slice), with the JAX launcher's report lines."""
+    assert serve.main(["--arch", "tinyllama-42m", "--smoke", "--requests", "4",
+                       "--slots", "2", "--seq-budget", "64", "--prompt-len",
+                       "20", "--max-new", "4", "--page-size", "8",
+                       "--prefill-chunk", "16", "--kv-dtype", "fp32",
+                       "--device", "cpu", *argv]) == 0
+    out = capsys.readouterr().out
+    assert "engine=paged" in out and "tokens=16" in out
+    assert "pages_free=32/32" in out
+    for line in lines:
+        assert line in out, (line, out)
 
 
 def test_launcher_takes_frame_groups():
