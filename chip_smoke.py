@@ -202,7 +202,17 @@ each (and a few detail lines):
             without preemption; mamba2-370m from float32 and int8 slabs
             with preempt(b) forced mid-prefill and mid-decode (slabs
             stashed on the host and restored), tokens identical to the
-            uninterrupted run.
+            uninterrupted run.  parity-dp and parity-disagg: tinyllama over
+            2 replicas of 2 slots (or 1 prefill and 1 decode replica),
+            FCFS with the prefix cache, float x10 and int8 x1.75 pools, 8
+            requests behind two 40-token prefixes: card against CPU and
+            eager-serial, per-replica counters and handoffs equal.
+            parity-elastic: the same model and pools, 10 requests, under
+            ``ELASTIC_PARITY_EVENTS`` (2 -> 3 replicas, replica 1 killed,
+            -> 1 with a slot's pages migrated, -> 2): identical greedy
+            tokens card against CPU and eager-serial, live logits within
+            tolerance, the same changes, membership counters, each
+            request's replica and the kill's RecoveryReport, leak-free.
 4. serve    bfloat16 weights, 8 slots, 16 requests, in seventeen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
@@ -286,6 +296,16 @@ each (and a few detail lines):
             overlap=False (identical greedy tokens), and tok/s, wall per
             tick and busy share of the two are printed side by side (ab[]).
             Prints tok/s, TTFT, TPOT, acceptance and launches per step.
+            serve-dp and serve-disagg serve 32 requests over 2 replicas of
+            8 slots (or 1:1), with a ``dp[...]`` line beside serve; then
+            serve-elastic: serve-dp's engine and mix under
+            ``SERVE_ELASTIC_EVENTS`` (2 -> 1 -> 2 -> 1 replicas, the last
+            by killing replica 0), each change's wall time split into the
+            barrier, the drain, the pools' re-scatter and the graphs'
+            capture, the decode and chunk graphs' kernel nodes after each
+            change equal to serve-dp's (R = 2) or serve's (R = 1), and the
+            memory reserved over the cycle grown by no more than one step
+            set's graph pools; tok/s beside serve and serve-dp.
 5. profile  each serve phase's workload again under torch.profiler:
             device time by kernel, the host-blocking CUDA runtime calls,
             the device's busy share of the phase, and the calls, device
@@ -3096,9 +3116,10 @@ def _motif_requests(Request, rng, n, lo, hi, max_new, vocab):
 
 
 def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
-                **kw):
+                setup=None, **kw):
     """Serve ``reqs`` on a fresh engine, paged or contiguous (``kw``: e.g.
-    ``graphs``, ``overlap``, ``speculative``).  -> (engine, tokens per
+    ``graphs``, ``overlap``, ``speculative``; ``setup(engine)`` runs before
+    the requests are submitted).  -> (engine, tokens per
     request, live logits of every step in dispatch order (prefill chunks or
     whole prompts; decode rows and verify columns of live slots), logits
     row behind each emitted token of the one-token path per rid).  The
@@ -3159,6 +3180,8 @@ def _run_engine(torch, cfg, plan, params, reqs, device, slots=4, paged=True,
 
         eng.prefill_fn, eng._prefill_into = rec_prefill, rec_prefill_into
         eng._dispatch_decode = rec_step(eng._dispatch_decode)
+    if setup is not None:
+        setup(eng)
     for r in reqs:
         eng.submit(r)
     eng.run()
@@ -4451,6 +4474,124 @@ def phase_parity_disagg(torch):
     phase_parity_dp(torch, "parity-disagg", dp=2, disagg=(1, 1))
 
 
+# parity-elastic's membership schedule, (tick, "scale", N) or (tick, "kill",
+# r): 2 -> 3 replicas, replica 1 killed (its orphans re-admitted), -> 1 when
+# replica 0 has a free slot (replica 1's last slot migrates), then -> 2
+ELASTIC_PARITY_EVENTS = ((4, "scale", 3), (10, "kill", 1), (42, "scale", 1),
+                         (46, "scale", 2))
+
+
+def _membership(events, log):
+    """A ``membership_hook`` applying ``events`` at the top of the tick each
+    names (as the launcher's ``--scale-events`` does); each change appends
+    (tick, kind, value, replicas after it, migrations so far) to ``log``, a
+    kill its ``RecoveryReport``'s rids too."""
+    pending = list(events)
+
+    def hook(eng):
+        while pending and eng.stats.ticks >= pending[0][0]:
+            tick, kind, val = pending.pop(0)
+            if kind == "scale":
+                eng.scale_to(val)
+                log.append((tick, kind, val, eng.R, eng.stats.migrations))
+            else:
+                rep = eng.kill_replica(val)
+                log.append((tick, kind, val, eng.R, eng.stats.migrations,
+                            rep.replica, rep.active_rids, rep.queued_rids))
+    return hook
+
+
+def _elastic_counts(eng):
+    """(scale events, crashes, migrations, migrated pages, readmitted,
+    preemptions, pages transferred, replicas)."""
+    st = eng.stats
+    return (st.scale_events, st.crashes, st.migrations, st.migrated_pages,
+            st.readmitted, st.preemptions, st.pages_transferred, eng.R)
+
+
+def phase_parity_elastic(torch):
+    """Elastic replicas on the card, fp32 at full width and depth:
+    tinyllama (x10 float pools, x1.75 int8 pools) over dp = 2 replicas of
+    2 slots, FCFS with the prefix cache, 10 requests behind two 40-token
+    system prompts, under ``ELASTIC_PARITY_EVENTS`` (a join, a crash, a
+    drain that migrates a slot's pages, a join): the card against the CPU
+    (greedy tokens identical, live logits within tolerance, each request's
+    replica, the membership counters and the kill's ``RecoveryReport``
+    equal) and against itself with graphs=False, overlap=False; every
+    replica leak-free after ``drain()``.  Every membership change drops
+    the step graphs and captures them again over the new pools.  Launch
+    counts are set to 0 just before each card engine serves and read just
+    after (the CPU path counts none).  -> the card runs' launches, summed
+    over both pool dtypes."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request
+    name = "parity-elastic"
+    cfg = get_config("tinyllama-42m")
+    base = model.init_params(cfg, ShardingPlan(kv_cache_dtype="float32"),
+                             torch.Generator().manual_seed(0), device="cpu",
+                             dtype="float32")
+
+    def reqs():
+        return _two_prefix_requests(Request, np.random.RandomState(6), 10, 4,
+                                    60, 16, cfg.vocab_size)
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for kvd, scale, tol in (("float32", 10, PARITY_TOL),
+                            ("int8", 1.75, INT8_PARITY_TOL)):
+        plan = ShardingPlan(kv_cache_dtype=kvd)
+        params = model.tree_map(lambda t, s=scale: t * s, base)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            log, rs = [], reqs()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()        # this engine's path starts here
+            out = _run_engine(
+                torch, cfg, plan, params, rs, dev, slots=2,
+                prefix_cache=True, dp=2,
+                setup=lambda e, log=log: setattr(
+                    e, "membership_hook",
+                    _membership(ELASTIC_PARITY_EVENTS, log)))
+            torch.cuda.synchronize()
+            for kn, v in ops.launch_counts().items():   # ends here
+                launches[kn] += v
+            runs[dev] = (out, log, [r.replica for r in rs])
+        (eng, *got), log, reps = runs["cuda"]
+        (cpu, *want), cpu_log, cpu_reps = runs["cpu"]
+        err, mx = _same(f"{name}[{kvd}]", got[:2], want[:2], tol)
+        counts = _elastic_counts(eng)
+        check((log, reps, counts) == (cpu_log, cpu_reps, _elastic_counts(cpu)),
+              f"{name}[{kvd}]: membership differs card vs cpu\n  {log} "
+              f"{reps} {counts}\n  {cpu_log} {cpu_reps} {_elastic_counts(cpu)}")
+        check(len(log) == len(ELASTIC_PARITY_EVENTS) and counts[1] == 1 and
+              counts[2] > 0, f"{name}[{kvd}]: the schedule did not apply, "
+                             f"kill or migrate: {log} {counts}")
+        _eager_serial(torch, f"{name}[{kvd}]", got[0], cfg, plan, params,
+                      reqs(), slots=2, prefix_cache=True, dp=2,
+                      setup=lambda e: setattr(
+                          e, "membership_hook",
+                          _membership(ELASTIC_PARITY_EVENTS, [])))
+        print(f"{name}: {kvd} pools, dp 2 -> 3 -> kill -> 1 -> 2 at ticks "
+              f"{[e[0] for e in ELASTIC_PARITY_EVENTS]}, 2 slots a replica, "
+              f"10 requests behind two 40-token prefixes, on cuda vs cpu: "
+              f"live logits max_abs_err={err:.3e} (|logit| max {mx:.2f}, "
+              f"tol rtol={tol['rtol']} atol={tol['atol']}); greedy tokens "
+              f"identical to cpu and to the eager-serial engine on cuda; "
+              f"changes {log}; (scale_events, crashes, migrations, "
+              f"migrated_pages, readmitted, preemptions, pages_transferred, "
+              f"dp_final)={counts} and each request's replica {reps} equal "
+              f"on cpu; leak-free after drain()")
+    for kn in ELASTIC_KERNELS:
+        check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
+    print(f"{name}: launches on cuda "
+          f"{ {kn: v for kn, v in launches.items() if v} }")
+    return launches
+
+
 def _serve_arrivals(eng, reqs, first, every, preempt=None, max_ticks=3000):
     """Serve ``reqs`` with arrivals over time: the first ``first`` at
     once, then one more every ``every`` ticks; ``preempt(eng, tick)`` may
@@ -4942,7 +5083,7 @@ def phase_serve(torch, name, graphs=True, overlap=True):
               f"steps), {stats.cross_hits}/{stats.cross_lookups} cross hits, "
               f"not {want}")
     xfer = {}
-    if "transfer" in graph_steps:
+    if eng.disagg is not None:
         # one handoff alone: the transfer graph replayed (the last
         # handoff's pages again, into pages drain() freed), CUDA events
         # around it
@@ -5188,6 +5329,157 @@ def phase_serve(torch, name, graphs=True, overlap=True):
                 routed=[x.routed for x in stats.replicas],
                 ttft_p50_ms=float(np.percentile(ttft, 50)),
                 tpot_p50_ms=float(np.median(stats.tpot_s) * 1e3))
+
+
+# serve-elastic: serve-dp's engine and mix under these membership changes,
+# (tick, "scale", N) or (tick, "kill", r): 2 -> 1 -> 2 -> 1 replicas; the
+# replica that joins at tick 40 starts empty (every request was routed at
+# submit), so the kill at 60 takes replica 0, the one that serves
+SERVE_ELASTIC_EVENTS = ((20, "scale", 1), (40, "scale", 2), (60, "kill", 0))
+# the kernels the elastic path launches (tinyllama, bf16 pools)
+ELASTIC_KERNELS = ("rmsnorm", "rmsnorm_residual", "matmul", "flash_attention",
+                   "paged_decode_attention")
+
+
+def phase_serve_elastic(torch, served):
+    """serve-dp's model, engine (2 replicas x 8 slots, bf16 pools, graphs,
+    the pipelined tick) and 32 requests under ``SERVE_ELASTIC_EVENTS``,
+    after serve and serve-dp in this call.  Each membership change's wall
+    time, split into the barrier (collecting the tick in flight), the
+    drain (migrations or preemptions), the pools' re-scatter, the step
+    graphs' capture (with their staging) and the rest (host bookkeeping;
+    each part timed to a synchronize); migrations, pages and readmitted
+    requests; after each change the decode and chunk graphs' kernel nodes,
+    which must be serve-dp's at R = 2 and serve's at R = 1, and
+    ``torch.cuda.memory_reserved``, which must not grow by more than one
+    step set's graph pools over the 2 -> 1 -> 2 -> 1 cycle.  Launch counts
+    set to 0 just before the requests are submitted and read just after
+    the last token (a rebuild's capture warm-up calls launch kernels too:
+    counted, and printed apart); every request completes, leak-free."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import engine as engine_mod
+    name = "serve-elastic"
+    _free_card(torch)
+    cfg, engine, requests = _serve_setup(torch, "serve-dp")
+    eng = engine()
+    parts, active, changes = {}, [False], []
+
+    def part(key, fn):
+        def wrapped(*args, **kw):
+            if not active[0]:
+                return fn(*args, **kw)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    eng._barrier = part("barrier", eng._barrier)
+    eng._drain_replicas = part("drain", eng._drain_replicas)
+    eng._build_io = part("capture", eng._build_io)
+    eng._build_steps = part("capture", eng._build_steps)
+    reshard = engine_mod.reshard_replica_pools
+    engine_mod.reshard_replica_pools = part("reshard", reshard)
+    pending = list(SERVE_ELASTIC_EVENTS)
+
+    def hook(e):
+        while pending and e.stats.ticks >= pending[0][0]:
+            tick, kind, val = pending.pop(0)
+            parts.clear()
+            before = ops.launch_counts()
+            mig = (e.stats.migrations, e.stats.migrated_pages,
+                   e.stats.preemptions, e.stats.readmitted)
+            active[0] = True
+            t0 = time.perf_counter()
+            if kind == "scale":
+                e.scale_to(val)
+            else:
+                e.kill_replica(val)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            active[0] = False
+            after = ops.launch_counts()
+            nodes = {kd: sum(k == 0 for k, _ in read_graph(e.steps[kd].graph))
+                     for kd in ("decode", "chunk")}
+            changes.append(dict(
+                tick=tick, kind=kind, value=val, R=e.R, wall_ms=1e3 * wall,
+                parts_ms={k: 1e3 * v for k, v in parts.items()},
+                migrations=e.stats.migrations - mig[0],
+                pages=e.stats.migrated_pages - mig[1],
+                preemptions=e.stats.preemptions - mig[2],
+                readmitted=e.stats.readmitted - mig[3],
+                warmup_launches=sum(after.values()) - sum(before.values()),
+                nodes=nodes, reserved=torch.cuda.memory_reserved(),
+                pool_bytes=sum(st.pool_bytes for st in e.steps.values())))
+
+    eng.membership_hook = hook
+    reqs = requests()
+    try:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()                 # main path starts here
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()            # main path ends here
+    finally:
+        engine_mod.reshard_replica_pools = reshard
+    check(len(changes) == len(SERVE_ELASTIC_EVENTS),
+          f"{name}: {len(changes)} of {len(SERVE_ELASTIC_EVENTS)} changes ran")
+    check(all(r.done for r in reqs), f"{name}: not every request completed")
+    check(all(0 < len(r.out_tokens) <= NEW for r in reqs), f"{name}: token counts")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          f"{name}: token ids out of range")
+    check(eng.drain() == 0, f"{name}: slots still admitted after run()")
+    leak_check(name, eng)
+    for kn in ELASTIC_KERNELS:
+        check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
+    want = {2: served["serve-dp"]["graphs"], 1: served["serve"]["graphs"]}
+    for c in changes:
+        ref = {kd: want[c["R"]][kd]["kernel_nodes"] for kd in c["nodes"]}
+        check(c["nodes"] == ref,
+              f"{name}: after the change at tick {c['tick']} (R = {c['R']}) "
+              f"the graphs hold {c['nodes']} kernel nodes, not {ref}")
+    grow = changes[2]["reserved"] - changes[0]["reserved"]
+    check(grow <= changes[2]["pool_bytes"],
+          f"{name}: memory reserved grew {grow} B over the 2 -> 1 -> 2 -> 1 "
+          f"cycle, past one step set's graph pools "
+          f"({changes[2]['pool_bytes']} B)")
+    for c in changes:
+        print(f"  {name} change: tick={c['tick']} {c['kind']} {c['value']} -> "
+              f"R={c['R']} wall_ms={c['wall_ms']:.2f} "
+              + " ".join(f"{k}_ms={v:.2f}" for k, v in c["parts_ms"].items())
+              + f" other_ms={c['wall_ms'] - sum(c['parts_ms'].values()):.2f} "
+              f"migrations={c['migrations']} migrated_pages={c['pages']} "
+              f"preemptions={c['preemptions']} readmitted={c['readmitted']} "
+              f"capture_warmup_launches={c['warmup_launches']} "
+              f"decode_graph_kernels={c['nodes']['decode']} chunk_graph_"
+              f"kernels={c['nodes']['chunk']} memory_reserved_MiB="
+              f"{c['reserved'] / 2**20:.1f} step_set_pool_MiB="
+              f"{c['pool_bytes'] / 2**20:.2f}")
+    tps = {ph: served[ph]["tokens"] / served[ph]["wall"]
+           for ph in ("serve", "serve-dp")}
+    print(f"{name}: [graphed-overlap] {cfg.name} bf16 weights, bfloat16 "
+          f"pools, greedy, random prompts, slots={SLOTS} seq_budget={SB} "
+          f"page={PSZ} chunk={CH} dp 2 -> "
+          + " -> ".join(str(c["R"]) for c in changes)
+          + f" requests={len(reqs)} tokens={stats.decoded_tokens} "
+          f"ticks={stats.ticks} wall_s={wall:.3f} tok_per_s="
+          f"{stats.decoded_tokens / wall:.1f} (serve {tps['serve']:.1f}, "
+          f"serve-dp {tps['serve-dp']:.1f} in this call) scale_events="
+          f"{stats.scale_events} crashes={stats.crashes} migrations="
+          f"{stats.migrations} migrated_pages={stats.migrated_pages} "
+          f"readmitted={stats.readmitted} preemptions={stats.preemptions} "
+          f"memory_growth_over_cycle_MiB={grow / 2**20:.2f} "
+          f"ttft_p50_ms={np.percentile(stats.ttft_s, 50) * 1e3:.1f} "
+          f"launches={ {kn: v for kn, v in launches.items() if v} }")
+    return dict(launches=launches, changes=changes, wall=wall,
+                tokens=stats.decoded_tokens, ticks=stats.ticks)
 
 
 def phase_profile(torch, name, serve_wall_s, graphs=True, overlap=True):
@@ -5624,8 +5916,10 @@ def main() -> int:
         timed("parity-preempt", phase_parity_preempt, torch)
         timed("parity-dp", phase_parity_dp, torch)
         timed("parity-disagg", phase_parity_disagg, torch)
+        parity_elastic = timed("parity-elastic", phase_parity_elastic, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
+        elastic = timed("serve-elastic", phase_serve_elastic, torch, served)
         # the same phases with eager steps and the serial loop, in this call
         eager = {name: timed(f"{name}[eager-serial]", phase_serve, torch, name,
                              False, False) for name in AB_PHASES}
@@ -5713,6 +6007,8 @@ def main() -> int:
     for name, (route, source, replaces) in KERNELS.items():
         r = rows[name]
         by_phase = {ph: out["launches"][name] for ph, out in served.items()}
+        by_phase["serve-elastic"] = elastic["launches"][name]
+        by_phase["parity-elastic"] = parity_elastic[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "max_abs_err": r["max_abs_err"],

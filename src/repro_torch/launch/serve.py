@@ -55,9 +55,14 @@ replicas on the one card (selects the paged engine; the router places
 each request, and a ``router:`` line and a ``replica[r]:`` line each
 report them), ``--disagg P:D`` (with ``--dp P+D``) splits them into
 prefill and decode replicas that hand finished page runs over (a
-``disagg(...)`` line), with the JAX launcher's checks.  The port runs
-tp=1 and no elastic replicas: ``--tp 2`` and ``--scale-events`` are
-refused with the slice they wait for.
+``disagg(...)`` line), with the JAX launcher's checks.
+``--scale-events T:N[,T:N...]`` (with ``T:kill:R`` entries) changes the
+paged engine's replica count live: at tick T it scales to N replicas
+(a drain migrates in-flight pages to the survivors) or kills replica R
+(its requests are re-admitted elsewhere), and prints JAX's ``elastic:``
+line; it is refused with ``--disagg`` and without the paged engine, with
+the JAX launcher's messages.  The port runs tp=1: ``--tp 2`` is refused
+with the slice it waits for.
 Weights are random, drawn from ``--seed`` on the serving device (a CUDA
 generator on the card: full-width draws stay there); prompts are random
 token ids.
@@ -75,8 +80,6 @@ import numpy as np
 # values the port serves, the later slice of the port that brings the rest)
 LATER = {
     "--tp": ((1,), "tensor parallelism (ROADMAP Queue 1 item 12)"),
-    "--scale-events": ((None,), "elastic replicas (ROADMAP Queue 1 item 11, "
-                                "its elastic half)"),
 }
 
 
@@ -168,6 +171,29 @@ def parse_args(argv=None):
             ap.error(f"--disagg {args.disagg} needs --dp {p + d} "
                      f"(P + D replicas, both >= 1)")
         args.disagg_pd = (p, d)
+    args.scale_events_list = []
+    if args.scale_events:
+        if not (args.paged or args.prefix_cache or args.dp > 1
+                or args.speculative):
+            ap.error("--scale-events requires the paged engine (--paged)")
+        if args.disagg_pd is not None:
+            ap.error("--scale-events cannot combine with --disagg "
+                     "(role sets are static)")
+        for part in args.scale_events.split(","):
+            bits = part.split(":")
+            try:
+                if len(bits) == 2:
+                    args.scale_events_list.append(
+                        (int(bits[0]), "scale", int(bits[1])))
+                elif len(bits) == 3 and bits[1] == "kill":
+                    args.scale_events_list.append(
+                        (int(bits[0]), "kill", int(bits[2])))
+                else:
+                    raise ValueError(part)
+            except ValueError:
+                ap.error("--scale-events expects comma-separated T:N or "
+                         "T:kill:R entries")
+        args.scale_events_list.sort()
     from repro_torch.configs import get_config
     from repro_torch.core.kvcache import cache_profile
     try:
@@ -230,6 +256,15 @@ def main(argv=None):
             speculative=args.speculative, prefix_cache=args.prefix_cache,
             scheduler=scheduler, overlap=args.overlap, dp=args.dp,
             disagg=args.disagg_pd, device=args.device)
+        if args.scale_events_list:
+            def membership_hook(e, _pending=list(args.scale_events_list)):
+                while _pending and e.stats.ticks >= _pending[0][0]:
+                    _, kind, val = _pending.pop(0)
+                    if kind == "scale":
+                        e.scale_to(val)
+                    else:
+                        e.kill_replica(val)
+            engine.membership_hook = membership_hook
     else:
         engine = ServingEngine(cfg, plan, args.slots, args.seq_budget, params,
                                sampler=sampler, rng_seed=args.seed,
@@ -320,6 +355,11 @@ def main(argv=None):
         print(f"disagg(P={args.disagg_pd[0]} D={args.disagg_pd[1]}): "
               f"handoffs={stats.handoffs} "
               f"pages_transferred={stats.pages_transferred}")
+    if args.scale_events:
+        print(f"elastic: scale_events={stats.scale_events} "
+              f"crashes={stats.crashes} migrations={stats.migrations} "
+              f"migrated_pages={stats.migrated_pages} "
+              f"readmitted={stats.readmitted} dp_final={engine.R}")
     if args.dp > 1:
         print(f"router: affinity_routed={engine.router.affinity_routed}"
               f"/{args.requests}")

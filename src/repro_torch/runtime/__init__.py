@@ -1,1 +1,2 @@
-"""Runtime services of the port: host-offload weight streaming."""
+"""Runtime services of the port: host-offload weight streaming, and the
+recovery planning and pool re-scatter of elastic replicas."""

@@ -213,6 +213,30 @@ in between rolls the claim back (``plan_invalidations``).  Decode
 replicas run decode (or verify) steps only; ``stats.handoffs``,
 ``pages_transferred`` and the replicas' ``handoffs_out/_in``,
 ``pages_transferred_out/_in`` count them.
+
+**Elastic replicas** (paged, a scheduler factory, no disaggregation, as in
+JAX): ``scale_to(dp_new)`` and ``kill_replica(r)`` change the replica set
+live, from a ``membership_hook`` fired at the top of every paged tick
+(fault injection, the launcher's ``--scale-events``) or between ticks.
+Both collect in-flight work first.  A scale-down drains the leaving
+replicas: each active slot migrates to a survivor with a free slot (the
+destination admission budgets the full horizon, ``plan_migration``; the
+resident pages go through the page-transfer step, int8 scale rows too;
+the references hand over, ``on_migrated``), or is preempted and requeued
+where that cannot apply (slabs, cross-KV pages, no free slot, pool
+pressure, a transfer that raised: the claim rolls back); then the queues
+move to the survivors (``take_queued``, ``_place``).  A kill drops the
+replica's state whole and re-admits its requests on the survivors as
+re-prefills over prompt + emitted tokens (``runtime.ft.plan_recovery``:
+active by admission order, then the queue).  Then ``_rebuild``: the step
+graphs are dropped (they hold the old pools' addresses), the pools
+re-scatter to the new R (``runtime.elastic.reshard_replica_pools``),
+survivor ``keep[j]`` becomes replica j with its allocator, caches,
+scheduler and counters (replica-local ids, folded anew at staging),
+joined replicas start empty, the slot arrays, requests' replicas and the
+router are rebuilt, and the step set is made and captured again at the
+new R.  ``stats`` counts ``scale_events``, ``crashes``, ``migrations``,
+``migrated_pages`` and ``readmitted``.
 """
 from __future__ import annotations
 
@@ -239,6 +263,8 @@ from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
                                     make_prefill_chunk_step, make_prefill_step,
                                     make_verify_step, n_cross_pages,
                                     zero_cache_for, zero_paged_cache_for)
+from repro_torch.runtime.elastic import reshard_replica_pools
+from repro_torch.runtime.ft import RecoveryReport, plan_recovery
 from repro_torch.serving.prefix_cache import (CrossKVCache,
                                               PromptLookupDraft,
                                               RadixPrefixCache)
@@ -305,8 +331,10 @@ class EngineStats:
     collect intervals) and ``plan_invalidations`` (preemption verdicts
     deferred past collect whose victim retired there, so they were rolled
     back).  ``handoffs`` and ``pages_transferred`` count a disaggregated
-    engine's page-run transfers; ``replicas`` holds one ``ReplicaStats``
-    a replica."""
+    engine's page-run transfers (and, in ``pages_transferred``, an elastic
+    drain's migrations); ``scale_events``, ``crashes``, ``migrations``,
+    ``migrated_pages`` and ``readmitted`` count membership changes;
+    ``replicas`` holds one ``ReplicaStats`` a replica."""
     ticks: int = 0
     prefills: int = 0
     decoded_tokens: int = 0
@@ -335,6 +363,11 @@ class EngineStats:
     device_busy_s: float = 0.0         # dispatch->collect device intervals
     handoffs: int = 0                  # prefill->decode page-run transfers
     pages_transferred: int = 0         # pages moved across replicas
+    scale_events: int = 0              # scale_to membership changes applied
+    crashes: int = 0                   # kill_replica recoveries
+    migrations: int = 0                # in-flight slots moved off a drain
+    migrated_pages: int = 0            # pages those migrations carried
+    readmitted: int = 0                # requests re-placed by drain/recovery
     replicas: List[ReplicaStats] = field(default_factory=list)
 
     @property
@@ -525,6 +558,7 @@ class ServingEngine:
         self.draft_sources: List[PromptLookupDraft] = []
         self.router: Optional[Router] = None
         self.verify_fn = self.transfer_fn = None
+        self._prefix_cache_enabled = bool(prefix_cache)
         self._stash: dict = {}         # rid -> preempted SSM checkpoint
         self._pending_handoffs: List[int] = []   # prefilled, awaiting a home
         if self.paged:
@@ -544,26 +578,15 @@ class ServingEngine:
             if self.has_cross:
                 self.cross_caches = [CrossKVCache(a)
                                      for a in self.allocators]
-            # the steps index the folded pools of every replica: the
-            # engine folds each id as it stages it (kvcache.fold_ids)
-            if prefix_cache:
-                self.copy_fn = make_page_copy_step(dp * n_pages)  # COW
             if self.has_cross:
                 self.cross_write_fn = make_cross_kv_write_step(cfg, plan,
                                                                page_size)
-            if self.disagg is not None:
-                self.transfer_fn = make_page_transfer_step(
-                    dp * n_pages, self.n_max_pages)
             self.cache = zero_paged_cache_for(cfg, plan, n_pages, page_size,
                                               self.device, self.n_slabs, dp)
             self.prefill_fn = make_prefill_chunk_step(
                 cfg, plan, prefill_chunk, self.n_max_pages, page_size)
-            self.decode_fn = make_paged_decode_step(
-                cfg, plan, self.B, self.n_max_pages, page_size)
+            self._make_step_fns()
             if self.speculative:
-                self.verify_fn = make_verify_step(cfg, plan, self.B,
-                                                  self.speculative + 1,
-                                                  self.n_max_pages)
                 self.draft_sources = [PromptLookupDraft(c)
                                       for c in self.prefix_caches]
         else:
@@ -580,22 +603,7 @@ class ServingEngine:
         if isinstance(sched, Scheduler):
             self.scheds = [sched]
         else:
-            self.scheds = [
-                sched(seq_budget=seq_budget,
-                      allocator=self.allocators[r] if self.paged else None,
-                      page_size=page_size if self.paged else 0,
-                      prefix_cache=(self.prefix_caches[r] if self.paged
-                                    else None),
-                      stats=self.stats,
-                      slab_allocator=(self.slab_allocators[r]
-                                      if self.has_slabs else None),
-                      cross_cache=(self.cross_caches[r] if self.has_cross
-                                   else None),
-                      cross_pages_per_req=self.n_cross_pages,
-                      kv_pages=not self.paged or "kv" in prof,
-                      spec_tokens=self.speculative,
-                      **({"role": self.roles[r]} if self.roles else {}))
-                for r in range(dp)]
+            self.scheds = [self._sched_for(sched, r) for r in range(dp)]
         for r, sc in enumerate(self.scheds):
             # per-replica counters move at the scheduler's counting sites,
             # beside the global ones
@@ -617,6 +625,11 @@ class ServingEngine:
         self.spec_miss = np.zeros(self.B, np.int32)
         self._rids: set = set()
         self._inflight: Optional[dict] = None
+        # elastic membership: joined replicas build their schedulers from
+        # the factory; a hook installed here fires at the top of every
+        # paged tick, before planning (fault injection, ops triggers)
+        self._sched_factory = None if isinstance(sched, Scheduler) else sched
+        self.membership_hook = None
         self._build_io()
         self.steps = self._build_steps()
 
@@ -628,7 +641,7 @@ class ServingEngine:
                     rng_seed: int = 0, speculative: int = 0,
                     prefix_cache: bool = False, scheduler=None,
                     overlap: bool = True, graphs: bool = True, dp: int = 1,
-                    disagg=None, device="cuda"):
+                    disagg=None, spill=None, device="cuda"):
         """A paged engine.  ``n_pages`` (a replica's pool) defaults to full
         occupancy (every slot at budget, plus every slot's cross-KV pages
         for enc-dec archs) plus the scratch page; pass something smaller
@@ -641,7 +654,13 @@ class ServingEngine:
         rid).  ``dp`` replicas each get ``batch_slots`` slots and their own
         pool; ``disagg=(P, D)`` splits them into prefill and decode roles.
         ``overlap=False`` is the serial loop; ``graphs=False`` runs the
-        steps eagerly."""
+        steps eagerly.  ``spill`` (JAX's ``HostSpillStore``, a warm start of
+        the caches from a previous engine's spilled pages) takes only None
+        in the port."""
+        if spill is not None:
+            raise ValueError(
+                "spill= is not supported by the PyTorch port yet: host spill "
+                "of cached pages waits for ROADMAP Queue 1 item 11, step 4")
         return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
@@ -695,6 +714,46 @@ class ServingEngine:
         return range(r * self.Bp, (r + 1) * self.Bp)
 
     # -------------------------------------------------------- steps and io
+    def _sched_for(self, factory, r: int):
+        """Replica ``r``'s scheduler from ``factory``, over the replica's
+        allocator and caches, with the engine's stats (and the replica's
+        role under disaggregation)."""
+        paged = self.paged
+        return factory(
+            seq_budget=self.S,
+            allocator=self.allocators[r] if paged else None,
+            page_size=self.page_size if paged else 0,
+            prefix_cache=self.prefix_caches[r] if paged else None,
+            stats=self.stats,
+            slab_allocator=(self.slab_allocators[r] if self.has_slabs
+                            else None),
+            cross_cache=self.cross_caches[r] if self.has_cross else None,
+            cross_pages_per_req=self.n_cross_pages,
+            kv_pages=not paged or "kv" in cache_profile(self.cfg),
+            spec_tokens=self.speculative,
+            **({"role": self.roles[r]} if self.roles else {}))
+
+    def _make_step_fns(self):
+        """The paged step functions whose shapes follow the replica count
+        R: decode and verify over B = R x Bp rows, the copy-on-write copy
+        and the page transfer over the folded pools' R x n_pages pages.
+        The steps index the folded pools of every replica: the engine
+        folds each id as it stages it (``kvcache.fold_ids``).  The transfer
+        exists at every R > 1 for attention-only archs, as in JAX (a
+        disaggregated engine's handoffs, an elastic drain's migrations).
+        Made at construction and again after every membership change."""
+        nm, n_folded = self.n_max_pages, self.R * self.n_pool_pages
+        if self._prefix_cache_enabled:
+            self.copy_fn = make_page_copy_step(n_folded)          # COW
+        self.transfer_fn = None
+        if self.R > 1 and not self.has_slabs and not self.has_cross:
+            self.transfer_fn = make_page_transfer_step(n_folded, nm)
+        self.decode_fn = make_paged_decode_step(self.cfg, self.plan, self.B,
+                                                nm, self.page_size)
+        if self.speculative:
+            self.verify_fn = make_verify_step(self.cfg, self.plan, self.B,
+                                              self.speculative + 1, nm)
+
     def _build_io(self):
         """Staging for every step kind's inputs, and the ids buffer: one
         row per prefill chunk of a tick (at most B), then the decode step's
@@ -728,8 +787,8 @@ class ServingEngine:
                 # a copy-on-write (src, dst) pair a row, one per admission
                 io["copy"] = [("src", (1,)), ("dst", (1,))]
                 rows["copy"] = B
-            if self.disagg is not None:
-                # a handoff a row, one per decode slot at most
+            if self.transfer_fn is not None:
+                # a handoff (or a migration) a row, one per slot at most
                 io["handoff"] = [("src_pages", (nm,)), ("dst_pages", (nm,))]
                 rows["handoff"] = B
         else:
@@ -750,7 +809,7 @@ class ServingEngine:
             self._chunk_in = torch.zeros(self.io["chunk"].dev.shape[1],
                                          dtype=torch.int32, device=dev)
             self._copy_in = torch.zeros(2, dtype=torch.int32, device=dev)
-            if self.disagg is not None:
+            if self.transfer_fn is not None:
                 self._xfer_in = torch.zeros(self.io["handoff"].dev.shape[1],
                                             dtype=torch.int32, device=dev)
             if self.has_cross:
@@ -826,7 +885,7 @@ class ServingEngine:
             if self.has_cross:
                 steps["cross"] = make(cross_write,
                                       (self._frames_in, self._cross_in))
-            if self.disagg is not None:
+            if self.transfer_fn is not None:
                 steps["transfer"] = make(transfer,
                                          inputs("handoff", self._xfer_in))
         return steps
@@ -979,6 +1038,275 @@ class ServingEngine:
         self.stats.preemptions += 1
         self.stats.replicas[r].preemptions += 1
 
+    # --------------------------------------------------- elastic membership
+    def scale_to(self, dp_new: int):
+        """Live dp reconfiguration: grow or shrink to ``dp_new`` replicas
+        without dropping an in-flight request.  Scale-down drains the
+        leaving replicas first: each active slot migrates its resident KV
+        pages to a survivor through the page-transfer step (int8 scale rows
+        ride along; host refcounts hand off at once), or falls back to
+        preempt-and-requeue where migration cannot apply (SSM or enc-dec
+        state, no free slot, destination pool pressure, a failed
+        transfer); then queued requests re-route to survivors.  Both
+        directions then rebuild (``_rebuild``): the pools re-scatter to the
+        new width, survivors keep their allocator, cache and scheduler
+        objects, joined replicas start fresh, and the step set is made and
+        captured again at the new R."""
+        if not self.paged:
+            raise ValueError("elastic membership requires the paged engine")
+        if self.disagg is not None:
+            raise ValueError(
+                "scale_to under disaggregation is unsupported: a disagg "
+                "engine's prefill/decode role sets are static")
+        if self._sched_factory is None:
+            raise ValueError(
+                "scale_to needs a scheduler factory, not a pre-built "
+                "instance (joined replicas build their own scheduler)")
+        dp_new = int(dp_new)
+        # JAX's messages at the one device's data extent of 1: every
+        # replica count is a whole number of device groups
+        if dp_new < 1:
+            raise ValueError(
+                f"dp_new={dp_new} must be a positive multiple of the "
+                f"mesh's data extent (1) so every replica keeps a whole "
+                f"device group")
+        if dp_new == self.R:
+            return
+        self._barrier()               # in-flight work settles first
+        self.stats.scale_events += 1
+        if dp_new > self.R:
+            self._rebuild(list(range(self.R)), dp_new)
+        else:
+            keep = list(range(dp_new))
+            self._drain_replicas(list(range(dp_new, self.R)), keep)
+            self._rebuild(keep, dp_new)
+
+    def kill_replica(self, r: int) -> RecoveryReport:
+        """A replica FAILURE, with no drain: replica ``r``'s pages,
+        allocator and scheduler state are presumed lost.  Recovery
+        (``runtime.ft.plan_recovery``) re-admits its orphans on the
+        survivors: active slots replay prompt + emitted tokens as a
+        re-prefill from the requests on the host (exact continuation: each
+        request's stream has advanced one draw per emitted token either
+        way), queued requests re-route.  -> the ``RecoveryReport``."""
+        if not self.paged:
+            raise ValueError("elastic membership requires the paged engine")
+        if self.disagg is not None:
+            raise ValueError(
+                "kill_replica under disaggregation is unsupported: a "
+                "disagg engine's prefill/decode role sets are static")
+        if self._sched_factory is None:
+            raise ValueError(
+                "kill_replica needs a scheduler factory, not a pre-built "
+                "instance")
+        if not 0 <= r < self.R:
+            raise ValueError(f"replica {r} out of range (dp={self.R})")
+        if self.R < 2:
+            raise ValueError(
+                f"cannot lose a replica at dp={self.R}: the survivor "
+                f"count must stay a positive multiple of the mesh's data "
+                f"extent (1)")
+        self._barrier()
+        self.stats.crashes += 1
+        active = [self.admissions[b] for b in self._rep_slots(r)
+                  if self.admissions[b] is not None]
+        reqs, report = plan_recovery(r, active,
+                                     self.scheds[r].pending_requests())
+        # the dead replica's pool, allocator and caches are dropped whole:
+        # its slots clear without on_finish (no refcounts survive to
+        # release into)
+        for b in self._rep_slots(r):
+            if self.admissions[b] is not None:
+                self._clear_slot(b)
+        self._rebuild([x for x in range(self.R) if x != r], self.R - 1)
+        for req in reqs:
+            self._place(req)
+        return report
+
+    def _drain_replicas(self, leaving: List[int], keep: List[int]):
+        """Empty the leaving replicas: mark them unroutable, migrate (or
+        preempt and requeue) every active slot, then re-place their queues
+        on the survivors.  Runs with nothing in flight (callers collect
+        first)."""
+        for r in leaving:
+            self.router.mark_draining(r)
+        for r in leaving:
+            for b in self._rep_slots(r):
+                if self.admissions[b] is None:
+                    continue
+                if not self._migrate_slot(b, keep):
+                    # fallback: evict onto the leaving scheduler's queue
+                    # (an SSM slot's slab to the host stash); re-placed
+                    # below
+                    self._preempt_now(b)
+        for r in leaving:
+            for req in self.scheds[r].take_queued():
+                self._place(req)
+
+    def _migrate_slot(self, b_src: int, keep: List[int]) -> bool:
+        """Move global slot ``b_src``'s request to a surviving replica:
+        claim a destination admission, copy the resident pages with the
+        page-transfer step (scale rows ride along), hand the references
+        over, and install the slot's state (position, prefill progress,
+        last token) at the destination.  -> False where migration cannot
+        apply (state that does not transfer, no free slot, destination
+        pool pressure, a transfer that raised): the destination claim, if
+        any, is rolled back, the source slot is left as it was, and the
+        caller preempts instead."""
+        if self.has_slabs or self.has_cross or self.transfer_fn is None:
+            return False
+        src_r = self._rep(b_src)
+        adm = self.admissions[b_src]
+        req = adm.req
+        in_prefill = self.slot_state[b_src] == "prefill"
+        n = int(self.prefill_done[b_src]) if in_prefill \
+            else int(self.pos[b_src])
+        cand = [r for r in keep
+                if any(self.admissions[b] is None
+                       for b in self._rep_slots(r))]
+        if not cand:
+            return False
+        dst_r = self.router.decode_placement(cand)
+        local = min(b - dst_r * self.Bp for b in self._rep_slots(dst_r)
+                    if self.admissions[b] is None)
+        dst_adm = self.scheds[dst_r].plan_migration(local, req, n)
+        if dst_adm is None:
+            return False              # destination pool pressure
+        k = pages_needed(n, self.page_size)
+        if k:
+            try:
+                io = self.io["handoff"]
+                self._xfer_row(io.split(io.host()[0]), src_r, adm.pages[:k],
+                               dst_r, dst_adm.pages[:k])
+                io.send(io.dev.shape[1])
+                self._xfer_in.copy_(io.dev[0])
+                self.steps["transfer"]()
+            except Exception:
+                # no reference moved yet (they move after the transfer):
+                # retiring the destination claim restores the state before
+                # the migration exactly, with no orphaned page on either side
+                self.scheds[dst_r].on_finish(dst_adm)
+                return False
+        self.scheds[src_r].on_migrated(adm, k, self.allocators[dst_r],
+                                       dst_adm.pages[:k])
+        b_dst = self._gslot(dst_r, dst_adm.slot)
+        self.admissions[b_dst] = dst_adm
+        self.slot_state[b_dst] = "prefill" if in_prefill else "decode"
+        self.pos[b_dst] = self.pos[b_src]
+        self.prefill_done[b_dst] = self.prefill_done[b_src]
+        self.last_token[b_dst] = self.last_token[b_src]
+        self.spec_miss[b_dst] = self.spec_miss[b_src]
+        self._clear_slot(b_src)
+        req.replica = dst_r
+        self.router.commit(req, dst_r)
+        self.stats.migrations += 1
+        self.stats.migrated_pages += k
+        self.stats.pages_transferred += k
+        self.stats.replicas[src_r].pages_transferred_out += k
+        self.stats.replicas[dst_r].pages_transferred_in += k
+        self.stats.replicas[dst_r].routed += 1
+        return True
+
+    def _place(self, req: Request):
+        """Re-place a request already submitted, after a membership change:
+        route it (draining and dead replicas excluded), queue it, and keep
+        its identity (rid, stream, submit time and emitted tokens persist,
+        so the client sees only latency).  It cannot newly fail: every
+        replica's pool has the same size, and the effective prompt grows
+        exactly as the remaining new tokens shrink."""
+        r = self.router.route(req)
+        self.scheds[r].submit(req)
+        self.router.commit(req, r)
+        req.replica = r
+        self.stats.replicas[r].routed += 1
+        self.stats.readmitted += 1
+
+    def _rebuild(self, keep: List[int], dp_new: int):
+        """Re-stamp the engine for ``dp_new`` replicas with survivors
+        ``keep`` (old indices, order kept; survivor ``keep[j]`` becomes
+        replica j).  Every step graph captured the addresses of the old
+        pools and staging buffers, so all of them are dropped first (a
+        replay after the pools moved would write freed memory).  Then the
+        pools re-scatter (``runtime.elastic.reshard_replica_pools``);
+        survivors carry their allocator, prefix cache, slab allocator,
+        cross cache, scheduler and ``ReplicaStats`` objects over (their
+        page and slab ids are replica-local, so every folded id changes:
+        ids are folded only at staging); joined replicas start fresh; the
+        slot arrays and each request's replica remap; the router is rebuilt
+        (drain marks cleared; its windows of recent prompts and its
+        affinity count carried over); the draft sources are made anew; and
+        the step functions, staging and graphs are built again at the new
+        R."""
+        assert self._inflight is None and not self._pending_handoffs
+        keep = list(keep)
+        n_keep = len(keep)
+        self.steps = {}
+        self.cache = reshard_replica_pools(self.cache, keep, dp_new, self.R)
+        self.allocators = [self.allocators[r] for r in keep] + \
+            [PageAllocator(self.n_pool_pages)
+             for _ in range(dp_new - n_keep)]
+        self.prefix_caches = [self.prefix_caches[r] for r in keep] + \
+            [RadixPrefixCache(a, self.page_size)
+             if self._prefix_cache_enabled else None
+             for a in self.allocators[n_keep:]]
+        if self.has_slabs:
+            self.slab_allocators = \
+                [self.slab_allocators[r] for r in keep] + \
+                [SlabAllocator(self.n_slabs) for _ in range(dp_new - n_keep)]
+        if self.has_cross:
+            self.cross_caches = [self.cross_caches[r] for r in keep] + \
+                [CrossKVCache(a) for a in self.allocators[n_keep:]]
+        self.scheds = [self.scheds[r] for r in keep] + \
+            [self._sched_for(self._sched_factory, j)
+             for j in range(n_keep, dp_new)]
+        self.stats.replicas = [self.stats.replicas[r] for r in keep] + \
+            [ReplicaStats() for _ in range(dp_new - n_keep)]
+        for j, sc in enumerate(self.scheds):
+            # survivors' ReplicaStats moved with them; only the joined
+            # replicas' schedulers need theirs
+            if getattr(sc, "replica_stats", None) is None:
+                sc.replica_stats = self.stats.replicas[j]
+        # slot arrays: old global slot keep[j] * Bp + l -> new j * Bp + l
+        old = (self.admissions, self.pos, self.last_token, self.spec_miss,
+               self.slot_state, self.prefill_done)
+        B_new = self.Bp * dp_new
+        self.admissions = [None] * B_new
+        self.pos = np.zeros(B_new, np.int32)
+        self.last_token = np.zeros(B_new, np.int32)
+        self.spec_miss = np.zeros(B_new, np.int32)
+        self.slot_state = [None] * B_new
+        self.prefill_done = np.zeros(B_new, np.int32)
+        for j, r_old in enumerate(keep):
+            for loc in range(self.Bp):
+                ob, nb = r_old * self.Bp + loc, j * self.Bp + loc
+                self.admissions[nb] = old[0][ob]
+                self.pos[nb] = old[1][ob]
+                self.last_token[nb] = old[2][ob]
+                self.spec_miss[nb] = old[3][ob]
+                self.slot_state[nb] = old[4][ob]
+                self.prefill_done[nb] = old[5][ob]
+                if old[0][ob] is not None:
+                    old[0][ob].req.replica = j
+        for j, sc in enumerate(self.scheds):
+            for req in sc.pending_requests():
+                req.replica = j
+        old_router = self.router
+        self.R, self.B = dp_new, B_new
+        self.router = Router(self.scheds, self.allocators,
+                             self.prefix_caches, self.page_size,
+                             cross_caches=self.cross_caches or None)
+        for j, r_old in enumerate(keep):
+            self.router._recent[j].extend(old_router._recent[r_old])
+            self.router._recent_frames[j].extend(
+                old_router._recent_frames[r_old])
+        self.router.affinity_routed = old_router.affinity_routed
+        if self.speculative:
+            self.draft_sources = [PromptLookupDraft(c)
+                                  for c in self.prefix_caches]
+        self._make_step_fns()
+        self._build_io()
+        self.steps = self._build_steps()
+
     def _kind_pools(self, kind: str):
         """Every layer's pools of one cache kind ("kv" page pools, (reps,
         R * n_pages, ...), or "ssm" slab pools, (reps, R * n_slabs, ...)),
@@ -1124,7 +1452,12 @@ class ServingEngine:
         on the card), collect (the tick's one barrier: the previous
         dispatch's ids), the preemptions deferred past it, dispatch this
         tick's steps.  ``overlap=False`` collects the fresh dispatch at
-        once: the serial loop."""
+        once: the serial loop.  A membership hook (fault injection, ops
+        triggers) fires first, before any planning: ``scale_to`` and
+        ``kill_replica`` collect in-flight work themselves, so the hook
+        sees, and leaves, an engine with nothing in flight."""
+        if self.membership_hook is not None:
+            self.membership_hook(self)
         tick_plan = self._plan_phase()
         self._collect_phase()
         self._run_deferred_preempts(tick_plan)
@@ -1387,13 +1720,9 @@ class ServingEngine:
         io = self.io["handoff"]
         host = io.host()
         for i, (b_src, src_adm, dst_r, dst_adm) in enumerate(live):
-            f = io.split(host[i])
-            k, src_r = len(src_adm.pages), self._rep(b_src)
-            # unused lanes: the source's scratch page onto the destination's
-            f["src_pages"][:] = self._folded(src_r, [SCRATCH_PAGE])
-            f["dst_pages"][:] = self._folded(dst_r, [SCRATCH_PAGE])
-            f["src_pages"][:k] = self._folded(src_r, src_adm.pages)
-            f["dst_pages"][:k] = self._folded(dst_r, dst_adm.pages[:k])
+            k = len(src_adm.pages)
+            self._xfer_row(io.split(host[i]), self._rep(b_src),
+                           src_adm.pages, dst_r, dst_adm.pages[:k])
         io.send(len(live) * io.dev.shape[1])
         for i, (b_src, src_adm, dst_r, dst_adm) in enumerate(live):
             self._xfer_in.copy_(io.dev[i])
@@ -1410,6 +1739,17 @@ class ServingEngine:
             rd.handoffs_in += 1
             rs.pages_transferred_out += k
             rd.pages_transferred_in += k
+
+    def _xfer_row(self, f: dict, src_r: int, src_pages, dst_r: int,
+                  dst_pages):
+        """Fill a transfer step's input row ``f``: replica ``src_r``'s
+        pages onto replica ``dst_r``'s, as folded ids; unused lanes copy
+        the source's scratch page onto the destination's."""
+        k = len(src_pages)
+        f["src_pages"][:] = self._folded(src_r, [SCRATCH_PAGE])
+        f["dst_pages"][:] = self._folded(dst_r, [SCRATCH_PAGE])
+        f["src_pages"][:k] = self._folded(src_r, src_pages)
+        f["dst_pages"][:k] = self._folded(dst_r, dst_pages)
 
     def _dispatch_cross(self, adms: List[Admission]):
         """Each admission's encode: every encode's frames and cross block

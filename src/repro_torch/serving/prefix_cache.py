@@ -1,6 +1,6 @@
 """The radix prefix cache, the speculative draft source and the enc-dec
 cross-KV cache: a copy of the JAX package's ``serving/prefix_cache.py``
-without its replica ``HostSpillStore`` (ROADMAP Queue 1 item 11).
+without its replica ``HostSpillStore`` (ROADMAP Queue 1 item 11, step 4).
 
 Radix prefix cache: token-id sequences -> refcounted page runs in the
 engine's ``PageAllocator`` id space.  KV already resident in the page pool

@@ -15,9 +15,11 @@ uncached token) and reports lifecycle events back (``on_cow_done``,
 ``on_preempt``, ``on_spec_trim``).  A replicated engine builds one
 scheduler per replica, each over its replica's allocator and caches, and
 hands it that replica's ``ReplicaStats`` (``replica_stats``): the
-per-replica counters move at the same sites as the global ones.  The
-migration methods of elastic replicas wait for ROADMAP Queue 1 item 11's
-elastic half.
+per-replica counters move at the same sites as the global ones.  Elastic
+membership adds the drain-time hooks: ``plan_migration`` (the
+destination's admission for a migrating slot), ``on_migrated`` (the
+source hands the resident references over and drops the rest) and
+``take_queued`` (the queue leaves for re-placement on the survivors).
 
 Disaggregated serving (``disagg=(P, D)``) gives each replica's scheduler
 a **role**: a ``prefill`` replica budgets only the resident-prompt page
@@ -588,3 +590,53 @@ class FCFSScheduler(Scheduler):
         admission holds no slab and no cross pages (disaggregation serves
         attention-only archs), so its pages are its whole estate."""
         handoff_refs(self.allocator, adm.pages, dst_allocator, dst_pages)
+
+    # ------------------------------------------------- elastic membership
+    def plan_migration(self, slot: int, req,
+                       resident_len: int) -> Optional[Admission]:
+        """Destination-side admission for a drain-time slot migration.
+        Unlike ``plan_handoff`` (whose source is a finished prefill), a
+        migrating slot may still be mid-prefill, so this budgets the full
+        cold-admission horizon, ``len(effective_prompt) +
+        remaining_new_tokens`` (the constant submit-time budget), which
+        always covers the resident pages.  All or nothing: None makes the
+        engine fall back to preempt-and-requeue."""
+        L = len(effective_prompt(req))
+        total = pages_needed(L + remaining_new_tokens(req), self.psz)
+        alloc = self.allocator
+        fresh = alloc.alloc(total)
+        if fresh is None and self._can_reclaim(total):
+            self._reclaim(total - alloc.n_free)
+            fresh = alloc.alloc(total)
+        if fresh is None:
+            return None
+        spec = self._draft_headroom(req, L, total, fresh)
+        adm = Admission(slot=slot, req=req, pages=fresh,
+                        cached_len=resident_len, spec=spec)
+        adm.seq = self._adm_seq
+        self._adm_seq += 1
+        return adm
+
+    def on_migrated(self, adm: Admission, k: int, dst_allocator,
+                    dst_pages) -> None:
+        """The engine transferred adm's first ``k`` (resident) pages to
+        another replica: hand exactly those references over at once, then
+        drop the unfilled horizon tail.  The tail goes through ``decref``,
+        not ``free``: a preemption elsewhere may have donated overlapping
+        pages to the radix cache by now."""
+        if k:
+            handoff_refs(self.allocator, adm.pages[:k], dst_allocator,
+                         dst_pages)
+        self.allocator.decref(adm.pages[k:])
+        if adm.cross_pages is not None:
+            self.allocator.decref(adm.cross_pages)
+
+    def take_queued(self) -> List:
+        """Drain-time queue takeover: every queued (not yet admitted)
+        request leaves this scheduler for re-placement elsewhere; the
+        backlog counter returns to zero with them."""
+        out = self.pending_requests()
+        for req in out:
+            self.backlog_pages -= self._req_pages(req)
+        self._clear_queue()
+        return out

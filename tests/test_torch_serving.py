@@ -120,11 +120,13 @@ def test_launcher_serves_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,slice_", [
     # ids as before --dp and --disagg left this list for
-    # test_launcher_serves_replicas
+    # test_launcher_serves_replicas, and --scale-events for
+    # tests/test_torch_elastic.py (it parses now; --tp beside it is still
+    # refused)
     pytest.param(["--tp", "2"], "tensor parallelism",
                  id="argv0-tensor parallelism"),
-    pytest.param(["--scale-events", "8:1"], "elastic replicas",
-                 id="argv3-elastic replicas"),
+    pytest.param(["--paged", "--scale-events", "8:1", "--tp", "2"],
+                 "tensor parallelism", id="argv3-elastic replicas"),
     pytest.param(["--temperature", "0.7", "--tp", "2"], "tensor parallelism",
                  id="argv4-tensor parallelism"),
 ])
