@@ -213,6 +213,20 @@ each (and a few detail lines):
             tokens card against CPU and eager-serial, live logits within
             tolerance, the same changes, membership counters, each
             request's replica and the kill's RecoveryReport, leak-free.
+            parity-spill: the same model and pools, parity-elastic's 10
+            requests at dp 2 with a HostSpillStore attached, then
+            scale_to(1): the drain spills replica 1's radix entries and
+            the restore writes them into replica 0, pages and scale rows
+            torch.equal to the pre-drain pages on the card (again after
+            one more tick); a fresh dp-2 engine warm-started from the
+            store re-serves the prompts: tokens equal to the cold run's
+            and the CPU path's, prefix hits > 0, the store and counters
+            equal on the CPU.  And seamless-m4t-large-v2 at full width cut
+            to ``SPILL_SM_DEPTH`` (bfloat16 drawn on the card, 4096
+            frames): an encode spilled and restored into a fresh engine,
+            cross pages torch.equal, the same frames then hit
+            (cross_encodes 0) with the cold run's tokens.  Spill and
+            restore ms, bytes and GB/s printed.
 4. serve    bfloat16 weights, 8 slots, 16 requests, in seventeen phases:
             full-width tinyllama-42m in serve (bfloat16 pools, random
             prompts), serve-spec (k=4, repetitive prompts), serve-int8
@@ -4592,6 +4606,326 @@ def phase_parity_elastic(torch):
     return launches
 
 
+# parity-spill's seamless: full width (d 1024, 16 heads of 64, 4096 frames,
+# vocab 256,206) cut to 2 decoder and 2 encoder layers of 24 each
+SPILL_SM_DEPTH = dict(n_layers=2, n_enc_layers=2)
+
+
+class _SpillMeter:
+    """Wraps ``ServingEngine``'s spill and restore for the duration of a
+    ``with``: every call's wall (the card synchronized before and after),
+    pages and payload bytes, under ``tag`` and the device, and every
+    restore's writes ``(id of the engine, replica, kind, pages,
+    payloads)``."""
+
+    def __init__(self, torch, cls):
+        self.torch, self.cls = torch, cls
+        self.calls = {"spill": [], "restore": []}
+        self.writes = []
+        self.tag = ""
+        self._now = None
+
+    def __enter__(self):
+        cls, torch, meter = self.cls, self.torch, self
+        self._orig = {n: getattr(cls, n) for n in (
+            "spill_state", "_restore_from_spill", "_gather_pages",
+            "_scatter_pages")}
+        orig = self._orig
+
+        def timed(what):
+            def call(eng, *a, **k):
+                cuda = eng.device.type == "cuda"
+                if cuda:
+                    torch.cuda.synchronize()
+                meter._now = [0, 0]
+                t0 = time.perf_counter()
+                out = orig[what](eng, *a, **k)
+                if cuda:
+                    torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                meter.calls[what.strip("_").split("_")[0]].append(
+                    (meter.tag, eng.device.type, ms, *meter._now))
+                return out
+            return call
+
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        def gather(eng, r, kind, pages):
+            out = orig["_gather_pages"](eng, r, kind, pages)
+            meter._now[0] += len(pages)
+            meter._now[1] += nbytes(out)
+            return out
+
+        def scatter(eng, r, kind, pages, payloads):
+            orig["_scatter_pages"](eng, r, kind, pages, payloads)
+            meter._now[0] += len(pages)
+            meter._now[1] += nbytes(payloads)
+            meter.writes.append((id(eng), r, kind, list(pages), payloads))
+
+        cls.spill_state = timed("spill_state")
+        cls._restore_from_spill = timed("_restore_from_spill")
+        cls._gather_pages, cls._scatter_pages = gather, scatter
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self._orig.items():
+            setattr(self.cls, n, fn)
+
+    def line(self, what, device="cuda"):
+        """The ``device`` calls of ``what`` that moved pages: tag, ms, MB,
+        pages and GB/s each."""
+        return "; ".join(
+            f"{tag}: {ms:.3f} ms {b / 1e6:.3f} MB {pg} pages "
+            f"{b / ms / 1e6:.2f} GB/s"
+            for tag, dev, ms, pg, b in self.calls[what]
+            if dev == device and pg)
+
+
+def _on_card(eng, r, kind, pages):
+    """Replica ``r``'s ``pages`` of every pool of ``kind``, copied on the
+    engine's device."""
+    idx = eng._page_index(r, pages)
+    return [pool.index_select(1, idx) for pool in eng._kind_pools(kind)]
+
+
+def _pages_equal(torch, eng, r, kind, pages, want):
+    return all(torch.equal(a, b) for a, b in
+               zip(_on_card(eng, r, kind, pages), want, strict=True))
+
+
+def _serve_all(eng, reqs):
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    check(all(r.done for r in reqs) and eng._inflight is None,
+          f"parity-spill: unfinished requests on {eng.device}")
+    return [list(r.out_tokens) for r in reqs]
+
+
+def _spill_round(torch, cfg, plan, params, reqs, dev, meter, label):
+    """parity-spill on one device: a cold dp-2 engine with a store serves
+    ``reqs()``, then ``scale_to(1)`` (the drain spills replica 1's radix
+    entries, the restore writes them into replica 0), pages checked
+    against the pre-drain copies; one more request and tick, checked
+    again; the survivor spills everything; a fresh dp-2 engine starts from
+    the store and re-serves the prompts.  Pools of 64 pages a replica: no
+    eviction before the checks.  -> (cold tokens, warm tokens, summary of
+    the store, counters and placements, entries restored at the scale,
+    pages checked); both engines leak-free."""
+    import numpy as np
+
+    from repro_torch.serving import HostSpillStore, Request, ServingEngine
+
+    def build(**kw):
+        return ServingEngine.build_paged(cfg, plan, 2, 256, params,
+                                         page_size=16, n_pages=64,
+                                         prefill_chunk=32, prefix_cache=True,
+                                         dp=2, device=dev, **kw)
+
+    store = HostSpillStore()
+    eng = build(spill=store)
+    cold_reqs = reqs()
+    cold = _serve_all(eng, cold_reqs)
+    before = {toks: _on_card(eng, 1, "kv", pages)
+              for toks, pages in eng.prefix_caches[1].entries()}
+    check(before, f"parity-spill: replica 1 cached nothing on {dev}")
+    meter.writes.clear()
+    meter.tag = f"{label}, drain 2 -> 1 / restore into replica 0"
+    eng.scale_to(1)
+    key_of = {id(pl): toks for toks, (_, pl) in store.radix.items()}
+    restored = [(key_of[id(pl)], pages) for e, r, kind, pages, pl
+                in meter.writes if e == id(eng)]
+    meter.writes.clear()
+    check(restored and all(t in before for t, _ in restored),
+          f"parity-spill: nothing of replica 1 restored on {dev}")
+
+    def verify(when):
+        """Every restored page the cache holds, at its place on the
+        entry's path, against the pre-drain copy (a page allocated for an
+        entry whose prefix the tree already held was dropped at once, and
+        may have been allocated again since).  -> pages checked."""
+        n_checked = 0
+        for toks, pages in restored:
+            n, held = eng.prefix_caches[0].lookup(list(toks))
+            keep = [i for i, (p, q) in enumerate(zip(held, pages)) if p == q]
+            check(n == len(toks) and keep, f"parity-spill: {toks[:4]}... is "
+                                           f"not cached {when} on {dev}")
+            check(_pages_equal(torch, eng, 0, "kv", [pages[i] for i in keep],
+                               [w[:, keep] for w in before[toks]]),
+                  f"parity-spill: restored pages differ from the pre-drain "
+                  f"pages {when} on {dev}: {toks[:4]}...")
+            n_checked += len(keep)
+        return n_checked
+
+    verify("after the restore")
+    late = Request(rid=99, prompt=np.arange(3, 40, dtype=np.int32),
+                   max_new_tokens=4)
+    eng.submit(late)
+    eng.tick()                       # its plan resets recycled scale rows
+    n_checked = verify("after the next plan")
+    eng.run()
+    meter.tag = f"{label}, every entry of dp 1 / warm start at dp 2"
+    eng.spill_state(store)
+    summary = [sorted((t, n) for t, (n, _) in store.radix.items()),
+               store.pages_saved, store.pages_restored, list(late.out_tokens)]
+    eng.drain()
+    leak_check("parity-spill", eng)
+    del eng
+    warm = build(spill=store)
+    meter.writes.clear()
+    summary.append(store.pages_restored)
+    again = [Request(rid=r.rid + 100, prompt=r.prompt.copy(),
+                     max_new_tokens=r.max_new_tokens) for r in cold_reqs]
+    toks = _serve_all(warm, again)
+    st = warm.stats
+    summary += [st.prefix_hits, st.prefill_tokens_skipped,
+                [r.replica for r in again], _replica_counts(warm)]
+    warm.drain()
+    leak_check("parity-spill", warm)
+    return cold, toks, summary, len(restored), n_checked
+
+
+def phase_parity_spill(torch):
+    """Host spill of cached pages on the card (``_spill_round``): tinyllama
+    at full width and depth in fp32 (x10 float pools, x1.75 int8 pools), 2
+    replicas of 2 slots, FCFS with the prefix cache, parity-elastic's 10
+    requests behind two 40-token prefixes; the card against the CPU.
+    Then the cross-KV warm start on seamless at full width
+    (``SPILL_SM_DEPTH``), card only.  Launch counts are set to 0 just
+    before each card round (tinyllama: the cold run, the scale, the warm
+    start; seamless: the warm start) and read just after it.  -> those
+    launches, summed."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import model
+    from repro_torch.core.partition import ShardingPlan
+    from repro_torch.kernels import ops
+    from repro_torch.serving import HostSpillStore, Request, ServingEngine
+    name = "parity-spill"
+    cfg = get_config("tinyllama-42m")
+    base = model.init_params(cfg, ShardingPlan(kv_cache_dtype="float32"),
+                             torch.Generator().manual_seed(0), device="cpu",
+                             dtype="float32")
+
+    def reqs():
+        return _two_prefix_requests(Request, np.random.RandomState(6), 10, 4,
+                                    60, 16, cfg.vocab_size)
+
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+
+    def count(fn):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()        # the warm engine's path starts here
+        out = fn()
+        torch.cuda.synchronize()
+        for kn, v in ops.launch_counts().items():   # ends here
+            launches[kn] += v
+        return out
+
+    with _SpillMeter(torch, ServingEngine) as meter:
+        for kvd, scale in (("float32", 10), ("int8", 1.75)):
+            plan = ShardingPlan(kv_cache_dtype=kvd)
+            params = model.tree_map(lambda t, s=scale: t * s, base)
+            got = {}
+            for dev in ("cuda", "cpu"):
+                fn = functools.partial(_spill_round, torch, cfg, plan, params,
+                                       reqs, dev, meter, kvd)
+                got[dev] = count(fn) if dev == "cuda" else fn()
+            cold, warm, summary, n_rest, n_checked = got["cuda"]
+            check(warm == cold, f"{name}[{kvd}]: warm-start tokens differ "
+                                f"from the cold run's on cuda\n  {cold}\n  "
+                                f"{warm}")
+            check((cold, warm) == got["cpu"][:2], f"{name}[{kvd}]: tokens "
+                                                 f"differ card vs cpu")
+            check(summary == got["cpu"][2] and n_rest == got["cpu"][3],
+                  f"{name}[{kvd}]: store, counters or placement differ card "
+                  f"vs cpu\n  {summary}\n  {got['cpu'][2]}")
+            check(summary[5] > 0, f"{name}[{kvd}]: no prefix hit after the "
+                                  f"warm start")
+            print(f"{name}: tinyllama-42m fp32, {kvd} pools, dp 2 x 2 slots, "
+                  f"10 requests behind two 40-token prefixes; scale_to(1) "
+                  f"spilled replica 1 and restored {n_rest} entries into "
+                  f"replica 0: pages and scale rows torch.equal to the "
+                  f"pre-drain pages on cuda, {n_checked} of them again after "
+                  f"the next plan; warm start (pages_saved={summary[1]}, "
+                  f"pages_restored={summary[2]} -> {summary[4]}): tokens "
+                  f"identical to the cold run's and to cpu, prefix_hits="
+                  f"{summary[5]} prefill_tokens_skipped={summary[6]}, "
+                  f"replicas {summary[7]} equal on cpu")
+            del got
+            _free_card(torch)
+
+        # the cross-KV warm start: seamless at full width, cut depth
+        sm = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                                 **SPILL_SM_DEPTH)
+        plan = ShardingPlan()
+        params = model.init_params(sm, plan, torch.Generator(
+            device="cuda").manual_seed(0), device="cuda")
+        frames = np.random.RandomState(41).randn(
+            sm.enc_seq_len, sm.d_model).astype(np.float32)
+        prompt = np.random.RandomState(42).randint(2, sm.vocab_size, 40)
+
+        def build(**kw):
+            return ServingEngine.build_paged(sm, plan, 2, 256, params,
+                                             page_size=16, prefill_chunk=32,
+                                             device="cuda", **kw)
+
+        def one(rid):
+            return [Request(rid=rid, prompt=prompt.astype(np.int32),
+                            max_new_tokens=16, frames=frames)]
+
+        eng = build()
+        cold = _serve_all(eng, one(0))
+        (key, pages), = eng.cross_caches[0].entries()
+        before = _on_card(eng, 0, "cross", pages)
+        meter.tag = "seamless, one encode / warm start"
+        store = eng.spill_state(HostSpillStore())
+        eng.drain()
+        del eng
+        _free_card(torch)
+
+        def warm_start():
+            w = build(spill=store)
+            (key2, pages2), = w.cross_caches[0].entries()
+            check(key2 == key and _pages_equal(torch, w, 0, "cross", pages2,
+                                               before),
+                  f"{name}[seamless]: restored cross pages differ from the "
+                  f"spilled encode's")
+            return w, _serve_all(w, one(1))
+
+        w, warm = count(warm_start)
+        meter.writes.clear()
+        st = w.stats
+        check(warm == cold, f"{name}[seamless]: warm-start tokens differ from "
+                            f"the cold run's\n  {cold}\n  {warm}")
+        check((st.cross_hits, st.cross_encodes) == (1, 0),
+              f"{name}[seamless]: cross_hits={st.cross_hits} "
+              f"cross_encodes={st.cross_encodes} after the warm start")
+        w.drain()
+        leak_check(name, w)
+        print(f"{name}[seamless]: seamless-m4t-large-v2 at full width, "
+              f"{SPILL_SM_DEPTH}, bfloat16, {sm.enc_seq_len} frames: one "
+              f"encode ({len(pages)} cross pages) spilled and restored into "
+              f"a fresh engine, torch.equal; the same frames then hit "
+              f"(cross_hits={st.cross_hits} cross_encodes={st.cross_encodes})"
+              f" with the cold run's {len(warm[0])} tokens")
+        del w
+        _free_card(torch)
+    print(f"{name}: spill on cuda (pinned host, synchronized): "
+          f"{meter.line('spill')}")
+    print(f"{name}: restore on cuda: {meter.line('restore')}")
+    for kn in ELASTIC_KERNELS:
+        check(launches[kn] > 0, f"{name}: kernel {kn} never launched")
+    print(f"{name}: launches on cuda "
+          f"{ {kn: v for kn, v in launches.items() if v} }")
+    return launches
+
+
 def _serve_arrivals(eng, reqs, first, every, preempt=None, max_ticks=3000):
     """Serve ``reqs`` with arrivals over time: the first ``first`` at
     once, then one more every ``every`` ticks; ``preempt(eng, tick)`` may
@@ -5917,6 +6251,7 @@ def main() -> int:
         timed("parity-dp", phase_parity_dp, torch)
         timed("parity-disagg", phase_parity_disagg, torch)
         parity_elastic = timed("parity-elastic", phase_parity_elastic, torch)
+        parity_spill = timed("parity-spill", phase_parity_spill, torch)
         served = {name: timed(name, phase_serve, torch, name)
                   for name in SERVE_PHASES}
         elastic = timed("serve-elastic", phase_serve_elastic, torch, served)
@@ -6009,6 +6344,7 @@ def main() -> int:
         by_phase = {ph: out["launches"][name] for ph, out in served.items()}
         by_phase["serve-elastic"] = elastic["launches"][name]
         by_phase["parity-elastic"] = parity_elastic[name]
+        by_phase["parity-spill"] = parity_spill[name]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": sum(by_phase.values()), "max_abs_err": r["max_abs_err"],

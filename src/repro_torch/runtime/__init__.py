@@ -1,2 +1,3 @@
-"""Runtime services of the port: host-offload weight streaming, and the
-recovery planning and pool re-scatter of elastic replicas."""
+"""Runtime services of the port: host-offload weight streaming, the
+recovery planning and pool re-scatter of elastic replicas, and the hedged
+router."""

@@ -237,6 +237,16 @@ joined replicas start empty, the slot arrays, requests' replicas and the
 router are rebuilt, and the step set is made and captured again at the
 new R.  ``stats`` counts ``scale_events``, ``crashes``, ``migrations``,
 ``migrated_pages`` and ``readmitted``.
+
+**Host spill** (``spill=HostSpillStore()``, as in JAX): cached radix and
+cross-KV entries are pure functions of their tokens or frames, so their
+page payloads (int8 scale rows too) are copied to host tensors keyed by
+token path or frames digest (``spill_state``): at a drain, for the leaving
+replicas, before the rebuild drops their rows.  After every ``scale_to``,
+and when an engine is built with a store (a warm start), each entry not
+resident on any replica is written into fresh pages of the least
+page-loaded replica, in place, and inserted into its cache
+(``_restore_from_spill``).  A kill spills nothing: a crash loses the rows.
 """
 from __future__ import annotations
 
@@ -265,7 +275,7 @@ from repro_torch.core.steps import (check_verify_on_card, make_decode_step,
                                     zero_cache_for, zero_paged_cache_for)
 from repro_torch.runtime.elastic import reshard_replica_pools
 from repro_torch.runtime.ft import RecoveryReport, plan_recovery
-from repro_torch.serving.prefix_cache import (CrossKVCache,
+from repro_torch.serving.prefix_cache import (CrossKVCache, HostSpillStore,
                                               PromptLookupDraft,
                                               RadixPrefixCache)
 from repro_torch.serving.router import Router
@@ -459,7 +469,7 @@ class ServingEngine:
                  rng_seed: int = 0, speculative: int = 0,
                  prefix_cache: bool = False, scheduler=None,
                  overlap: bool = True, graphs: bool = True, dp: int = 1,
-                 disagg=None, device="cuda"):
+                 disagg=None, spill=None, device="cuda"):
         self.device = resolve_device(device)
         check_supported(cfg)
         if speculative < 0:
@@ -632,6 +642,11 @@ class ServingEngine:
         self.membership_hook = None
         self._build_io()
         self.steps = self._build_steps()
+        # a host spill store warm-starts the caches now and is written at
+        # every drain and read after every membership change
+        self.spill = spill
+        if self.paged and spill is not None:
+            self._restore_from_spill(spill)
 
     @classmethod
     def build_paged(cls, cfg, plan, batch_slots: int, seq_budget: int,
@@ -654,20 +669,17 @@ class ServingEngine:
         rid).  ``dp`` replicas each get ``batch_slots`` slots and their own
         pool; ``disagg=(P, D)`` splits them into prefill and decode roles.
         ``overlap=False`` is the serial loop; ``graphs=False`` runs the
-        steps eagerly.  ``spill`` (JAX's ``HostSpillStore``, a warm start of
-        the caches from a previous engine's spilled pages) takes only None
-        in the port."""
-        if spill is not None:
-            raise ValueError(
-                "spill= is not supported by the PyTorch port yet: host spill "
-                "of cached pages waits for ROADMAP Queue 1 item 11, step 4")
+        steps eagerly.  ``spill`` (a ``HostSpillStore``) warm-starts the
+        prefix and cross caches from a previous engine's spilled pages;
+        the engine keeps it, spills leaving replicas into it at a drain and
+        restores from it after every ``scale_to``."""
         return cls(cfg, plan, batch_slots, seq_budget, params, paged=True,
                    page_size=page_size, n_pages=n_pages,
                    prefill_chunk=prefill_chunk, eos_id=eos_id,
                    sampler=sampler, rng_seed=rng_seed, speculative=speculative,
                    prefix_cache=prefix_cache, scheduler=scheduler,
                    overlap=overlap, graphs=graphs, dp=dp, disagg=disagg,
-                   device=device)
+                   spill=spill, device=device)
 
     # ------------------------------------------------ one-replica accessors
     def _one(self, what, items):
@@ -1051,7 +1063,10 @@ class ServingEngine:
         directions then rebuild (``_rebuild``): the pools re-scatter to the
         new width, survivors keep their allocator, cache and scheduler
         objects, joined replicas start fresh, and the step set is made and
-        captured again at the new R."""
+        captured again at the new R.  With a spill store attached, the
+        drain spills the leaving replicas' cached entries before the
+        rebuild, and every change ends by restoring what is not resident
+        (``_restore_from_spill``)."""
         if not self.paged:
             raise ValueError("elastic membership requires the paged engine")
         if self.disagg is not None:
@@ -1080,6 +1095,8 @@ class ServingEngine:
             keep = list(range(dp_new))
             self._drain_replicas(list(range(dp_new, self.R)), keep)
             self._rebuild(keep, dp_new)
+        if self.spill is not None:
+            self._restore_from_spill(self.spill)
 
     def kill_replica(self, r: int) -> RecoveryReport:
         """A replica FAILURE, with no drain: replica ``r``'s pages,
@@ -1125,9 +1142,10 @@ class ServingEngine:
 
     def _drain_replicas(self, leaving: List[int], keep: List[int]):
         """Empty the leaving replicas: mark them unroutable, migrate (or
-        preempt and requeue) every active slot, then re-place their queues
-        on the survivors.  Runs with nothing in flight (callers collect
-        first)."""
+        preempt and requeue) every active slot, re-place their queues on
+        the survivors, and spill their cached entries to the host if a
+        spill store is attached.  Runs with nothing in flight (callers
+        collect first)."""
         for r in leaving:
             self.router.mark_draining(r)
         for r in leaving:
@@ -1142,6 +1160,10 @@ class ServingEngine:
         for r in leaving:
             for req in self.scheds[r].take_queued():
                 self._place(req)
+        if self.spill is not None:
+            # before the rebuild drops the leaving replicas' pool rows: the
+            # pages that preempted slots donated are spilled too
+            self.spill_state(self.spill, replicas=leaving)
 
     def _migrate_slot(self, b_src: int, keep: List[int]) -> bool:
         """Move global slot ``b_src``'s request to a surviving replica:
@@ -1308,9 +1330,9 @@ class ServingEngine:
         self.steps = self._build_steps()
 
     def _kind_pools(self, kind: str):
-        """Every layer's pools of one cache kind ("kv" page pools, (reps,
-        R * n_pages, ...), or "ssm" slab pools, (reps, R * n_slabs, ...)),
-        in cache order."""
+        """Every layer's pools of one cache kind ("kv" or "cross" page
+        pools, (reps, R * n_pages, ...), or "ssm" slab pools, (reps, R *
+        n_slabs, ...)), in cache order."""
         return [pool for group in self.cache for entry in group
                 for pool in entry.get(kind, {}).values()]
 
@@ -1379,6 +1401,106 @@ class ServingEngine:
     def _folded(self, r: int, pages):
         """Replica ``r``'s page ids as ids of the folded pools."""
         return fold_ids(pages, r, self.n_pool_pages)
+
+    # ---------------------------------------------------------- host spill
+    def spill_state(self, store=None, replicas: Optional[List[int]] = None):
+        """Spill the radix prefix and cross-KV cache entries of
+        ``replicas`` (default: all) to a ``HostSpillStore``: each entry's
+        page payloads (int8 payloads and their per-(page, row) scale rows
+        included, byte for byte), keyed by token path or frames digest.
+        The pools are untouched (spilling takes no refs); a restore
+        allocates fresh pages wherever the store is next attached.  The
+        copies have landed when this returns.  -> the store."""
+        if not self.paged:
+            raise AssertionError("spill requires the paged engine")
+        store = store if store is not None else HostSpillStore()
+        for r in (replicas if replicas is not None else range(self.R)):
+            pc = self.prefix_caches[r]
+            if pc is not None:
+                for toks, pages in pc.entries():
+                    store.put_prefix(toks, len(pages),
+                                     self._gather_pages(r, "kv", pages))
+            if self.has_cross:
+                for key, pages in self.cross_caches[r].entries():
+                    store.put_cross(key, len(pages),
+                                    self._gather_pages(r, "cross", pages))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return store
+
+    def _restore_from_spill(self, store):
+        """Write spilled entries into the least page-loaded replicas, as
+        JAX does: allocate fresh pages, write the stored payloads bit for
+        bit into the pools in place (the step graphs hold the pools'
+        addresses), insert into the replica's cache and drop the
+        allocation's refs (the cache holds its own now; pages of a prefix
+        the tree already held drop to refcount 0 and recycle).  Restored
+        pages stay referenced, so the scale-row reset of recycled pages
+        never touches them.  Entries already resident, or not fitting the
+        pool now, are skipped: the store is a warm start, not a ledger."""
+        if store is None or not self.paged:
+            return
+        cand = [r for r in range(self.R)
+                if self.prefix_caches[r] is not None]
+        if cand:
+            for toks, (k, payloads) in store.radix.items():
+                prompt = list(toks)
+                if any(self.prefix_caches[c].lookup(prompt)[0] >= len(toks)
+                       for c in cand):
+                    continue              # already resident somewhere
+                r = min(cand, key=lambda rr: (self.router.page_load(rr), rr))
+                pages = self.allocators[r].alloc(k)
+                if pages is None:
+                    continue              # pool pressure: stays spilled
+                self._scatter_pages(r, "kv", pages, payloads)
+                self.prefix_caches[r].insert(prompt, pages)
+                self.allocators[r].decref(pages)
+                store.pages_restored += k
+        if self.has_cross:
+            for key, (k, payloads) in store.cross.items():
+                if any(xc.has(key) for xc in self.cross_caches):
+                    continue
+                r = min(range(self.R),
+                        key=lambda rr: (self.router.page_load(rr), rr))
+                pages = self.allocators[r].alloc(k)
+                if pages is None:
+                    continue
+                self._scatter_pages(r, "cross", pages, payloads)
+                self.cross_caches[r].insert(key, pages)
+                self.allocators[r].decref(pages)
+                store.pages_restored += k
+
+    def _page_index(self, r: int, pages) -> torch.Tensor:
+        """Replica ``r``'s page ids as an index of the folded pools, on the
+        engine's device."""
+        return torch.as_tensor(self._folded(r, pages),
+                               dtype=torch.long).to(self.device)
+
+    def _gather_pages(self, r: int, kind: str, pages) -> list:
+        """Replica ``r``'s ``pages`` of every pool of ``kind``, ``pool[:,
+        folded ids]``, as host tensors in the pools' dtypes (pinned on the
+        card, the copies non-blocking: ``spill_state`` waits for them).
+        An index tensor, unlike the slot stash's run copies: a spill runs
+        between ticks, where a copy of the ids may block, and not inside
+        plan."""
+        idx = self._page_index(r, pages)
+        out = []
+        for pool in self._kind_pools(kind):
+            rows = pool.index_select(1, idx)
+            if self.device.type == "cuda":
+                host = torch.empty(rows.shape, dtype=rows.dtype,
+                                   pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                rows = host
+            out.append(rows)
+        return out
+
+    def _scatter_pages(self, r: int, kind: str, pages, payloads):
+        """Write ``payloads`` (``_gather_pages``'s list) into replica
+        ``r``'s ``pages`` of every pool of ``kind``, in place."""
+        idx = self._page_index(r, pages)
+        for pool, rows in zip(self._kind_pools(kind), payloads, strict=True):
+            pool.index_copy_(1, idx, rows.to(self.device, non_blocking=True))
 
     # ----------------------------------------------------------------- tick
     def tick(self):

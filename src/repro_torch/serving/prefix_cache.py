@@ -1,6 +1,6 @@
-"""The radix prefix cache, the speculative draft source and the enc-dec
-cross-KV cache: a copy of the JAX package's ``serving/prefix_cache.py``
-without its replica ``HostSpillStore`` (ROADMAP Queue 1 item 11, step 4).
+"""The radix prefix cache, the speculative draft source, the enc-dec
+cross-KV cache and the host spill store: a copy of the JAX package's
+``serving/prefix_cache.py``.
 
 Radix prefix cache: token-id sequences -> refcounted page runs in the
 engine's ``PageAllocator`` id space.  KV already resident in the page pool
@@ -29,7 +29,12 @@ Invariants (as in the JAX package, held against it by
   writes;
 - LRU eviction: leaf runs go oldest first, and only when no live slot
   shares their pages (refcount 1), so each eviction frees exactly
-  ``len(node.pages)`` pages.
+  ``len(node.pages)`` pages;
+- spill restore is byte-identical: page payloads spilled to the
+  ``HostSpillStore`` (int8 payloads and their per-(page, row) scale rows
+  included) restore bit for bit into fresh pages of any replica, so a hit
+  after a membership change or a restart reads exactly the bytes the
+  original prefill or encode wrote.
 """
 from __future__ import annotations
 
@@ -360,3 +365,44 @@ class CrossKVCache:
             freed += len(pages)
             self.evictions += 1
         return freed
+
+
+class HostSpillStore:
+    """Host-side persistence for cached entries across membership changes
+    and engine restarts.
+
+    Device page pools die with their replica rows (a drain shrinks the
+    pool; a crash loses the rows outright), but the payload bytes of radix
+    prefix and cross-KV entries are pure functions of tokens and frames, so
+    the engine gathers them to the host before a reconfiguration
+    (``ServingEngine.spill_state``) and writes them into the survivors'
+    pools after it (``_restore_from_spill``).  Keys are the caches' own
+    identities: the leaf token path for radix entries, the frames digest
+    for cross entries.  A payload list holds one host tensor per pool of
+    the kind, in the engine's pool order, each the entry's pages of every
+    layer (``pool[:, pages]``): int8 payloads and their scale rows are
+    separate pools and ride along byte for byte.  Payloads stay torch
+    tensors in the pools' own dtypes (numpy has no bfloat16) and are never
+    cast.
+
+    A plain dict with overwrite semantics: spilling a key again replaces
+    the entry (the latest bytes win), and the store outlives the engine,
+    so a fresh engine can warm-start from it (``build_paged(spill=)``)."""
+
+    def __init__(self):
+        self.radix: dict = {}        # token path tuple -> (n_pages, payloads)
+        self.cross: dict = {}        # frames digest    -> (n_pages, payloads)
+        self.pages_saved = 0
+        self.pages_restored = 0
+
+    def put_prefix(self, tokens: tuple, n_pages: int, payloads):
+        self.radix[tuple(int(t) for t in tokens)] = (n_pages, payloads)
+        self.pages_saved += n_pages
+
+    def put_cross(self, key: str, n_pages: int, payloads):
+        self.cross[key] = (n_pages, payloads)
+        self.pages_saved += n_pages
+
+    @property
+    def n_entries(self) -> int:
+        return len(self.radix) + len(self.cross)

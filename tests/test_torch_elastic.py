@@ -48,9 +48,9 @@ from repro_torch.core.model import tree_map as model_tree_map
 from repro_torch.core.partition import ShardingPlan
 from repro_torch.launch import serve
 from repro_torch.runtime import elastic, ft
-from repro_torch.serving import (FairScheduler, PriorityScheduler,
-                                 RadixPrefixCache, Request, SamplerConfig,
-                                 ServingEngine)
+from repro_torch.serving import (FairScheduler, HostSpillStore,
+                                 PriorityScheduler, RadixPrefixCache, Request,
+                                 SamplerConfig, ServingEngine)
 from repro_torch.serving.scheduler import FCFSScheduler
 
 SB, PSZ, CHUNK = 64, 8, 16
@@ -487,13 +487,15 @@ def test_refusals_are_jax_s(weights, mesh1):
     """(g) The validation errors, message for message: dp_new < 1, the
     last replica, a replica out of range, disaggregation, a scheduler
     instance, the contiguous engine; scaling to the current width is a
-    no-op.  ``spill=`` names the step it waits for."""
+    no-op.  ``spill=`` takes a ``HostSpillStore``, which the engine keeps
+    (``tests/test_torch_spill.py`` holds what it does against JAX)."""
     got = _refusals("port", weights, mesh1)
     assert got == _refusals("jax", weights, mesh1)
     assert got[3] is None and got[4] == 0
     assert all(x is not None for i, x in enumerate(got) if i not in (3, 4))
-    with pytest.raises(ValueError, match="item 11, step 4"):
-        _build("port", weights, mesh1, spill=object())
+    store = HostSpillStore()
+    eng, _ = _build("port", weights, mesh1, spill=store)
+    assert eng.spill is store and store.pages_restored == 0
 
 
 def _schedules(n=8):

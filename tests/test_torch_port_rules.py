@@ -126,3 +126,16 @@ def test_model_holds_its_parameters_as_a_module():
         dict(dec.named_parameters())["stacks__0__0__attn__wq"]
     np.testing.assert_array_equal(sd["embed__table"].numpy(),
                                   params["embed"]["table"].numpy())
+
+
+def test_scan_covers_the_runtime_copies():
+    """Every runtime module the port copies from the JAX package is in the
+    import scan, and the hedged router's copy needs nothing but the
+    standard library (it wraps plain callables: no device, no torch)."""
+    runtime = ROOT / "src" / "repro_torch" / "runtime"
+    for name in ("elastic", "ft", "offload", "straggler"):
+        assert runtime / f"{name}.py" in PORT_FILES, name
+    mods = {m.split(".")[0] for m in
+            _imported_modules(runtime / "straggler.py")}
+    assert mods <= {"__future__", "dataclasses", "threading", "time",
+                    "typing"}, mods
